@@ -1,0 +1,173 @@
+"""Checkpoint save/load: config.json + model.safetensors, the JAX package's
+format (counterpart of convert/checkpoint.py).
+
+Tensors keep their real dtypes (int8, int32, bf16, f32) under the JAX
+package's flattened names, layers stacked on axis 0
+(``layers.qkv_proj.qweight`` is (L, in, out)). The safetensors format is
+read and written here without the safetensors package: an 8-byte
+little-endian header length, a JSON header of ``{name: {"dtype", "shape",
+"data_offsets"}}``, then the raw bytes. Loading validates the required
+names as the JAX package does (Llama path) and goes through
+``convert.from_jax.params_from_numpy``, which checks every leaf's dtype and
+shape.
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import struct
+from typing import Dict, Tuple
+
+import torch
+
+from ..device import DeviceLike
+from ..models.common import ModelConfig
+from ..quant.config import QuantAlgo
+from .from_jax import params_from_numpy
+
+CONFIG_NAME = "config.json"
+WEIGHTS_NAME = "model.safetensors"
+FP8_SUFFIX = "@e4m3"           # the JAX package's marker for fp8 bytes
+
+# the params schema's dtypes, and U8 (the JAX package's fp8 bytes)
+_ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
+              "F32": torch.float32, "I8": torch.int8, "U8": torch.uint8,
+              "I32": torch.int32}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} of a safetensors file, memory-mapped
+    copy-on-write (a tensor is read from disk when it is first used)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise NotImplementedError(f"{name}: safetensors dtype "
+                                      f"{info['dtype']} is not read here")
+        dt, shape = _ST_DTYPES[info["dtype"]], tuple(info["shape"])
+        begin, end = info["data_offsets"]
+        if begin == end:
+            out[name] = torch.empty(shape, dtype=dt)
+            continue
+        count = (end - begin) // torch.empty((), dtype=dt).element_size()
+        out[name] = torch.frombuffer(buf, dtype=dt, count=count,
+                                     offset=base + begin).reshape(shape)
+    return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Write {name: tensor} in the safetensors layout (widest dtypes first,
+    the header padded to 8 bytes, so every tensor starts aligned)."""
+    items = sorted(tensors.items(),
+                   key=lambda kv: (-kv[1].element_size(), kv[0]))
+    header, blobs, off = {}, [], 0
+    for name, t in items:
+        t = t.detach().to("cpu").contiguous()
+        if t.dtype not in _ST_NAMES:
+            raise NotImplementedError(f"{name}: dtype {t.dtype} is not "
+                                      "written here")
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    hb = json.dumps(header, separators=(",", ":")).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:
+    tree: Dict = {}
+    for key, v in flat.items():
+        parts = key.split(".")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _required(mod: str, algo: QuantAlgo) -> set:
+    if mod.endswith("norm"):
+        return {"w"}
+    if algo.is_mix:
+        return {"qweight", "scale_col", "fp_ind", "fp_weight"}
+    if algo.is_lr:
+        return {"qweight", "scale_col", "lr_u", "lr_v"}
+    if algo == QuantAlgo.W4A16_G:
+        return {"qweight", "scale_g"}
+    if algo.is_weight_only or algo.is_fp8:
+        return {"qweight", "scale_col"}
+    return {"w"}
+
+
+def _validate(params: Dict, cfg: ModelConfig) -> None:
+    """Required-name validation, the JAX package's rules for the Llama
+    path (its convert/checkpoint.py ``_validate``)."""
+    missing = [k for k in ("embed", "final_norm") if k not in params]
+    if not cfg.tie_word_embeddings and "lm_head" not in params:
+        missing.append("lm_head")
+    layers = params.get("layers", {})
+    for mod in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj",
+                "input_norm", "post_norm"):
+        if mod not in layers:
+            missing.append(f"layers.{mod}")
+            continue
+        for t in sorted(_required(mod, cfg.module_algo(mod))):
+            if t not in layers[mod] and not (
+                    t == "qweight" and "qweight_packed" in layers[mod]):
+                missing.append(f"layers.{mod}.{t}")
+    if missing:
+        raise ValueError(f"checkpoint is missing required tensors: {missing}")
+    first = next(iter(next(iter(layers.values())).values()))
+    if first.shape[0] != cfg.num_layers:
+        raise ValueError(f"checkpoint has {first.shape[0]} stacked layers, "
+                         f"config says {cfg.num_layers}")
+
+
+def load_checkpoint(path: str, device: DeviceLike = "cuda"
+                    ) -> Tuple[Dict, ModelConfig]:
+    """A checkpoint directory (the JAX package's save_checkpoint or this
+    module's) -> (port params on ``device``, ModelConfig)."""
+    with open(os.path.join(path, CONFIG_NAME)) as f:
+        cfg = ModelConfig.from_dict(json.load(f))
+    flat = read_safetensors(os.path.join(path, WEIGHTS_NAME))
+    fp8 = sorted(k for k in flat if k.endswith(FP8_SUFFIX))
+    if fp8:
+        raise NotImplementedError(
+            f"fp8 tensors ({', '.join(fp8[:3])}) come with the fp8 slice")
+    params = _unflatten(flat)
+    _validate(params, cfg)
+    return params_from_numpy(params, cfg, device=device), cfg
+
+
+def save_checkpoint(path: str, params: Dict, cfg: ModelConfig) -> None:
+    """Port params (``layers`` a list of per-layer dicts) -> a checkpoint
+    directory the JAX package's load_checkpoint reads, layers stacked."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, CONFIG_NAME), "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2)
+    flat = {}
+    for name, sub in params.items():
+        if name == "layers":
+            for mod, leaves in sub[0].items():
+                for leaf in leaves:
+                    flat[f"layers.{mod}.{leaf}"] = torch.stack(
+                        [layer[mod][leaf].detach().cpu() for layer in sub])
+        else:
+            for leaf, t in sub.items():
+                flat[f"{name}.{leaf}"] = t
+    write_safetensors(os.path.join(path, WEIGHTS_NAME), flat)

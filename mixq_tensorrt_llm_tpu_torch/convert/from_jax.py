@@ -6,7 +6,8 @@ stacked on axis 0 — checks every leaf's dtype and shape against the
 params schema the config implies, and returns the port's params: the same
 dicts, with ``layers`` a list of per-layer dicts of torch tensors on
 ``device``. bfloat16 leaves arrive as ml_dtypes arrays and are converted
-exactly through float32.
+exactly through float32. Leaves may also be torch tensors of the schema's
+dtypes, as ``convert.checkpoint.load_checkpoint`` reads them.
 """
 
 from __future__ import annotations
@@ -68,12 +69,21 @@ def top_schema(cfg: ModelConfig) -> Dict[str, Dict[str, tuple]]:
     return out
 
 
+def _leaf(arr):
+    """A torch tensor as it is; anything else as a numpy array."""
+    return arr if isinstance(arr, torch.Tensor) else np.asarray(arr)
+
+
 def _convert(arr, dtype: torch.dtype, shape: tuple, where: str,
              device: torch.device) -> torch.Tensor:
-    arr = np.asarray(arr)
-    if arr.dtype.name != _NP_NAMES[dtype] or tuple(arr.shape) != shape:
+    arr = _leaf(arr)
+    got = (_NP_NAMES.get(arr.dtype, str(arr.dtype))
+           if isinstance(arr, torch.Tensor) else arr.dtype.name)
+    if got != _NP_NAMES[dtype] or tuple(arr.shape) != shape:
         raise ValueError(f"{where}: expected {_NP_NAMES[dtype]}{list(shape)}"
-                         f", got {arr.dtype.name}{list(arr.shape)}")
+                         f", got {got}{list(arr.shape)}")
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=device, copy=True)
     if dtype == torch.bfloat16:
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
@@ -109,7 +119,7 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
             _check_keys(stacked[mod], sub, f"layers.{mod}")
             layer[mod] = {}
             for leaf, (dt, shape) in sub.items():
-                arr = np.asarray(stacked[mod][leaf])
+                arr = _leaf(stacked[mod][leaf])
                 if arr.shape[0] != cfg.num_layers:
                     raise ValueError(f"layers.{mod}.{leaf}: {arr.shape[0]} "
                                      f"layers stacked, config has "

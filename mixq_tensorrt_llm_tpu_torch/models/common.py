@@ -107,6 +107,16 @@ class ModelConfig:
     def module_algo(self, name: str) -> QuantAlgo:
         return self.quant.module_algo(name)
 
+    def to_dict(self) -> dict:
+        """The JAX package's ``ModelConfig.to_dict()`` layout (what a
+        checkpoint's config.json holds): the ported fields, and the
+        unported axes at their "off" values."""
+        d = dict(_UNPORTED_AXES)
+        d.update(dataclasses.asdict(self))
+        d["dtype"] = {v: k for k, v in _DTYPES.items()}[self.dtype]
+        d["quant"] = self.quant.to_dict()
+        return d
+
     @classmethod
     def from_dict(cls, d: dict) -> "ModelConfig":
         """From ``ModelConfig.to_dict()`` of either package. Raises on any

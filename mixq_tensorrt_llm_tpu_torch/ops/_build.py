@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("paged_write", "paged_attention")
+SOURCES = ("paged_write", "paged_attention", "norm_quant", "mixed_matmul",
+           "wo_matmul")
 # no --use_fast_math: the write kernels rely on exact IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -118,6 +119,13 @@ def check(lib_name: str, err: int, what: str) -> None:
         es.argtypes, es.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({es(err).decode()})")
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels load 16 bytes at a
+    time), copied only when it is not already."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(device) -> int:

@@ -1,10 +1,15 @@
 """Quantized linear dispatch: params dict + algo -> forward.
 
-Counterpart of mixq_tensorrt_llm_tpu/ops/dispatch.py on its default "ref"
-routing, which is what the JAX package serves with: the mix linears run
-the plain int8 GEMM plus the bf16 outlier side-GEMM, weight-only linears
-the dequantizing GEMM. The hand-written linear kernels (K1-K4 of the
-``pallas`` backend) come with the next slice.
+Counterpart of mixq_tensorrt_llm_tpu/ops/dispatch.py on its ``pallas``
+routing, which is the port's only routing: the linears go through the
+kernels K1-K4 (on the CPU through their plain versions).
+
+  INT8_MIX after a norm:  K1 rmsnorm_quant_split -> K2 mixed_matmul
+  INT8_MIX otherwise:     K1 quant_split -> K2 (mixed_matmul.mix_linear)
+  W8A16:                  K4 wo_matmul
+  NONE:                   one bf16 product with an f32 result
+                          (ref.bf16_matmul_f32), as the JAX package leaves
+                          it to XLA
 
 Param schemas (weights in (in, out) layout), unchanged from the JAX package:
   NONE:      {"w": bf16 (in, out)} [+ "b"]
@@ -21,7 +26,10 @@ import torch
 
 from ..quant.config import QuantAlgo
 from ..quant import core as qcore
+from . import mixed_matmul as mm
+from . import norm_quant as nq
 from . import ref
+from . import wo_matmul as wm
 
 _LATER = {
     QuantAlgo.W4A16: "the int4 slice",
@@ -47,9 +55,19 @@ def _maybe_bias(out: torch.Tensor, params: dict) -> torch.Tensor:
 
 def norm_linear(params: dict, x: torch.Tensor, algo: QuantAlgo,
                 norm_w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm -> linear (the fused pairing of the JAX package's "ref"
-    routing: the norm output in x's dtype feeds the linear)."""
-    return linear(params, ref.rmsnorm(x, norm_w, eps), algo)
+    """RMSNorm -> linear. On the mix path the norm is fused into K1, whose
+    f32 normed row feeds the int8 quantization directly; other algos take
+    the norm in x's dtype, then the linear."""
+    if algo != QuantAlgo.INT8_MIX:
+        return linear(params, ref.rmsnorm(x, norm_w, eps), algo)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    q_x, srow, xout = nq.rmsnorm_quant_split(x2, norm_w, params["fp_ind"],
+                                             eps=eps)
+    out = mm.mixed_matmul(q_x, srow, xout, params["qweight"],
+                          params["scale_col"], params["fp_weight"],
+                          out_dtype=x.dtype)
+    return _maybe_bias(out, params).reshape(*lead, -1)
 
 
 def linear(params: dict, x: torch.Tensor, algo: QuantAlgo) -> torch.Tensor:
@@ -59,12 +77,12 @@ def linear(params: dict, x: torch.Tensor, algo: QuantAlgo) -> torch.Tensor:
     if algo == QuantAlgo.NONE:
         out = ref.bf16_matmul_f32(x2, params["w"]).to(x.dtype)
     elif algo == QuantAlgo.W8A16:
-        out = ref.wo_matmul(x2, params["qweight"], params["scale_col"],
-                            out_dtype=x.dtype)
+        out = wm.wo_matmul(x2, params["qweight"], params["scale_col"],
+                           out_dtype=x.dtype)
     elif algo == QuantAlgo.INT8_MIX:
-        out = ref.mix_linear(x2, params["qweight"], params["scale_col"],
-                             params["fp_ind"], params["fp_weight"],
-                             out_dtype=x.dtype)
+        out = mm.mix_linear(x2, params["qweight"], params["scale_col"],
+                            params["fp_ind"], params["fp_weight"],
+                            out_dtype=x.dtype)
     else:
         raise _not_ported(algo)
     return _maybe_bias(out, params).reshape(*lead, -1)

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hot ops (counterpart of ops/ref.py).
 
-These are the ground truth the kernels are held against, and the path the
-ported model takes on the CPU. Shapes, dtypes and the order of the
-arithmetic follow mixq_tensorrt_llm_tpu/ops/ref.py.
+These are the ground truth the kernels are held against; the kernel
+modules' ``*_plain`` functions, which the ported model takes on the CPU,
+are built from them. Shapes, dtypes and the order of the arithmetic follow
+mixq_tensorrt_llm_tpu/ops/ref.py.
 
 The int8 GEMM (``mixed_matmul``) accumulates exactly in int32 through
 ``torch._int_mm`` — a plain large product that the JAX package leaves to
@@ -85,12 +86,13 @@ def bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     The JAX package accumulates such a product in f32
     (``preferred_element_type=f32``). On the CPU this computes exactly that,
-    in f32 from the bf16-rounded operands. On CUDA it is one bf16 GEMM whose
-    f32 accumulator cuBLAS rounds to bf16 on output — one more rounding
-    (2^-8 relative), kept until the weight-only kernel of the next slice."""
+    in f32 from the bf16-rounded operands. On CUDA it is one cuBLAS bf16
+    GEMM that writes its f32 accumulator (``aten::mm.dtype``)."""
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     if x.is_cuda:
-        return (xb @ wb).float()
+        lead, k = xb.shape[:-1], xb.shape[-1]
+        out = torch.mm(xb.reshape(-1, k), wb, out_dtype=torch.float32)
+        return out.reshape(*lead, wb.shape[-1])
     return xb.float() @ wb.float()
 
 

@@ -5,14 +5,23 @@ Whether a card is present is decided inside the fixture, never at import,
 so every pytest-xdist worker collects the same tests.
 
 K5/K6 must be bit-equal to the plain quantize-and-scatter outside the
-trash row 0; K7/K8 within 2e-2 of the plain f32 attention (bf16 q/out)."""
+trash row 0; K7/K8 within 2e-2 of the plain f32 attention (bf16 q/out).
+K1: int8 codes at most 1 apart and > 99.9% equal (the norm's f32 sum runs
+in another order), scales rtol 1e-5. K2/K3/K4 differ from their plain
+versions only in the order of f32 sums: 1e-4 of the largest |output| in
+f32, one bf16 step more in bf16; K2 with unit scales and no outliers is
+the int32 product, bit for bit."""
 
 import pytest
 import torch
 
 from mixq_tensorrt_llm_tpu_torch.ops import _build
+from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
+from mixq_tensorrt_llm_tpu_torch.ops import norm_quant as nq
 from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
 from mixq_tensorrt_llm_tpu_torch.ops import paged_write as pw
+from mixq_tensorrt_llm_tpu_torch.ops import ref
+from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
 from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import PAD_POS
 
 NP_, BS, D = 24, 16, 64
@@ -116,3 +125,145 @@ def test_attention_kernels_match_plain(cuda, hq, hkv, window, sink,
     valid = (pos < lens[:, None])[:, :, None, None]
     err = torch.where(valid, (out.float() - ref.float()).abs(), 0.0)
     assert float(err.max()) <= 2e-2
+
+
+def _launched(name, before):
+    return _build.LAUNCHES.get(name, 0) - before.get(name, 0)
+
+
+def _close(out, want, dtype):
+    """1e-4 of the largest |value| in f32; in bf16 one bf16 step (2^-7 of
+    the value at most) plus that."""
+    o, w = out.float(), want.float()
+    top = float(w.abs().max())
+    if dtype == torch.float32:
+        return float((o - w).abs().max()) <= 1e-4 * top
+    return bool(((o - w).abs() <= w.abs() * 2 ** -7 + 1e-4 * top).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [4096, 11008])
+def test_norm_quant_kernel_matches_plain(cuda, dtype, k):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    m, ko = 100, 128
+    x = (torch.randn((m, k), generator=gen, device=cuda) * 3).to(dtype)
+    gamma = torch.rand((k,), generator=gen, device=cuda) + 0.5
+    ind = torch.randperm(k, generator=gen, device=cuda)[:ko].sort().values
+    ind = ind.int()
+    before = dict(_build.LAUNCHES)
+    for got, want in (
+            (nq.rmsnorm_quant_split(x, gamma, ind),
+             nq.rmsnorm_quant_split_plain(x, gamma, ind)),
+            (nq.quant_split(x, ind), nq.quant_split_plain(x, ind))):
+        torch.cuda.synchronize()
+        diff = (got[0].int() - want[0].int()).abs()
+        assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) \
+            > 0.999
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[2].float(), want[2].float(),
+                                   rtol=1e-2, atol=1e-2)
+    assert _launched("rmsnorm_quant_split", before) == 2
+
+
+def _mix_operands(gen, dev, m, k, n, ko):
+    return dict(
+        q_x=torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8),
+        scale_row=torch.rand((m,), generator=gen, device=dev) * 0.02 + 1e-3,
+        x_outliers=(torch.randn((m, ko), generator=gen, device=dev)
+                    * 4).bfloat16(),
+        qweight=torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8),
+        scale_col=torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4,
+        fp_weight=(torch.randn((ko, n), generator=gen, device=dev)
+                   * 0.05).bfloat16())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 100, 300])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_matmul_kernels_match_plain(cuda, m, silu, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ops = _mix_operands(gen, cuda, m, 512, 384, 128)
+    want = mm.mixed_matmul_plain(**ops, silu=silu, out_dtype=dtype)
+    before = dict(_build.LAUNCHES)
+    for fn in (mm.mixed_matmul, mm.mixed_matmul_hybrid):
+        out = fn(**ops, silu=silu, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (m, 384)
+        assert _close(out, want, dtype), fn.__name__
+    assert _launched("mixed_matmul", before) == 1
+    assert _launched("mixed_matmul_hybrid", before) == 1
+
+
+@pytest.mark.gpu
+def test_mixed_matmul_int32_exact(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    m, k, n = 200, 4096, 256
+    ops = _mix_operands(gen, cuda, m, k, n, 128)
+    ops.update(scale_row=torch.ones((m,), device=cuda),
+               scale_col=torch.ones((n,), device=cuda),
+               x_outliers=torch.zeros((m, 128), device=cuda).bfloat16())
+    out = mm.mixed_matmul(**ops, out_dtype=torch.float32)
+    exact = ref.int8_matmul(ops["q_x"], ops["qweight"]).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 100, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wo_matmul_kernel_matches_plain(cuda, m, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    k, n = 1056, 384                 # K not a multiple of the GEMV chunk
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    qw = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scol = torch.rand((n,), generator=gen, device=cuda) * 2e-3 + 1e-4
+    before = dict(_build.LAUNCHES)
+    out = wm.wo_matmul(x, qw, scol, out_dtype=dtype)
+    want = wm.wo_matmul_plain(x, qw, scol, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _close(out, want, dtype)
+    assert _launched("wo_matmul", before) == 1
+
+
+@pytest.mark.gpu
+def test_unsupported_shapes_raise(cuda):
+    x = torch.zeros((4, 256), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="N % 128"):
+        wm.wo_matmul(x, torch.zeros((256, 100), device=cuda,
+                                    dtype=torch.int8),
+                     torch.ones((100,), device=cuda))
+    ops = _mix_operands(torch.Generator(device=cuda).manual_seed(0), cuda,
+                        4, 96, 128, 128)
+    with pytest.raises(ValueError, match="K % 64"):
+        mm.mixed_matmul(**ops)
+    with pytest.raises(ValueError, match="K % 8"):
+        nq.quant_split(torch.zeros((4, 12), device=cuda),
+                       torch.zeros((2,), device=cuda, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_tied_head_logits_are_f32(cuda):
+    """The tied-embedding head (one cuBLAS product with an f32 output)
+    equals the f32 product of the bf16-rounded operands within 1e-5."""
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig, _head
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, num_layers=1,
+                      num_heads=2, num_kv_heads=2, tie_word_embeddings=True)
+    params = {"embed": {"w": torch.randn((512, 256), generator=gen,
+                                         device=cuda).bfloat16()},
+              "final_norm": {"w": torch.rand((256,), generator=gen,
+                                             device=cuda) + 0.5}}
+    x = torch.randn((3, 1, 256), generator=gen, device=cuda).bfloat16()
+    logits = _head(params, cfg, x)
+    h = ref.rmsnorm(x, params["final_norm"]["w"], cfg.rms_norm_eps)
+    want = h.float() @ params["embed"]["w"].float().T
+    torch.cuda.synchronize()
+    assert logits.dtype == torch.float32
+    rel = float((logits - want).abs().max() / want.abs().max())
+    assert rel <= 1e-5, rel

@@ -188,6 +188,40 @@ def test_forward_paged_logits_match_jax(model):
         assert np.isfinite(got).all()
 
 
+def test_forward_paged_matches_jax_pallas_backend(monkeypatch):
+    """The port's linears are the JAX package's ``pallas`` routing (K1 ->
+    K2 for mix, K4 for W8A16): its forward_paged against JAX's under
+    MIXQ_BACKEND=pallas, whose Pallas kernels run in interpret mode here.
+    Widths are multiples of 128 (the Pallas wrappers assert it) and differ
+    from every other test in this file, so no jitted trace made under the
+    default backend is reused."""
+    from mixq_tensorrt_llm_tpu.ops import dispatch as jdispatch
+    jcfg = tiny_jax_cfg(hidden_size=128, intermediate_size=256, head_dim=32)
+    jp = jllama.init_random_params(jcfg, jax.random.PRNGKey(5),
+                                   act_scales=act_scales(jcfg, seed=5))
+    cfg = ModelConfig.from_dict(jcfg.to_dict())
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(6)
+    b, c = 2, 16
+    tokens = rng.integers(1, 256, (b, c)).astype(np.int32)
+    pos = np.tile(np.arange(c, dtype=np.int32), (b, 1))
+    lens = np.array([16, 11], np.int32)
+    dec_tok = rng.integers(1, 256, (b, 1)).astype(np.int32)
+    chunks = [(tokens, pos, lens, lens - 1),
+              (dec_tok, lens[:, None].astype(np.int32), lens + 1, None)]
+    monkeypatch.setenv("MIXQ_BACKEND", "pallas")
+    jdispatch.default_backend.cache_clear()
+    try:
+        outs = _run_both(jcfg, jp, cfg, tp, chunks)
+    finally:
+        jdispatch.default_backend.cache_clear()
+    for want, got in outs:
+        assert got.shape == want.shape
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= LOGIT_TOL, err
+        assert np.isfinite(got).all()
+
+
 def test_init_random_params_schema():
     jcfg = tiny_jax_cfg()
     cfg = ModelConfig.from_dict(jcfg.to_dict())

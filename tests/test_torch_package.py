@@ -1,5 +1,6 @@
 """The port stands alone: importing mixq_tensorrt_llm_tpu_torch and every
-one of its modules pulls in neither jax nor the JAX package, and its entry
+one of its modules pulls in neither jax nor the JAX package (nor the
+safetensors package, which the card machine lacks), and its entry
 points default to the CUDA card instead of quietly using the CPU."""
 
 import pkgutil
@@ -25,7 +26,7 @@ def test_port_imports_no_jax():
         f"for n in {['mixq_tensorrt_llm_tpu_torch'] + names!r}:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'mixq_tensorrt_llm_tpu'"
+        " or m == 'mixq_tensorrt_llm_tpu' or m == 'safetensors'"
         " or m.startswith('mixq_tensorrt_llm_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
