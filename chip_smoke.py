@@ -10,16 +10,19 @@ exits non-zero:
   1. device: name, count, power limit
   2. build: every CUDA kernel from csrc/ (one nvcc per source, in parallel)
   3. kernels against their plain PyTorch versions on the card at the main
-     path's shapes (Llama-2-7B: Hkv 32, D 128, BS 128, plus a GQA case
-     Hq 32 / Hkv 8; linears at 1024 prefill rows and 8 decode rows):
-     K5/K6 pages and scales bit-equal outside trash row 0, K7/K8 within
-     2e-2; K1 codes at most 1 apart (> 99.9% equal), scales rtol 1e-5;
-     K2/K3/K4 within 1e-4 of the largest output (+ one bf16 step), K2
-     bit-equal on the int32-exact case; each kernel's device time per
-     launch and its plain version's device time per call come from
-     torch.profiler, the wrapper's time per call (host included) from
+     paths' shapes (Llama-2-7B: Hkv 32, D 128, BS 128, plus a GQA case
+     Hq 32 / Hkv 8; linears at 1024 prefill rows and 8 decode rows.
+     Llama-2-13B: K12/K13 at 8 decode rows (and 64 at qkv), group size
+     128; K5p/K6p and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 / Hkv 8):
+     K5/K6/K5p/K6p pages (and scales) bit-equal outside trash row 0, K7/K8
+     within 2e-2; K1 codes at most 1 apart (> 99.9% equal), scales rtol
+     1e-5; K2/K3/K4/K12/K13 within 1e-4 of the largest output (+ one bf16
+     step), K2 bit-equal on the int32-exact case; each kernel's device
+     time per launch and its plain version's device time per call come
+     from torch.profiler, the wrapper's time per call (host included) from
      CUDA events, and the library call's where one computes the same
-     function (K4: torch._weight_int8pack_mm)
+     function (K4: torch._weight_int8pack_mm; K12, K13:
+     torch._weight_int4pack_mm)
   4. main path at full width: a Llama-2-7B-geometry int8_mix (128
      outliers) / int8-KV model with random weights serves 8 ragged
      requests (100-700 prompt tokens, 32 greedy tokens each) through the
@@ -29,6 +32,14 @@ exits non-zero:
      last-position logits and one decode step's logits on the card
      (kernels) against the CPU (plain), plus negative controls: faults
      injected into K8's, K2's or K4's call must land outside the tolerance
+  4b. the int4 path at full width and depth: a Llama-2-13B-geometry
+     (40 layers) w4a16 / bf16-KV model serves the same requests; K12, K4
+     (prefill, on the unpacked weight), K5p, K6p and K7/K8 on bf16 pages
+     must launch, K1, K2 and K13 must not
+  5b. cross-device at 13B width, 2 layers, as phase 5, for w4a16 + bf16
+     KV, w4a16_g (groups of 128) + int8 KV and int4_mix (128 outliers) +
+     bf16 KV, each with the kernels it must launch, and negative controls
+     in K12's, K13's and K5p's calls
   6. a `kernels` JSON line, the nvidia-smi line, then the result line.
 """
 
@@ -44,34 +55,48 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATTN_TOL = 2e-2       # K7/K8 against their plain f32 versions (bf16 output)
-GEMM_TOL = 1e-4       # K2/K3/K4 vs plain: f32 sums in another order, of max
-XDEV_TOL = 5e-2       # phase 5, relative to the largest |logit|
+GEMM_TOL = 1e-4       # K2-K4, K12, K13 vs plain: f32 sums in another order,
+                      # of the largest |output|
+XDEV_TOL = 5e-2       # phases 5 and 5b, relative to the largest |logit|
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM: 3.35 TB/s
 BF16_FLOP_PER_MS = 989e9           # H100 SXM dense bf16 tensor-core peak
 INT8_OP_PER_MS = 1979e9            # H100 SXM dense int8 tensor-core peak
 SRC = "mixq_tensorrt_llm_tpu_torch/csrc/"
-REPLACES = {
-    "rmsnorm_quant_split": "mixq_tensorrt_llm_tpu/ops/norm_quant.py:30",
-    "mixed_matmul": "mixq_tensorrt_llm_tpu/ops/mixed_matmul.py:32",
-    "mixed_matmul_hybrid": "mixq_tensorrt_llm_tpu/ops/mixed_matmul.py:122",
-    "wo_matmul": "mixq_tensorrt_llm_tpu/ops/wo_matmul.py:26",
-    "paged_write_token": "mixq_tensorrt_llm_tpu/ops/paged_write.py:42",
-    "paged_write_chunk": "mixq_tensorrt_llm_tpu/ops/paged_write.py:147",
-    "paged_decode_attention": "mixq_tensorrt_llm_tpu/ops/paged_attention.py:70",
-    "paged_prefill_attention":
-        "mixq_tensorrt_llm_tpu/ops/paged_attention.py:307",
+JOPS = "mixq_tensorrt_llm_tpu/ops/"
+# launch-count name -> (the TPU kernel it replaces, source)
+KERNELS = {
+    "rmsnorm_quant_split": (JOPS + "norm_quant.py:30", "norm_quant.cu"),
+    "mixed_matmul": (JOPS + "mixed_matmul.py:32", "mixed_matmul.cu"),
+    "mixed_matmul_hybrid": (JOPS + "mixed_matmul.py:122", "mixed_matmul.cu"),
+    "wo_matmul": (JOPS + "wo_matmul.py:26", "wo_matmul.cu"),
+    "wo_matmul_packed": (JOPS + "wo_matmul.py:111", "wo_matmul.cu"),
+    "wo_matmul_packed_grouped": (JOPS + "wo_matmul.py:203", "wo_matmul.cu"),
+    "paged_write_token": (JOPS + "paged_write.py:42", "paged_write.cu"),
+    "paged_write_token_fp": (JOPS + "paged_write.py:61", "paged_write.cu"),
+    "paged_write_chunk": (JOPS + "paged_write.py:147", "paged_write.cu"),
+    "paged_write_chunk_fp": (JOPS + "paged_write.py:161", "paged_write.cu"),
+    "paged_decode_attention": (JOPS + "paged_attention.py:70",
+                               "paged_attention.cu"),
+    "paged_decode_attention_fp": (JOPS + "paged_attention.py:70",
+                                  "paged_attention.cu"),
+    "paged_prefill_attention": (JOPS + "paged_attention.py:307",
+                                "paged_attention.cu"),
+    "paged_prefill_attention_fp": (JOPS + "paged_attention.py:307",
+                                   "paged_attention.cu"),
 }
-SOURCES = {"rmsnorm_quant_split": "norm_quant.cu",
-           "mixed_matmul": "mixed_matmul.cu",
-           "mixed_matmul_hybrid": "mixed_matmul.cu",
-           "wo_matmul": "wo_matmul.cu",
-           "paged_write_token": "paged_write.cu",
-           "paged_write_chunk": "paged_write.cu",
-           "paged_decode_attention": "paged_attention.cu",
-           "paged_prefill_attention": "paged_attention.cu"}
-# K3 (the hybrid schedule's epilogue) is not on the main path, as in the
-# JAX package, where only its kernel test calls mixed_matmul_hybrid
-ON_PATH = [n for n in REPLACES if n != "mixed_matmul_hybrid"]
+# the kernels each main path must launch (K3, the hybrid schedule's
+# epilogue, is on neither: as in the JAX package, where only its kernel
+# test calls mixed_matmul_hybrid; K13 serves w4a16_g, phase 5b)
+ON_PATH = {
+    "7b": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+           "paged_write_token", "paged_write_chunk", "paged_decode_attention",
+           "paged_prefill_attention"],
+    "13b": ["wo_matmul_packed", "wo_matmul", "paged_write_token_fp",
+            "paged_write_chunk_fp", "paged_decode_attention_fp",
+            "paged_prefill_attention_fp"],
+}
+OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
+                              "wo_matmul_packed_grouped"]}
 
 
 def fail(msg: str) -> None:
@@ -101,16 +126,22 @@ def time_cuda(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
+def device_ms(torch, fn, iters: int, kernel: str = "",
+              counter: str = "") -> float:
     """Device time per call of `fn`: the summed duration of the device
     activity (kernels, copies) that `iters` calls launch, traced by
-    torch.profiler after a warm-up. With `kernel`, only the kernels whose
-    name holds it count, and there must be exactly one per call."""
+    torch.profiler after a warm-up. With `kernel` and `counter` (a wrapper's
+    launch-count name), the wrapper must count exactly one launch per call,
+    only the kernels whose name holds `kernel` count, and the time is per
+    traced launch: the tracer drops a few events now and then (3 of 20
+    seen)."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = _build.LAUNCHES.get(counter, 0)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
@@ -120,16 +151,21 @@ def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
            and kernel in e.name]
     check(len(evs) > 0, f"torch.profiler traced no device time ({kernel})")
     if kernel:
-        check(len(evs) == iters, f"{kernel}: {len(evs)} launches traced "
+        launched = _build.LAUNCHES.get(counter, 0) - before
+        check(launched == iters, f"{counter}: {launched} launches counted "
               f"for {iters} calls")
+        check(len(evs) <= iters, f"{kernel}: {len(evs)} launches traced "
+              f"for {iters} calls")
+        iters = len(evs)
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
 
 
-def measure(torch, kernel_fn, plain_fn, kernel: str, iters: int,
-            plain_iters: int):
+def measure(torch, kernel_fn, plain_fn, kernel: str, counter: str,
+            iters: int, plain_iters: int):
     """(kernel device ms per launch, plain device ms per call, wrapper ms
-    per call)."""
-    return (device_ms(torch, kernel_fn, iters, kernel),
+    per call); `kernel` marks the kernel's name, `counter` its wrapper's
+    launch count."""
+    return (device_ms(torch, kernel_fn, iters, kernel, counter),
             device_ms(torch, plain_fn, plain_iters),
             time_cuda(torch, kernel_fn, iters))
 
@@ -159,15 +195,20 @@ def gemm_tol(dtype) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_pools(torch, gen, dev, np_, hkv, bs, d):
+def make_pools(torch, gen, dev, np_, hkv, bs, d, fp: bool = False):
+    """int8 pages with f32 scales, or (fp) bf16 pages without scales."""
+    shape = (np_, hkv, bs, d)
+    if fp:
+        return {n: (torch.randn(shape, generator=gen, device=dev)
+                    * 0.5).bfloat16() for n in ("k", "v")}
     pools = {
-        "k": torch.randint(-127, 128, (np_, hkv, bs, d), generator=gen,
-                           device=dev, dtype=torch.int8),
-        "v": torch.randint(-127, 128, (np_, hkv, bs, d), generator=gen,
-                           device=dev, dtype=torch.int8),
-        "k_scale": torch.rand((np_, hkv, bs), generator=gen, device=dev)
+        "k": torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8),
+        "v": torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8),
+        "k_scale": torch.rand(shape[:-1], generator=gen, device=dev)
         * 0.02 + 0.002,
-        "v_scale": torch.rand((np_, hkv, bs), generator=gen, device=dev)
+        "v_scale": torch.rand(shape[:-1], generator=gen, device=dev)
         * 0.02 + 0.002,
     }
     return pools
@@ -187,12 +228,17 @@ def pools_equal_outside_trash(a, b) -> float:
     return err
 
 
-def check_writes(torch, gen, dev, results):
+def check_writes(torch, gen, dev, results, fp: bool = False):
+    """K5/K6 on int8 pools at Llama-2-7B heads (32), or (fp) K5p/K6p on
+    bf16 pools at Llama-2-13B heads (40)."""
     from mixq_tensorrt_llm_tpu_torch.ops import paged_write as pw
-    h, bs, d, np_ = 32, 128, 128, 64
+    h, bs, d, np_ = (40 if fp else 32), 128, 128, 64
+    sfx, tag = ("_fp", "p") if fp else ("", "")
+    # bytes a page value and its scale take: written once, new read once
+    val_b, scale_b = (2, 0) if fp else (1, 4)
     # K5: 8 lanes on distinct pages, the last masked to trash row 0
     b = 8
-    pools = make_pools(torch, gen, dev, np_, h, bs, d)
+    pools = make_pools(torch, gen, dev, np_, h, bs, d, fp)
     pg = (torch.randperm(np_ - 1, generator=gen, device=dev)[:b] + 1).int()
     pg[-1] = 0
     off = torch.randint(0, bs, (b,), generator=gen, device=dev).int()
@@ -204,23 +250,23 @@ def check_writes(torch, gen, dev, results):
     pw.paged_write_token_plain(pln, pg, off, nk, nv)
     torch.cuda.synchronize()
     err = pools_equal_outside_trash(ker, pln)
-    check(err == 0.0, f"K5 paged_write_token differs from plain ({err})")
+    check(err == 0.0, f"K5{tag} paged_write_token differs from plain ({err})")
     ms, pms, wms = measure(
         torch, lambda: pw.paged_write_token(ker, pg, off, nk, nv),
         lambda: pw.paged_write_token_plain(pln, pg, off, nk, nv),
-        "write_token_kernel", 200, 50)
-    nbytes = 2 * b * h * d * (2 + 1) + 2 * b * h * 4 + 2 * b * 4
-    results["paged_write_token"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                        bound=bound(nbytes))
-    print(f"K5 paged_write_token: bit-equal; device {ms:.5f} ms per launch "
-          f"(plain {pms:.5f} ms; wrapper {wms:.5f} ms per call) B={b} H={h} "
-          f"D={d}", flush=True)
+        "write_token_kernel", "paged_write_token" + sfx, 200, 50)
+    nbytes = 2 * b * h * (d * (2 + val_b) + scale_b) + 2 * b * 4
+    results["paged_write_token" + sfx] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound=bound(nbytes))
+    print(f"K5{tag} paged_write_token: bit-equal; device {ms:.5f} ms per "
+          f"launch (plain {pms:.5f} ms; wrapper {wms:.5f} ms per call) "
+          f"B={b} H={h} D={d}, {'bf16' if fp else 'int8'} pages", flush=True)
 
     # K6: 4 lanes x 256-token chunk (2 slabs): a short prompt (tail masked),
     # a full chunk, an inactive lane, and a lane whose offsets are shifted
     # (every token dropped)
     b, s = 4, 256
-    pools = make_pools(torch, gen, dev, np_, h, bs, d)
+    pools = make_pools(torch, gen, dev, np_, h, bs, d, fp)
     pages = (torch.randperm(np_ - 1, generator=gen, device=dev)[:2 * b]
              + 1).int().reshape(b, 2)
     blk = pages.repeat_interleave(bs, dim=1)
@@ -237,20 +283,21 @@ def check_writes(torch, gen, dev, results):
     pw.paged_write_chunk_plain(pln, blk, off, nk, nv)
     torch.cuda.synchronize()
     err = pools_equal_outside_trash(ker, pln)
-    check(err == 0.0, f"K6 paged_write_chunk differs from plain ({err})")
+    check(err == 0.0, f"K6{tag} paged_write_chunk differs from plain ({err})")
     check(bool((ker["k"][pages[3]] == pools["k"][pages[3]]).all()),
-          "K6 wrote tokens whose offsets do not match their slot")
+          f"K6{tag} wrote tokens whose offsets do not match their slot")
     ms, pms, wms = measure(
         torch, lambda: pw.paged_write_chunk(ker, blk, off, nk, nv),
         lambda: pw.paged_write_chunk_plain(pln, blk, off, nk, nv),
-        "write_chunk_kernel", 100, 20)
+        "write_chunk_kernel", "paged_write_chunk" + sfx, 100, 20)
     landed = int(pw.chunk_write_mask(blk, off, bs).sum())
-    nbytes = 2 * b * s * h * d * 2 + 2 * b * s * 4 + landed * h * (d + 4) * 2
-    results["paged_write_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                        bound=bound(nbytes))
-    print(f"K6 paged_write_chunk: bit-equal; device {ms:.5f} ms per launch "
-          f"(plain {pms:.5f} ms; wrapper {wms:.5f} ms per call) B={b} S={s} "
-          f"H={h} D={d}, {landed} tokens landed", flush=True)
+    nbytes = (2 * b * s * h * d * 2 + 2 * b * s * 4
+              + landed * h * (d * val_b + scale_b) * 2)
+    results["paged_write_chunk" + sfx] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound=bound(nbytes))
+    print(f"K6{tag} paged_write_chunk: bit-equal; device {ms:.5f} ms per "
+          f"launch (plain {pms:.5f} ms; wrapper {wms:.5f} ms per call) "
+          f"B={b} S={s} H={h} D={d}, {landed} tokens landed", flush=True)
 
 
 def _attn_tables(torch, gen, dev, b, mb, bs, np_, lens, recycled_lane):
@@ -276,15 +323,22 @@ def _attn_tables(torch, gen, dev, b, mb, bs, np_, lens, recycled_lane):
     return table, bpos
 
 
-def check_attention(torch, gen, dev, results):
+def check_attention(torch, gen, dev, results, fp: bool = False):
+    """K7/K8 on int8 pages at Llama-2-7B heads (Hq 32: MHA and Hkv 8), or
+    (fp) on bf16 pages at Llama-2-13B heads (Hq 40: MHA and Hkv 8)."""
     from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
-    bs, d, hq, np_ = 128, 128, 32, 128
+    bs, d, hq, np_ = 128, 128, (40 if fp else 32), 128
     scale = d ** -0.5
-    worst = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0}
+    sfx, pages = ("_fp", "bf16") if fp else ("", "int8")
+    # bytes of one page token per KV head: K and V values, and scales
+    tok_b = 2 * d * 2 if fp else 2 * d + 8
+    worst = {"paged_decode_attention" + sfx: 0.0,
+             "paged_prefill_attention" + sfx: 0.0}
     times = {}
-    for hkv in (32, 8):
-        pools = make_pools(torch, gen, dev, np_, hkv, bs, d)
-        args = (pools["k"], pools["v"], pools["k_scale"], pools["v_scale"])
+    for hkv in (hq, 8):
+        pools = make_pools(torch, gen, dev, np_, hkv, bs, d, fp)
+        args = (pools["k"], pools["v"], pools.get("k_scale"),
+                pools.get("v_scale"))
         # K7 decode: 8 lanes, ragged lengths; lane 1 inactive (table 0,
         # block_pos PAD_POS, len 1), lane 3 recycled
         b, mb = 8, 6
@@ -307,11 +361,11 @@ def check_attention(torch, gen, dev, results):
             check(bool(torch.isfinite(out).all()), "K7 output not finite")
             check(bool((out[1] == 0).all()), "K7 inactive lane is not 0")
             err = float((out.float() - ref.float()).abs().max())
-            check(err <= ATTN_TOL, f"K7 hkv={hkv} window={window} "
+            check(err <= ATTN_TOL, f"K7 {pages} hkv={hkv} window={window} "
                   f"softcap={softcap}: max abs err {err} > {ATTN_TOL}")
-            worst["paged_decode_attention"] = max(
-                worst["paged_decode_attention"], err)
-            print(f"K7 paged_decode_attention Hq={hq} Hkv={hkv} "
+            worst["paged_decode_attention" + sfx] = max(
+                worst["paged_decode_attention" + sfx], err)
+            print(f"K7 paged_decode_attention {pages} Hq={hq} Hkv={hkv} "
                   f"window={window} sink={sink} softcap={softcap}: "
                   f"max abs err {err:.3e}", flush=True)
         kw = dict(block_pos=bpos)
@@ -320,14 +374,16 @@ def check_attention(torch, gen, dev, results):
                 q, *args, table, lens_t, scale, **kw),
             lambda: pa.paged_attention_plain(
                 q[:, None], *args, table, (lens_t - 1)[:, None], lens_t,
-                scale, **kw), "decode_kernel", 200, 20)
+                scale, **kw), "decode_kernel", "paged_decode_attention" + sfx,
+            200, 20)
         visited = int((bpos < lens_t[:, None]).sum())
         keys = sum(lens)
-        nbytes = (visited * hkv * bs * (2 * d + 8)
+        nbytes = (visited * hkv * bs * tok_b
                   + 2 * b * hq * d * 2 + b * mb * 8 + b * 4)
         bnd = bound(nbytes, 4.0 * hq * d * keys)
-        times[("paged_decode_attention", hkv)] = (ms, pms, bnd)
-        print(f"K7 timing B={b} Hq={hq} Hkv={hkv} pages={visited}: device "
+        times[("paged_decode_attention" + sfx, hkv)] = (ms, pms, bnd)
+        print(f"K7 timing {pages} B={b} Hq={hq} Hkv={hkv} pages={visited}: "
+              f"device "
               f"{ms:.5f} ms per launch (plain {pms:.5f} ms; wrapper "
               f"{wms:.5f} ms per call; bound {bnd[0]:.5f} ms)", flush=True)
 
@@ -360,11 +416,11 @@ def check_attention(torch, gen, dev, results):
                                                   0.0)).all()),
                   "K8 output not finite")
             err = float(diff.max())
-            check(err <= ATTN_TOL, f"K8 hkv={hkv} window={window} "
+            check(err <= ATTN_TOL, f"K8 {pages} hkv={hkv} window={window} "
                   f"softcap={softcap}: max abs err {err} > {ATTN_TOL}")
-            worst["paged_prefill_attention"] = max(
-                worst["paged_prefill_attention"], err)
-            print(f"K8 paged_prefill_attention Hq={hq} Hkv={hkv} "
+            worst["paged_prefill_attention" + sfx] = max(
+                worst["paged_prefill_attention" + sfx], err)
+            print(f"K8 paged_prefill_attention {pages} Hq={hq} Hkv={hkv} "
                   f"window={window} sink={sink} softcap={softcap}: "
                   f"max abs err {err:.3e}", flush=True)
         kw = dict(block_pos=bpos)
@@ -373,7 +429,7 @@ def check_attention(torch, gen, dev, results):
                 q, *args, table, qs_t, lens_t, scale, **kw),
             lambda: pa.paged_attention_plain(
                 q, *args, table, pos, lens_t, scale, **kw),
-            "prefill_kernel", 50, 10)
+            "prefill_kernel", "paged_prefill_attention" + sfx, 50, 10)
         last = [min(qs + c, ln) - 1 for qs, ln in zip(qstart, lens)]
         visited = sum(int(((bpos[i] <= last[i])
                            & (bpos[i] < lens[i])).sum())
@@ -382,17 +438,18 @@ def check_attention(torch, gen, dev, results):
                     for qs, ln in zip(qstart, lens))
         # the bound reads each visited page once; K8's blocks are per query
         # head, so under GQA the kernel reads each page Hq/Hkv times
-        nbytes = (visited * hkv * bs * (2 * d + 8)
+        nbytes = (visited * hkv * bs * tok_b
                   + 2 * b * c * hq * d * 2 + b * mb * 8 + b * 8)
         bnd = bound(nbytes, 4.0 * hq * d * pairs)
-        times[("paged_prefill_attention", hkv)] = (ms, pms, bnd)
-        print(f"K8 timing B={b} C={c} Hq={hq} Hkv={hkv} pages={visited} "
+        times[("paged_prefill_attention" + sfx, hkv)] = (ms, pms, bnd)
+        print(f"K8 timing {pages} B={b} C={c} Hq={hq} Hkv={hkv} "
+              f"pages={visited} "
               f"(read {hq // hkv}x each): device {ms:.5f} ms per launch "
               f"(plain {pms:.5f} ms; wrapper {wms:.5f} ms per call; bound "
               f"{bnd[0]:.5f} ms)", flush=True)
-    # the kernels line carries the main path's geometry: MHA, Hkv = 32
+    # the kernels line carries the main paths' geometry: MHA
     for name in worst:
-        ms, pms, bnd = times[(name, 32)]
+        ms, pms, bnd = times[(name, hq)]
         results[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=pms,
                              bound=bnd)
 
@@ -432,7 +489,8 @@ def check_linears(torch, gen, dev, results):
         print(f"K1 rmsnorm_quant_split ({label}) M={m} K={h} ko={ko}: codes "
               f"at most {dmax} apart, {same:.6f} equal; scale_row max rel "
               f"err {srel:.2e}; x_out max abs err {oerr:.2e}", flush=True)
-    ms, pms, wms = measure(torch, *k1, "norm_quant_kernel", 200, 20)
+    ms, pms, wms = measure(torch, *k1, "norm_quant_kernel",
+                           "rmsnorm_quant_split", 200, 20)
     bnd = bound(m * h * 2 + h * 4 + ko * 4 + m * h + m * 4 + m * ko * 2)
     results["rmsnorm_quant_split"] = dict(max_abs_err=float(worst), ms=ms,
                                           plain_ms=pms, bound=bnd)
@@ -453,7 +511,8 @@ def check_linears(torch, gen, dev, results):
         err = gemm_err(k2[0](), k2[1]())
         check(err <= gemm_tol(bf), f"K2 {label}: rel err {err} > "
               f"{gemm_tol(bf)}")
-        ms, pms, wms = measure(torch, *k2, "mixed_matmul_kernel", 20, 5)
+        ms, pms, wms = measure(torch, *k2, "mixed_matmul_kernel",
+                               "mixed_matmul", 20, 5)
         nbytes = (m * h + m * 4 + m * ko * 2 + h * n + n * 4 + ko * n * 2
                   + m * n * 2)
         bnd = bound(nbytes, 2.0 * m * n * ko, 2.0 * m * n * h)
@@ -484,7 +543,8 @@ def check_linears(torch, gen, dev, results):
               lambda: mm.mixed_matmul_hybrid_plain(*args))
         err3 = gemm_err(k3[0](), k3[1]())
         check(err3 <= gemm_tol(bf), f"K3 rel err {err3} > {gemm_tol(bf)}")
-        ms, pms, wms = measure(torch, *k3, "mixed_epilogue_kernel", 20, 5)
+        ms, pms, wms = measure(torch, *k3, "mixed_epilogue_kernel",
+                               "mixed_matmul_hybrid", 20, 5)
         bnd = bound(m * n * 4 + m * 4 + m * ko * 2 + n * 4 + ko * n * 2
                     + m * n * 2, 2.0 * m * n * ko)
         results["mixed_matmul_hybrid"] = dict(max_abs_err=err3, ms=ms,
@@ -510,7 +570,8 @@ def check_linears(torch, gen, dev, results):
         err = gemm_err(k4[0](), k4[1]())
         check(err <= gemm_tol(bf), f"K4 {label}: rel err {err}")
         name = "wo_gemv_kernel" if mk <= wm.GEMV_MAX_ROWS else "wo_gemm_kernel"
-        ms, pms, wms = measure(torch, *k4, name, 100 if mk <= 16 else 20, 10)
+        ms, pms, wms = measure(torch, *k4, name, "wo_matmul",
+                               100 if mk <= 16 else 20, 10)
         bnd = bound(mk * k * 2 + k * n + n * 4 + mk * n * 2, 2.0 * mk * n * k)
         lib = None
         if mk <= 16:
@@ -540,15 +601,104 @@ def check_linears(torch, gen, dev, results):
           flush=True)
 
 
+def int4pack_library(torch, x, q, scale_g, want):
+    """torch._weight_int4pack_mm set up to compute K12's or K13's function:
+    the weight as unsigned nibbles q + 8 in the library's (N, K) tile layout
+    (torch._convert_weight_to_int4pack), group g of K / G consecutive rows
+    of q given scale_g[g] (G, N) (in bf16, as the library takes it) and a
+    zero of 0, so w = (u - 8) * scale; K12's per-column scales are every
+    group's. Returns (call, max rel err against the plain version's output
+    `want`) or raises where the library has no such kernel."""
+    k, n = q.shape
+    u = (q.t().int() + 8).contiguous()                        # (N, K) 0..15
+    packed = torch._convert_weight_to_int4pack(
+        (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([scale_g, torch.zeros_like(scale_g)],
+                     dim=-1).to(torch.bfloat16).contiguous()
+    gs = k // scale_g.shape[0]
+
+    def call():
+        return torch._weight_int4pack_mm(x, packed, gs, sz)
+    return call, gemm_err(call(), want)
+
+
+def check_packed(torch, gen, dev, results):
+    """K12 and K13 at Llama-2-13B decode shapes (8 rows; 64 rows at qkv),
+    group size 128: random packed bytes (every nibble value), f32 scales."""
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
+    bf, gs, h = torch.bfloat16, 128, 5120
+    step = {"wo_matmul_packed": 0.0, "wo_matmul_packed_grouped": 0.0}
+    for label, k, n, mk in (("qkv", h, 3 * h, 8), ("o_proj", h, h, 8),
+                            ("gate_up", h, 2 * 13824, 8),
+                            ("down_proj", 13824, h, 8), ("qkv", h, 3 * h, 64)):
+        x = torch.randn((mk, k), generator=gen, device=dev).to(bf)
+        qp = torch.randint(-128, 128, (k // 2, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scol = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
+        sg = torch.rand((k // gs, n), generator=gen, device=dev) * 2e-3 + 1e-4
+        for name, kfn, pfn, mark, scale_b in (
+                ("wo_matmul_packed",
+                 lambda: wm.wo_matmul_packed(x, qp, scol),
+                 lambda: wm.wo_matmul_packed_plain(x, qp, scol),
+                 "packed_gemv_kernel", n * 4),
+                ("wo_matmul_packed_grouped",
+                 lambda: wm.wo_matmul_packed_grouped(x, qp, sg, gs),
+                 lambda: wm.wo_matmul_packed_grouped_plain(x, qp, sg, gs),
+                 "packed_grouped_gemv_kernel", (k // gs) * n * 4)):
+            err = gemm_err(kfn(), pfn())
+            check(err <= gemm_tol(bf), f"{name} {label} M={mk}: rel err {err}"
+                  f" > {gemm_tol(bf)}")
+            ms, pms, wms = measure(torch, kfn, pfn, mark, name, 100, 5)
+            bnd = bound(mk * k * 2 + (k // 2) * n + scale_b + mk * n * 2,
+                        2.0 * mk * n * k)
+            tag = "K12" if name == "wo_matmul_packed" else "K13"
+            lib = None
+            if mk == 8:
+                step[name] += ms
+                lib_scales = (scol[None].expand(k // gs, n) if tag == "K12"
+                              else sg)
+                try:
+                    call, lerr = int4pack_library(
+                        torch, x, qcore.unpack_int4(qp), lib_scales, pfn())
+                    lib = device_ms(torch, call, 50)
+                    print(f"  torch._weight_int4pack_mm (bf16 scales): rel "
+                          f"err {lerr:.2e} against {tag}'s plain version",
+                          flush=True)
+                except (RuntimeError, NotImplementedError, TypeError,
+                        ValueError) as e:
+                    print(f"  torch._weight_int4pack_mm: none on this card "
+                          f"({str(e).splitlines()[0][:100]})", flush=True)
+            print(f"{tag} {name} {label} M={mk} K={k} N={n}: max rel err "
+                  f"{err:.2e}; device {ms:.5f} ms per launch (plain {pms:.5f}"
+                  f" ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, by "
+                  f"{bnd[1]}; {(k // 2) * n / ms / 1e9:.3f} TB/s of packed "
+                  f"weight; library "
+                  f"{'none' if lib is None else f'{lib:.5f} ms'})", flush=True)
+            if label == "qkv" and mk == 8:
+                results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                     bound=bnd, library_ms=lib)
+    weights = 40 * (h * 3 * h + h * h + h * 2 * 13824 + 13824 * h) / 2
+    for name, ms in step.items():
+        print(f"{name}: one decode step's four linears {ms:.5f} ms a layer, "
+              f"{40 * ms:.3f} ms for 40 layers (bound: "
+              f"{weights / 1e9:.3f} GB of packed weights, "
+              f"{weights / HBM_BYTES_PER_MS:.3f} ms)", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
-def serve(torch, params, cfg, seed: int, dev):
+def serve(torch, params, cfg, seed: int, dev, path: str):
+    """Serve the 8 requests through the Executor with every launch count
+    at 0 just before and read just after; check the kernels of ``path``
+    ("7b" or "13b") launched and those it must not use did not."""
     from mixq_tensorrt_llm_tpu_torch.ops import _build
     from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
     prompts = sp.ragged_prompts(seed, cfg.vocab_size)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     done, ids, wall, prefill_s = sp.serve(params, cfg, prompts, seed, dev)
     launches = dict(_build.LAUNCHES)
@@ -557,75 +707,109 @@ def serve(torch, params, cfg, seed: int, dev):
           "not every request finished with 32 tokens")
     check(all(math.isfinite(lp) for r in ids for lp in done[r].logprobs),
           "non-finite logits on the main path")
-    print(f"main path: 8 requests, prompts {[len(p) for p in prompts]} "
-          f"tokens, 32 "
-          f"generated each; wall {wall:.3f} s = prefill {prefill_s:.3f} s"
-          f" + decode {wall - prefill_s:.3f} s; {gen_total / wall:.1f} "
-          f"generated tok/s; peak memory "
+    print(f"main path {path}: 8 requests, prompts "
+          f"{[len(p) for p in prompts]} tokens, 32 generated each; wall "
+          f"{wall:.3f} s = prefill {prefill_s:.3f} s + decode "
+          f"{wall - prefill_s:.3f} s; {gen_total / wall:.1f} generated "
+          f"tok/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"main path launches: {json.dumps(launches)}", flush=True)
+    print(f"main path {path} launches: {json.dumps(launches)}", flush=True)
     # per layer: a prefill call writes its chunk once (K6) and runs three
     # mix linears (K1 -> K2) and down_proj (K4); a decode step writes one
-    # token (K5) and runs four weight-only linears (K4)
-    chunk, token = (launches.get("paged_write_chunk", 0),
-                    launches.get("paged_write_token", 0))
-    print(f"main path launches against the per-layer counts: K1 "
-          f"{launches.get('rmsnorm_quant_split', 0)} (3 x K6 = {3 * chunk}),"
-          f" K2 {launches.get('mixed_matmul', 0)} (3 x K6 = {3 * chunk}), "
-          f"K4 {launches.get('wo_matmul', 0)} (4 x K5 + K6 = "
-          f"{4 * token + chunk}), K3 {launches.get('mixed_matmul_hybrid', 0)}"
-          f" (not on the path)", flush=True)
-    for name in ON_PATH:
+    # token (K5) and runs four weight-only linears (K4, or K12 packed)
+    fp = "_fp" if path == "13b" else ""
+    chunk = launches.get("paged_write_chunk" + fp, 0)
+    token = launches.get("paged_write_token" + fp, 0)
+    if path == "7b":
+        print(f"main path launches against the per-layer counts: K1 "
+              f"{launches.get('rmsnorm_quant_split', 0)} (3 x K6 = "
+              f"{3 * chunk}), K2 {launches.get('mixed_matmul', 0)} (3 x K6 "
+              f"= {3 * chunk}), K4 {launches.get('wo_matmul', 0)} (4 x K5 + "
+              f"K6 = {4 * token + chunk}), K3 "
+              f"{launches.get('mixed_matmul_hybrid', 0)} (not on the path)",
+              flush=True)
+    else:
+        print(f"main path launches against the per-layer counts: K12 "
+              f"{launches.get('wo_matmul_packed', 0)} + K4 "
+              f"{launches.get('wo_matmul', 0)} (4 x (K5p + K6p) = "
+              f"{4 * (token + chunk)}: K12 where a call has <= 128 rows)",
+              flush=True)
+    for name in ON_PATH[path]:
         check(launches.get(name, 0) > 0,
-              f"{name} was not launched on the main path")
+              f"{name} was not launched on the main path {path}")
+    for name in OFF_PATH[path]:
+        check(launches.get(name, 0) == 0,
+              f"{name} was launched on the main path {path}")
     return launches
 
 
-def cross_device(torch, params, cfg, seed: int, dev):
+def cpu_copy(torch, params):
+    cpu = torch.device("cpu")
+    return {k: ([{m: {n: t.to(cpu) for n, t in p.items()}
+                  for m, p in layer.items()} for layer in v]
+                if k == "layers" else {n: t.to(cpu) for n, t in v.items()})
+            for k, v in params.items()}
+
+
+def cross_device(torch, params, cfg, seed: int, dev, label: str,
+                 faults=(), must_launch=((), ())) -> dict:
     """2 layers at full width: the first prefill chunk's last-position
     logits and one decode step's logits on the card (kernels) against the
-    CPU (plain versions). Then negative controls: the card run again with
-    a fault injected into one kernel's call, to show where such faults
-    land against the tolerance."""
+    CPU (plain versions); the card run must launch the kernels of
+    ``must_launch`` (prefill's, decode's). Then negative controls: the card
+    run again with a fault injected into one kernel's call, to show where
+    such faults land against the tolerance. ``faults`` holds (name,
+    whether the tolerance must catch it, module, function, fault).
+    Returns the card run's launches (prefill and decode)."""
     import dataclasses
     import numpy as np
     from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
-    from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
-    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
-    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
     from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     sub = {k: v for k, v in params.items() if k != "layers"}
     sub["layers"] = params["layers"][:2]
     cpu = torch.device("cpu")
-    sub_cpu = {k: ([{m: {n: t.to(cpu) for n, t in p.items()}
-                     for m, p in layer.items()} for layer in v]
-                   if k == "layers" else {n: t.to(cpu) for n, t in v.items()})
-               for k, v in sub.items()}
+    sub_cpu = cpu_copy(torch, sub)
     rng = np.random.default_rng(seed + 1)
     c, prompt_len = 256, 200
     tokens = np.zeros((1, c), np.int32)
     tokens[0, :prompt_len] = rng.integers(1, cfg.vocab_size, prompt_len)
     next_token = int(rng.integers(1, cfg.vocab_size))
+    seen = []
 
     def both_logits(device, p):
-        """(the chunk's last-position logits, the next decode step's)."""
+        """(the chunk's last-position logits, the next decode step's); the
+        launches of each call in ``seen``."""
         state = init_paged_kv(cfg2, 4, 128, device=device)
         t = torch.from_numpy(tokens).to(device)
         pos = torch.arange(c, dtype=torch.int32, device=device)[None]
         table = torch.tensor([[1, 2]], dtype=torch.int32, device=device)
         length = torch.tensor([prompt_len], dtype=torch.int32, device=device)
+        _build.reset_launches()
         pre, _ = forward_paged(p, cfg2, t, pos, state, table, length,
                                last_pos=length - 1)
+        seen[:] = [dict(_build.LAUNCHES)]
+        _build.reset_launches()
         t = torch.tensor([[next_token]], dtype=torch.int32, device=device)
         dec, _ = forward_paged(p, cfg2, t, length[:, None], state, table,
                                length + 1)
+        seen.append(dict(_build.LAUNCHES))
         return pre[0, 0].float().cpu(), dec[0, 0].float().cpu()
 
     plain = both_logits(cpu, sub_cpu)
+    check(not any(seen), "the CPU run launched a kernel")
     card = both_logits(dev, sub)
     check(all(bool(torch.isfinite(x).all()) for x in card),
           "card logits not finite")
+    print(f"cross-device {label} launches: prefill {json.dumps(seen[0])}, "
+          f"decode {json.dumps(seen[1])}", flush=True)
+    for names, got, phase in zip(must_launch, seen, ("prefill", "decode")):
+        for name in names:
+            check(got.get(name, 0) > 0, f"cross-device {label}: {name} was "
+                  f"not launched at {phase}")
+    card_launches = {n: seen[0].get(n, 0) + seen[1].get(n, 0)
+                     for n in set(seen[0]) | set(seen[1])}
 
     def rel_err(xs):
         """(prefill, decode) max |card - cpu| / max |cpu|."""
@@ -634,36 +818,16 @@ def cross_device(torch, params, cfg, seed: int, dev):
 
     rel = rel_err(card)
     agree = [int(x.argmax()) == int(p.argmax()) for x, p in zip(card, plain)]
-    print(f"cross-device (2 layers, full width, {prompt_len}-token prompt in "
-          f"a {c}-token chunk, then one decode step): max |card - cpu| / "
-          f"max |cpu| = {rel[0]:.3e} prefill, {rel[1]:.3e} decode "
+    print(f"cross-device {label} (2 layers, full width, {prompt_len}-token "
+          f"prompt in a {c}-token chunk, then one decode step): max |card - "
+          f"cpu| / max |cpu| = {rel[0]:.3e} prefill, {rel[1]:.3e} decode "
           f"(tolerance {XDEV_TOL}); argmax agrees: {agree}", flush=True)
-    check(max(rel) <= XDEV_TOL, f"card vs CPU logits differ: {rel} > "
-          f"{XDEV_TOL}")
+    check(max(rel) <= XDEV_TOL, f"card vs CPU logits differ ({label}): "
+          f"{rel} > {XDEV_TOL}")
 
-    # (fault, whether the tolerance must catch it, module, function). The
-    # K8 mask fault is subtle on purpose: its reading says how small a
-    # fault the check can see.
-    k8, k2, k4 = pa.paged_prefill_attention, mm.mixed_matmul, wm.wo_matmul
-    faults = [
-        ("K8 output zeroed", True, pa, "paged_prefill_attention",
-         lambda *a, **k: torch.zeros_like(k8(*a, **k))),
-        ("K8 without the V scale", True, pa, "paged_prefill_attention",
-         lambda q, kp, vp, ks, vs, *a, **k: k8(q, kp, vp, ks,
-                                               torch.ones_like(vs), *a, **k)),
-        ("K8 blind to the newest key (len - 1)", False, pa,
-         "paged_prefill_attention",
-         lambda q, kp, vp, ks, vs, tb, qs, ln, *a, **k: k8(
-             q, kp, vp, ks, vs, tb, qs, ln - 1, *a, **k)),
-        ("K2 without the outlier side GEMM", True, mm, "mixed_matmul",
-         lambda q, sr, xo, qw, sc, fw, **k: k2(q, sr, xo, qw, sc,
-                                               torch.zeros_like(fw), **k)),
-        ("K4 without scale_col", True, wm, "wo_matmul",
-         lambda x, qw, sc, **k: k4(x, qw, torch.ones_like(sc), **k)),
-    ]
     for name, must_catch, module, attr, fault in faults:
         real = getattr(module, attr)
-        setattr(module, attr, fault)
+        setattr(module, attr, fault(real))
         try:
             r = max(rel_err(both_logits(dev, sub)))
         finally:
@@ -674,6 +838,87 @@ def cross_device(torch, params, cfg, seed: int, dev):
               flush=True)
         if must_catch:
             check(caught, f"the cross-device check misses a fault ({name})")
+    return card_launches
+
+
+def faults_7b(torch):
+    """Phase 5's controls. The K8 mask fault is subtle on purpose: its
+    reading says how small a fault the check can see."""
+    from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    k8 = (pa, "paged_prefill_attention")
+    return [
+        ("K8 output zeroed", True, *k8,
+         lambda f: lambda *a, **k: torch.zeros_like(f(*a, **k))),
+        ("K8 without the V scale", True, *k8,
+         lambda f: lambda q, kp, vp, ks, vs, *a, **k: f(
+             q, kp, vp, ks, torch.ones_like(vs), *a, **k)),
+        ("K8 blind to the newest key (len - 1)", False, *k8,
+         lambda f: lambda q, kp, vp, ks, vs, tb, qs, ln, *a, **k: f(
+             q, kp, vp, ks, vs, tb, qs, ln - 1, *a, **k)),
+        ("K2 without the outlier side GEMM", True, mm, "mixed_matmul",
+         lambda f: lambda q, sr, xo, qw, sc, fw, **k: f(
+             q, sr, xo, qw, sc, torch.zeros_like(fw), **k)),
+        ("K4 without scale_col", True, wm, "wo_matmul",
+         lambda f: lambda x, qw, sc, **k: f(x, qw, torch.ones_like(sc),
+                                            **k)),
+    ]
+
+
+def cross_device_13b(torch, seed: int, dev):
+    """Phase 5b: three 2-layer models at Llama-2-13B width, random weights
+    from ``seed``, each with the kernels it must launch and its controls,
+    all enforced (the K5p control leaves the decode token's slot stale, so
+    K7 reads one wrong key and value of 201). Returns the card runs'
+    launches, summed."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_write as pw
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    from mixq_tensorrt_llm_tpu_torch.quant import KVCacheQuantAlgo, QuantAlgo
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+
+    def swap_halves(f):
+        def faulty(x, qp, sc, **k):
+            h = x.shape[1] // 2
+            return f(torch.cat([x[:, h:], x[:, :h]], dim=1), qp, sc, **k)
+        return faulty
+
+    k12 = ("K12 with the two nibble halves of x swapped", True, wm,
+           "wo_matmul_packed", swap_halves)
+    k13 = ("K13 given every group the scale of group 0", True, wm,
+           "wo_matmul_packed_grouped",
+           lambda f: lambda x, qp, sg, gs, **k: f(
+               x, qp, sg[:1].expand_as(sg).contiguous(), gs, **k))
+    k5p = ("K5p skipping the decode token's write in every layer", True,
+           pw, "paged_write_token", lambda f: lambda pools, *a: pools)
+    fp = ("paged_write_chunk_fp", "paged_prefill_attention_fp")
+    fd = ("paged_write_token_fp", "paged_decode_attention_fp")
+    configs = [
+        ("w4a16 + bf16 KV", QuantAlgo.W4A16, KVCacheQuantAlgo.NONE,
+         [k12, k5p], (("wo_matmul",) + fp, ("wo_matmul_packed",) + fd)),
+        ("w4a16_g + int8 KV", QuantAlgo.W4A16_G, KVCacheQuantAlgo.INT8,
+         [k13], (("paged_write_chunk", "paged_prefill_attention"),
+                 ("wo_matmul_packed_grouped", "paged_write_token",
+                  "paged_decode_attention"))),
+        ("int4_mix + bf16 KV", QuantAlgo.INT4_MIX, KVCacheQuantAlgo.NONE,
+         [k12], (("rmsnorm_quant_split", "mixed_matmul", "wo_matmul") + fp,
+                 ("wo_matmul_packed",) + fd)),
+    ]
+    total = {}
+    for label, algo, kv, faults, must in configs:
+        cfg = dataclasses.replace(sp.llama2_13b_config(algo, kv),
+                                  num_layers=2)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = llama.init_random_params(
+            cfg, seed=seed, device=dev,
+            act_scales=sp.distinct_act_scales(cfg, gen, dev))
+        for n, c in cross_device(torch, params, cfg, seed, dev, label,
+                                 faults, must).items():
+            total[n] = total.get(n, 0) + c
+        del params
+    return total
 
 
 def main() -> int:
@@ -720,11 +965,16 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     results = {}
+    t = time.perf_counter()
     check_writes(torch, gen, dev, results)
     check_attention(torch, gen, dev, results)
     check_linears(torch, gen, dev, results)
+    check_writes(torch, gen, dev, results, fp=True)
+    check_attention(torch, gen, dev, results, fp=True)
+    check_packed(torch, gen, dev, results)
+    print(f"phase 3: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # 4. main path
+    # 4. main path: Llama-2-7B int8_mix / int8 KV
     cfg = sp.llama2_7b_config()
     t = time.perf_counter()
     params = llama.init_random_params(
@@ -734,20 +984,47 @@ def main() -> int:
     print(f"model: {cfg.num_layers} layers at Llama-2-7B width, int8_mix "
           f"(128 outliers) / int8 KV, random weights in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    launches = serve(torch, params, cfg, args.seed, dev)
+    launches = {"7b": serve(torch, params, cfg, args.seed, dev, "7b")}
 
     # 5. cross-device
-    cross_device(torch, params, cfg, args.seed, dev)
+    xdev = cross_device(torch, params, cfg, args.seed, dev,
+                        "7b int8_mix + int8 KV", faults_7b(torch))
+    del params
+    torch.cuda.empty_cache()
+    print(f"phases 4-5: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # 6. kernels line
+    # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
+    cfg = sp.llama2_13b_config()
+    t = time.perf_counter()
+    params = llama.init_random_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"model: {cfg.num_layers} layers at Llama-2-13B width, w4a16 "
+          f"(packed) / bf16 KV, random weights in "
+          f"{time.perf_counter() - t:.1f} s; weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    launches["13b"] = serve(torch, params, cfg, args.seed, dev, "13b")
+    del params
+    torch.cuda.empty_cache()
+
+    # 5b. cross-device at 13B width, three configurations
+    for n, c in cross_device_13b(torch, args.seed, dev).items():
+        xdev[n] = xdev.get(n, 0) + c
+    print(f"phases 4b-5b: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 6. kernels line: launches summed over the two main paths' runs (the
+    # cross-device runs' beside them: K13 launches there only)
     rows = []
-    for name in REPLACES:
+    for name, (replaces, src) in KERNELS.items():
         r = results[name]
         bms, by = r["bound"]
-        rows.append({"name": name, "route": "cuda",
-                     "source": SRC + SOURCES[name],
-                     "replaces": REPLACES[name],
-                     "launches": launches.get(name, 0),
+        by_path = {p: n.get(name, 0) for p, n in launches.items()}
+        rows.append({"name": name, "route": "cuda", "source": SRC + src,
+                     "replaces": replaces,
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "launches_cross_device": xdev.get(name, 0),
+                     "pages": ("bf16" if name.endswith("_fp") else
+                               "int8" if name.startswith("paged") else None),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r.get("library_ms")})

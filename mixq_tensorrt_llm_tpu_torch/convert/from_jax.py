@@ -28,17 +28,24 @@ _NP_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 
 
 def _linear_schema(algo: QuantAlgo, n_in: int, n_out: int, k: int,
-                   bias: bool) -> Dict[str, Tuple[torch.dtype, tuple]]:
+                   bias: bool, group_size: int = 128, packed: bool = False
+                   ) -> Dict[str, Tuple[torch.dtype, tuple]]:
+    """{leaf: (dtype, shape)}; ``packed``: the int4 weight is stored two a
+    byte as ``qweight_packed`` (in/2, out) instead of ``qweight``."""
     if algo == QuantAlgo.NONE:
         s = {"w": (torch.bfloat16, (n_in, n_out))}
-    elif algo == QuantAlgo.W8A16:
-        s = {"qweight": (torch.int8, (n_in, n_out)),
-             "scale_col": (torch.float32, (n_out,))}
-    elif algo == QuantAlgo.INT8_MIX:
-        s = {"qweight": (torch.int8, (n_in, n_out)),
-             "scale_col": (torch.float32, (n_out,)),
-             "fp_ind": (torch.int32, (min(k, n_in),)),
-             "fp_weight": (torch.bfloat16, (min(k, n_in), n_out))}
+    elif algo in (QuantAlgo.W8A16, QuantAlgo.W4A16, QuantAlgo.W4A16_G) \
+            or algo.is_mix:
+        s = {"qweight": (torch.int8, (n_in, n_out))}
+        if packed and algo.weight_bits == 4:
+            s = {"qweight_packed": (torch.int8, (n_in // 2, n_out))}
+        if algo == QuantAlgo.W4A16_G:
+            s["scale_g"] = (torch.float32, (n_in // group_size, n_out))
+        else:
+            s["scale_col"] = (torch.float32, (n_out,))
+        if algo.is_mix:
+            s["fp_ind"] = (torch.int32, (min(k, n_in),))
+            s["fp_weight"] = (torch.bfloat16, (min(k, n_in), n_out))
     else:
         raise NotImplementedError(f"quant algo {algo.value!r} is not ported")
     if bias:
@@ -46,14 +53,17 @@ def _linear_schema(algo: QuantAlgo, n_in: int, n_out: int, k: int,
     return s
 
 
-def layer_schema(cfg: ModelConfig) -> Dict[str, Dict[str, tuple]]:
-    """{module: {leaf: (dtype, shape)}} for one decoder layer."""
+def layer_schema(cfg: ModelConfig, packed=()) -> Dict[str, Dict[str, tuple]]:
+    """{module: {leaf: (dtype, shape)}} for one decoder layer; the modules
+    named in ``packed`` hold their int4 weight as ``qweight_packed``."""
     h, k = cfg.hidden_size, cfg.quant.num_outliers
     dims = {"qkv_proj": (h, cfg.qkv_out), "o_proj": (cfg.q_size, h),
             "gate_up_proj": (h, 2 * cfg.intermediate_size),
             "down_proj": (cfg.intermediate_size, h)}
     out = {mod: _linear_schema(cfg.module_algo(mod), *dims[mod], k,
-                               bias=cfg.qkv_bias and mod == "qkv_proj")
+                               bias=cfg.qkv_bias and mod == "qkv_proj",
+                               group_size=cfg.quant.group_size,
+                               packed=mod in packed)
            for mod in LINEAR_MODULES}
     out["input_norm"] = {"w": (torch.float32, (h,))}
     out["post_norm"] = {"w": (torch.float32, (h,))}
@@ -109,8 +119,10 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
         for name, sub in top.items()}
     for name, sub in top.items():
         _check_keys(tree[name], sub, name)
-    schema = layer_schema(cfg)
     stacked = tree["layers"]
+    schema = layer_schema(cfg, packed=[m for m in LINEAR_MODULES
+                                       if "qweight_packed" in
+                                       stacked.get(m, {})])
     _check_keys(stacked, schema, "layers")
     layers = []
     for i in range(cfg.num_layers):

@@ -5,15 +5,45 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mixq {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kNegInf = -1e30f;   // the Pallas kernels' NEG_INF mask value
 
 // element types a wrapper may pass; the value is the C interface's dtype code
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+// int8 KV pages come with per-(token, head) f32 scales; bf16 and f32 pages
+// hold the values themselves
+template <typename P>
+constexpr bool kQuantPages = std::is_same<P, int8_t>::value;
+
+template <typename X>
+struct Type {
+  using type = X;
+};
+
+// f(Type<T>{}, Type<P>{}) for the value type T (f32 or bf16) and the KV
+// page type P (int8, bf16 or f32) a wrapper passes as dtype codes.
+template <typename F>
+int with_page_types(int dtype, int page_dtype, F f) {
+  auto pages = [&](auto t) {
+    if (page_dtype == kI8) return f(t, Type<int8_t>{});
+    if (page_dtype == kBF16) return f(t, Type<__nv_bfloat16>{});
+    if (page_dtype == kF32) return f(t, Type<float>{});
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (dtype == kBF16) return pages(Type<__nv_bfloat16>{});
+  if (dtype == kF32) return pages(Type<float>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }

@@ -1,8 +1,14 @@
-// K7 / K8: attention over the int8 paged KV pool, pages read in place.
+// K7 / K8: attention over the paged KV pool, pages read in place.
 //
 // Replaces mixq_tensorrt_llm_tpu/ops/paged_attention.py:
 //   K7  _decode_kernel  (paged_decode_attention: one query token per lane)
 //   K8  _prefill_kernel (paged_prefill_attention: a chunk of C query tokens)
+// in both of their modes: int8 pages with per-(token, head) scales
+// (quantized=True), and unquantized bf16 or f32 pages (quantized=False).
+// The page type P is a template parameter; the unquantized instantiations
+// leave out the scale multiplies (where the Pallas kernels multiply by
+// scale pages of ones), and the int8 ones are the code of the int8-only
+// kernels they replace.
 //
 // Both walk the lane's block table, skip pages no query of the block can
 // see, and keep a flash-style online softmax in f32. The int8 K scale
@@ -27,6 +33,34 @@
 
 namespace mixq {
 
+// 16 consecutive page values (16-byte aligned) as f32
+__device__ __forceinline__ void load16(const int8_t* p, float out[16]) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int8_t* k8 = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(k8[i]);
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float out[16]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 raw = reinterpret_cast<const uint4*>(p)[h];
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[8 * h + i] = __bfloat162float(b[i]);
+  }
+}
+__device__ __forceinline__ void load16(const float* p, float out[16]) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const float4 v = reinterpret_cast<const float4*>(p)[h];
+    out[4 * h] = v.x;
+    out[4 * h + 1] = v.y;
+    out[4 * h + 2] = v.z;
+    out[4 * h + 3] = v.w;
+  }
+}
+
 constexpr int kThreads = 128;
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int kMaxD = 256;
@@ -39,10 +73,10 @@ constexpr float kClampSub = 0.5f * kNegInf;
 // are the rows. Dynamic shared memory: q (G x D), probs (G x BS),
 // acc (G x D), m/l/alpha (G each).
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename P>
 __global__ void decode_kernel(const T* __restrict__ q,
-                              const int8_t* __restrict__ kp,
-                              const int8_t* __restrict__ vp,
+                              const P* __restrict__ kp,
+                              const P* __restrict__ vp,
                               const float* __restrict__ ks,
                               const float* __restrict__ vs,
                               const int* __restrict__ table,
@@ -79,21 +113,22 @@ __global__ void decode_kernel(const T* __restrict__ q,
     const int base = bpos[b * MB + j];
     if (base >= len) continue;                 // uniform across the block
     const size_t prow = static_cast<size_t>(table[b * MB + j]) * Hkv + h;
-    const int8_t* kpage = kp + prow * BS * D;
-    const int8_t* vpage = vp + prow * BS * D;
-    const float* kscale = ks + prow * BS;
-    const float* vscale = vs + prow * BS;
+    const P* kpage = kp + prow * BS * D;
+    const P* vpage = vp + prow * BS * D;
+    const float* kscale = ks + (kQuantPages<P> ? prow * BS : 0);
+    const float* vscale = vs + (kQuantPages<P> ? prow * BS : 0);
 
     // logits: one warp per token, lanes across head_dim
     for (int t = warp; t < BS; t += kWarpsPerBlock) {
       float kreg[kMaxD / 32];
-      const int8_t* krow = kpage + static_cast<size_t>(t) * D;
+      const P* krow = kpage + static_cast<size_t>(t) * D;
 #pragma unroll
       for (int i = 0; i < kMaxD / 32; ++i)
-        kreg[i] = i < nd ? static_cast<float>(krow[i * 32 + lane]) : 0.f;
+        kreg[i] = i < nd ? to_f(krow[i * 32 + lane]) : 0.f;
       const int pos = base + t;
       const bool keep = keep_position(pos, qpos, window, sink);
-      const float kst = kscale[t];
+      float kst = 1.f;
+      if constexpr (kQuantPages<P>) kst = kscale[t];
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
 #pragma unroll
@@ -101,7 +136,8 @@ __global__ void decode_kernel(const T* __restrict__ q,
           if (i < nd) part += qs[g * D + i * 32 + lane] * kreg[i];
         part = warp_sum(part);
         if (lane == 0) {
-          float v = part * kst;
+          float v = part;
+          if constexpr (kQuantPages<P>) v *= kst;
           if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
           ps[g * BS + t] = keep ? v : kNegInf;
         }
@@ -121,7 +157,10 @@ __global__ void decode_kernel(const T* __restrict__ q,
       for (int t = lane; t < BS; t += 32) {
         const float p = expf(ps[g * BS + t] - sub);
         sum += p;
-        ps[g * BS + t] = p * vscale[t];
+        if constexpr (kQuantPages<P>)
+          ps[g * BS + t] = p * vscale[t];
+        else
+          ps[g * BS + t] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -139,7 +178,7 @@ __global__ void decode_kernel(const T* __restrict__ q,
       const float* pg = ps + g * BS;
       float a = acc[i] * a_s[g];
       for (int t = 0; t < BS; ++t)
-        a += pg[t] * static_cast<float>(vpage[static_cast<size_t>(t) * D + d]);
+        a += pg[t] * to_f(vpage[static_cast<size_t>(t) * D + d]);
       acc[i] = a;
     }
     __syncthreads();
@@ -159,10 +198,10 @@ __global__ void decode_kernel(const T* __restrict__ q,
 // Giving a block G * kTileQ rows of one KV head is the fix once it is
 // bound by bytes.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename P>
 __global__ void prefill_kernel(const T* __restrict__ q,
-                               const int8_t* __restrict__ kp,
-                               const int8_t* __restrict__ vp,
+                               const P* __restrict__ kp,
+                               const P* __restrict__ vp,
                                const float* __restrict__ ks,
                                const float* __restrict__ vs,
                                const int* __restrict__ table,
@@ -208,24 +247,21 @@ __global__ void prefill_kernel(const T* __restrict__ q,
     // contribute nothing (paged_attention.py:331); uniform across the block
     if (base > q_last || base >= len) continue;
     const size_t prow = static_cast<size_t>(table[b * MB + j]) * Hkv + h;
-    const int8_t* kpage = kp + prow * BS * D;
-    const int8_t* vpage = vp + prow * BS * D;
-    const float* kscale = ks + prow * BS;
-    const float* vscale = vs + prow * BS;
+    const P* kpage = kp + prow * BS * D;
+    const P* vpage = vp + prow * BS * D;
+    const float* kscale = ks + (kQuantPages<P> ? prow * BS : 0);
+    const float* vscale = vs + (kQuantPages<P> ? prow * BS : 0);
 
-    // logits: one thread per page token, all kTileQ rows, 16 bytes of K
+    // logits: one thread per page token, all kTileQ rows, 16 values of K
     // at a time against float4 reads of the q tile
     for (int t = tid; t < BS; t += kThreads) {
       float s[kTileQ];
 #pragma unroll
       for (int r = 0; r < kTileQ; ++r) s[r] = 0.f;
-      const int8_t* krow = kpage + static_cast<size_t>(t) * D;
+      const P* krow = kpage + static_cast<size_t>(t) * D;
       for (int d0 = 0; d0 < D; d0 += 16) {
-        const int4 raw = *reinterpret_cast<const int4*>(krow + d0);
-        const int8_t* k8 = reinterpret_cast<const int8_t*>(&raw);
         float kf[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) kf[i] = static_cast<float>(k8[i]);
+        load16(krow + d0, kf);
 #pragma unroll
         for (int r = 0; r < kTileQ; ++r) {
           const float4* qv = reinterpret_cast<const float4*>(&qs[r][d0]);
@@ -238,10 +274,12 @@ __global__ void prefill_kernel(const T* __restrict__ q,
         }
       }
       const int pos = base + t;
-      const float kst = kscale[t];
+      float kst = 1.f;
+      if constexpr (kQuantPages<P>) kst = kscale[t];
 #pragma unroll
       for (int r = 0; r < kTileQ; ++r) {
-        float v = s[r] * kst;
+        float v = s[r];
+        if constexpr (kQuantPages<P>) v *= kst;
         if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
         const bool keep = pos < len && keep_position(pos, q0 + r, window, sink);
         ps[r][t] = keep ? v : kNegInf;
@@ -261,7 +299,10 @@ __global__ void prefill_kernel(const T* __restrict__ q,
       for (int t = lane; t < BS; t += 32) {
         const float p = expf(ps[r][t] - sub);
         sum += p;
-        ps[r][t] = p * vscale[t];
+        if constexpr (kQuantPages<P>)
+          ps[r][t] = p * vscale[t];
+        else
+          ps[r][t] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -281,8 +322,7 @@ __global__ void prefill_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < kTileQ; ++r) acc[di][r] *= a_s[r];
       for (int t = 0; t < BS; ++t) {
-        const float vf =
-            static_cast<float>(vpage[static_cast<size_t>(t) * D + d]);
+        const float vf = to_f(vpage[static_cast<size_t>(t) * D + d]);
 #pragma unroll
         for (int r = 0; r < kTileQ; ++r) acc[di][r] += ps[r][t] * vf;
       }
@@ -300,7 +340,7 @@ __global__ void prefill_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_decode(const void* q, const void* kp, const void* vp,
                   const void* ks, const void* vs, const void* table,
                   const void* bpos, const void* lens, void* out, int B,
@@ -311,20 +351,20 @@ int launch_decode(const void* q, const void* kp, const void* vp,
                       sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_kernel<T><<<dim3(Hkv, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kp),
-      static_cast<const int8_t*>(vp), static_cast<const float*>(ks),
+  decode_kernel<T, P><<<dim3(Hkv, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp),
+      static_cast<const P*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(bpos), static_cast<const int*>(lens),
       static_cast<T*>(out), Hq, Hkv, D, BS, MB, scale, window, sink, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_prefill(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const void* table,
                    const void* bpos, const void* qstart, const void* lens,
@@ -332,9 +372,9 @@ int launch_prefill(const void* q, const void* kp, const void* vp,
                    int MB, float scale, int window, int sink, float softcap,
                    cudaStream_t st) {
   dim3 grid((C + kTileQ - 1) / kTileQ, Hq, B);
-  prefill_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kp),
-      static_cast<const int8_t*>(vp), static_cast<const float*>(ks),
+  prefill_kernel<T, P><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp),
+      static_cast<const P*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(bpos), static_cast<const int*>(qstart),
       static_cast<const int*>(lens), static_cast<T*>(out), C, Hq, Hkv, D, BS,
@@ -350,23 +390,21 @@ extern "C" const char* mixq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q/out (B, Hq, D) of `dtype`; pages (NP, Hkv, BS, D) int8, scales
-// (NP, Hkv, BS) f32; table/bpos (B, MB) int32; lens (B,) int32.
+// q/out (B, Hq, D) of `dtype`; pages (NP, Hkv, BS, D) of `page_dtype`:
+// int8 with scales (NP, Hkv, BS) f32, or bf16/f32 with null scales;
+// table/bpos (B, MB) int32; lens (B,) int32.
 extern "C" int mixq_paged_decode_attention(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* table, const void* bpos, const void* lens,
     void* out, int B, int Hq, int Hkv, int D, int BS, int MB, float scale,
-    int window, int sink, float softcap, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return launch_decode<__nv_bfloat16>(q, kp, vp, ks, vs, table, bpos, lens,
-                                        out, B, Hq, Hkv, D, BS, MB, scale,
-                                        window, sink, softcap, st);
-  if (dtype == kF32)
-    return launch_decode<float>(q, kp, vp, ks, vs, table, bpos, lens, out, B,
-                                Hq, Hkv, D, BS, MB, scale, window, sink,
-                                softcap, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    int window, int sink, float softcap, int dtype, int page_dtype,
+    void* stream) {
+  return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
+    return launch_decode<typename decltype(t)::type,
+                         typename decltype(p)::type>(
+        q, kp, vp, ks, vs, table, bpos, lens, out, B, Hq, Hkv, D, BS, MB,
+        scale, window, sink, softcap, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // q/out (B, C, Hq, D) of `dtype`; qstart/lens (B,) int32; rest as decode.
@@ -375,16 +413,12 @@ extern "C" int mixq_paged_prefill_attention(
     const void* vs, const void* table, const void* bpos, const void* qstart,
     const void* lens, void* out, int B, int C, int Hq, int Hkv, int D,
     int BS, int MB, float scale, int window, int sink, float softcap,
-    int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return launch_prefill<__nv_bfloat16>(q, kp, vp, ks, vs, table, bpos,
-                                         qstart, lens, out, B, C, Hq, Hkv, D,
-                                         BS, MB, scale, window, sink, softcap,
-                                         st);
-  if (dtype == kF32)
-    return launch_prefill<float>(q, kp, vp, ks, vs, table, bpos, qstart, lens,
-                                 out, B, C, Hq, Hkv, D, BS, MB, scale, window,
-                                 sink, softcap, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    int dtype, int page_dtype, void* stream) {
+  return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
+    return launch_prefill<typename decltype(t)::type,
+                          typename decltype(p)::type>(
+        q, kp, vp, ks, vs, table, bpos, qstart, lens, out, B, C, Hq, Hkv, D,
+        BS, MB, scale, window, sink, softcap,
+        static_cast<cudaStream_t>(stream));
+  });
 }

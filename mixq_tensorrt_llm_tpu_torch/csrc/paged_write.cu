@@ -1,8 +1,11 @@
-// K5 / K6: in-place int8 paged-KV writes with the quantization fused in.
+// K5 / K6: in-place int8 paged-KV writes with the quantization fused in;
+// K5p / K6p: the same writes into unquantized (bf16 or f32) pools.
 //
 // Replaces mixq_tensorrt_llm_tpu/ops/paged_write.py:
 //   K5  _write_kernel_quant  (paged_write_token, one token per lane)
 //   K6  _chunk_kernel_quant  (paged_write_chunk, page-aligned prefill chunk)
+//   K5p _write_kernel_plain  (paged_write_token on an unquantized pool)
+//   K6p _chunk_kernel_plain  (paged_write_chunk on an unquantized pool)
 // The Pallas kernels read-modify-write whole pages and take K/V already
 // quantized outside the kernel. Here each warp quantizes one (token, head)
 // row of head_dim values and stores only that row and its scale in place:
@@ -18,6 +21,11 @@
 // clip(rint(x / scale), -127, 127) with the exact division again and
 // round-half-even (rintf). nvcc must not be given --use_fast_math.
 //
+// K5p / K6p are the same kernels instantiated for a bf16 or f32 page type:
+// they cast each value to it (__float2bfloat16 rounds to nearest even, as
+// PyTorch's .to(bfloat16) does) and store it; nothing else differs, so
+// their pages are bit-equal to the plain version's too.
+//
 // Masked lanes and dropped tokens target trash row 0; several warps may
 // race on it, and row 0's contents are garbage by contract.
 
@@ -27,27 +35,33 @@ namespace mixq {
 
 constexpr int kWarps = 4;
 
-// One warp quantizes `src` (D values) into `dst` (D int8) and `*sdst`.
-template <typename T>
-__device__ __forceinline__ void warp_quantize_row(const T* src, int D,
-                                                  int8_t* dst, float* sdst,
-                                                  int lane) {
-  float amax = 0.f;
-  for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(to_f(src[d])));
-  amax = warp_max(amax);
-  const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-  for (int d = lane; d < D; d += 32) {
-    float q = rintf(__fdiv_rn(to_f(src[d]), scale));
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    dst[d] = static_cast<int8_t>(q);
+// One warp stores `src` (D values) as the page row `dst`: for int8 pages
+// (K5, K6) quantized, with its scale in `*sdst`; for bf16 or f32 pages
+// (K5p, K6p) cast to P, and `sdst` unused.
+template <typename T, typename P>
+__device__ __forceinline__ void warp_store_row(const T* src, int D, P* dst,
+                                               float* sdst, int lane) {
+  if constexpr (kQuantPages<P>) {
+    float amax = 0.f;
+    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(to_f(src[d])));
+    amax = warp_max(amax);
+    const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+    for (int d = lane; d < D; d += 32) {
+      float q = rintf(__fdiv_rn(to_f(src[d]), scale));
+      q = fminf(fmaxf(q, -127.f), 127.f);
+      dst[d] = static_cast<int8_t>(q);
+    }
+    if (lane == 0) *sdst = scale;
+  } else {
+    for (int d = lane; d < D; d += 32) store_f(dst + d, to_f(src[d]));
   }
-  if (lane == 0) *sdst = scale;
 }
 
-// K5: rows are (lane b, head h, k-or-v); one warp per row.
-template <typename T>
-__global__ void write_token_kernel(int8_t* __restrict__ kpool,
-                                   int8_t* __restrict__ vpool,
+// K5 / K5p: rows are (lane b, head h, k-or-v); one warp per row. The scale
+// pools are null for unquantized pages.
+template <typename T, typename P>
+__global__ void write_token_kernel(P* __restrict__ kpool,
+                                   P* __restrict__ vpool,
                                    float* __restrict__ kscale,
                                    float* __restrict__ vscale,
                                    const int* __restrict__ pg,
@@ -61,17 +75,18 @@ __global__ void write_token_kernel(int8_t* __restrict__ kpool,
   const int which = row % 2, h = (row / 2) % H, b = row / (2 * H);
   const T* src = (which ? nv : nk) + (static_cast<size_t>(b) * H + h) * D;
   const size_t slot = (static_cast<size_t>(pg[b]) * H + h) * BS + off[b];
-  warp_quantize_row(src, D, (which ? vpool : kpool) + slot * D,
-                    (which ? vscale : kscale) + slot, lane);
+  warp_store_row(src, D, (which ? vpool : kpool) + slot * D,
+                 kQuantPages<P> ? (which ? vscale : kscale) + slot : nullptr,
+                 lane);
 }
 
-// K6: one block per (lane b, slab, head h, k-or-v). The slab's page is the
-// max of its BS block ids (paged_write.py:201); a token lands only if that
-// page is real (> 0), its own block id is that page, and its in-page
-// offset equals its slot in the slab (paged_write.py:202-204).
-template <typename T>
-__global__ void write_chunk_kernel(int8_t* __restrict__ kpool,
-                                   int8_t* __restrict__ vpool,
+// K6 / K6p: one block per (lane b, slab, head h, k-or-v). The slab's page
+// is the max of its BS block ids (paged_write.py:201); a token lands only
+// if that page is real (> 0), its own block id is that page, and its
+// in-page offset equals its slot in the slab (paged_write.py:202-204).
+template <typename T, typename P>
+__global__ void write_chunk_kernel(P* __restrict__ kpool,
+                                   P* __restrict__ vpool,
                                    float* __restrict__ kscale,
                                    float* __restrict__ vscale,
                                    const int* __restrict__ blk,
@@ -96,16 +111,44 @@ __global__ void write_chunk_kernel(int8_t* __restrict__ kpool,
   for (int w = 1; w < kWarps; ++w) page = max(page, warp_pg[w]);
   if (page <= 0) return;
 
-  int8_t* pool = which ? vpool : kpool;
+  P* pool = which ? vpool : kpool;
   float* spool = which ? vscale : kscale;
   const T* src = which ? nv : nk;
   const size_t row0 = (static_cast<size_t>(page) * H + h) * BS;
   for (int t = warp; t < BS; t += kWarps) {
     if (sblk[t] != page || soff[t] != t) continue;   // warp-uniform
     const size_t s = static_cast<size_t>(b) * S + slab * BS + t;
-    warp_quantize_row(src + (s * H + h) * D, D, pool + (row0 + t) * D,
-                      spool + row0 + t, lane);
+    warp_store_row(src + (s * H + h) * D, D, pool + (row0 + t) * D,
+                   kQuantPages<P> ? spool + row0 + t : nullptr, lane);
   }
+}
+
+template <typename T, typename P>
+int launch_token(void* kpool, void* vpool, void* kscale, void* vscale,
+                 const void* pg, const void* off, const void* nk,
+                 const void* nv, int B, int H, int BS, int D,
+                 cudaStream_t st) {
+  const int rows = B * H * 2;
+  write_token_kernel<T, P><<<(rows + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                             st>>>(
+      static_cast<P*>(kpool), static_cast<P*>(vpool),
+      static_cast<float*>(kscale), static_cast<float*>(vscale),
+      static_cast<const int*>(pg), static_cast<const int*>(off),
+      static_cast<const T*>(nk), static_cast<const T*>(nv), B, H, BS, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename P>
+int launch_chunk(void* kpool, void* vpool, void* kscale, void* vscale,
+                 const void* blk, const void* off, const void* nk,
+                 const void* nv, int B, int S, int H, int BS, int D,
+                 cudaStream_t st) {
+  write_chunk_kernel<T, P><<<dim3(B * (S / BS), H, 2), 32 * kWarps, 0, st>>>(
+      static_cast<P*>(kpool), static_cast<P*>(vpool),
+      static_cast<float*>(kscale), static_cast<float*>(vscale),
+      static_cast<const int*>(blk), static_cast<const int*>(off),
+      static_cast<const T*>(nk), static_cast<const T*>(nv), S, H, BS, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mixq
@@ -116,60 +159,35 @@ extern "C" const char* mixq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// new_k/new_v (B, H, D) of `dtype`; pools (NP, H, BS, D) int8 and scales
-// (NP, H, BS) f32, written in place at page pg[b], slot off[b].
+// K5 / K5p: new_k/new_v (B, H, D) of `dtype` into pools (NP, H, BS, D) of
+// `page_dtype`, in place at page pg[b], slot off[b]; int8 pools come with
+// scales (NP, H, BS) f32, the others pass null scales.
 extern "C" int mixq_paged_write_token(void* kpool, void* vpool, void* kscale,
                                       void* vscale, const void* pg,
                                       const void* off, const void* nk,
                                       const void* nv, int B, int H, int BS,
-                                      int D, int dtype, void* stream) {
-  const int rows = B * H * 2;
-  dim3 grid((rows + kWarps - 1) / kWarps), block(32 * kWarps);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* kp = static_cast<int8_t*>(kpool);
-  auto* vp = static_cast<int8_t*>(vpool);
-  auto* ks = static_cast<float*>(kscale);
-  auto* vs = static_cast<float*>(vscale);
-  auto* p = static_cast<const int*>(pg);
-  auto* o = static_cast<const int*>(off);
-  if (dtype == kBF16) {
-    write_token_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        kp, vp, ks, vs, p, o, static_cast<const __nv_bfloat16*>(nk),
-        static_cast<const __nv_bfloat16*>(nv), B, H, BS, D);
-  } else if (dtype == kF32) {
-    write_token_kernel<float><<<grid, block, 0, st>>>(
-        kp, vp, ks, vs, p, o, static_cast<const float*>(nk),
-        static_cast<const float*>(nv), B, H, BS, D);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                      int D, int dtype, int page_dtype,
+                                      void* stream) {
+  return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
+    return launch_token<typename decltype(t)::type,
+                        typename decltype(p)::type>(
+        kpool, vpool, kscale, vscale, pg, off, nk, nv, B, H, BS, D,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
-// new_k/new_v (B, S, H, D) of `dtype`, blk/off (B, S) int32, S % BS == 0.
+// K6 / K6p: new_k/new_v (B, S, H, D) of `dtype`, blk/off (B, S) int32,
+// S % BS == 0; pools and scales as K5's.
 extern "C" int mixq_paged_write_chunk(void* kpool, void* vpool, void* kscale,
                                       void* vscale, const void* blk,
                                       const void* off, const void* nk,
                                       const void* nv, int B, int S, int H,
-                                      int BS, int D, int dtype, void* stream) {
-  dim3 grid(B * (S / BS), H, 2), block(32 * kWarps);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* kp = static_cast<int8_t*>(kpool);
-  auto* vp = static_cast<int8_t*>(vpool);
-  auto* ks = static_cast<float*>(kscale);
-  auto* vs = static_cast<float*>(vscale);
-  auto* bl = static_cast<const int*>(blk);
-  auto* o = static_cast<const int*>(off);
-  if (dtype == kBF16) {
-    write_chunk_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        kp, vp, ks, vs, bl, o, static_cast<const __nv_bfloat16*>(nk),
-        static_cast<const __nv_bfloat16*>(nv), S, H, BS, D);
-  } else if (dtype == kF32) {
-    write_chunk_kernel<float><<<grid, block, 0, st>>>(
-        kp, vp, ks, vs, bl, o, static_cast<const float*>(nk),
-        static_cast<const float*>(nv), S, H, BS, D);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                      int BS, int D, int dtype,
+                                      int page_dtype, void* stream) {
+  return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
+    return launch_chunk<typename decltype(t)::type,
+                        typename decltype(p)::type>(
+        kpool, vpool, kscale, vscale, blk, off, nk, nv, B, S, H, BS, D,
+        static_cast<cudaStream_t>(stream));
+  });
 }

@@ -26,6 +26,25 @@
 // Products of a bf16 value and an int8 value are exact in f32, so both
 // regimes differ from the plain version (an f32-accumulated bf16 product)
 // only in the order of the sums.
+//
+// K12 / K13: packed-int4 weight-only GEMM (packed_gemv_kernel below).
+// Replaces ops/wo_matmul.py _wo_packed_kernel (wo_matmul_packed, K12) and
+// _wo_packed_grouped_kernel (wo_matmul_packed_grouped, K13). The weight is
+// quant.core.pack_int4's K-half layout, int8 (K/2, N): byte (kp, n) holds
+// row kp in its low nibble and row kp + K/2 in its high nibble, so the low
+// nibbles dot x[:, :K/2] and the high ones x[:, K/2:]. It is read in place
+// at 0.5 byte per weight and split into sign-extended nibbles in
+// registers: no unpacked copy exists in device memory. Bound by bytes in
+// decode (0.5 byte per 2*M flops). One block owns 32 columns and walks all
+// K/2 packed rows; a thread reads 4 bytes (4 columns) of 8 consecutive
+// packed rows per 256-row chunk, while the chunk's two halves of x are
+// staged, transposed to f32, in shared memory. K13 multiplies each
+// thread's f32 partial sum over its 8 rows (which lie in one group:
+// group_size % 8 == 0) by the group's scale before adding it in; the
+// weights are never scaled. Up to 16 rows of x per block; larger M runs
+// 16-row slabs as blockIdx.x, so the slabs of one column block are
+// scheduled together and share its weight reads in L2. Sums across
+// threads: a fixed shuffle butterfly, then the 8 warps in order.
 
 #include <mma.h>
 
@@ -254,6 +273,215 @@ wo_gemm_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
+// ---------------------------------------------------------------------------
+// K12 / K13: packed int4 (K-half layout), per-channel or per-group scales
+// ---------------------------------------------------------------------------
+constexpr int kPkThreads = 256;
+constexpr int kPkCols = 32;                       // columns per block
+constexpr int kPkTPR = kPkCols / 4;               // threads per packed row
+constexpr int kPkRowThreads = kPkThreads / kPkTPR;  // 32
+constexpr int kPkRows = 8;                        // packed rows per thread
+constexpr int kPkChunk = kPkRowThreads * kPkRows;   // 256 packed rows
+constexpr int kPkWarps = kPkThreads / 32;
+constexpr int kPkSlab = 16;                       // rows of x per block
+
+// nibble j (0..7, low nibble of byte 0 first) of `word`, sign-extended
+__device__ __forceinline__ float nib_lo(uint32_t word, int c) {
+  return static_cast<float>(static_cast<int32_t>(word << (28 - 8 * c)) >> 28);
+}
+__device__ __forceinline__ float nib_hi(uint32_t word, int c) {
+  return static_cast<float>(static_cast<int32_t>(word << (24 - 8 * c)) >> 28);
+}
+
+// x (M, K) bf16; w (K/2, N) packed int8; GROUPED: scale (K/gs, N) f32,
+// else scale (N,) f32. Block (blockIdx.x: 16-row slab of x, blockIdx.y:
+// 32 columns). The body of both kernels below.
+template <int MT, bool GROUPED, typename OutT>
+__device__ __forceinline__ void packed_gemv(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K,
+    int N, int gs) {
+  // the chunk's low-half and high-half x rows, transposed; (MT + 1) keeps
+  // the rows a warp reads in distinct banks. Reused for the final sums.
+  __shared__ float xs[2 * kPkChunk * (MT + 1)];
+  float* xlo = xs;
+  float* xhi = xs + kPkChunk * (MT + 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rt = tid / kPkTPR, ct = tid % kPkTPR;
+  const int m0 = blockIdx.x * kPkSlab, n0 = blockIdx.y * kPkCols;
+  const int col = n0 + ct * 4;
+  const int Kp = K / 2;
+  const int8_t* wcol = w + col;
+  const int nlo_groups = GROUPED ? Kp / gs : 0;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+
+  for (int kp0 = 0; kp0 < Kp; kp0 += kPkChunk) {
+    const int r0 = kp0 + rt * kPkRows;          // this thread's first row
+    uint32_t wv[kPkRows];
+#pragma unroll
+    for (int u = 0; u < kPkRows; ++u)
+      wv[u] = r0 + u < Kp ? *reinterpret_cast<const uint32_t*>(
+                                wcol + static_cast<size_t>(r0 + u) * N)
+                          : 0u;
+    for (int i = tid; i < kPkChunk * MT; i += kPkThreads) {
+      const int m = i / kPkChunk, r = i % kPkChunk, kp = kp0 + r;
+      const bool in = m0 + m < M && kp < Kp;
+      const __nv_bfloat16* xr = x + static_cast<size_t>(m0 + m) * K + kp;
+      xlo[r * (MT + 1) + m] = in ? __bfloat162float(xr[0]) : 0.f;
+      xhi[r * (MT + 1) + m] = in ? __bfloat162float(xr[Kp]) : 0.f;
+    }
+    __syncthreads();
+    if constexpr (GROUPED) {
+      // the thread's 8 rows lie in one group of each half: partial sums
+      // over them, scaled by the group's scales, then accumulated
+      float part[MT][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[m][c] = 0.f;
+        const float* xb = half ? xhi : xlo;
+#pragma unroll
+        for (int u = 0; u < kPkRows; ++u) {
+          const float* xr = xb + (rt * kPkRows + u) * (MT + 1);
+          float wf[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            wf[c] = half ? nib_hi(wv[u], c) : nib_lo(wv[u], c);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float xm = xr[m];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              part[m][c] = fmaf(xm, wf[c], part[m][c]);
+          }
+        }
+        if (r0 < Kp) {
+          const int g = r0 / gs + (half ? nlo_groups : 0);
+          const float4 s4 = *reinterpret_cast<const float4*>(
+              scale + static_cast<size_t>(g) * N + col);
+          const float sg[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[m][c] = fmaf(part[m][c], sg[c], acc[m][c]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kPkRows; ++u) {
+        const float* xl = xlo + (rt * kPkRows + u) * (MT + 1);
+        const float* xh = xhi + (rt * kPkRows + u) * (MT + 1);
+        float lo[4], hi[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          lo[c] = nib_lo(wv[u], c);
+          hi[c] = nib_hi(wv[u], c);
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float a = xl[m], b = xh[m];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[m][c] = fmaf(b, hi[c], fmaf(a, lo[c], acc[m][c]));
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // the 4 row threads of a warp (lane bits 3..4), then the 8 warps in order
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float v = acc[m][c];
+      v += __shfl_xor_sync(kFullMask, v, 8);
+      v += __shfl_xor_sync(kFullMask, v, 16);
+      acc[m][c] = v;
+    }
+  float* red = xs;                         // [warp][m][col]
+  if (lane < kPkTPR) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[(warp * MT + m) * kPkCols + ct * 4 + c] = acc[m][c];
+  }
+  __syncthreads();
+  for (int i = tid; i < MT * kPkCols; i += kPkThreads) {
+    const int m = i / kPkCols, c = i % kPkCols;
+    if (m0 + m >= M) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int v = 0; v < kPkWarps; ++v) s += red[(v * MT + m) * kPkCols + c];
+    if constexpr (!GROUPED) s *= scale[n0 + c];
+    store_f(out + static_cast<size_t>(m0 + m) * N + n0 + c, s);
+  }
+}
+
+// K12 (per-channel scales) and K13 (group scales): two names, so a trace
+// tells them apart
+template <int MT, typename OutT>
+__global__ void __launch_bounds__(kPkThreads)
+packed_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                   const int8_t* __restrict__ w,
+                   const float* __restrict__ scale, OutT* __restrict__ out,
+                   int M, int K, int N, int gs) {
+  packed_gemv<MT, false, OutT>(x, w, scale, out, M, K, N, gs);
+}
+
+template <int MT, typename OutT>
+__global__ void __launch_bounds__(kPkThreads)
+packed_grouped_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                           const int8_t* __restrict__ w,
+                           const float* __restrict__ scale,
+                           OutT* __restrict__ out, int M, int K, int N,
+                           int gs) {
+  packed_gemv<MT, true, OutT>(x, w, scale, out, M, K, N, gs);
+}
+
+template <int MT, bool GROUPED, typename OutT>
+void launch_packed_mt(dim3 grid, cudaStream_t st,
+                      const __nv_bfloat16* x, const int8_t* w,
+                      const float* scale, OutT* out, int M, int K, int N,
+                      int gs) {
+  if constexpr (GROUPED)
+    packed_grouped_gemv_kernel<MT, OutT><<<grid, kPkThreads, 0, st>>>(
+        x, w, scale, out, M, K, N, gs);
+  else
+    packed_gemv_kernel<MT, OutT><<<grid, kPkThreads, 0, st>>>(
+        x, w, scale, out, M, K, N, gs);
+}
+
+template <bool GROUPED, typename OutT>
+int launch_packed(const void* x, const void* w, const void* scale, void* out,
+                  int M, int K, int N, int gs, cudaStream_t st) {
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* wp = static_cast<const int8_t*>(w);
+  auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<OutT*>(out);
+  const dim3 grid((M + kPkSlab - 1) / kPkSlab, N / kPkCols);
+  if (M <= 1)
+    launch_packed_mt<1, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+  else if (M <= 2)
+    launch_packed_mt<2, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+  else if (M <= 4)
+    launch_packed_mt<4, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+  else if (M <= 8)
+    launch_packed_mt<8, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+  else
+    launch_packed_mt<16, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename OutT>
 int launch(const void* x, const void* w, const void* scol, void* out, int M,
            int K, int N, cudaStream_t st) {
@@ -299,5 +527,29 @@ extern "C" int mixq_wo_matmul(const void* x, const void* w, const void* scol,
   if (out_dtype == kBF16)
     return launch<__nv_bfloat16>(x, w, scol, out, M, K, N, st);
   if (out_dtype == kF32) return launch<float>(x, w, scol, out, M, K, N, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K12: x (M, K) bf16, w (K/2, N) packed int4 (K-half layout), scale_col
+// (N,) f32 -> out (M, N). K13 (group_size > 0): scale (K/group_size, N) f32
+// group scales instead. The wrapper guarantees M >= 1, K % 2 == 0,
+// N % 128 == 0, 16-byte aligned w and scale, and for K13
+// group_size % 8 == 0 and (K/2) % group_size == 0.
+extern "C" int mixq_wo_matmul_packed(const void* x, const void* w,
+                                     const void* scale, void* out, int M,
+                                     int K, int N, int group_size,
+                                     int out_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool grouped = group_size > 0;
+  if (out_dtype == kBF16)
+    return grouped ? launch_packed<true, __nv_bfloat16>(x, w, scale, out, M,
+                                                        K, N, group_size, st)
+                   : launch_packed<false, __nv_bfloat16>(x, w, scale, out, M,
+                                                         K, N, 0, st);
+  if (out_dtype == kF32)
+    return grouped ? launch_packed<true, float>(x, w, scale, out, M, K, N,
+                                                group_size, st)
+                   : launch_packed<false, float>(x, w, scale, out, M, K, N, 0,
+                                                 st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -252,11 +252,13 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     b, s, _ = x.shape
 
     # decode regime (S <= 4): mix linears run weight-only on the full
-    # qweight (models/common.py:830-835, the reference's SMALL_M_FAST_PATH)
+    # qweight (models/common.py:830-835, the reference's SMALL_M_FAST_PATH):
+    # int8_mix as W8A16, int4_mix as W4A16 on the packed weight
     def algo(mod):
         a = cfg.module_algo(mod)
-        if s <= 4 and a == QuantAlgo.INT8_MIX:
-            return QuantAlgo.W8A16
+        if s <= 4 and a.is_mix:
+            return (QuantAlgo.W8A16 if a == QuantAlgo.INT8_MIX
+                    else QuantAlgo.W4A16)
         return a
 
     qkv = dispatch.norm_linear(lp["qkv_proj"], x, algo("qkv_proj"),

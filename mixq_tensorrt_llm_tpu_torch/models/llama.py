@@ -3,7 +3,8 @@ Counterpart of mixq_tensorrt_llm_tpu/models/llama.py.
 
 q/k/v and gate/up are fused into single (in, out) weights; quantization
 follows the QuantConfig routing (qkv/gate_up/o mix, down weight-only,
-lm_head excluded).
+lm_head excluded); int4 weights are packed two a byte when in_features is
+even, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def _quantize_layer(cfg: ModelConfig, float_layer: Dict[str, torch.Tensor],
                  if algo.is_mix else None)
         out[mod] = dispatch.quantize_linear_params(
             w, algo, act_scale=scale, num_outliers=cfg.quant.num_outliers,
-            bias=bias)
+            group_size=cfg.quant.group_size, bias=bias)
     return out
 
 

@@ -1,8 +1,9 @@
 """Attention over the paged KV pool: K7 (decode, one query token per lane)
 and K8 (chunked prefill), counterparts of ops/paged_attention.py.
 
-Pages are (NP, Hkv, BS, D) with per-(token, head) scales (NP, Hkv, BS) for
-int8 pools; block_table/block_pos (B, MB) int32 give each lane's page rows
+Pages are (NP, Hkv, BS, D): int8 with per-(token, head) scales (NP, Hkv,
+BS), or unquantized bf16/f32 pages without scales (JAX's quantized=False
+mode); block_table/block_pos (B, MB) int32 give each lane's page rows
 and their absolute base positions (padding entries carry PAD_POS and are
 skipped); lens (B,) counts the KV written. Masks work on absolute
 positions: causal, optional sliding window + sinks, optional tanh softcap
@@ -12,9 +13,10 @@ A CPU tensor takes the plain version: gather and dequantize the lane's
 pages to f32 (``gather_pages``), then ``ops.ref.attention`` — the math of
 the JAX package's gather path (models/common.py:713-738) — with rows that
 see no key at all set to 0, as the kernels give them. A CUDA tensor
-launches the kernel of csrc/paged_attention.cu, or raises. The kernels
-accept int8 pools with 16 <= BS <= 256, BS % 16 == 0, and head_dim a
-multiple of 32 up to 256.
+launches the kernel of csrc/paged_attention.cu, or raises: its int8
+instantiation for int8 pools, its unquantized one (no scale multiplies,
+null scales; launches counted as ``*_fp``) for bf16 and f32 pools. The kernels accept
+16 <= BS <= 256, BS % 16 == 0, and head_dim a multiple of 32 up to 256.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
 
 
 def check_kernel_geometry(block_size: int, head_dim: int) -> None:
@@ -84,19 +87,28 @@ def paged_attention_plain(q: torch.Tensor, k_pages, v_pages, k_scale,
 
 def _cuda_args(q, k_pages, v_pages, k_scale, v_scale, block_table,
                block_pos, what: str) -> Tuple:
-    if k_scale is None or k_pages.dtype != torch.int8:
-        raise NotImplementedError(
-            f"{what}: only int8 KV pools have a CUDA kernel; bf16 pools come "
-            "with the bf16-KV slice")
+    """Check what the kernels take. Returns (page pointers: K, V, K scale
+    and V scale or null; page dtype code; launch-count suffix: "" for int8
+    pages with scales, "_fp" for unquantized ones; hkv, bs, d, table,
+    bpos)."""
+    quant = k_scale is not None
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: q dtype {q.dtype} unsupported "
                          "(float32 or bfloat16)")
     np_, hkv, bs, d = k_pages.shape
     check_kernel_geometry(bs, d)
-    for name, t, dt in (("k_pages", k_pages, torch.int8),
-                        ("v_pages", v_pages, torch.int8),
-                        ("k_scale", k_scale, torch.float32),
-                        ("v_scale", v_scale, torch.float32)):
+    if quant:
+        want = (("k_pages", k_pages, torch.int8),
+                ("v_pages", v_pages, torch.int8),
+                ("k_scale", k_scale, torch.float32),
+                ("v_scale", v_scale, torch.float32))
+    elif k_pages.dtype in _DTYPES:
+        want = (("k_pages", k_pages, k_pages.dtype),
+                ("v_pages", v_pages, k_pages.dtype))
+    else:
+        raise ValueError(f"{what}: pages of {k_pages.dtype} without scales "
+                         "unsupported (bfloat16 or float32)")
+    for name, t, dt in want:
         if not (t.is_cuda and t.dtype == dt and t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be a contiguous CUDA "
                              f"{dt} tensor")
@@ -107,7 +119,10 @@ def _cuda_args(q, k_pages, v_pages, k_scale, v_scale, block_table,
     dev = q.device
     table = block_table.to(dev, torch.int32).contiguous()
     bpos = block_pos.to(dev, torch.int32).contiguous()
-    return hkv, bs, d, table, bpos
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (k_pages, v_pages, k_scale, v_scale)]
+    return (ptrs, _PAGE_DTYPES[k_pages.dtype], "" if quant else "_fp", hkv,
+            bs, d, table, bpos)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
@@ -121,9 +136,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
             q[:, None], k_pages, v_pages, k_scale, v_scale, block_table,
             (lens - 1)[:, None], lens, scale, block_pos, window, sink,
             softcap)[:, 0]
-    hkv, bs, d, table, bpos = _cuda_args(q, k_pages, v_pages, k_scale,
-                                         v_scale, block_table, block_pos,
-                                         "paged_decode_attention")
+    ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
+        q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos,
+        "paged_decode_attention")
     b, hq, _ = q.shape
     if q.shape[2] != d or hq % hkv:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} does "
@@ -132,16 +147,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     lens = lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
     fn = _build.bind("paged_attention", "mixq_paged_decode_attention",
-                     [_build.P] * 9 + [_build.I] * 6 + [_build.F, _build.I,
-                                                        _build.I, _build.F,
-                                                        _build.I, _build.P])
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-             bpos.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-             bs, table.shape[1], float(scale), int(window), int(sink),
-             float(softcap), _DTYPES[q.dtype], _build.stream_ptr(q.device))
-    _build.count_launch("paged_decode_attention")
-    _build.check("paged_attention", err, "paged_decode_attention")
+                     [_build.P] * 9 + [_build.I] * 6
+                     + [_build.F, _build.I, _build.I, _build.F, _build.I,
+                        _build.I, _build.P])
+    err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), b, hq, hkv, d, bs,
+             table.shape[1], float(scale), int(window), int(sink),
+             float(softcap), _DTYPES[q.dtype], page_dtype,
+             _build.stream_ptr(q.device))
+    name = "paged_decode_attention" + sfx
+    _build.count_launch(name)
+    _build.check("paged_attention", err, name)
     return out
 
 
@@ -161,9 +177,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
         return paged_attention_plain(q, k_pages, v_pages, k_scale, v_scale,
                                      block_table, q_pos, lens, scale,
                                      block_pos, window, sink, softcap)
-    hkv, bs, d, table, bpos = _cuda_args(q, k_pages, v_pages, k_scale,
-                                         v_scale, block_table, block_pos,
-                                         "paged_prefill_attention")
+    ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
+        q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos,
+        "paged_prefill_attention")
     b, c, hq, _ = q.shape
     if q.shape[3] != d or hq % hkv:
         raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} does "
@@ -173,15 +189,15 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     lens = lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
     fn = _build.bind("paged_attention", "mixq_paged_prefill_attention",
-                     [_build.P] * 10 + [_build.I] * 7 + [_build.F, _build.I,
-                                                         _build.I, _build.F,
-                                                         _build.I, _build.P])
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-             bpos.data_ptr(), q_start.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), b, c, hq, hkv, d, bs, table.shape[1],
-             float(scale), int(window), int(sink), float(softcap),
-             _DTYPES[q.dtype], _build.stream_ptr(q.device))
-    _build.count_launch("paged_prefill_attention")
-    _build.check("paged_attention", err, "paged_prefill_attention")
+                     [_build.P] * 10 + [_build.I] * 7
+                     + [_build.F, _build.I, _build.I, _build.F, _build.I,
+                        _build.I, _build.P])
+    err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
+             q_start.data_ptr(), lens.data_ptr(), out.data_ptr(), b, c, hq,
+             hkv, d, bs, table.shape[1], float(scale), int(window),
+             int(sink), float(softcap), _DTYPES[q.dtype], page_dtype,
+             _build.stream_ptr(q.device))
+    name = "paged_prefill_attention" + sfx
+    _build.count_launch(name)
+    _build.check("paged_attention", err, name)
     return out

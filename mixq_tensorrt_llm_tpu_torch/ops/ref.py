@@ -104,6 +104,25 @@ def wo_matmul(x: torch.Tensor, qweight: torch.Tensor,
     return (acc * scale_col[None, :]).to(out_dtype)
 
 
+def wo_matmul_grouped(x: torch.Tensor, qweight: torch.Tensor,
+                      scale_g: torch.Tensor,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Group-wise W4A16: x (m, in), qweight int4 values (in, out), scale_g
+    f32 (in/G, out). Each group's partial product (bf16 operands, f32
+    result; int4 is exact in bf16) is scaled by its group's scales and
+    added into one f32 (m, out) accumulator, group by group: JAX's (G, m,
+    out) tensor of partials is never materialized."""
+    m, k = x.shape
+    g, n = scale_g.shape
+    gs = k // g
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for i in range(g):
+        rows = slice(i * gs, (i + 1) * gs)
+        acc += bf16_matmul_f32(x[:, rows], qweight[rows]) \
+            * scale_g[i].float()[None, :]
+    return acc.to(out_dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None,

@@ -2,22 +2,26 @@
 
 Counterpart of mixq_tensorrt_llm_tpu/quant/core.py, bit-exact with it:
 
-  * weights: per-output-channel symmetric int8, ``scale_col = absmax/127``
+  * weights: per-output-channel symmetric int8, ``scale_col = absmax/127``;
+    int4 per channel ``absmax/10`` clamped to [-8, 7] (the reference's
+    saturating rule), int4 per group of rows ``absmax/7`` in [-7, 7]
   * activations: per-token symmetric int8, ``scale_row = absmax/127``,
     computed after the outlier channels have been zeroed
   * KV: per-(token, head) symmetric int8 over head_dim
   * outlier channels: top-k input channels by calibrated activation absmax
 
 Rounding order, kept from the JAX package: the scale is absmax divided by
-127 and floored at 1e-8, the value is DIVIDED by the scale (never
-multiplied by its reciprocal), rounded half to even, clipped to +-127.
-``_div127`` divides by a tensor of 127s rather than a Python scalar
-because PyTorch's CUDA division by a host scalar multiplies by the
-reciprocal, which can move the scale by one ulp; the CUDA write kernels
+127 (10, 7) and floored at 1e-8, the value is DIVIDED by the scale (never
+multiplied by its reciprocal), rounded half to even, clipped. ``_div``
+divides by a tensor of the divisor rather than a Python scalar because
+PyTorch's CUDA division by a host scalar multiplies by the reciprocal,
+which can move the scale by one ulp; the CUDA write kernels
 (csrc/paged_write.cu) use the same exact division, so kernel and plain
 version agree bit for bit.
 
-The int4 and fp8 parts of the JAX module are not ported yet.
+Packed int4 (``pack_int4``) is the JAX package's K-half layout: byte k of
+a column holds row k in its low nibble and row k + in/2 in its high one.
+The fp8 part of the JAX module is not ported yet.
 
 Weight layout: (in_features, out_features), y = x @ w.
 """
@@ -29,15 +33,19 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 INT8_MAX = 127.0
+INT4_DIV = 10.0            # the reference's per-channel int4 divisor
+INT4_LO, INT4_HI = -8, 7
+INT4_G_MAX = 7.0           # per-group int4: absmax / 7 over [-7, 7]
 SCALE_FLOOR = 1e-8
 
 
-def _div127(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.full_like(x, INT8_MAX)
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    return x / torch.full_like(x, d)
 
 
-def _absmax_scale(xf: torch.Tensor, dim: int, keepdim: bool) -> torch.Tensor:
-    return _div127(xf.abs().amax(dim=dim, keepdim=keepdim)).clamp_min(
+def _absmax_scale(xf: torch.Tensor, dim: int, keepdim: bool,
+                  div: float = INT8_MAX) -> torch.Tensor:
+    return _div(xf.abs().amax(dim=dim, keepdim=keepdim), div).clamp_min(
         SCALE_FLOOR)
 
 
@@ -61,6 +69,74 @@ def quantize_weight_int8(w: torch.Tensor,
     if scale is None:
         scale = weight_scale_int8(w)
     return _round_clip_int8(w.float() / scale[None, :]), scale
+
+
+def weight_scale_int4(w: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel int4 scale: absmax / 10 (the reference's rule)."""
+    return _absmax_scale(w.float(), dim=0, keepdim=False, div=INT4_DIV)
+
+
+def quantize_weight_int4(w: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-out-channel int4 with the reference's saturating
+    clamp to [-8, 7]. Returns (q int8 holding int4 values, scale)."""
+    if scale is None:
+        scale = weight_scale_int4(w)
+    q = torch.round(w.float() / scale[None, :]).clamp_(INT4_LO, INT4_HI)
+    return q.to(torch.int8), scale
+
+
+def quantize_weight_int4_grouped(w: torch.Tensor, group_size: int = 128
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise symmetric int4: every ``group_size`` input rows of a
+    column share one absmax/7 scale. w (in, out) -> (q int8 holding int4
+    values (in, out), scale f32 (in/group_size, out))."""
+    k, n = w.shape
+    if k % group_size:
+        raise ValueError(f"in_features {k} is not a multiple of the group "
+                         f"size {group_size}")
+    wg = w.float().reshape(k // group_size, group_size, n)
+    scale = _absmax_scale(wg, dim=1, keepdim=False, div=INT4_G_MAX)
+    q = torch.round(wg / scale[:, None, :]).clamp_(-INT4_G_MAX, INT4_G_MAX)
+    return q.to(torch.int8).reshape(k, n), scale
+
+
+def dequantize_weight(q: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """(in, out) integer weights times per-out-channel scales."""
+    return (q.float() * scale[None, :].float()).to(dtype)
+
+
+def dequantize_weight_grouped(q: torch.Tensor, scale: torch.Tensor,
+                              dtype=torch.bfloat16) -> torch.Tensor:
+    """(in, out) int4 weights times their (in/G, out) group scales."""
+    k, n = q.shape
+    g = scale.shape[0]
+    wg = q.float().reshape(g, k // g, n) * scale[:, None, :]
+    return wg.reshape(k, n).to(dtype)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8-held int4 values (in, out) -> int8 (in/2, out) in the K-half
+    layout: byte k holds row k in its low nibble, row k + in/2 in its
+    high nibble (the JAX package's pack_int4)."""
+    if q.shape[0] % 2:
+        raise ValueError("in_features must be even to pack int4")
+    half = q.shape[0] // 2
+    lo = q[:half].to(torch.int16) & 0xF
+    hi = q[half:].to(torch.int16) & 0xF
+    # 0..255 through uint8, then reinterpreted: the wrap JAX's int8 gives
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """int8 (in/2, out) -> int8 (in, out), each nibble sign-extended: low
+    nibbles are rows [0, in/2), high nibbles rows [in/2, in)."""
+    p = packed.to(torch.int8)
+    lo = ((p & 0xF) ^ 8) - 8          # the low nibble as a signed 4-bit value
+    hi = p >> 4                       # arithmetic shift: sign-extends
+    return torch.cat([lo, hi], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +225,12 @@ def make_mix_artifact(w: torch.Tensor, act_scale: torch.Tensor,
                       num_outliers: int, bits: int = 8
                       ) -> MixQLinearArtifact:
     """Quantize one linear weight (in, out) into the MixQ artifact set.
-    num_outliers is clamped to in_features."""
-    if bits != 8:
-        raise NotImplementedError(
-            f"bits={bits}: the int4 mix path comes with the int4 slice")
+    num_outliers is clamped to in_features; bits 8 (int8_mix) or 4
+    (int4_mix: the int4 per-channel rule)."""
+    if bits not in (4, 8):
+        raise ValueError(f"unsupported bits={bits}")
     fp_ind = select_outliers(act_scale, min(num_outliers, w.shape[0]))
     fp_weight = split_outlier_weight(w, fp_ind)
-    qweight, scale = quantize_weight_int8(w)
+    qweight, scale = (quantize_weight_int8(w) if bits == 8
+                      else quantize_weight_int4(w))
     return MixQLinearArtifact(qweight, scale.float(), fp_ind, fp_weight)

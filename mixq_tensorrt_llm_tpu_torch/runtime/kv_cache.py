@@ -238,7 +238,8 @@ def paged_write(pools: dict, block_table: torch.Tensor,
 
     Routing as in the JAX package: S == 1 -> K5; S <= 8 -> one K5 per
     column; S % BS == 0 -> K6 (the executor's page-aligned chunks);
-    anything else -> a plain scatter."""
+    anything else -> a plain scatter. Unquantized pools take K5p / K6p in
+    the same places."""
     bs = pools["k"].shape[2]
     s = new_k.shape[1]
     blk, off = _locate(block_table, write_pos, bs, block_pos, valid)

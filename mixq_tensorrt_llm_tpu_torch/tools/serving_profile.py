@@ -1,23 +1,31 @@
 """Where the time of the port's main path goes, on the card.
 
-    python -m mixq_tensorrt_llm_tpu_torch.tools.serving_profile [--seed N]
+    python -m mixq_tensorrt_llm_tpu_torch.tools.serving_profile \
+        [--seed N] [--model 7b|13b] [--algo ALGO] [--kv int8|none]
 
-Builds the Llama-2-7B-geometry (32 layers) int8_mix (128 outliers) /
-int8-KV model with random weights that chip_smoke.py serves, through the
-same ``serve`` loop, and runs its 8 ragged requests: to warm up, timed
+Builds a Llama-geometry model with random weights and serves it through
+the ``serve`` loop chip_smoke.py uses. ``--model`` picks the geometry
+(7b: Llama-2-7B, 32 layers; 13b: Llama-2-13B, 40 layers), ``--algo`` the
+weight quantization (default: int8_mix for 7b, w4a16 for 13b; int8_mix
+and int4_mix take 128 outliers, w4a16_g groups of 128), ``--kv`` the KV
+pool (default: int8 for 7b, none, i.e. bf16 pages, for 13b). The defaults
+are chip_smoke.py's two serving runs. It runs the 8 ragged requests: to
+warm up, timed
 (``TIMED_RUNS`` times, each run's walls printed and the median run's
 reported: the host is shared and its speed varies), and under
 ``torch.profiler``. It
 prints, for the prefill calls and the decode steps separately: wall time
 (timed run), device busy time (the sum of kernel times, profiled run),
 the device's idle share, and kernel time by group (the port's CUDA
-kernels K1-K8, the cuBLAS GEMMs, everything else) with the top kernels by
-name. The card's name and power limit come first. Needs a CUDA card.
+kernels K1-K8, K12, K13, the cuBLAS GEMMs, everything else) with the top
+kernels by name. The card's name and power limit come first. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 from collections import defaultdict
@@ -33,10 +41,18 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "mixed_epilogue_kernel": "K3 mixed_matmul_hybrid",
                 "wo_gemv_kernel": "K4 wo_matmul (decode GEMV)",
                 "wo_gemm_kernel": "K4 wo_matmul (prefill GEMM)",
+                "packed_gemv_kernel": "K12 wo_matmul_packed",
+                "packed_grouped_gemv_kernel": "K13 wo_matmul_packed_grouped",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",
                 "decode_kernel": "K7 paged_decode_attention",
                 "prefill_kernel": "K8 paged_prefill_attention"}
+# the paged-KV kernels are templated on the page type: int8 pages show as
+# "signed char" in a kernel's name; any other page type is a bf16/f32 pool
+FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
+               "write_chunk_kernel": "K6p paged_write_chunk (float pool)",
+               "decode_kernel": "K7 paged_decode_attention (float pages)",
+               "prefill_kernel": "K8 paged_prefill_attention (float pages)"}
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "gemv", "nvjet", "cublas")
 TIMED_RUNS = 5
 
@@ -49,6 +65,32 @@ def llama2_7b_config() -> ModelConfig:
         dtype=torch.bfloat16,
         quant=QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128,
                           kv_cache=KVCacheQuantAlgo.INT8))
+
+
+def llama2_13b_config(algo: QuantAlgo = QuantAlgo.W4A16,
+                      kv: KVCacheQuantAlgo = KVCacheQuantAlgo.NONE
+                      ) -> ModelConfig:
+    """Llama-2-13B geometry (vocab 32000, hidden 5120, intermediate 13824,
+    40 layers, 40 heads, MHA, head_dim 128); 128 outliers for the mix
+    algos, groups of 128 rows for w4a16_g. KV none = bf16 pages."""
+    return ModelConfig(
+        vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+        num_layers=40, num_heads=40, num_kv_heads=40, head_dim=128,
+        dtype=torch.bfloat16,
+        quant=QuantConfig(algo=algo, num_outliers=128, group_size=128,
+                          kv_cache=kv))
+
+
+def model_config(model: str, algo=None, kv=None) -> ModelConfig:
+    """The geometry of ``model`` ("7b" or "13b") with ``algo``/``kv``
+    (QuantAlgo / KVCacheQuantAlgo values or None for the model's
+    default)."""
+    base = {"7b": llama2_7b_config, "13b": llama2_13b_config}[model]()
+    quant = dataclasses.replace(
+        base.quant,
+        algo=QuantAlgo(algo) if algo else base.quant.algo,
+        kv_cache=KVCacheQuantAlgo(kv) if kv else base.quant.kv_cache)
+    return dataclasses.replace(base, quant=quant)
 
 
 def distinct_act_scales(cfg: ModelConfig, gen: torch.Generator,
@@ -84,6 +126,8 @@ def make_executor(params, cfg, seed: int, device):
 def _group(name: str) -> str:
     for mark, label in PORT_KERNELS.items():
         if mark in name:
+            if mark in FLOAT_PAGES and "signed char" not in name:
+                return FLOAT_PAGES[mark]
             return label
     low = name.lower()
     if any(m in low for m in GEMM_MARKS):
@@ -144,6 +188,10 @@ def serve(params, cfg, prompts, seed, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", choices=("7b", "13b"), default="7b")
+    ap.add_argument("--algo", choices=("int8_mix", "w8a16", "w4a16",
+                                       "w4a16_g", "int4_mix", "none"))
+    ap.add_argument("--kv", choices=("int8", "none"))
     args = ap.parse_args()
     from ..device import resolve_device
     from ..models import llama
@@ -152,7 +200,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"device: {smi}; torch {torch.__version__}")
-    cfg = llama2_7b_config()
+    cfg = model_config(args.model, args.algo, args.kv)
+    print(f"model: Llama-2-{args.model.upper()} geometry, {cfg.num_layers} "
+          f"layers, {cfg.quant.algo.value} weights, "
+          f"{cfg.quant.kv_cache.value} KV (none = {cfg.dtype} pages)")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = llama.init_random_params(
         cfg, seed=args.seed, device=dev,

@@ -93,6 +93,37 @@ def test_port_checkpoint_loads_into_jax_bit_for_bit(model, tmp_path):
     _assert_params_equal(params, tp)
 
 
+@pytest.mark.parametrize("algo", [JAlgo.W4A16, JAlgo.W4A16_G,
+                                  JAlgo.INT4_MIX], ids=lambda a: a.value)
+def test_int4_checkpoints_roundtrip_both_ways(algo, tmp_path):
+    """Packed int4 checkpoints (qweight_packed, scale_col or scale_g, the
+    outliers of int4_mix; group size 32): JAX -> port equals
+    params_from_numpy of the same tree, port -> JAX bit for bit."""
+    jcfg = JConfig(vocab_size=128, hidden_size=64, intermediate_size=128,
+                   num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                   max_position_embeddings=128, dtype=jnp.bfloat16,
+                   quant=JQuant(algo=algo, num_outliers=8, group_size=32))
+    jp = jllama.init_random_params(jcfg, jax.random.PRNGKey(5))
+    jckpt.save_checkpoint(str(tmp_path / "j"), jp, jcfg)
+    params, cfg = load_checkpoint(str(tmp_path / "j"), device="cpu")
+    assert cfg == ModelConfig.from_dict(jcfg.to_dict())
+    want = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    _assert_params_equal(params, want)
+    layer = params["layers"][0]
+    assert layer["qkv_proj"]["qweight_packed"].shape == (32, cfg.qkv_out)
+    assert ("scale_g" in layer["down_proj"]) == (algo == JAlgo.W4A16_G)
+
+    save_checkpoint(str(tmp_path / "t"), params, cfg)
+    back, jcfg2 = jckpt.load_checkpoint(str(tmp_path / "t"))
+    assert jcfg2.to_dict() == jcfg.to_dict()
+    flat_want, flat_got = jckpt._flatten(jp), jckpt._flatten(back)
+    assert flat_got.keys() == flat_want.keys()
+    for k, w in flat_want.items():
+        np.testing.assert_array_equal(np.asarray(flat_got[k]).view(np.uint8),
+                                      np.asarray(w).view(np.uint8),
+                                      err_msg=k)
+
+
 def test_missing_tensor_raises_with_its_name(model, tmp_path):
     jcfg, jp = model
     tree = jax.tree.map(lambda a: a, jp)

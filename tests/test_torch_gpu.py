@@ -5,12 +5,14 @@ Whether a card is present is decided inside the fixture, never at import,
 so every pytest-xdist worker collects the same tests.
 
 K5/K6 must be bit-equal to the plain quantize-and-scatter outside the
-trash row 0; K7/K8 within 2e-2 of the plain f32 attention (bf16 q/out).
+trash row 0, K5p/K6p to the plain cast-and-scatter; K7/K8 within 2e-2 of
+the plain f32 attention (bf16 q/out) on int8, bf16 and f32 pages.
 K1: int8 codes at most 1 apart and > 99.9% equal (the norm's f32 sum runs
 in another order), scales rtol 1e-5. K2/K3/K4 differ from their plain
 versions only in the order of f32 sums: 1e-4 of the largest |output| in
 f32, one bf16 step more in bf16; K2 with unit scales and no outliers is
-the int32 product, bit for bit."""
+the int32 product, bit for bit. K12/K13 (packed int4) as K4, against the
+unpack-then-plain versions."""
 
 import pytest
 import torch
@@ -22,6 +24,7 @@ from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
 from mixq_tensorrt_llm_tpu_torch.ops import paged_write as pw
 from mixq_tensorrt_llm_tpu_torch.ops import ref
 from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
 from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import PAD_POS
 
 NP_, BS, D = 24, 16, 64
@@ -267,3 +270,152 @@ def test_tied_head_logits_are_f32(cuda):
     assert logits.dtype == torch.float32
     rel = float((logits - want).abs().max() / want.abs().max())
     assert rel <= 1e-5, rel
+
+
+def _fp_pools(gen, dev, hkv, dtype):
+    return {n: (torch.randn((NP_, hkv, BS, D), generator=gen, device=dev)
+                * 2).to(dtype) for n in ("k", "v")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp_write_kernels_bit_equal(cuda, pool_dtype, dtype):
+    """K5p / K6p: the new values cast to the pool's dtype, bit-equal to
+    the plain scatter outside the trash row."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    pools = _fp_pools(gen, cuda, 4, pool_dtype)
+    before = dict(_build.LAUNCHES)
+    pg = torch.tensor([3, 0, 9, 5], dtype=torch.int32, device=cuda)
+    off = torch.tensor([0, 4, 15, 2], dtype=torch.int32, device=cuda)
+    nk = (torch.randn((4, 4, D), generator=gen, device=cuda) * 3).to(dtype)
+    nv = (torch.randn((4, 4, D), generator=gen, device=cuda) * 3).to(dtype)
+    ker = {k: v.clone() for k, v in pools.items()}
+    pln = {k: v.clone() for k, v in pools.items()}
+    pw.paged_write_token(ker, pg, off, nk, nv)
+    pw.paged_write_token_plain(pln, pg, off, nk, nv)
+    assert _same_outside_trash(ker, pln)
+
+    blk = torch.tensor([[7] * BS + [8] * 5 + [0] * (BS - 5), [0] * 2 * BS],
+                       dtype=torch.int32, device=cuda)
+    off = torch.arange(2 * BS, dtype=torch.int32, device=cuda).remainder(
+        BS).repeat(2, 1)
+    off[0, BS:] = (off[0, BS:] + 1) % BS        # misaligned slab: dropped
+    nk = (torch.randn((2, 2 * BS, 4, D), generator=gen, device=cuda)
+          * 3).to(dtype)
+    nv = (torch.randn((2, 2 * BS, 4, D), generator=gen, device=cuda)
+          * 3).to(dtype)
+    pw.paged_write_chunk(ker, blk, off, nk, nv)
+    pw.paged_write_chunk_plain(pln, blk, off, nk, nv)
+    torch.cuda.synchronize()
+    assert _same_outside_trash(ker, pln)
+    assert torch.equal(ker["k"][8], pools["k"][8])
+    assert _launched("paged_write_token_fp", before) == 1
+    assert _launched("paged_write_chunk_fp", before) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,window,sink,softcap",
+                         [(4, 4, 0, 0, 0.0), (8, 2, 24, 16, 0.0),
+                          (8, 2, 0, 0, 20.0)])
+def test_attention_kernels_fp_pages_match_plain(cuda, pool_dtype, hq, hkv,
+                                                window, sink, softcap):
+    """K7 / K8 over unquantized pages (no scales) within 2e-2 of plain."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    pools = _fp_pools(gen, cuda, hkv, pool_dtype)
+    args = (pools["k"], pools["v"], None, None)
+    scale = D ** -0.5
+    kw = dict(window=window, sink=sink, softcap=softcap)
+    table = torch.tensor([[4, 6, 5, 5], [0, 0, 0, 0]], dtype=torch.int32,
+                         device=cuda)
+    bpos = torch.tensor([[0, 2 * BS, BS, PAD_POS], [PAD_POS] * 4],
+                        dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3 * BS - 5, 1], dtype=torch.int32, device=cuda)
+    q = torch.randn((2, hq, D), generator=gen, device=cuda).bfloat16()
+    before = dict(_build.LAUNCHES)
+    out = pa.paged_decode_attention(q, *args, table, lens, scale,
+                                    block_pos=bpos, **kw)
+    ref_ = pa.paged_attention_plain(q[:, None], *args, table,
+                                    (lens - 1)[:, None], lens, scale,
+                                    block_pos=bpos, **kw)[:, 0]
+    torch.cuda.synchronize()
+    assert bool((out[1] == 0).all())
+    assert float((out.float() - ref_.float()).abs().max()) <= 2e-2
+
+    c = 40
+    qs = torch.tensor([8, 0], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3 * BS - 5, 0], dtype=torch.int32, device=cuda)
+    q = torch.randn((2, c, hq, D), generator=gen, device=cuda).bfloat16()
+    out = pa.paged_prefill_attention(q, *args, table, qs, lens, scale,
+                                     block_pos=bpos, **kw)
+    pos = qs[:, None] + torch.arange(c, device=cuda)
+    ref_ = pa.paged_attention_plain(q, *args, table, pos, lens, scale,
+                                    block_pos=bpos, **kw)
+    torch.cuda.synchronize()
+    valid = (pos < lens[:, None])[:, :, None, None]
+    err = torch.where(valid, (out.float() - ref_.float()).abs(), 0.0)
+    assert float(err.max()) <= 2e-2
+    assert _launched("paged_decode_attention_fp", before) == 1
+    assert _launched("paged_prefill_attention_fp", before) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_kernels_match_plain(cuda, m, dtype):
+    """K12 and K13 against unpack + plain. K/2 = 640 is not a multiple of
+    the kernels' 256-row chunk; group size 320 puts a group boundary
+    inside a chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    k, n = 1280, 384
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    q = torch.randint(-8, 8, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    qp = qcore.pack_int4(q)
+    scol = torch.rand((n,), generator=gen, device=cuda) * 2e-2 + 1e-3
+    before = dict(_build.LAUNCHES)
+    out = wm.wo_matmul_packed(x, qp, scol, out_dtype=dtype)
+    want = wm.wo_matmul_packed_plain(x, qp, scol, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _close(out, want, dtype)
+    for gs in (128, 320):
+        sg = torch.rand((k // gs, n), generator=gen, device=cuda) * 2e-2 \
+            + 1e-3
+        out = wm.wo_matmul_packed_grouped(x, qp, sg, gs, out_dtype=dtype)
+        want = wm.wo_matmul_packed_grouped_plain(x, qp, sg, gs,
+                                                 out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert out.shape == (m, n)
+        assert _close(out, want, dtype), gs
+    assert _launched("wo_matmul_packed", before) == 1
+    assert _launched("wo_matmul_packed_grouped", before) == 2
+
+
+@pytest.mark.gpu
+def test_packed_kernels_exact_on_integer_inputs(cuda):
+    """Integer x and unit scales: every product and sum is exact in f32,
+    so K12 equals the int32 product of x and the unpacked weight."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    m, k, n = 5, 1024, 256
+    xi = torch.randint(-8, 8, (m, k), generator=gen, device=cuda)
+    q = torch.randint(-8, 8, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    out = wm.wo_matmul_packed(xi.bfloat16(), qcore.pack_int4(q),
+                              torch.ones((n,), device=cuda),
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, (xi.double() @ q.double()).float())
+
+
+@pytest.mark.gpu
+def test_packed_shapes_raise(cuda):
+    x = torch.zeros((4, 256), device=cuda).bfloat16()
+    qp = torch.zeros((128, 256), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="N % 128"):
+        wm.wo_matmul_packed(x, qp[:, :100].contiguous(),
+                            torch.ones((100,), device=cuda))
+    with pytest.raises(ValueError, match="group_size"):
+        wm.wo_matmul_packed_grouped(x, qp, torch.ones((4, 256),
+                                                      device=cuda), 64 + 4)

@@ -125,6 +125,55 @@ def test_quantize_layer_matches_jax():
                 np.asarray(jl[mod][leaf], np.float32), err_msg=f"{mod}.{leaf}")
 
 
+@pytest.mark.parametrize("algo", [JAlgo.W4A16, JAlgo.W4A16_G,
+                                  JAlgo.INT4_MIX], ids=lambda a: a.value)
+def test_quantize_layer_int4_matches_jax(algo):
+    """The int4 algos' layers (packed weights, group_size passed through)
+    equal the JAX package's bit for bit."""
+    jcfg = tiny_jax_cfg(quant=JQuant(algo=algo, num_outliers=8,
+                                     group_size=32))
+    cfg = ModelConfig.from_dict(jcfg.to_dict())
+    rng = np.random.default_rng(7)
+    fl = {"qkv_proj": (64, jcfg.qkv_out), "o_proj": (64, 64),
+          "gate_up_proj": (64, 256), "down_proj": (128, 64)}
+    fl = {k: (rng.standard_normal(s) * 0.02).astype(np.float32)
+          for k, s in fl.items()}
+    fl["input_norm"] = fl["post_norm"] = np.ones(64, np.float32)
+    acts = act_scales(jcfg, seed=8)
+    jl = jllama._quantize_layer(jcfg, {k: jnp.asarray(v)
+                                       for k, v in fl.items()}, acts, 0)
+    tl = tllama._quantize_layer(cfg, {k: torch.from_numpy(v)
+                                      for k, v in fl.items()}, acts, 0)
+    assert "qweight_packed" in tl["down_proj"]
+    for mod in jl:
+        assert jl[mod].keys() == tl[mod].keys(), mod
+        for leaf in jl[mod]:
+            np.testing.assert_array_equal(
+                tl[mod][leaf].float().numpy(),
+                np.asarray(jl[mod][leaf], np.float32), err_msg=f"{mod}.{leaf}")
+
+
+def test_forward_paged_w4a16_unquantized_kv_matches_jax():
+    """w4a16 with packed weights over an unquantized (f32) pool: a prefill
+    chunk and a decode step against JAX's forward_paged."""
+    jcfg = tiny_jax_cfg(quant=JQuant(algo=JAlgo.W4A16))
+    jp = jllama.init_random_params(jcfg, jax.random.PRNGKey(9))
+    cfg = ModelConfig.from_dict(jcfg.to_dict())
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(10)
+    b, c = 2, 16
+    tokens = rng.integers(1, 256, (b, c)).astype(np.int32)
+    pos = np.tile(np.arange(c, dtype=np.int32), (b, 1))
+    lens = np.array([16, 11], np.int32)
+    dec_tok = rng.integers(1, 256, (b, 1)).astype(np.int32)
+    chunks = [(tokens, pos, lens, lens - 1),
+              (dec_tok, lens[:, None].astype(np.int32), lens + 1, None)]
+    for want, got in _run_both(jcfg, jp, cfg, tp, chunks):
+        assert got.shape == want.shape and np.isfinite(got).all()
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= LOGIT_TOL, err
+
+
 def test_rope_matches_jax():
     pos = np.arange(40, dtype=np.int32).reshape(2, 20) * 7
     for scaling in (dict(), dict(rope_scaling_type="llama3",

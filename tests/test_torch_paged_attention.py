@@ -3,7 +3,8 @@
 Pallas kernels in interpret mode (2e-2: those round q and p to bf16 and
 emit bf16) and against the JAX gather path in f32 (1e-5). Covers GQA,
 recycled block_pos tables, window + sink, softcap and fully masked lanes
-(which the kernels return as 0)."""
+(which the kernels return as 0). Unquantized bf16 pages (no scales, JAX's
+quantized=False mode) against the same kernels, 2e-2."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,6 +131,55 @@ def test_prefill_plain_vs_jax(hq, hkv, window, sink, softcap):
     ref, _ = _gather_ref(q, pool, table, bpos, qpos, lens, scale, window,
                          sink, softcap)
     np.testing.assert_allclose(got[valid], ref[valid], atol=1e-5, rtol=1e-5)
+
+
+def _bf16_pool(seed, hkv):
+    """bf16 K/V pages: (JAX arrays, torch tensors) of the same values,
+    small enough that the JAX kernels' bf16 output rounds within 2e-2."""
+    rng = np.random.default_rng(seed)
+    pages = [jnp.asarray(rng.standard_normal((NP_, hkv, BS, D)) * 0.5,
+                         jnp.bfloat16) for _ in range(2)]
+    return pages, [torch.from_numpy(np.asarray(p, np.float32)).bfloat16()
+                   for p in pages]
+
+
+@pytest.mark.parametrize("hq,hkv,window,sink,softcap",
+                         [CASES[1], CASES[2], CASES[3]])
+def test_bf16_pages_plain_vs_jax(hq, hkv, window, sink, softcap):
+    """K7 and K8 on bf16 pools: the plain versions against the JAX kernels
+    in their quantized=False mode (interpret)."""
+    rng = np.random.default_rng(hq + hkv + 7)
+    (jk, jv), (tk, tv) = _bf16_pool(3, hkv)
+    scale = D ** -0.5
+    kw = dict(window=window, sink=sink, softcap=softcap)
+    lens = np.array([27, 1, 9, 32], np.int32)
+    table, bpos = _tables([27, 0, 9, 32], recycled=3)
+    q = rng.standard_normal((4, hq, D)).astype(np.float32)
+    got = tpa.paged_decode_attention(_t(q), tk, tv, None, None, _t(table),
+                                     _t(lens), scale, block_pos=_t(bpos),
+                                     **kw).numpy()
+    assert np.all(got[1] == 0.0)
+    want = np.asarray(j_decode(jnp.asarray(q), jk, jv, None, None,
+                               jnp.asarray(table), jnp.asarray(lens), scale,
+                               block_pos=jnp.asarray(bpos), interpret=True,
+                               **kw), np.float32)
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+
+    c = 16
+    qstart = np.array([0, 16, 0, 8], np.int32)
+    lens = np.array([11, 30, 0, 24], np.int32)
+    table, bpos = _tables([11, 30, 0, 24], recycled=1)
+    q = rng.standard_normal((4, c, hq, D)).astype(np.float32)
+    got = tpa.paged_prefill_attention(_t(q), tk, tv, None, None, _t(table),
+                                      _t(qstart), _t(lens), scale,
+                                      block_pos=_t(bpos), **kw).numpy()
+    valid = (qstart[:, None] + np.arange(c)[None]) < lens[:, None]
+    want = np.asarray(j_prefill(jnp.asarray(q), jk, jv, None, None,
+                                jnp.asarray(table), jnp.asarray(qstart),
+                                jnp.asarray(lens), scale,
+                                block_pos=jnp.asarray(bpos), interpret=True,
+                                **kw), np.float32)
+    np.testing.assert_allclose(got[valid], want[valid], atol=2e-2, rtol=0)
 
 
 def test_cuda_kernel_geometry_checked():

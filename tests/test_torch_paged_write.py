@@ -1,7 +1,8 @@
 """Port parity: the plain versions of the paged KV write kernels K5
-(paged_write_token) and K6 (paged_write_chunk), the kv_cache write routing
+(paged_write_token) and K6 (paged_write_chunk), and of K5p / K6p (the same
+writes into unquantized f32 or bf16 pools), the kv_cache write routing
 and the block manager, against the JAX package. The JAX kernels run in
-interpret mode. int8 pages and scales must be bit-exact everywhere but the
+interpret mode. Pages and scales must be bit-exact everywhere but the
 trash row 0."""
 
 import jax.numpy as jnp
@@ -110,6 +111,85 @@ def test_paged_write_routing_matches_jax(s, start, windowed):
     nk, nv = _new(7, (b, s, H, D)), _new(8, (b, s, H, D))
     want = jkv.paged_write(_jax(pools), jnp.asarray(table), jnp.asarray(pos),
                            jnp.asarray(nk), jnp.asarray(nv), True,
+                           valid=jnp.asarray(valid),
+                           block_pos=jnp.asarray(bpos), use_kernels=False)
+    got = tkv.paged_write(_torch(pools), torch.from_numpy(table),
+                          torch.from_numpy(pos), torch.from_numpy(nk),
+                          torch.from_numpy(nv),
+                          valid=torch.from_numpy(valid),
+                          block_pos=torch.from_numpy(bpos))
+    _assert_equal_outside_trash({k: v.numpy() for k, v in got.items()}, want)
+
+
+def _fp_pools(seed, dtype):
+    """Unquantized pools as f32 numpy arrays holding values of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    return {n: np.asarray(jnp.asarray(rng.standard_normal((NP_, H, BS, D)),
+                                      dtype), np.float32) for n in "kv"}
+
+
+def _both(pools, dtype):
+    """The same pools for JAX (of ``dtype``) and the port (torch dtype)."""
+    tdt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[dtype]
+    return ({k: jnp.asarray(v, dtype) for k, v in pools.items()},
+            {k: torch.from_numpy(v.copy()).to(tdt) for k, v in pools.items()})
+
+
+def _np32(pools):
+    return {k: np.asarray(v, np.float32) if not isinstance(v, torch.Tensor)
+            else v.float().numpy() for k, v in pools.items()}
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fp_token_and_chunk_write_bitexact(dtype):
+    """K5p / K6p plain versions against JAX's _write_kernel_plain /
+    _chunk_kernel_plain: f32 values cast into f32 or bf16 pools, the chunk
+    with its trash, inactive-lane and misaligned-slab rules."""
+    pools = _fp_pools(10, dtype)
+    pg = np.array([3, 0, 7, 5], np.int32)
+    off = np.array([0, 4, 7, 2], np.int32)
+    nk, nv = _new(11, (4, H, D)), _new(12, (4, H, D))
+    jp, tp = _both(pools, dtype)
+    want = j_token(jp, jnp.asarray(pg), jnp.asarray(off), jnp.asarray(nk),
+                   jnp.asarray(nv), interpret=True)
+    got = tpw.paged_write_token(tp, torch.from_numpy(pg),
+                                torch.from_numpy(off), torch.from_numpy(nk),
+                                torch.from_numpy(nv))
+    assert got["k"].dtype == tp["v"].dtype and "k_scale" not in got
+    _assert_equal_outside_trash(_np32(got), _np32(want))
+
+    b, s = 3, 2 * BS
+    blk = np.zeros((b, s), np.int32)
+    off = np.tile(np.arange(s) % BS, (b, 1)).astype(np.int32)
+    blk[0, :BS], blk[0, BS:] = 2, 4
+    blk[0, BS + 3:] = 0                  # prompt ends inside slab 2
+    blk[2, :BS], blk[2, BS:] = 6, 8
+    off[2, BS:] = (off[2, BS:] + 1) % BS  # misaligned slab: dropped
+    nk, nv = _new(13, (b, s, H, D)), _new(14, (b, s, H, D))
+    jp, tp = _both(pools, dtype)
+    want = j_chunk(jp, jnp.asarray(blk), jnp.asarray(off), jnp.asarray(nk),
+                   jnp.asarray(nv), interpret=True)
+    got = _np32(tpw.paged_write_chunk(tp, torch.from_numpy(blk),
+                                      torch.from_numpy(off),
+                                      torch.from_numpy(nk),
+                                      torch.from_numpy(nv)))
+    _assert_equal_outside_trash(got, _np32(want))
+    np.testing.assert_array_equal(got["k"][8], _np32(pools)["k"][8])
+
+
+@pytest.mark.parametrize("s,start", [(1, 13), (16, 8), (11, 3)])
+def test_fp_paged_write_routing_matches_jax(s, start):
+    """Unquantized pools through kv_cache.paged_write: K5p, K6p and the
+    scatter, against JAX's unquantized write path."""
+    pools = _fp_pools(15, jnp.float32)
+    table = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    bpos = np.array([[0, 8, 16, 24], [0, 24, 8, 16]], np.int32)
+    pos = start + np.arange(s, dtype=np.int32)[None].repeat(2, 0)
+    lens = np.array([start + s, start + max(s - 2, 0)], np.int32)
+    valid = pos < lens[:, None]
+    nk, nv = _new(16, (2, s, H, D)), _new(17, (2, s, H, D))
+    want = jkv.paged_write(_jax(pools), jnp.asarray(table), jnp.asarray(pos),
+                           jnp.asarray(nk), jnp.asarray(nv), False,
                            valid=jnp.asarray(valid),
                            block_pos=jnp.asarray(bpos), use_kernels=False)
     got = tkv.paged_write(_torch(pools), torch.from_numpy(table),

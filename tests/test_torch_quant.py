@@ -95,6 +95,13 @@ def test_make_mix_artifact_bitexact():
                                       _np(getattr(ja, name)), err_msg=name)
     np.testing.assert_array_equal(ta.fp_weight.float().numpy(),
                                   _np(ja.fp_weight).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="int4"):
+    ja4 = jcore.make_mix_artifact(jnp.asarray(w), jnp.asarray(act), 16,
+                                  bits=4)
+    ta4 = tcore.make_mix_artifact(torch.from_numpy(w), torch.from_numpy(act),
+                                  16, bits=4)
+    for name in ("qweight", "scale_col", "fp_ind"):
+        np.testing.assert_array_equal(getattr(ta4, name).numpy(),
+                                      _np(getattr(ja4, name)), err_msg=name)
+    with pytest.raises(ValueError, match="bits"):
         tcore.make_mix_artifact(torch.from_numpy(w), torch.from_numpy(act),
-                                16, bits=4)
+                                16, bits=3)
