@@ -40,7 +40,25 @@ exits non-zero:
      KV, w4a16_g (groups of 128) + int8 KV and int4_mix (128 outliers) +
      bf16 KV, each with the kernels it must launch, and negative controls
      in K12's, K13's and K5p's calls
-  6. a `kernels` JSON line, the nvidia-smi line, then the result line.
+  6. speculative serving at full width: the phase-4 model (32 layers)
+     serves the same requests through run_speculative, gamma 4, a draft of
+     its first 4 layers, 8 rounds a call; K9 (verify), K7 (draft steps) and
+     K1 -> K2 (the 5-row verify's linears) must launch, the device-paced
+     rounds must run with one host readback a call
+  6b. split decode on the main path: the phase-4 model serves with
+     MIXQ_KV_SPLITS=4; K11 (and its K10) must launch at decode, K7 not
+  7. cross-device, 2 layers at full width: one verify forward's logits at
+     S = 4 and S = 5 over a short context, one decode step's with
+     MIXQ_KV_SPLITS=4, card against CPU; and a fault in K9's row
+     positions (every row at qstart) as a control
+  8. a `kernels` JSON line, the nvidia-smi line, then the result line.
+
+Phase 3 also holds K9 (verify rows: 8 lanes at S = 4 and 5, and S = 8 at
+8 query heads a KV head, the largest shared-memory case; at S = 1
+bit-equal to K7), K10 (out within 2e-2, m and l within 1e-3 relative of
+the plain stats) and K11 (splits 2 and 4 at 8 lanes and at 1 lane x 4096
+tokens, against K7 and its plain version) on int8 and bf16 pages at
+Llama-2-7B heads, and K1 -> K2 at the 40 rows of a gamma = 4 verify.
 """
 
 from __future__ import annotations
@@ -54,7 +72,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-ATTN_TOL = 2e-2       # K7/K8 against their plain f32 versions (bf16 output)
+ATTN_TOL = 2e-2       # K7-K11 against their plain f32 versions (bf16 output)
+STATS_RTOL = 1e-3     # K10's m and l against the plain stats
 GEMM_TOL = 1e-4       # K2-K4, K12, K13 vs plain: f32 sums in another order,
                       # of the largest |output|
 XDEV_TOL = 5e-2       # phases 5 and 5b, relative to the largest |logit|
@@ -83,6 +102,18 @@ KERNELS = {
                                 "paged_attention.cu"),
     "paged_prefill_attention_fp": (JOPS + "paged_attention.py:307",
                                    "paged_attention.cu"),
+    "paged_verify_attention": (JOPS + "paged_attention.py:70",
+                               "paged_attention.cu"),
+    "paged_verify_attention_fp": (JOPS + "paged_attention.py:70",
+                                  "paged_attention.cu"),
+    "paged_decode_attention_stats": (JOPS + "paged_attention.py:70",
+                                     "paged_attention.cu"),
+    "paged_decode_attention_stats_fp": (JOPS + "paged_attention.py:70",
+                                        "paged_attention.cu"),
+    "paged_decode_attention_split": (JOPS + "paged_attention.py:483",
+                                     "paged_attention.cu"),
+    "paged_decode_attention_split_fp": (JOPS + "paged_attention.py:483",
+                                        "paged_attention.cu"),
 }
 # the kernels each main path must launch (K3, the hybrid schedule's
 # epilogue, is on neither: as in the JAX package, where only its kernel
@@ -94,9 +125,22 @@ ON_PATH = {
     "13b": ["wo_matmul_packed", "wo_matmul", "paged_write_token_fp",
             "paged_write_chunk_fp", "paged_decode_attention_fp",
             "paged_prefill_attention_fp"],
+    # phase 6: the verify (K9; gamma 4 = 5 rows, so K1 -> K2), the draft's
+    # steps (K7, K4, K5) and prefill, the target's prefill and steps
+    "spec": ["paged_verify_attention", "paged_decode_attention",
+             "rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+             "paged_write_token", "paged_write_chunk",
+             "paged_prefill_attention"],
+    # phase 6b: every decode step through K11 (one K10 launch each)
+    "split": ["paged_decode_attention_split", "paged_decode_attention_stats",
+              "rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+              "paged_write_token", "paged_write_chunk",
+              "paged_prefill_attention"],
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
-                              "wo_matmul_packed_grouped"]}
+                              "wo_matmul_packed_grouped"],
+            "spec": [], "split": ["paged_decode_attention"]}
+DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 
 
 def fail(msg: str) -> None:
@@ -130,30 +174,36 @@ def device_ms(torch, fn, iters: int, kernel: str = "",
               counter: str = "") -> float:
     """Device time per call of `fn`: the summed duration of the device
     activity (kernels, copies) that `iters` calls launch, traced by
-    torch.profiler after a warm-up. With `kernel` and `counter` (a wrapper's
-    launch-count name), the wrapper must count exactly one launch per call,
-    only the kernels whose name holds `kernel` count, and the time is per
-    traced launch: the tracer drops a few events now and then (3 of 20
-    seen)."""
+    torch.profiler after a warm-up. With `counter` (a wrapper's
+    launch-count name) the wrapper must count exactly one launch per call;
+    with `kernel` only the kernels whose name holds it count, and the time
+    is per traced launch: the tracer drops a few events now and then (3 of
+    20 seen)."""
     from mixq_tensorrt_llm_tpu_torch.ops import _build
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    before = _build.LAUNCHES.get(counter, 0)
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and kernel in e.name]
+    # now and then the tracer returns no device activity at all for a
+    # window: trace it again, up to three times
+    for _ in range(3):
+        before = _build.LAUNCHES.get(counter, 0)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.name]
+        if evs:
+            break
     check(len(evs) > 0, f"torch.profiler traced no device time ({kernel})")
-    if kernel:
+    if counter:
         launched = _build.LAUNCHES.get(counter, 0) - before
         check(launched == iters, f"{counter}: {launched} launches counted "
               f"for {iters} calls")
+    if kernel:
         check(len(evs) <= iters, f"{kernel}: {len(evs)} launches traced "
               f"for {iters} calls")
         iters = len(evs)
@@ -454,6 +504,252 @@ def check_attention(torch, gen, dev, results, fp: bool = False):
                              bound=bnd)
 
 
+def _rel(got, want) -> float:
+    """max |got - want| relative to max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_decode_modes(torch, gen, dev, results):
+    """K9, K10 and K11 at Llama-2-7B heads (Hq 32: MHA and Hkv 8) on int8
+    and bf16 pages, 8 lanes of lengths 1-700 as K7's check (lane 1
+    inactive, lane 3 recycled); then K9 at S = 8 with 8 query heads a KV
+    head (Hkv 4: 64 rows, the largest shared memory the main path's
+    geometry asks for) and K7 against K11 on 1 lane of 4096 tokens. The
+    kernels line carries MHA, S = 5 (gamma 4) for K9, splits 4 for K11."""
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    bs, d, hq, np_, b, mb = 128, 128, 32, 128, 8, 6
+    scale = d ** -0.5
+    lens = [700, 1, 256, 640, 129, 513, 384, 300]
+    masks = ((0, 0, 0.0), (256, 128, 0.0), (0, 0, 30.0))
+    for fp in (False, True):
+        sfx, pages = ("_fp", "bf16") if fp else ("", "int8")
+        tok_b = 2 * d * 2 if fp else 2 * d + 8
+        worst = {n + sfx: 0.0 for n in ("paged_verify_attention",
+                                        "paged_decode_attention_stats",
+                                        "paged_decode_attention_split")}
+        for hkv in (hq, 8):
+            pools = make_pools(torch, gen, dev, np_, hkv, bs, d, fp)
+            args = (pools["k"], pools["v"], pools.get("k_scale"),
+                    pools.get("v_scale"))
+            table, bpos = _attn_tables(torch, gen, dev, b, mb, bs, np_,
+                                       lens, 3)
+            table[1] = 0
+            bpos[1] = 1 << 30
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            visited = int((bpos < lens_t[:, None]).sum())
+            tab_b = b * mb * 8 + b * 4
+            pages_b = visited * hkv * bs * tok_b
+            tag = f"{pages} Hq={hq} Hkv={hkv}"
+
+            # K9: the rows of a gamma = 3 / gamma = 4 verify, ending at
+            # each lane's last key
+            for s_rows in (4, 5):
+                q = torch.randn((b, s_rows, hq, d), generator=gen,
+                                device=dev).bfloat16()
+                qs = torch.clamp(lens_t - s_rows, min=0)
+                pos = qs[:, None] + torch.arange(s_rows, device=dev)
+                for window, sink, softcap in masks:
+                    kw = dict(block_pos=bpos, window=window, sink=sink,
+                              softcap=softcap)
+                    out = pa.paged_verify_attention(q, *args, table, lens_t,
+                                                    qs, scale, **kw)
+                    ref = pa.paged_attention_plain(q, *args, table, pos,
+                                                   lens_t, scale, **kw)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(out).all()),
+                          "K9 output not finite")
+                    check(bool((out[1] == 0).all()),
+                          "K9 inactive lane is not 0")
+                    err = float((out.float() - ref.float()).abs().max())
+                    check(err <= ATTN_TOL, f"K9 {tag} S={s_rows} window="
+                          f"{window} softcap={softcap}: max abs err {err}")
+                    worst["paged_verify_attention" + sfx] = max(
+                        worst["paged_verify_attention" + sfx], err)
+                print(f"K9 paged_verify_attention {tag} S={s_rows} (3 "
+                      f"masks): max abs err {err:.3e} (last)", flush=True)
+                kw = dict(block_pos=bpos)
+                ms, pms, wms = measure(
+                    torch, lambda: pa.paged_verify_attention(
+                        q, *args, table, lens_t, qs, scale, **kw),
+                    lambda: pa.paged_attention_plain(
+                        q, *args, table, pos, lens_t, scale, **kw),
+                    "verify_kernel", "paged_verify_attention" + sfx, 200, 20)
+                keys = int(torch.minimum(pos + 1, lens_t[:, None]).sum())
+                bnd = bound(pages_b + 2 * b * s_rows * hq * d * 2 + tab_b
+                            + b * 4, 4.0 * hq * d * keys)
+                print(f"K9 timing {tag} S={s_rows} pages={visited}: device "
+                      f"{ms:.5f} ms per launch (plain {pms:.5f} ms; wrapper "
+                      f"{wms:.5f} ms per call; bound {bnd[0]:.5f} ms)",
+                      flush=True)
+                if hkv == hq and s_rows == 5:
+                    results["paged_verify_attention" + sfx] = dict(
+                        ms=ms, plain_ms=pms, bound=bnd)
+
+            # K9 at S = 1 is K7, bit for bit
+            q = torch.randn((b, hq, d), generator=gen, device=dev).bfloat16()
+            for window, sink, softcap in masks:
+                kw = dict(block_pos=bpos, window=window, sink=sink,
+                          softcap=softcap)
+                k7 = pa.paged_decode_attention(q, *args, table, lens_t,
+                                               scale, **kw)
+                k9 = pa.paged_verify_attention(q[:, None], *args, table,
+                                               lens_t, lens_t - 1, scale,
+                                               **kw)[:, 0]
+                torch.cuda.synchronize()
+                check(torch.equal(k7, k9), f"K9 at S=1 differs from K7 "
+                      f"({tag}, window={window}, softcap={softcap})")
+            print(f"K9 at S=1 {tag}: bit-equal to K7 (3 masks)", flush=True)
+
+            # K10: out, and (m, l) against the plain stats
+            for window, sink, softcap in masks:
+                kw = dict(block_pos=bpos, window=window, sink=sink,
+                          softcap=softcap)
+                out, m, l = pa.paged_decode_attention(
+                    q, *args, table, lens_t, scale, stats=True, **kw)
+                po, pm, pl = pa.paged_decode_attention_stats_plain(
+                    q, *args, table, lens_t, scale, **kw)
+                torch.cuda.synchronize()
+                live = lens_t > 1
+                err = float((out - po).abs().max())
+                mrel, lrel = _rel(m[live], pm[live]), _rel(l[live], pl[live])
+                check(out.dtype == m.dtype == torch.float32,
+                      "K10 outputs are not f32")
+                check(err <= ATTN_TOL and mrel <= STATS_RTOL
+                      and lrel <= STATS_RTOL,
+                      f"K10 {tag} window={window} softcap={softcap}: out "
+                      f"{err}, m {mrel}, l {lrel}")
+                check(bool((out[1] == 0).all()) and bool((m[1] == -1e30)
+                                                         .all())
+                      and bool((l[1] == 0).all()),
+                      "K10 inactive lane is not (0, -1e30, 0)")
+                worst["paged_decode_attention_stats" + sfx] = max(
+                    worst["paged_decode_attention_stats" + sfx], err)
+            print(f"K10 paged_decode_attention(stats) {tag} (3 masks): out "
+                  f"max abs err {err:.3e}, m max rel {mrel:.2e}, l max rel "
+                  f"{lrel:.2e} (last)", flush=True)
+            kw = dict(block_pos=bpos)
+            ms, pms, wms = measure(
+                torch, lambda: pa.paged_decode_attention(
+                    q, *args, table, lens_t, scale, stats=True, **kw),
+                lambda: pa.paged_decode_attention_stats_plain(
+                    q, *args, table, lens_t, scale, **kw),
+                "decode_stats_kernel", "paged_decode_attention_stats" + sfx,
+                200, 20)
+            keys = sum(lens)
+            bnd = bound(pages_b + b * hq * d * (2 + 4) + 2 * b * hq * 4
+                        + tab_b, 4.0 * hq * d * keys)
+            print(f"K10 timing {tag}: device {ms:.5f} ms per launch (plain "
+                  f"{pms:.5f} ms; wrapper {wms:.5f} ms per call; bound "
+                  f"{bnd[0]:.5f} ms)", flush=True)
+            if hkv == hq:
+                results["paged_decode_attention_stats" + sfx] = dict(
+                    ms=ms, plain_ms=pms, bound=bnd)
+
+            # K11: splits 2 and 4 against K7 and the plain split
+            k7 = pa.paged_decode_attention(q, *args, table, lens_t, scale,
+                                           block_pos=bpos)
+            for splits in (2, 4):
+                out = pa.paged_decode_attention_split(
+                    q, *args, table, lens_t, scale, block_pos=bpos,
+                    kv_splits=splits)
+                ref = pa.paged_decode_attention_split_plain(
+                    q, *args, table, lens_t, scale, block_pos=bpos,
+                    kv_splits=splits)
+                torch.cuda.synchronize()
+                err = max(float((out.float() - ref.float()).abs().max()),
+                          float((out.float() - k7.float()).abs().max()))
+                check(err <= ATTN_TOL and bool((out[1] == 0).all()),
+                      f"K11 {tag} splits={splits}: max abs err {err}")
+                worst["paged_decode_attention_split" + sfx] = max(
+                    worst["paged_decode_attention_split" + sfx], err)
+                print(f"K11 paged_decode_attention_split {tag} splits="
+                      f"{splits}: max abs err {err:.3e} against plain and "
+                      f"K7", flush=True)
+            kw = dict(block_pos=bpos, kv_splits=4)
+            # device time of the whole call: K10 over 4 splits + the merge
+            ms, pms, wms = measure(
+                torch, lambda: pa.paged_decode_attention_split(
+                    q, *args, table, lens_t, scale, **kw),
+                lambda: pa.paged_decode_attention_split_plain(
+                    q, *args, table, lens_t, scale, **kw),
+                "", "paged_decode_attention_split" + sfx, 200, 20)
+            bnd = bound(pages_b + 2 * b * hq * d * 2 + tab_b,
+                        4.0 * hq * d * keys)
+            print(f"K11 timing {tag} splits=4: device {ms:.5f} ms per call "
+                  f"(K10 + merge; plain {pms:.5f} ms; wrapper {wms:.5f} ms "
+                  f"per call; bound {bnd[0]:.5f} ms, K7's)", flush=True)
+            if hkv == hq:
+                results["paged_decode_attention_split" + sfx] = dict(
+                    ms=ms, plain_ms=pms, bound=bnd)
+        for name, err in worst.items():
+            results[name]["max_abs_err"] = err
+
+    # K9 at S = 8 and 8 query heads a KV head: 64 rows, 99 KB of shared
+    # memory a block
+    hkv, s_rows = 4, 8
+    pools = make_pools(torch, gen, dev, np_, hkv, bs, d)
+    args = (pools["k"], pools["v"], pools["k_scale"], pools["v_scale"])
+    table, bpos = _attn_tables(torch, gen, dev, b, mb, bs, np_, lens, 3)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, s_rows, hq, d), generator=gen, device=dev).bfloat16()
+    qs = torch.clamp(lens_t - s_rows, min=0)
+    pos = qs[:, None] + torch.arange(s_rows, device=dev)
+    out = pa.paged_verify_attention(q, *args, table, lens_t, qs, scale,
+                                    block_pos=bpos)
+    ref = pa.paged_attention_plain(q, *args, table, pos, lens_t, scale,
+                                   block_pos=bpos)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= ATTN_TOL, f"K9 S=8 Hq=32 Hkv=4: max abs err {err}")
+    print(f"K9 paged_verify_attention int8 S=8 Hq={hq} Hkv={hkv} (64 rows, "
+          f"{(2 * 64 * d + 64 * bs + 3 * 64) * 4} bytes of shared memory): "
+          f"max abs err {err:.3e}", flush=True)
+
+    # 1 lane x 4096 tokens: K7's 32 blocks against K11's 32 x splits
+    for fp in (False, True):
+        pages = "bf16" if fp else "int8"
+        sfx = "_fp" if fp else ""
+        mb1 = 4096 // bs
+        pools = make_pools(torch, gen, dev, np_, hq, bs, d, fp)
+        args = (pools["k"], pools["v"], pools.get("k_scale"),
+                pools.get("v_scale"))
+        table, bpos = _attn_tables(torch, gen, dev, 1, mb1, bs, np_, [4096],
+                                   None)
+        lens_t = torch.tensor([4096], dtype=torch.int32, device=dev)
+        q = torch.randn((1, hq, d), generator=gen, device=dev).bfloat16()
+        k7 = pa.paged_decode_attention(q, *args, table, lens_t, scale,
+                                       block_pos=bpos)
+        k7_ms = device_ms(torch, lambda: pa.paged_decode_attention(
+            q, *args, table, lens_t, scale, block_pos=bpos), 200,
+            "decode_kernel", "paged_decode_attention" + sfx)
+        line = []
+        for splits in (2, 4):
+            kw = dict(block_pos=bpos, kv_splits=splits)
+            out = pa.paged_decode_attention_split(q, *args, table, lens_t,
+                                                  scale, **kw)
+            ref = pa.paged_decode_attention_split_plain(
+                q, *args, table, lens_t, scale, **kw)
+            torch.cuda.synchronize()
+            err = max(float((out.float() - ref.float()).abs().max()),
+                      float((out.float() - k7.float()).abs().max()))
+            check(err <= ATTN_TOL, f"K11 1 x 4096 {pages} splits={splits}: "
+                  f"max abs err {err}")
+            call_ms = device_ms(torch, lambda: pa.paged_decode_attention_split(
+                q, *args, table, lens_t, scale, **kw), 200, "",
+                "paged_decode_attention_split" + sfx)
+            k10_ms = device_ms(
+                torch, lambda: pa.paged_decode_attention_split(
+                    q, *args, table, lens_t, scale, **kw), 200,
+                "decode_stats_kernel", "paged_decode_attention_stats" + sfx)
+            line.append(f"K11 splits={splits} ({32 * splits} blocks) "
+                        f"{call_ms:.5f} ms a call, its K10 {k10_ms:.5f} ms "
+                        f"(err {err:.2e})")
+        nbytes = mb1 * hq * bs * (2 * d * 2 if fp else 2 * d + 8)
+        print(f"1 lane x 4096 tokens, {pages} pages, Hq=Hkv={hq}: K7 (32 "
+              f"blocks) {k7_ms:.5f} ms; {'; '.join(line)}; bound "
+              f"{nbytes / HBM_BYTES_PER_MS:.5f} ms", flush=True)
+
+
 def check_linears(torch, gen, dev, results):
     """K1-K4 at the main path's Llama-2-7B shapes: a prefill call has up
     to 4 lanes x 256 tokens = 1024 rows, a decode step 8 rows."""
@@ -554,6 +850,31 @@ def check_linears(torch, gen, dev, results):
               f"ms, int32 product included; wrapper {wms:.5f} ms with its "
               f"torch._int_mm; bound {bnd[0]:.5f} ms)", flush=True)
         del got, exact
+
+    # the gamma = 4 verify: 8 lanes x 5 rows = 40 rows through K1 -> K2
+    # (prefill chunks give K2 block-size multiples; these are not)
+    m40 = 40
+    x40 = x[:m40].contiguous()
+    got, want = (nq.rmsnorm_quant_split(x40, gamma, ind),
+                 nq.rmsnorm_quant_split_plain(x40, gamma, ind))
+    diff = int((got[0].int() - want[0].int()).abs().max())
+    check(diff <= 1, f"K1 at M={m40}: codes {diff} apart")
+    for label, n in (("qkv", 12288), ("o_proj", 4096), ("gate_up", 22016)):
+        qw = torch.randint(-127, 128, (h, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
+        fpw = (torch.randn((ko, n), generator=gen, device=dev) * 0.02).to(bf)
+        args = (*got, qw, scol, fpw)
+        k2 = (lambda: mm.mixed_matmul(*args),
+              lambda: mm.mixed_matmul_plain(*args))
+        err = gemm_err(k2[0](), k2[1]())
+        check(err <= gemm_tol(bf), f"K2 {label} M={m40}: rel err {err}")
+        ms, pms, wms = measure(torch, *k2, "mixed_matmul_kernel",
+                               "mixed_matmul", 50, 10)
+        print(f"K2 mixed_matmul {label} M={m40} K={h} N={n}: max rel err "
+              f"{err:.2e}; device {ms:.5f} ms per launch (plain {pms:.5f} "
+              f"ms; wrapper {wms:.5f} ms); K1 codes at most {diff} apart",
+              flush=True)
 
     # K4: every decode linear at 8 lanes, then prefill's down_proj
     step_ms = 0.0
@@ -690,26 +1011,52 @@ def check_packed(torch, gen, dev, results):
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
+class kv_splits:
+    """MIXQ_KV_SPLITS set to ``n`` inside the block, restored after."""
+
+    def __init__(self, n: int):
+        self.n, self.old = n, None
+
+    def __enter__(self):
+        self.old = os.environ.get("MIXQ_KV_SPLITS")
+        os.environ["MIXQ_KV_SPLITS"] = str(self.n)
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("MIXQ_KV_SPLITS", None)
+        else:
+            os.environ["MIXQ_KV_SPLITS"] = self.old
+
+
 def serve(torch, params, cfg, seed: int, dev, path: str):
     """Serve the 8 requests through the Executor with every launch count
     at 0 just before and read just after; check the kernels of ``path``
-    ("7b" or "13b") launched and those it must not use did not."""
+    ("7b", "13b", "spec": run_speculative with a draft of the first
+    DRAFT_LAYERS layers, or "split": MIXQ_KV_SPLITS=4) launched and those
+    it must not use did not. Returns (launches, finished requests by id,
+    request ids)."""
     from mixq_tensorrt_llm_tpu_torch.ops import _build
     from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
     prompts = sp.ragged_prompts(seed, cfg.vocab_size)
+    spec = ((*sp.draft_model(params, cfg, DRAFT_LAYERS), GAMMA)
+            if path == "spec" else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    done, ids, wall, prefill_s = sp.serve(params, cfg, prompts, seed, dev)
+    with kv_splits(4 if path == "split" else 0):
+        done, ids, wall, prefill_s, ex = sp.serve(params, cfg, prompts, seed,
+                                                  dev, spec)
     launches = dict(_build.LAUNCHES)
     gen_total = sum(len(done[r].generated) for r in ids)
     check(all(done[r].done and len(done[r].generated) == 32 for r in ids),
-          "not every request finished with 32 tokens")
-    check(all(math.isfinite(lp) for r in ids for lp in done[r].logprobs),
-          "non-finite logits on the main path")
+          f"{path}: not every request finished with 32 tokens")
+    check(all(len(done[r].logprobs) == 32 for r in ids)
+          and all(math.isfinite(lp) for r in ids for lp in done[r].logprobs),
+          f"{path}: not every token has a finite log-probability")
     print(f"main path {path}: 8 requests, prompts "
           f"{[len(p) for p in prompts]} tokens, 32 generated each; wall "
-          f"{wall:.3f} s = prefill {prefill_s:.3f} s + decode "
+          f"{wall:.3f} s = prefill {prefill_s:.3f} s + "
+          f"{'speculative rounds' if spec else 'decode'} "
           f"{wall - prefill_s:.3f} s; {gen_total / wall:.1f} generated "
           f"tok/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -728,19 +1075,34 @@ def serve(torch, params, cfg, seed: int, dev, path: str):
               f"K6 = {4 * token + chunk}), K3 "
               f"{launches.get('mixed_matmul_hybrid', 0)} (not on the path)",
               flush=True)
-    else:
+    elif path == "13b":
         print(f"main path launches against the per-layer counts: K12 "
               f"{launches.get('wo_matmul_packed', 0)} + K4 "
               f"{launches.get('wo_matmul', 0)} (4 x (K5p + K6p) = "
               f"{4 * (token + chunk)}: K12 where a call has <= 128 rows)",
               flush=True)
+    elif path == "spec":
+        check(ex.spec_rounds > 0 and ex.spec_calls > 0,
+              "phase 6: no speculative round ran")
+        check(ex.spec_readbacks <= ex.spec_calls,
+              f"phase 6: {ex.spec_readbacks} host readbacks for "
+              f"{ex.spec_calls} calls")
+        print(f"speculative: gamma {GAMMA}, draft = the first {DRAFT_LAYERS} "
+              f"of {cfg.num_layers} layers; {ex.spec_rounds} rounds in "
+              f"{ex.spec_calls} calls with {ex.spec_readbacks} host "
+              f"readbacks; acceptance "
+              f"{ex.spec_accepted / max(ex.spec_proposed, 1):.3f} "
+              f"({ex.spec_accepted} / {ex.spec_proposed} draft tokens); "
+              f"K9 {launches.get('paged_verify_attention', 0)} launches "
+              f"(one a layer a verify), K7 "
+              f"{launches.get('paged_decode_attention', 0)}", flush=True)
     for name in ON_PATH[path]:
         check(launches.get(name, 0) > 0,
               f"{name} was not launched on the main path {path}")
     for name in OFF_PATH[path]:
         check(launches.get(name, 0) == 0,
               f"{name} was launched on the main path {path}")
-    return launches
+    return launches, done, ids
 
 
 def cpu_copy(torch, params):
@@ -866,6 +1228,132 @@ def faults_7b(torch):
     ]
 
 
+# the K9 row-position control of phase 7 is enforced: it reads more than
+# ten times XDEV_TOL (PERF.md)
+K9_CONTROL_ENFORCED = True
+
+
+def rows_at_qstart(f):
+    """A K9 fault: every query row at position qstart (row 0's), so rows
+    1.. lose their own key and the draft keys before it."""
+    def faulty(q, kp, vp, ks, vs, tb, ln, qs, *a, **k):
+        import torch
+        return torch.cat([f(q[:, j:j + 1], kp, vp, ks, vs, tb, ln, qs, *a,
+                            **k) for j in range(q.shape[1])], dim=1)
+    return faulty
+
+
+def cross_device_verify(torch, params, cfg, seed: int, dev) -> dict:
+    """Phase 7, 2 layers at full width, card (kernels) against CPU (plain)
+    within XDEV_TOL: one verify forward's logits at S = 4 (weight-only
+    linears) and S = 5 (K1 -> K2) over a 24-token context, where one key
+    carries weight; one decode step's logits with MIXQ_KV_SPLITS=4 after a
+    200-token prompt (2 table entries padded to 4 splits). Then the
+    control: K9 with every row at qstart. Returns the card runs'
+    launches."""
+    import dataclasses
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    sub = {k: v for k, v in params.items() if k != "layers"}
+    sub["layers"] = params["layers"][:2]
+    cpu = torch.device("cpu")
+    sub_cpu = cpu_copy(torch, sub)
+    rng = np.random.default_rng(seed + 2)
+    ctx = 24
+    context = rng.integers(1, cfg.vocab_size, ctx)
+    rows = {s: rng.integers(1, cfg.vocab_size, s) for s in (4, 5)}
+    prompt = rng.integers(1, cfg.vocab_size, 200)
+    nxt = int(rng.integers(1, cfg.vocab_size))
+    total = {}
+
+    def add(seen):
+        for n, c in seen.items():
+            total[n] = total.get(n, 0) + c
+
+    def run(device, p, t, start, state, table, length):
+        t = torch.tensor(t, dtype=torch.int32, device=device)[None]
+        pos = start + torch.arange(t.shape[1], dtype=torch.int32,
+                                   device=device)[None]
+        return forward_paged(p, cfg2, t, pos, state,
+                             torch.tensor([table], dtype=torch.int32,
+                                          device=device),
+                             torch.tensor([length], dtype=torch.int32,
+                                          device=device))[0]
+
+    def verify_logits(device, p, s):
+        state = init_paged_kv(cfg2, 4, 128, device=device)
+        run(device, p, context, 0, state, [1], ctx)
+        _build.reset_launches()
+        out = run(device, p, rows[s], ctx, state, [1], ctx + s)
+        return out[0].float().cpu(), dict(_build.LAUNCHES)
+
+    def split_logits(device, p):
+        state = init_paged_kv(cfg2, 4, 128, device=device)
+        chunk = np.zeros(256, np.int64)
+        chunk[:200] = prompt
+        run(device, p, chunk, 0, state, [1, 2], 200)
+        _build.reset_launches()
+        with kv_splits(4):
+            out = run(device, p, [nxt], 200, state, [1, 2], 201)
+        return out[0, 0].float().cpu(), dict(_build.LAUNCHES)
+
+    must = {4: ("paged_verify_attention", "wo_matmul"),
+            5: ("paged_verify_attention", "rmsnorm_quant_split",
+                "mixed_matmul")}
+    plain = {}
+    for s in (4, 5):
+        plain[s], seen = verify_logits(cpu, sub_cpu, s)
+        check(not seen, "the CPU run launched a kernel")
+        card, seen = verify_logits(dev, sub, s)
+        add(seen)
+        check(bool(torch.isfinite(card).all()), "verify logits not finite")
+        for name in must[s]:
+            check(seen.get(name, 0) > 0, f"cross-device verify S={s}: "
+                  f"{name} was not launched")
+        rel = _rel(card, plain[s])
+        agree = bool((card.argmax(-1) == plain[s].argmax(-1)).all())
+        print(f"cross-device verify S={s} (2 layers, full width, {ctx}-token "
+              f"context): max |card - cpu| / max |cpu| = {rel:.3e} over the "
+              f"{s} rows (tolerance {XDEV_TOL}); argmax agrees on every row: "
+              f"{agree}; launches {json.dumps(seen)}", flush=True)
+        check(rel <= XDEV_TOL, f"verify S={s}: card vs CPU {rel} > "
+              f"{XDEV_TOL}")
+
+    want, seen = split_logits(cpu, sub_cpu)
+    card, seen = split_logits(dev, sub)
+    add(seen)
+    check(seen.get("paged_decode_attention_split", 0) > 0
+          and seen.get("paged_decode_attention_stats", 0) > 0
+          and seen.get("paged_decode_attention", 0) == 0,
+          f"split decode launched {json.dumps(seen)}")
+    rel = _rel(card, want)
+    print(f"cross-device split decode (MIXQ_KV_SPLITS=4, 200-token prompt): "
+          f"max |card - cpu| / max |cpu| = {rel:.3e} (tolerance {XDEV_TOL}); "
+          f"argmax agrees: {int(card.argmax()) == int(want.argmax())}; "
+          f"launches {json.dumps(seen)}", flush=True)
+    check(rel <= XDEV_TOL, f"split decode: card vs CPU {rel} > {XDEV_TOL}")
+
+    real = pa.paged_verify_attention
+    pa.paged_verify_attention = rows_at_qstart(real)
+    try:
+        r = max(_rel(verify_logits(dev, sub, s)[0], plain[s]) for s in (4, 5))
+    finally:
+        pa.paged_verify_attention = real
+    caught = not r <= XDEV_TOL
+    print(f"negative control, K9 with every row at qstart: {r:.3e} against "
+          f"tolerance {XDEV_TOL}: {'caught' if caught else 'not caught'}"
+          f"{'' if K9_CONTROL_ENFORCED else ' (a reading, not enforced)'}",
+          flush=True)
+    if K9_CONTROL_ENFORCED:
+        check(caught, "the cross-device check misses a K9 row-position "
+              "fault")
+    return total
+
+
 def cross_device_13b(torch, seed: int, dev):
     """Phase 5b: three 2-layer models at Llama-2-13B width, random weights
     from ``seed``, each with the kernels it must launch and its controls,
@@ -968,6 +1456,7 @@ def main() -> int:
     t = time.perf_counter()
     check_writes(torch, gen, dev, results)
     check_attention(torch, gen, dev, results)
+    check_decode_modes(torch, gen, dev, results)
     check_linears(torch, gen, dev, results)
     check_writes(torch, gen, dev, results, fp=True)
     check_attention(torch, gen, dev, results, fp=True)
@@ -984,14 +1473,34 @@ def main() -> int:
     print(f"model: {cfg.num_layers} layers at Llama-2-7B width, int8_mix "
           f"(128 outliers) / int8 KV, random weights in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    launches = {"7b": serve(torch, params, cfg, args.seed, dev, "7b")}
+    launches, done, ids = {}, {}, {}
+    launches["7b"], done["7b"], ids["7b"] = serve(torch, params, cfg,
+                                                  args.seed, dev, "7b")
 
     # 5. cross-device
     xdev = cross_device(torch, params, cfg, args.seed, dev,
                         "7b int8_mix + int8 KV", faults_7b(torch))
+    print(f"phases 4-5: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 6. speculative serving, 6b. split decode, on the phase-4 model
+    t = time.perf_counter()
+    for path in ("spec", "split"):
+        launches[path], done[path], ids[path] = serve(
+            torch, params, cfg, args.seed, dev, path)
+        same = sum(a == b for r, q in zip(ids["7b"], ids[path])
+                   for a, b in zip(done["7b"][r].generated,
+                                   done[path][q].generated))
+        print(f"main path {path}: {same} of {32 * len(ids[path])} tokens "
+              f"equal to phase 4's at the same position (a reading: other "
+              f"kernels round bf16 differently)", flush=True)
+
+    # 7. cross-device: verify rows and split decode
+    for n, c in cross_device_verify(torch, params, cfg, args.seed,
+                                    dev).items():
+        xdev[n] = xdev.get(n, 0) + c
     del params
     torch.cuda.empty_cache()
-    print(f"phases 4-5: {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phases 6-7: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
@@ -1002,7 +1511,7 @@ def main() -> int:
           f"(packed) / bf16 KV, random weights in "
           f"{time.perf_counter() - t:.1f} s; weights "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    launches["13b"] = serve(torch, params, cfg, args.seed, dev, "13b")
+    launches["13b"] = serve(torch, params, cfg, args.seed, dev, "13b")[0]
     del params
     torch.cuda.empty_cache()
 
@@ -1011,8 +1520,9 @@ def main() -> int:
         xdev[n] = xdev.get(n, 0) + c
     print(f"phases 4b-5b: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # 6. kernels line: launches summed over the two main paths' runs (the
-    # cross-device runs' beside them: K13 launches there only)
+    # 8. kernels line: launches summed over the main paths' runs (phases
+    # 4, 4b, 6 and 6b; the cross-device runs' beside them: K13 launches
+    # there only)
     rows = []
     for name, (replaces, src) in KERNELS.items():
         r = results[name]

@@ -1,7 +1,14 @@
-// K7 / K8: attention over the paged KV pool, pages read in place.
+// K7 / K8 / K9 / K10: attention over the paged KV pool, pages read in
+// place.
 //
 // Replaces mixq_tensorrt_llm_tpu/ops/paged_attention.py:
-//   K7  _decode_kernel  (paged_decode_attention: one query token per lane)
+//   K7  _decode_kernel, s = 1 (paged_decode_attention: one query per lane)
+//   K9  _decode_kernel, s > 1 (paged_verify_attention: 2..8 query rows per
+//       lane at consecutive positions, the speculative verify)
+//   K10 _decode_kernel, stats=True (paged_decode_attention(stats=True):
+//       f32 output plus the softmax's running (m, l); K11,
+//       paged_decode_attention_split, runs it over page splits and merges
+//       the parts in ops/paged_attention.py)
 //   K8  _prefill_kernel (paged_prefill_attention: a chunk of C query tokens)
 // in both of their modes: int8 pages with per-(token, head) scales
 // (quantized=True), and unquantized bf16 or f32 pages (quantized=False).
@@ -10,7 +17,7 @@
 // scale pages of ones), and the int8 ones are the code of the int8-only
 // kernels they replace.
 //
-// Both walk the lane's block table, skip pages no query of the block can
+// All walk the lane's block table, skip pages no query of the block can
 // see, and keep a flash-style online softmax in f32. The int8 K scale
 // multiplies the logits and the int8 V scale the probabilities, so no
 // dequantized copy of a page ever exists. Positions are absolute: entry j's
@@ -19,12 +26,13 @@
 // at -0.5e30 as the Pallas kernels do), so inactive lanes (table 0,
 // block_pos PAD_POS, len 1) produce 0 and never NaN.
 //
-// Bound on the H100: bytes for decode (every visited page's int8 K and V
-// plus their scales are read once; about 2 FLOP per byte), and for long
-// prefill chunks the f32 CUDA-core arithmetic of this first version
-// (tensor cores via wgmma come in a later PR). Design against the bytes:
-// pages are read as int8 straight from device memory, each page once per
-// block, with consecutive threads on consecutive bytes of a row.
+// Bound on the H100: bytes for decode and verify (every visited page's
+// int8 K and V plus their scales are read once; about 2 FLOP per byte per
+// query row), and for long prefill chunks the f32 CUDA-core arithmetic of
+// this first version (tensor cores via wgmma come in a later PR). Design
+// against the bytes: pages are read as int8 straight from device memory,
+// each page once per block, with consecutive threads on consecutive bytes
+// of a row.
 //
 // Block sizes accepted: 16 <= BS <= 256, BS % 16 == 0; head_dim D a
 // multiple of 32 up to 256 (the Python wrappers check this).
@@ -69,45 +77,67 @@ constexpr int kTileQ = 16;        // K8 query tokens per block
 constexpr float kClampSub = 0.5f * kNegInf;
 
 // ---------------------------------------------------------------------------
-// K7: decode. One block per (lane b, kv head h); its G = Hq/Hkv query heads
-// are the rows. Dynamic shared memory: q (G x D), probs (G x BS),
-// acc (G x D), m/l/alpha (G each).
+// K7 / K9 / K10: the decode kernel's three modes, one body, as they are
+// modes of one Pallas kernel. One block per (kv head h, lane b). Its rows
+// are the S x G pairs (query row s, query head g of the kv head's group):
+// row r = s * G + g reads q[b, s, h * G + g] and sits at absolute position
+// qpos0 + s.
+//   K7  decode_kernel        S = 1 at compile time, qpos0 = len - 1
+//   K9  verify_kernel        S query rows from qpos0 = qstart[b]
+//                            (speculative verify: gamma + 1 rows)
+//   K10 decode_stats_kernel  K7 with the normalized output in f32 and the
+//                            running (m, l) of every row, for an exact
+//                            merge with attention over other keys (K11)
+// Every visited page is read once per block for all S * G rows: that is
+// K9's point over K8's 16-row tiles. A row's arithmetic is K7's whatever
+// the other rows do: a page fully masked for one row but visited for
+// another gives that row logits of kNegInf, so alpha = exp(0) = 1 and
+// p = 0, and the row's m, l and acc do not change; at S = 1 K9 is K7 bit
+// for bit. Dynamic shared memory, R = S * G rows: q (R x D), probs
+// (R x BS), acc (R x D), m/l/alpha (R each).
 // ---------------------------------------------------------------------------
-template <typename T, typename P>
-__global__ void decode_kernel(const T* __restrict__ q,
-                              const P* __restrict__ kp,
-                              const P* __restrict__ vp,
-                              const float* __restrict__ ks,
-                              const float* __restrict__ vs,
-                              const int* __restrict__ table,
-                              const int* __restrict__ bpos,
-                              const int* __restrict__ lens,
-                              T* __restrict__ out, int Hq, int Hkv, int D,
-                              int BS, int MB, float scale, int window,
-                              int sink, float softcap) {
-  extern __shared__ float smem[];
+template <typename T, typename P, typename O, bool kVerify>
+__device__ __forceinline__ void decode_body(
+    float* smem, const T* __restrict__ q, const P* __restrict__ kp,
+    const P* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ table,
+    const int* __restrict__ bpos, const int* __restrict__ lens,
+    const int* __restrict__ qstart, O* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int S_arg, int Hq,
+    int Hkv, int D, int BS, int MB, float scale, int window, int sink,
+    float softcap) {
   const int G = Hq / Hkv;
-  float* qs = smem;                 // G*D
-  float* ps = qs + G * D;           // G*BS
-  float* acc = ps + G * BS;         // G*D
-  float* m_s = acc + G * D;         // G
-  float* l_s = m_s + G;             // G
-  float* a_s = l_s + G;             // G
+  const int S = kVerify ? S_arg : 1;
+  const int R = S * G;
+  float* qs = smem;                 // R*D
+  float* ps = qs + R * D;           // R*BS
+  float* acc = ps + R * BS;         // R*D
+  float* m_s = acc + R * D;         // R
+  float* l_s = m_s + R;             // R
+  float* a_s = l_s + R;             // R
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* qb = q + (static_cast<size_t>(b) * Hq + h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = to_f(qb[i]) * scale;
+  // row r's q and out lie at row0 + r * D, plus (Hq - G) * D per draft row
+  // before it (the other kv heads' query heads)
+  const size_t row0 = (static_cast<size_t>(b) * S * Hq + h * G) * D;
+  const T* qb = q + row0;
+  for (int i = tid; i < R * D; i += kThreads) {
+    size_t src = i;
+    if constexpr (kVerify)
+      src += static_cast<size_t>(i / (G * D)) * (Hq - G) * D;
+    qs[i] = to_f(qb[src]) * scale;
     acc[i] = 0.f;
   }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
+  for (int r = tid; r < R; r += kThreads) {
+    m_s[r] = kNegInf;
+    l_s[r] = 0.f;
   }
   __syncthreads();
 
-  const int len = lens[b], qpos = len - 1;
+  const int len = lens[b];
+  int qpos0 = len - 1;
+  if constexpr (kVerify) qpos0 = qstart[b];
   const int nd = D / 32;
   for (int j = 0; j < MB; ++j) {
     const int base = bpos[b * MB + j];
@@ -126,67 +156,146 @@ __global__ void decode_kernel(const T* __restrict__ q,
       for (int i = 0; i < kMaxD / 32; ++i)
         kreg[i] = i < nd ? to_f(krow[i * 32 + lane]) : 0.f;
       const int pos = base + t;
-      const bool keep = keep_position(pos, qpos, window, sink);
       float kst = 1.f;
       if constexpr (kQuantPages<P>) kst = kscale[t];
-      for (int g = 0; g < G; ++g) {
-        float part = 0.f;
+      for (int s = 0; s < S; ++s) {
+        // K7's rows sit at len - 1, so its causal mask keeps pos < len;
+        // a K9 row past len - 1 (a short draft prefill's padding rows)
+        // must not see the page's unwritten tail either
+        const bool keep = (!kVerify || pos < len) &&
+                          keep_position(pos, qpos0 + s, window, sink);
+        for (int g = 0; g < G; ++g) {
+          const int r = s * G + g;
+          float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < kMaxD / 32; ++i)
-          if (i < nd) part += qs[g * D + i * 32 + lane] * kreg[i];
-        part = warp_sum(part);
-        if (lane == 0) {
-          float v = part;
-          if constexpr (kQuantPages<P>) v *= kst;
-          if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
-          ps[g * BS + t] = keep ? v : kNegInf;
+          for (int i = 0; i < kMaxD / 32; ++i)
+            if (i < nd) part += qs[r * D + i * 32 + lane] * kreg[i];
+          part = warp_sum(part);
+          if (lane == 0) {
+            float v = part;
+            if constexpr (kQuantPages<P>) v *= kst;
+            if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
+            ps[r * BS + t] = keep ? v : kNegInf;
+          }
         }
       }
     }
     __syncthreads();
 
-    // online softmax, one warp per query row
-    for (int g = warp; g < G; g += kWarpsPerBlock) {
+    // online softmax, one warp per row
+    for (int r = warp; r < R; r += kWarpsPerBlock) {
       float mx = kNegInf;
-      for (int t = lane; t < BS; t += 32) mx = fmaxf(mx, ps[g * BS + t]);
+      for (int t = lane; t < BS; t += 32) mx = fmaxf(mx, ps[r * BS + t]);
       mx = warp_max(mx);
-      const float m_prev = m_s[g];
+      const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
       const float sub = fmaxf(m_new, kClampSub);
       float sum = 0.f;
       for (int t = lane; t < BS; t += 32) {
-        const float p = expf(ps[g * BS + t] - sub);
+        const float p = expf(ps[r * BS + t] - sub);
         sum += p;
         if constexpr (kQuantPages<P>)
-          ps[g * BS + t] = p * vscale[t];
+          ps[r * BS + t] = p * vscale[t];
         else
-          ps[g * BS + t] = p;
+          ps[r * BS + t] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * alpha + sum;
+        a_s[r] = alpha;
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + sum;
       }
     }
     __syncthreads();
 
     // acc = acc * alpha + p @ v, threads across (row, head_dim)
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i - g * D;
-      const float* pg = ps + g * BS;
-      float a = acc[i] * a_s[g];
+    for (int i = tid; i < R * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      const float* pr = ps + r * BS;
+      float a = acc[i] * a_s[r];
       for (int t = 0; t < BS; ++t)
-        a += pg[t] * to_f(vpage[static_cast<size_t>(t) * D + d]);
+        a += pr[t] * to_f(vpage[static_cast<size_t>(t) * D + d]);
       acc[i] = a;
     }
     __syncthreads();
   }
 
-  T* ob = out + (static_cast<size_t>(b) * Hq + h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    store_f(ob + i, acc[i] / fmaxf(l_s[i / D], 1e-20f));
+  O* ob = out + row0;
+  for (int i = tid; i < R * D; i += kThreads) {
+    size_t dst = i;
+    if constexpr (kVerify)
+      dst += static_cast<size_t>(i / (G * D)) * (Hq - G) * D;
+    store_f(ob + dst, acc[i] / fmaxf(l_s[i / D], 1e-20f));
+  }
+  // K10: a row that saw no key keeps m = kNegInf and l = 0 (its output is
+  // 0), so merge_attention_stats gives it no weight
+  if (m_out != nullptr) {
+    for (int r = tid; r < R; r += kThreads) {
+      const size_t o = (static_cast<size_t>(b) * S + r / G) * Hq + h * G +
+                       r % G;
+      m_out[o] = m_s[r];
+      l_out[o] = l_s[r];
+    }
+  }
+}
+
+template <typename T, typename P>
+__global__ void decode_kernel(const T* __restrict__ q,
+                              const P* __restrict__ kp,
+                              const P* __restrict__ vp,
+                              const float* __restrict__ ks,
+                              const float* __restrict__ vs,
+                              const int* __restrict__ table,
+                              const int* __restrict__ bpos,
+                              const int* __restrict__ lens,
+                              T* __restrict__ out, int Hq, int Hkv, int D,
+                              int BS, int MB, float scale, int window,
+                              int sink, float softcap) {
+  extern __shared__ float smem[];
+  decode_body<T, P, T, false>(smem, q, kp, vp, ks, vs, table, bpos, lens,
+                              nullptr, out, nullptr, nullptr, 1, Hq, Hkv, D,
+                              BS, MB, scale, window, sink, softcap);
+}
+
+template <typename T, typename P>
+__global__ void verify_kernel(const T* __restrict__ q,
+                              const P* __restrict__ kp,
+                              const P* __restrict__ vp,
+                              const float* __restrict__ ks,
+                              const float* __restrict__ vs,
+                              const int* __restrict__ table,
+                              const int* __restrict__ bpos,
+                              const int* __restrict__ lens,
+                              const int* __restrict__ qstart,
+                              T* __restrict__ out, int S, int Hq, int Hkv,
+                              int D, int BS, int MB, float scale, int window,
+                              int sink, float softcap) {
+  extern __shared__ float smem[];
+  decode_body<T, P, T, true>(smem, q, kp, vp, ks, vs, table, bpos, lens,
+                             qstart, out, nullptr, nullptr, S, Hq, Hkv, D, BS,
+                             MB, scale, window, sink, softcap);
+}
+
+template <typename T, typename P>
+__global__ void decode_stats_kernel(const T* __restrict__ q,
+                                    const P* __restrict__ kp,
+                                    const P* __restrict__ vp,
+                                    const float* __restrict__ ks,
+                                    const float* __restrict__ vs,
+                                    const int* __restrict__ table,
+                                    const int* __restrict__ bpos,
+                                    const int* __restrict__ lens,
+                                    float* __restrict__ out,
+                                    float* __restrict__ m_out,
+                                    float* __restrict__ l_out, int Hq,
+                                    int Hkv, int D, int BS, int MB,
+                                    float scale, int window, int sink,
+                                    float softcap) {
+  extern __shared__ float smem[];
+  decode_body<T, P, float, false>(smem, q, kp, vp, ks, vs, table, bpos, lens,
+                                  nullptr, out, m_out, l_out, 1, Hq, Hkv, D,
+                                  BS, MB, scale, window, sink, softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,27 +449,73 @@ __global__ void prefill_kernel(const T* __restrict__ q,
   }
 }
 
+// the decode kernels' dynamic shared memory for R = S * G rows; above
+// 48 KB a kernel must opt in (the wrappers refuse what exceeds 227 KB)
+inline size_t decode_smem(int R, int D, int BS) {
+  return static_cast<size_t>(2 * R * D + R * BS + 3 * R) * sizeof(float);
+}
+
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
 template <typename T, typename P>
 int launch_decode(const void* q, const void* kp, const void* vp,
                   const void* ks, const void* vs, const void* table,
                   const void* bpos, const void* lens, void* out, int B,
                   int Hq, int Hkv, int D, int BS, int MB, float scale,
                   int window, int sink, float softcap, cudaStream_t st) {
-  const int G = Hq / Hkv;
-  const size_t smem = (static_cast<size_t>(2 * G * D + G * BS + 3 * G)) *
-                      sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = decode_smem(Hq / Hkv, D, BS);
+  if (int e = allow_smem(decode_kernel<T, P>, smem)) return e;
   decode_kernel<T, P><<<dim3(Hkv, B), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const P*>(kp),
       static_cast<const P*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(bpos), static_cast<const int*>(lens),
       static_cast<T*>(out), Hq, Hkv, D, BS, MB, scale, window, sink, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename P>
+int launch_verify(const void* q, const void* kp, const void* vp,
+                  const void* ks, const void* vs, const void* table,
+                  const void* bpos, const void* lens, const void* qstart,
+                  void* out, int B, int S, int Hq, int Hkv, int D, int BS,
+                  int MB, float scale, int window, int sink, float softcap,
+                  cudaStream_t st) {
+  const size_t smem = decode_smem(S * (Hq / Hkv), D, BS);
+  if (int e = allow_smem(verify_kernel<T, P>, smem)) return e;
+  verify_kernel<T, P><<<dim3(Hkv, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp),
+      static_cast<const P*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const int*>(bpos), static_cast<const int*>(lens),
+      static_cast<const int*>(qstart), static_cast<T*>(out), S, Hq, Hkv, D,
+      BS, MB, scale, window, sink, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename P>
+int launch_decode_stats(const void* q, const void* kp, const void* vp,
+                        const void* ks, const void* vs, const void* table,
+                        const void* bpos, const void* lens, void* out,
+                        void* m, void* l, int B, int Hq, int Hkv, int D,
+                        int BS, int MB, float scale, int window, int sink,
+                        float softcap, cudaStream_t st) {
+  const size_t smem = decode_smem(Hq / Hkv, D, BS);
+  if (int e = allow_smem(decode_stats_kernel<T, P>, smem)) return e;
+  decode_stats_kernel<T, P><<<dim3(Hkv, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp),
+      static_cast<const P*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const int*>(bpos), static_cast<const int*>(lens),
+      static_cast<float*>(out), static_cast<float*>(m),
+      static_cast<float*>(l), Hq, Hkv, D, BS, MB, scale, window, sink,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -404,6 +559,39 @@ extern "C" int mixq_paged_decode_attention(
                          typename decltype(p)::type>(
         q, kp, vp, ks, vs, table, bpos, lens, out, B, Hq, Hkv, D, BS, MB,
         scale, window, sink, softcap, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// K9: q/out (B, S, Hq, D) of `dtype`, lane b's row s at position
+// qstart[b] + s; qstart (B,) int32; rest as decode.
+extern "C" int mixq_paged_verify_attention(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* table, const void* bpos, const void* lens,
+    const void* qstart, void* out, int B, int S, int Hq, int Hkv, int D,
+    int BS, int MB, float scale, int window, int sink, float softcap,
+    int dtype, int page_dtype, void* stream) {
+  return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
+    return launch_verify<typename decltype(t)::type,
+                         typename decltype(p)::type>(
+        q, kp, vp, ks, vs, table, bpos, lens, qstart, out, B, S, Hq, Hkv, D,
+        BS, MB, scale, window, sink, softcap,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// K10: q (B, Hq, D) of `dtype`; out (B, Hq, D) and m, l (B, Hq) f32; rest
+// as decode.
+extern "C" int mixq_paged_decode_attention_stats(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* table, const void* bpos, const void* lens,
+    void* out, void* m, void* l, int B, int Hq, int Hkv, int D, int BS,
+    int MB, float scale, int window, int sink, float softcap, int dtype,
+    int page_dtype, void* stream) {
+  return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
+    return launch_decode_stats<typename decltype(t)::type,
+                               typename decltype(p)::type>(
+        q, kp, vp, ks, vs, table, bpos, lens, out, m, l, B, Hq, Hkv, D, BS,
+        MB, scale, window, sink, softcap, static_cast<cudaStream_t>(stream));
   });
 }
 

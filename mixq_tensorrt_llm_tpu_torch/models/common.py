@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -208,16 +209,27 @@ def block_norm(cfg: ModelConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
 # Decoder
 # ---------------------------------------------------------------------------
 
+def _kv_splits() -> int:
+    """Flash-decoding page-split factor of the decode step (the reference's
+    --multi_block_mode): 0/1 = one K7 scan per lane (default); N > 1 sends
+    S == 1 through K11. Read from MIXQ_KV_SPLITS, as the JAX package's
+    models/common.py _kv_splits does."""
+    return int(os.environ.get("MIXQ_KV_SPLITS", "0"))
+
+
 def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
                      block_table, write_pos, kv_valid_len, block_pos=None,
                      window: int = 0, sink: int = 0) -> torch.Tensor:
     """Write new K/V (B, S, Hkv, D) into the pool in place and attend q
     (B, S, Hq, D) over the lane's pages.
 
-    On CUDA: S == 1 -> K7 (paged_decode_attention); S > 8 -> K8
-    (paged_prefill_attention); 2..8 rows are the speculative-verify kernel
-    of a later slice and raise. On the CPU: the gather path (plain version).
-    """
+    S == 1 -> K7 (paged_decode_attention), or K11
+    (paged_decode_attention_split) when MIXQ_KV_SPLITS > 1; 1 < S <= 8 ->
+    K9 (paged_verify_attention: speculative verify rows, short draft
+    prefills) from write_pos[:, 0]; longer chunks -> K8
+    (paged_prefill_attention). A CUDA tensor launches the kernel; on the
+    CPU each route takes its plain version (the split route runs the split
+    and merge math)."""
     from ..runtime import kv_cache as pkv
 
     window = window or cfg.sliding_window
@@ -230,16 +242,17 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
             pools.get("v_scale"), block_table)
     kw = dict(scale=scale, block_pos=block_pos, window=window, sink=sink,
               softcap=softcap)
-    if not q.is_cuda:
-        return pattn.paged_attention_plain(q, *args, write_pos, kv_valid_len,
-                                           **kw)
     if s == 1:
+        splits = _kv_splits()
+        if splits > 1:
+            return pattn.paged_decode_attention_split(
+                q[:, 0], *args, kv_valid_len, kv_splits=splits,
+                **kw)[:, None]
         return pattn.paged_decode_attention(q[:, 0], *args, kv_valid_len,
                                             **kw)[:, None]
-    if s <= 8:
-        raise NotImplementedError(
-            f"{s}-row paged attention is the speculative-verify kernel (K9) "
-            "of a later slice")
+    if s <= pattn.MAX_VERIFY_ROWS:
+        return pattn.paged_verify_attention(q, *args, kv_valid_len,
+                                            write_pos[:, 0], **kw)
     return pattn.paged_prefill_attention(q, *args, write_pos[:, 0],
                                          kv_valid_len, **kw)
 

@@ -1,5 +1,7 @@
-"""Attention over the paged KV pool: K7 (decode, one query token per lane)
-and K8 (chunked prefill), counterparts of ops/paged_attention.py.
+"""Attention over the paged KV pool, counterparts of ops/paged_attention.py:
+K7 (decode, one query token per lane), K9 (small-q verify, 2..8 query rows
+per lane), K10 (decode with the softmax's running stats), K11 (decode split
+over page ranges, merged exactly) and K8 (chunked prefill).
 
 Pages are (NP, Hkv, BS, D): int8 with per-(token, head) scales (NP, Hkv,
 BS), or unquantized bf16/f32 pages without scales (JAX's quantized=False
@@ -12,11 +14,16 @@ on the logits.
 A CPU tensor takes the plain version: gather and dequantize the lane's
 pages to f32 (``gather_pages``), then ``ops.ref.attention`` — the math of
 the JAX package's gather path (models/common.py:713-738) — with rows that
-see no key at all set to 0, as the kernels give them. A CUDA tensor
-launches the kernel of csrc/paged_attention.cu, or raises: its int8
+see no key at all set to 0, as the kernels give them; K10's plain version
+is ``ops.ref.attention_stats`` over the gathered pages and scales. A CUDA
+tensor launches the kernel of csrc/paged_attention.cu, or raises: its int8
 instantiation for int8 pools, its unquantized one (no scale multiplies,
-null scales; launches counted as ``*_fp``) for bf16 and f32 pools. The kernels accept
-16 <= BS <= 256, BS % 16 == 0, and head_dim a multiple of 32 up to 256.
+null scales; launches counted as ``*_fp``) for bf16 and f32 pools. The
+kernels accept 16 <= BS <= 256, BS % 16 == 0, head_dim a multiple of 32
+up to 256, and at most 227 KB of shared memory a block (K9: S * Hq/Hkv
+rows of 2 * D + BS + 3 floats). K11 launches K10 once over all splits and
+merges the parts with torch ops in f32 (in JAX that merge is jnp outside
+the Pallas call too), then casts once.
 """
 
 from __future__ import annotations
@@ -29,6 +36,10 @@ from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
+# base position of a padded block_pos entry, beyond any real position
+PAD_POS = 1 << 30
+MAX_VERIFY_ROWS = 8           # the verify route's query rows per lane
+_MAX_SMEM = 232448            # bytes of shared memory a block may opt in to
 
 
 def check_kernel_geometry(block_size: int, head_dim: int) -> None:
@@ -59,6 +70,23 @@ def gather_pages(pages: torch.Tensor, scales: Optional[torch.Tensor],
     return x.to(dtype).permute(0, 1, 3, 2, 4).reshape(b, mb * bs, h, d)
 
 
+def _keep_mask(block_table, block_pos, bs: int, q_pos, lens, window: int,
+               sink: int) -> torch.Tensor:
+    """(B, 1, S, MB*BS) keep mask of queries at q_pos (B, S) over the
+    lane's pages: causal, below lens, optional window + sinks."""
+    b, mb = block_table.shape
+    if block_pos is None:
+        block_pos = identity_block_pos(block_table, bs)
+    kv_pos = (block_pos.long()[:, :, None]
+              + torch.arange(bs, device=block_table.device)
+              ).reshape(b, 1, 1, mb * bs)
+    qp = q_pos.long()[:, None, :, None]                      # (B,1,S,1)
+    keep = (kv_pos <= qp) & (kv_pos < lens.long()[:, None, None, None])
+    if window:
+        keep &= (kv_pos > qp - window) | (kv_pos < sink)
+    return keep
+
+
 def paged_attention_plain(q: torch.Tensor, k_pages, v_pages, k_scale,
                           v_scale, block_table: torch.Tensor,
                           q_pos: torch.Tensor, lens: torch.Tensor,
@@ -67,18 +95,10 @@ def paged_attention_plain(q: torch.Tensor, k_pages, v_pages, k_scale,
                           ) -> torch.Tensor:
     """q (B, S, Hq, D) at absolute positions q_pos (B, S) -> (B, S, Hq, D)
     in q's dtype, computed in f32 over the gathered, dequantized pages."""
-    b, mb = block_table.shape
-    bs = k_pages.shape[2]
-    if block_pos is None:
-        block_pos = identity_block_pos(block_table, bs)
+    keep = _keep_mask(block_table, block_pos, k_pages.shape[2], q_pos, lens,
+                      window, sink)
     k = gather_pages(k_pages, k_scale, block_table, torch.float32)
     v = gather_pages(v_pages, v_scale, block_table, torch.float32)
-    kv_pos = (block_pos.long()[:, :, None]
-              + torch.arange(bs, device=q.device)).reshape(b, 1, 1, mb * bs)
-    qp = q_pos.long()[:, None, :, None]                      # (B,1,S,1)
-    keep = (kv_pos <= qp) & (kv_pos < lens.long()[:, None, None, None])
-    if window:
-        keep &= (kv_pos > qp - window) | (kv_pos < sink)
     out = ref.attention(q.float(), k, v, mask=keep, scale=scale,
                         softcap=softcap)
     seen = keep.any(dim=-1).permute(0, 2, 1)[..., None]      # (B,S,1,1)
@@ -125,40 +145,225 @@ def _cuda_args(q, k_pages, v_pages, k_scale, v_scale, block_table,
             bs, d, table, bpos)
 
 
+_TAIL = [_build.F, _build.I, _build.I, _build.F, _build.I, _build.I,
+         _build.P]          # scale, window, sink, softcap, dtypes, stream
+
+
+def _check_q(q_d: int, hq: int, hkv: int, d: int, s: int, bs: int,
+             what: str) -> None:
+    """Raise unless q's heads fit the pages and the block's S * Hq/Hkv
+    query rows fit the decode kernels' shared memory."""
+    if q_d != d or hq % hkv:
+        raise ValueError(f"{what}: q with {hq} heads of dim {q_d} does not "
+                         f"fit pages with {hkv} heads of dim {d}")
+    rows = s * (hq // hkv)
+    need = (2 * rows * d + rows * bs + 3 * rows) * 4
+    if need > _MAX_SMEM:
+        raise ValueError(f"{what}: {rows} query rows per KV head need {need} "
+                         f"bytes of shared memory (at most {_MAX_SMEM})")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                            v_scale, block_table: torch.Tensor,
                            lens: torch.Tensor, scale: float,
                            block_pos=None, window: int = 0, sink: int = 0,
-                           softcap: float = 0.0) -> torch.Tensor:
-    """K7: q (B, Hq, D), the query at position lens-1 -> (B, Hq, D)."""
+                           softcap: float = 0.0, stats: bool = False):
+    """K7: q (B, Hq, D), the query at position lens-1 -> (B, Hq, D) in q's
+    dtype.
+
+    stats=True is K10: -> (out (B, Hq, D), m (B, Hq), l (B, Hq)), all f32:
+    the normalized output and the softmax's running max and denominator,
+    so a caller can merge exactly with attention over other keys
+    (``ref.merge_attention_stats``). A row that sees no key gives out 0,
+    m -1e30 and l 0."""
     if not q.is_cuda:
+        if stats:
+            return paged_decode_attention_stats_plain(
+                q, k_pages, v_pages, k_scale, v_scale, block_table, lens,
+                scale, block_pos, window, sink, softcap)
         return paged_attention_plain(
             q[:, None], k_pages, v_pages, k_scale, v_scale, block_table,
             (lens - 1)[:, None], lens, scale, block_pos, window, sink,
             softcap)[:, 0]
+    what = "paged_decode_attention" + ("_stats" if stats else "")
     ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
-        q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos,
-        "paged_decode_attention")
+        q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos, what)
     b, hq, _ = q.shape
-    if q.shape[2] != d or hq % hkv:
-        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} does "
-                         f"not fit pages with {hkv} heads of dim {d}")
+    _check_q(q.shape[2], hq, hkv, d, 1, bs, what)
     q = q.contiguous()
     lens = lens.to(q.device, torch.int32).contiguous()
+    dims = (b, hq, hkv, d, bs, table.shape[1])
+    tail = (float(scale), int(window), int(sink), float(softcap),
+            _DTYPES[q.dtype], page_dtype, _build.stream_ptr(q.device))
+    if stats:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        fn = _build.bind("paged_attention",
+                         "mixq_paged_decode_attention_stats",
+                         [_build.P] * 11 + [_build.I] * 6 + _TAIL)
+        err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
+                 lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                 *dims, *tail)
+        result = (out, m, l)
+    else:
+        out = torch.empty_like(q)
+        fn = _build.bind("paged_attention", "mixq_paged_decode_attention",
+                         [_build.P] * 9 + [_build.I] * 6 + _TAIL)
+        err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
+                 lens.data_ptr(), out.data_ptr(), *dims, *tail)
+        result = out
+    name = what + sfx
+    _build.count_launch(name)
+    _build.check("paged_attention", err, name)
+    return result
+
+
+def _gather_scales(scales: torch.Tensor, block_table: torch.Tensor
+                   ) -> torch.Tensor:
+    """(NP, H, BS) page scales -> (B, MB*BS, H), as gather_pages lays out
+    the pages."""
+    x = scales[block_table.long()]                  # (B, MB, H, BS)
+    b, mb, h, bs = x.shape
+    return x.permute(0, 1, 3, 2).reshape(b, mb * bs, h)
+
+
+def paged_decode_attention_stats_plain(q: torch.Tensor, k_pages, v_pages,
+                                       k_scale, v_scale, block_table,
+                                       lens: torch.Tensor, scale: float,
+                                       block_pos=None, window: int = 0,
+                                       sink: int = 0, softcap: float = 0.0):
+    """K10's plain version: ``ref.attention_stats`` over the lane's
+    gathered pages, the int8 K scale on the logits and the V scale on the
+    probabilities as the kernel applies them -> (out, m, l) f32."""
+    keep = _keep_mask(block_table, block_pos, k_pages.shape[2],
+                      (lens - 1)[:, None], lens, window, sink)
+    k = gather_pages(k_pages, None, block_table, torch.float32)
+    v = gather_pages(v_pages, None, block_table, torch.float32)
+    ks = vs = None
+    if k_scale is not None:
+        ks = _gather_scales(k_scale, block_table)
+        vs = _gather_scales(v_scale, block_table)
+    out, m, l = ref.attention_stats(q[:, None], k, v, ks, vs, mask=keep,
+                                    scale=scale, softcap=softcap)
+    return out[:, 0], m[..., 0], l[..., 0]
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
+                           v_scale, block_table: torch.Tensor,
+                           lens: torch.Tensor, qstart: torch.Tensor,
+                           scale: float, block_pos=None, window: int = 0,
+                           sink: int = 0, softcap: float = 0.0
+                           ) -> torch.Tensor:
+    """K9: q (B, S, Hq, D), 1 <= S <= 8 query rows per lane at absolute
+    positions qstart .. qstart+S-1 -> (B, S, Hq, D) in q's dtype: the
+    speculative verify's gamma+1 rows, on the decode kernel's rows. At
+    S = 1 with qstart = lens-1 it is K7, bit for bit. A row past lens-1
+    (a short draft prefill's padding) sees only the keys below lens, as
+    in the JAX package's gather path; its Pallas kernel lets such rows
+    see the page's unwritten slots, and no caller reads them."""
+    b, s, hq, qd = q.shape
+    if not q.is_cuda:
+        q_pos = qstart[:, None] + torch.arange(s, device=q.device)
+        return paged_attention_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                     block_table, q_pos, lens, scale,
+                                     block_pos, window, sink, softcap)
+    what = "paged_verify_attention"
+    if not 1 <= s <= MAX_VERIFY_ROWS:
+        raise ValueError(f"{what}: {s} query rows; the kernel takes 1.."
+                         f"{MAX_VERIFY_ROWS} (K8 takes longer chunks)")
+    ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
+        q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos, what)
+    _check_q(qd, hq, hkv, d, s, bs, what)
+    q = q.contiguous()
+    qstart = qstart.to(q.device, torch.int32).contiguous()
+    lens = lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
-    fn = _build.bind("paged_attention", "mixq_paged_decode_attention",
-                     [_build.P] * 9 + [_build.I] * 6
-                     + [_build.F, _build.I, _build.I, _build.F, _build.I,
-                        _build.I, _build.P])
+    fn = _build.bind("paged_attention", "mixq_paged_verify_attention",
+                     [_build.P] * 10 + [_build.I] * 7 + _TAIL)
     err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
-             lens.data_ptr(), out.data_ptr(), b, hq, hkv, d, bs,
-             table.shape[1], float(scale), int(window), int(sink),
-             float(softcap), _DTYPES[q.dtype], page_dtype,
+             lens.data_ptr(), qstart.data_ptr(), out.data_ptr(), b, s, hq,
+             hkv, d, bs, table.shape[1], float(scale), int(window),
+             int(sink), float(softcap), _DTYPES[q.dtype], page_dtype,
              _build.stream_ptr(q.device))
-    name = "paged_decode_attention" + sfx
+    name = what + sfx
     _build.count_launch(name)
     _build.check("paged_attention", err, name)
     return out
+
+
+def _split_lanes(q, lens, block_table, block_pos, bs: int, splits: int):
+    """Each lane's page list cut into ``splits`` consecutive ranges, one
+    lane each (JAX :505-528): a table width that is not a multiple of
+    ``splits`` is padded with its last real block and PAD_POS bases; table
+    and block_pos reshaped to (B*splits, MB/splits), q and lens repeated
+    per split."""
+    if splits < 1:
+        raise ValueError(f"kv_splits {splits}: must be >= 1")
+    b, mb = block_table.shape
+    if block_pos is None:
+        block_pos = identity_block_pos(block_table, bs)
+    pad = -mb % splits
+    if pad:
+        block_table = torch.cat(
+            [block_table, block_table[:, -1:].expand(b, pad)], dim=1)
+        block_pos = torch.cat(
+            [block_pos, torch.full((b, pad), PAD_POS, dtype=block_pos.dtype,
+                                   device=block_pos.device)], dim=1)
+    return (q.repeat_interleave(splits, dim=0),
+            lens.repeat_interleave(splits, dim=0),
+            block_table.reshape(b * splits, -1),
+            block_pos.reshape(b * splits, -1))
+
+
+def _merge_splits(out, m, l, splits: int, dtype) -> torch.Tensor:
+    """K10's (B*splits, ...) parts merged exactly in f32, cast once."""
+    b, hq, d = out.shape[0] // splits, out.shape[1], out.shape[2]
+    merged = ref.merge_stacked_stats(
+        out.reshape(b, splits, 1, hq, d).transpose(0, 1),
+        m.reshape(b, splits, hq, 1).transpose(0, 1),
+        l.reshape(b, splits, hq, 1).transpose(0, 1))
+    return merged[:, 0].to(dtype)
+
+
+def paged_decode_attention_split_plain(q, k_pages, v_pages, k_scale,
+                                       v_scale, block_table, lens, scale,
+                                       block_pos=None, window: int = 0,
+                                       sink: int = 0, softcap: float = 0.0,
+                                       kv_splits: int = 2) -> torch.Tensor:
+    """K11's plain version: the same split and merge over K10's plain
+    version."""
+    q2, lens2, table2, bpos2 = _split_lanes(q, lens, block_table, block_pos,
+                                            k_pages.shape[2], kv_splits)
+    parts = paged_decode_attention_stats_plain(
+        q2, k_pages, v_pages, k_scale, v_scale, table2, lens2, scale, bpos2,
+        window, sink, softcap)
+    return _merge_splits(*parts, kv_splits, q.dtype)
+
+
+def paged_decode_attention_split(q: torch.Tensor, k_pages, v_pages, k_scale,
+                                 v_scale, block_table: torch.Tensor,
+                                 lens: torch.Tensor, scale: float,
+                                 block_pos=None, window: int = 0,
+                                 sink: int = 0, softcap: float = 0.0,
+                                 kv_splits: int = 2) -> torch.Tensor:
+    """K11, flash-decoding: paged_decode_attention with each lane's page
+    list split over ``kv_splits`` lanes of one K10 launch (Hkv x B*splits
+    blocks instead of K7's Hkv x B, for long contexts at small batch), the
+    parts merged exactly in f32 and cast once to q's dtype."""
+    if not q.is_cuda:
+        return paged_decode_attention_split_plain(
+            q, k_pages, v_pages, k_scale, v_scale, block_table, lens, scale,
+            block_pos, window, sink, softcap, kv_splits)
+    q2, lens2, table2, bpos2 = _split_lanes(q, lens, block_table, block_pos,
+                                            k_pages.shape[2], kv_splits)
+    parts = paged_decode_attention(q2, k_pages, v_pages, k_scale, v_scale,
+                                   table2, lens2, scale, block_pos=bpos2,
+                                   window=window, sink=sink, softcap=softcap,
+                                   stats=True)
+    _build.count_launch("paged_decode_attention_split"
+                        + ("" if k_scale is not None else "_fp"))
+    return _merge_splits(*parts, kv_splits, q.dtype)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
@@ -189,9 +394,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     lens = lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
     fn = _build.bind("paged_attention", "mixq_paged_prefill_attention",
-                     [_build.P] * 10 + [_build.I] * 7
-                     + [_build.F, _build.I, _build.I, _build.F, _build.I,
-                        _build.I, _build.P])
+                     [_build.P] * 10 + [_build.I] * 7 + _TAIL)
     err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
              q_start.data_ptr(), lens.data_ptr(), out.data_ptr(), b, c, hq,
              hkv, d, bs, table.shape[1], float(scale), int(window),

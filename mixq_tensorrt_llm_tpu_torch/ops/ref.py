@@ -176,3 +176,70 @@ def attention_int8kv(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     probs = probs * v_s.permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_q.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    k_s: Optional[torch.Tensor] = None,
+                    v_s: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None,
+                    softcap: float = 0.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention that also returns the softmax's running stats: (out (b,
+    sq, hq, d), m (b, hq, sq), l (b, hq, sq)), out = exp(logits - m) @ v / l,
+    so callers can merge exactly with attention over keys held elsewhere
+    (``merge_attention_stats``). k/v (b, skv, hkv, d) float or int8 with
+    k_s/v_s (b, skv, hkv) scales on the logits and the probabilities; mask
+    broadcastable to (b, hq, sq, skv). A row that sees no key gives m
+    -1e30, l 0 and out 0.
+
+    Everything stays f32: parts are merged in f32 and cast once at the end
+    (rounding each part to bf16 first costs ~1e-2 relative against the
+    single softmax, which flipped beam choices in the JAX package)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q5 = (q.float() * scale).reshape(b, sq, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q5, k.float())
+    if k_s is not None:
+        logits = logits * k_s.permute(0, 2, 1)[:, :, None, None, :]
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    if mask is not None:
+        mask = mask.expand(b, hq, sq, k.shape[1])
+        logits = torch.where(mask.reshape(b, hkv, g, sq, -1), logits, -1e30)
+    m = logits.amax(dim=-1)                                # (b, hkv, g, sq)
+    p = torch.exp(logits - torch.clamp(m[..., None], min=-0.5e30))
+    l = p.sum(dim=-1)
+    if v_s is not None:
+        p = p * v_s.permute(0, 2, 1)[:, :, None, None, :]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = out / torch.clamp(l, min=1e-20).permute(0, 3, 1, 2)[..., None]
+    return (out.reshape(b, sq, hq, d), m.reshape(b, hq, sq),
+            l.reshape(b, hq, sq))
+
+
+def merge_attention_stats(parts) -> torch.Tensor:
+    """Exactly combine attention results over DISJOINT key sets.
+
+    parts: sequence of (out (b, sq, hq, d) normalized, m (b, hq, sq),
+    l (b, hq, sq)). The online-softmax merge: with acc_i = out_i * l_i,
+    out = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M). Parts that saw
+    no key (m -1e30, l 0) contribute nothing. Returns f32; callers cast
+    once."""
+    return merge_stacked_stats(torch.stack([o for o, _, _ in parts]),
+                               torch.stack([m for _, m, _ in parts]),
+                               torch.stack([l for _, _, l in parts]))
+
+
+def merge_stacked_stats(out: torch.Tensor, m: torch.Tensor,
+                        l: torch.Tensor) -> torch.Tensor:
+    """merge_attention_stats over parts stacked on a leading axis: out
+    (P, b, sq, hq, d), m and l (P, b, hq, sq). A handful of whole-tensor
+    ops, whatever P is (the JAX package loops over the parts)."""
+    big = torch.clamp(m.amax(dim=0), min=-0.5e30)       # all-empty rows
+    w = (l * torch.exp(m - big)).float()                 # (P, b, hq, sq)
+    num = (out.float() * w.transpose(-1, -2)[..., None]).sum(dim=0)
+    denom = torch.clamp(w.sum(dim=0), min=1e-20)
+    return num / denom.transpose(-1, -2)[..., None]

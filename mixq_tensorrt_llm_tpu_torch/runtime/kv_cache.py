@@ -28,7 +28,7 @@ from ..quant.config import KVCacheQuantAlgo
 
 # base position of a padded block_pos entry: beyond any real position, so
 # kernels and masks treat the slot as causally unreachable
-PAD_POS = np.int32(1 << 30)
+PAD_POS = np.int32(pattn.PAD_POS)
 
 
 class PagedKVState(NamedTuple):

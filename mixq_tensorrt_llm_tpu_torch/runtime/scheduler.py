@@ -12,9 +12,17 @@ On CUDA the prefill chunk is rounded up to a multiple of the block size,
 so every chunk takes the page-aligned chunk-write kernel (K6), and the
 block size must be one the CUDA kernels take (16..256 in steps of 16).
 
-Not ported yet: decode bursts and mixed bursts, speculative decoding,
-beams, snapshot/restore, warmup, meshes, LoRA, prefix reuse, bad words
-and logits processors.
+``run_speculative`` is in-flight speculative decoding with a paged draft
+pool: a draft model proposes gamma tokens per lane, the target verifies
+them in one (gamma+1)-row forward (K9), and the rounds run device-paced
+(``rounds_per_call`` rounds, one host readback) where the context cap
+allows. ``MIXQ_KV_SPLITS`` > 1 sends every decode step's attention through
+the split kernel (K11).
+
+Not ported yet: decode bursts and mixed bursts, the dense-cache draft
+(``paged_draft=False``, which needs the dense forward), beams,
+snapshot/restore, warmup, meshes, LoRA, prefix reuse, bad words and
+logits processors.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -351,11 +359,9 @@ class Executor:
         if not active:
             return produced_prefill
 
-        b, mbs = self.max_batch, self.max_blocks_per_seq
+        b = self.max_batch
         tokens = np.zeros((b, 1), np.int32)
         lens = np.zeros((b,), np.int32)
-        table = np.zeros((b, mbs), np.int32)
-        bpos = np.full((b, mbs), PAD_POS, np.int32)
         sup_tok = np.full((b,), -1, np.int32)
         sup_flag = np.zeros((b,), np.int32)
         configs: List[Optional[SamplingConfig]] = [None] * b
@@ -366,13 +372,12 @@ class Executor:
             self.bm.extend(req.req_id, 1)
             tokens[i, 0] = req.generated[-1]
             lens[i] = new_pos
-            table[i] = self.bm.block_table([req.req_id], mbs)[0]
-            bpos[i] = self.bm.block_pos([req.req_id], mbs)[0]
             configs[i] = req.sampling or self.sampling
             if (req.eos_token_id is not None
                     and len(req.generated) < req.min_new_tokens):
                 sup_tok[i] = req.eos_token_id
                 sup_flag[i] = 1
+        table, bpos = self._lane_tables(active)
         lens_t = self._t(lens)
         logits, self.state = mcommon.forward_paged(
             self.params, self.cfg, self._t(tokens), lens_t[:, None],
@@ -385,6 +390,251 @@ class Executor:
         for i, req in active:
             self._append_token(req, int(tok_np[i]), float(lp_np[i]))
         return len(active) + produced_prefill
+
+    # ------------------------------------------------------------------
+    # in-flight speculative decoding (runtime/scheduler.py:527-926)
+    # ------------------------------------------------------------------
+    def _readback(self, *ts: torch.Tensor) -> List[np.ndarray]:
+        """The int32 / f32 device tensors ``ts`` on the host in ONE copy
+        (the f32 ones bit-cast through int32): a speculative call's only
+        host sync."""
+        self.spec_readbacks += 1
+        flat = torch.cat([
+            (t.float() if t.is_floating_point() else t.int()).reshape(-1)
+            .view(torch.int32) for t in ts]).cpu().numpy()
+        out, o = [], 0
+        for t in ts:
+            a = flat[o:o + t.numel()].reshape(tuple(t.shape))
+            o += t.numel()
+            out.append(a.view(np.float32) if t.is_floating_point() else a)
+        return out
+
+    def _draft_prefill(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
+                       tokens, lens, table, bpos) -> PagedKVState:
+        """Write the draft's KV of every lane's committed tokens but the
+        newest (positions 0..len-1); the head runs on one position only,
+        its logits unused."""
+        b, s = tokens.shape
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=self.device)[None].expand(b, s)
+        _, dstate = mcommon.forward_paged(
+            dp, dcfg, tokens, pos, dstate, table, lens, block_pos=bpos,
+            last_pos=torch.zeros((b,), dtype=torch.int32,
+                                 device=self.device))
+        return dstate
+
+    def _draft_propose(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
+                       tok, pos, table, bpos, gamma: int):
+        """gamma greedy draft steps from the newest token ``tok`` (B,) at
+        ``pos`` (B,); returns (proposals (B, gamma) int32, draft state)."""
+        props = []
+        for _ in range(gamma):
+            logits, dstate = mcommon.forward_paged(
+                dp, dcfg, tok[:, None], pos[:, None], dstate, table, pos + 1,
+                block_pos=bpos, window=self._win_tokens,
+                sink=self._sink_tokens)
+            tok = torch.argmax(logits[:, 0], dim=-1).int()
+            props.append(tok)
+            pos = pos + 1
+        return torch.stack(props, dim=1), dstate
+
+    def _verify(self, rows, start, length, table, bpos):
+        """The target forward over [newest token | gamma drafts] (B, g1) at
+        start..start+gamma: (greedy predictions (B, g1) int32, their
+        log-probabilities (B, g1) f32)."""
+        g1 = rows.shape[1]
+        pos = start[:, None] + torch.arange(g1, dtype=torch.int32,
+                                            device=self.device)[None]
+        logits, self.state = mcommon.forward_paged(
+            self.params, self.cfg, rows, pos, self.state, table, length,
+            block_pos=bpos, window=self._win_tokens, sink=self._sink_tokens)
+        preds = torch.argmax(logits, dim=-1)
+        lp = torch.gather(torch.log_softmax(logits, dim=-1), 2,
+                          preds[..., None])[..., 0]
+        return preds.int(), lp
+
+    def _spec_device_rounds(self, dp, dcfg: ModelConfig,
+                            dstate: PagedKVState, gamma: int, rounds: int,
+                            table, bpos, tok, pos, remaining, done, eos):
+        """``rounds`` x [gamma-step draft + (gamma+1)-row verify + accept]
+        with the accept / eos / budget bookkeeping in device tensors and no
+        host sync (the JAX package's _make_spec_burst round_body). A done
+        lane commits cnt = 0 and rewrites positions that were already
+        pre-extended, so running every round gives JAX's tokens where its
+        while_loop stops early. Returns (draft state, accepted (R, B, g1),
+        committed counts (R, B), log-probabilities (R, B, g1), accepted
+        draft tokens (B,), proposals made (B,))."""
+        g1 = gamma + 1
+        jidx = torch.arange(g1, dtype=torch.int32, device=self.device)[None]
+        accs, cnts, lps = [], [], []
+        n_acc = torch.zeros_like(tok)
+        n_prop = torch.zeros_like(tok)
+        for _ in range(rounds):
+            props, dstate = self._draft_propose(dp, dcfg, dstate, tok, pos,
+                                                table, bpos, gamma)
+            rows = torch.cat([tok[:, None], props], dim=1)
+            preds, lp = self._verify(rows, pos, pos + g1, table, bpos)
+            eq = (props == preds[:, :gamma]).int()
+            m = torch.cumprod(eq, dim=1).sum(dim=1).int()           # (B,)
+            bonus = torch.gather(preds, 1, m[:, None].long())[:, 0]
+            props_pad = torch.cat([props, torch.zeros_like(tok)[:, None]],
+                                  dim=1)
+            acc = torch.where(jidx < m[:, None], props_pad, bonus[:, None])
+            cnt = torch.minimum(m + 1, remaining)
+            hit = ((acc == eos[:, None]) & (jidx < cnt[:, None])
+                   & (eos[:, None] >= 0))
+            has_eos = hit.any(dim=1)
+            eos_idx = torch.argmax(hit.int(), dim=1).int()
+            cnt = torch.where(has_eos, torch.minimum(cnt, eos_idx + 1), cnt)
+            cnt = torch.where(done, 0, cnt)
+            n_acc = n_acc + torch.where(done, 0, m)
+            n_prop = n_prop + (~done).int() * gamma
+            newtok = torch.gather(acc, 1, torch.clamp(cnt - 1, min=0)[:, None]
+                                  .long())[:, 0]
+            tok = torch.where(cnt > 0, newtok, tok)
+            done = done | has_eos | (remaining - cnt <= 0)
+            pos = pos + cnt
+            remaining = remaining - cnt
+            accs.append(acc)
+            cnts.append(cnt)
+            lps.append(lp)
+        return (dstate, torch.stack(accs), torch.stack(cnts),
+                torch.stack(lps), n_acc, n_prop)
+
+    def _lane_tables(self, lanes) -> Tuple[np.ndarray, np.ndarray]:
+        """(max_batch, MB) block tables and base positions of the (slot,
+        request) pairs ``lanes``; other slots: the trash block at
+        PAD_POS."""
+        mbs = self.max_blocks_per_seq
+        table = np.zeros((self.max_batch, mbs), np.int32)
+        bpos = np.full((self.max_batch, mbs), PAD_POS, np.int32)
+        for i, r in lanes:
+            table[i] = self.bm.block_table([r.req_id], mbs)[0]
+            bpos[i] = self.bm.block_pos([r.req_id], mbs)[0]
+        return table, bpos
+
+    def _spec_call(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
+                   gamma: int, rounds: int) -> PagedKVState:
+        """One call of ``rounds`` speculative rounds (1: host-paced, the
+        JAX Executor's per-round loop; more: its device-paced burst): pre-
+        extend every lane's pages for the call's worst case, run the rounds,
+        read the committed tokens back once, append them (host-side stop /
+        eos unstitching via _append_token), rewind to the manager's rest
+        state."""
+        g1 = gamma + 1
+        b = self.max_batch
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        tok0 = np.zeros((b,), np.int32)
+        pos0 = np.full((b,), self.max_seq_len - rounds * g1 - 2, np.int32)
+        remaining = np.zeros((b,), np.int32)
+        done = np.ones((b,), bool)
+        eos = np.full((b,), -1, np.int32)
+        for i, r in active:
+            self.bm.extend(r.req_id, rounds * g1)
+            tok0[i] = r.sequence[-1]
+            pos0[i] = len(r.sequence) - 1
+            remaining[i] = r.max_new_tokens - len(r.generated)
+            done[i] = False
+            if r.eos_token_id is not None:
+                eos[i] = r.eos_token_id
+        table, bpos = self._lane_tables(active)
+        self.spec_calls += 1
+        dstate, accs, cnts, lps, n_acc, n_prop = self._spec_device_rounds(
+            dp, dcfg, dstate, gamma, rounds, self._t(table), self._t(bpos),
+            self._t(tok0), self._t(pos0), self._t(remaining), self._t(done),
+            self._t(eos))
+        toks_np, cnts_np, lps_np, acc_np, prop_np = self._readback(
+            accs, cnts, lps, n_acc, n_prop)
+        # a round ran for JAX's while_loop iff some lane committed in it
+        self.spec_rounds += int((cnts_np.sum(axis=1) > 0).sum())
+        self.spec_accepted += int(acc_np.sum())
+        self.spec_proposed += int(prop_np.sum())
+        for ridx in range(rounds):
+            for i, r in active:
+                for j in range(int(cnts_np[ridx, i])):
+                    if r.done:
+                        break
+                    self._append_token(r, int(toks_np[ridx, i, j]),
+                                       float(lps_np[ridx, i, j]))
+        for i, r in active:
+            if not r.done:
+                # manager rest state: the newest token's page is allocated
+                # by the NEXT round's extend
+                self.bm.rewind(r.req_id, len(r.sequence) - 1)
+        return dstate
+
+    def run_speculative(self, draft_params, draft_cfg: ModelConfig,
+                        gamma: int = 4, paged_draft: bool = True,
+                        rounds_per_call: int = 8) -> Dict[int, Request]:
+        """Drive all submitted work with in-flight speculative decoding:
+        a draft model (its own paged KV pool, the same block tables: one
+        allocator, two pools) proposes gamma greedy tokens per lane, one
+        (gamma+1)-row target forward verifies them, and each lane commits
+        the agreeing prefix plus the target's next token. Greedy requests
+        only: the outputs equal run()'s. Queued requests are admitted and
+        prefilled through step() first; lanes that finish mid-flight run on
+        as masked lanes until the batch drains.
+
+        rounds_per_call > 1 runs that many rounds per call with the
+        bookkeeping on the device and one host readback at the end; a lane
+        within gamma tokens of the context cap finishes with plain step()s.
+        Counters: ``spec_rounds`` (as the JAX Executor's), ``spec_accepted``
+        / ``spec_proposed`` (draft tokens), ``spec_calls`` /
+        ``spec_readbacks`` (host syncs)."""
+        if not paged_draft:
+            raise NotImplementedError(
+                "paged_draft=False needs the dense forward and KVCache, "
+                "which come with the dense-forward slice of the port")
+        assert gamma >= 1 and gamma + 1 < self.block_size, \
+            "gamma+1 must stay below the page size (unaligned chunk rows)"
+        assert not self.bm.window_blocks, \
+            "speculative rewind unsupported with windowed KV"
+        self.spec_rounds = self.spec_accepted = self.spec_proposed = 0
+        self.spec_calls = self.spec_readbacks = 0
+        while self.queue or self.prefilling:
+            self.step()
+        if self.num_active == 0:
+            return self.finished
+        for r in self.slots:
+            if r is not None:
+                assert (r.sampling or self.sampling).is_greedy, \
+                    "speculative decoding is greedy-only"
+                assert r.min_new_tokens == 0, \
+                    "min_new_tokens unsupported in spec mode"
+
+        # prefill the draft with every lane's committed tokens EXCEPT the
+        # newest (the round feeds it, as the target's rounds do)
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        bucket = max(8, pow2_ceil(max(len(r.sequence) - 1
+                                      for _, r in active)))
+        toks = np.zeros((self.max_batch, bucket), np.int32)
+        lens = np.ones((self.max_batch,), np.int32)
+        for i, r in active:
+            toks[i, :len(r.sequence) - 1] = r.sequence[:-1]
+            lens[i] = len(r.sequence) - 1
+        table, bpos = self._lane_tables(active)
+        dstate = init_paged_kv(draft_cfg, self.bm.num_blocks,
+                               self.block_size, device=self.device)
+        dstate = self._draft_prefill(draft_params, draft_cfg, dstate,
+                                     self._t(toks), self._t(lens),
+                                     self._t(table), self._t(bpos))
+
+        g1 = gamma + 1
+        while self.num_active > 0:
+            live = [r for r in self.slots if r is not None]
+            if any(len(r.sequence) + gamma > self.max_seq_len
+                   for r in live):
+                # a lane within gamma tokens of the context cap cannot
+                # absorb a whole verify chunk: finish it with plain steps
+                self.step()
+                continue
+            # device-paced where every lane has room for the call's rounds
+            maxlen = max(len(r.sequence) for r in live)
+            room = (self.max_seq_len - maxlen) // g1 >= rounds_per_call
+            rounds = rounds_per_call if rounds_per_call > 1 and room else 1
+            dstate = self._spec_call(draft_params, draft_cfg, dstate, gamma,
+                                     rounds)
+        return self.finished
 
     def run(self, burst: int = 1) -> Dict[int, Request]:
         """Drive until all submitted work is finished (one decode token per

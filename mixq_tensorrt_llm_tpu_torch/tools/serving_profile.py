@@ -1,7 +1,8 @@
 """Where the time of the port's main path goes, on the card.
 
     python -m mixq_tensorrt_llm_tpu_torch.tools.serving_profile \
-        [--seed N] [--model 7b|13b] [--algo ALGO] [--kv int8|none]
+        [--seed N] [--model 7b|13b] [--algo ALGO] [--kv int8|none] \
+        [--gamma G [--draft-layers N]]
 
 Builds a Llama-geometry model with random weights and serves it through
 the ``serve`` loop chip_smoke.py uses. ``--model`` picks the geometry
@@ -20,6 +21,13 @@ the device's idle share, and kernel time by group (the port's CUDA
 kernels K1-K8, K12, K13, the cuBLAS GEMMs, everything else) with the top
 kernels by name. The card's name and power limit come first. Needs a CUDA
 card.
+
+``--gamma G`` serves the same requests through ``run_speculative`` with G
+draft tokens a round; the draft is the target's first ``--draft-layers``
+layers (default 4), sharing its tensors (as the JAX package's
+tools/serving_bench.py builds its draft). It also prints the acceptance
+rate (accepted / proposed draft tokens). ``MIXQ_KV_SPLITS=N`` in the
+environment sends the decode steps through the split kernel (K11).
 """
 
 from __future__ import annotations
@@ -46,12 +54,17 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",
                 "decode_kernel": "K7 paged_decode_attention",
+                "verify_kernel": "K9 paged_verify_attention",
+                "decode_stats_kernel": "K10 paged_decode_attention(stats)",
                 "prefill_kernel": "K8 paged_prefill_attention"}
 # the paged-KV kernels are templated on the page type: int8 pages show as
 # "signed char" in a kernel's name; any other page type is a bf16/f32 pool
 FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
                "write_chunk_kernel": "K6p paged_write_chunk (float pool)",
                "decode_kernel": "K7 paged_decode_attention (float pages)",
+               "verify_kernel": "K9 paged_verify_attention (float pages)",
+               "decode_stats_kernel": "K10 paged_decode_attention(stats) "
+                                      "(float pages)",
                "prefill_kernel": "K8 paged_prefill_attention (float pages)"}
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "gemv", "nvjet", "cublas")
 TIMED_RUNS = 5
@@ -155,15 +168,23 @@ def _report(title: str, events, wall_s: float) -> None:
         print(f"    {ms:8.2f} ms  {name[:110]}")
 
 
-def serve(params, cfg, prompts, seed, dev):
-    """Serve the prompts once through a fresh Executor, 32 greedy tokens
-    each.
+def draft_model(params, cfg, layers: int):
+    """The target's first ``layers`` layers as a draft model: the same
+    tensors, no copy."""
+    return (dict(params, layers=params["layers"][:layers]),
+            dataclasses.replace(cfg, num_layers=layers))
 
-    Returns (finished requests by id, request ids, wall s, prefill s). Each
-    prefill call is bracketed by synchronizes and marked with a profiler
-    range that closes after the closing synchronize, so every kernel the
-    call queued starts inside it and its kernels can be told from
-    decode's."""
+
+def serve(params, cfg, prompts, seed, dev, spec=None):
+    """Serve the prompts once through a fresh Executor, 32 greedy tokens
+    each; ``spec`` = (draft params, draft config, gamma) serves them
+    through run_speculative instead of run.
+
+    Returns (finished requests by id, request ids, wall s, prefill s,
+    executor). Each prefill call is bracketed by synchronizes and marked
+    with a profiler range that closes after the closing synchronize, so
+    every kernel the call queued starts inside it and its kernels can be
+    told from decode's."""
     ex = make_executor(params, cfg, seed, dev)
     prefill_s = [0.0]
     inner = ex._step_prefill
@@ -180,9 +201,10 @@ def serve(params, cfg, prompts, seed, dev):
     ids = [ex.submit(p, max_new_tokens=32) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = ex.run()
+    done = ex.run() if spec is None else ex.run_speculative(
+        spec[0], spec[1], gamma=spec[2])
     torch.cuda.synchronize()
-    return done, ids, time.perf_counter() - t0, prefill_s[0]
+    return done, ids, time.perf_counter() - t0, prefill_s[0], ex
 
 
 def main() -> int:
@@ -192,6 +214,10 @@ def main() -> int:
     ap.add_argument("--algo", choices=("int8_mix", "w8a16", "w4a16",
                                        "w4a16_g", "int4_mix", "none"))
     ap.add_argument("--kv", choices=("int8", "none"))
+    ap.add_argument("--gamma", type=int, default=0,
+                    help="serve speculatively with this many draft tokens "
+                         "a round (0: plain decode)")
+    ap.add_argument("--draft-layers", type=int, default=4)
     args = ap.parse_args()
     from ..device import resolve_device
     from ..models import llama
@@ -209,21 +235,32 @@ def main() -> int:
         cfg, seed=args.seed, device=dev,
         act_scales=distinct_act_scales(cfg, gen, dev))
     prompts = ragged_prompts(args.seed, cfg.vocab_size)
+    spec = None
+    if args.gamma:
+        spec = (*draft_model(params, cfg, args.draft_layers), args.gamma)
+        print(f"speculative: gamma {args.gamma}, draft = the first "
+              f"{args.draft_layers} layers")
 
-    serve(params, cfg, prompts, args.seed, dev)       # warm-up (and build)
+    serve(params, cfg, prompts, args.seed, dev, spec)   # warm-up (and build)
     timed = []
     for _ in range(TIMED_RUNS):
-        _, _, wall, pre_s = serve(params, cfg, prompts, args.seed, dev)
+        _, _, wall, pre_s, ex = serve(params, cfg, prompts, args.seed, dev,
+                                      spec)
         timed.append((wall, pre_s))
+        rate = (f"; acceptance "
+                f"{ex.spec_accepted / max(ex.spec_proposed, 1):.3f} "
+                f"({ex.spec_accepted} / {ex.spec_proposed} draft tokens, "
+                f"{ex.spec_rounds} rounds)" if spec else "")
         print(f"served {len(prompts)} requests x 32 tokens: wall {wall:.3f} "
-              f"s = prefill {pre_s:.3f} s + decode {wall - pre_s:.3f} s")
+              f"s = prefill {pre_s:.3f} s + decode {wall - pre_s:.3f} "
+              f"s{rate}")
     wall, pre_s = sorted(timed)[len(timed) // 2]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # the profiler's host overhead stretches the wall clock several-fold,
     # so walls come from the run above and device times from this one
     with torch.profiler.profile(activities=acts) as prof:
-        serve(params, cfg, prompts, args.seed, dev)
+        serve(params, cfg, prompts, args.seed, dev, spec)
     events = prof.events()
     ranges = [e.time_range for e in events if e.name == "phase::prefill"
               and e.device_type == torch.autograd.DeviceType.CPU]
@@ -237,7 +274,8 @@ def main() -> int:
         t = k.time_range.start
         (pre if any(r.start <= t <= r.end for r in ranges) else dec).append(k)
     _report("prefill calls", pre, pre_s)
-    _report("decode steps", dec, wall - pre_s)
+    _report("speculative rounds (draft prefill, draft steps, verify)"
+            if spec else "decode steps", dec, wall - pre_s)
     return 0
 
 

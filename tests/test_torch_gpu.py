@@ -12,7 +12,10 @@ in another order), scales rtol 1e-5. K2/K3/K4 differ from their plain
 versions only in the order of f32 sums: 1e-4 of the largest |output| in
 f32, one bf16 step more in bf16; K2 with unit scales and no outliers is
 the int32 product, bit for bit. K12/K13 (packed int4) as K4, against the
-unpack-then-plain versions."""
+unpack-then-plain versions. K9 (verify rows) within 2e-2 of plain, and at
+S = 1 bit-equal to K7; K10 out within 2e-2 and its (m, l) within 1e-3
+relative; K11 within 2e-2 of its plain version and of K7. Speculative
+serving and split decode at a tiny width, by the kernels they launch."""
 
 import pytest
 import torch
@@ -419,3 +422,202 @@ def test_packed_shapes_raise(cuda):
     with pytest.raises(ValueError, match="group_size"):
         wm.wo_matmul_packed_grouped(x, qp, torch.ones((4, 256),
                                                       device=cuda), 64 + 4)
+
+
+def _pool_args(gen, dev, hkv, pages):
+    """(K, V, K scale, V scale) of int8 pages, or bf16/f32 ones without
+    scales."""
+    if pages == "int8":
+        p = _pools(gen, dev, hkv)
+        return p["k"], p["v"], p["k_scale"], p["v_scale"]
+    p = _fp_pools(gen, dev, hkv, getattr(torch, pages))
+    return p["k"], p["v"], None, None
+
+
+# lane 0: 3 pages in a recycled order; lane 1: inactive; lane 2: one page
+_TABLE = [[4, 6, 5, 5], [0, 0, 0, 0], [9, 9, 9, 9]]
+_BPOS = [[0, 2 * BS, BS, PAD_POS], [PAD_POS] * 4, [0] + [PAD_POS] * 3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("s", [2, 5, 8])
+@pytest.mark.parametrize("hq,hkv,window,sink,softcap",
+                         [(4, 4, 0, 0, 0.0), (8, 2, 24, 16, 0.0),
+                          (8, 2, 0, 0, 20.0)])
+def test_verify_kernel_matches_plain(cuda, pages, s, hq, hkv, window, sink,
+                                     softcap):
+    """K9 within 2e-2 of plain; the inactive lane gives 0; lane 2's rows
+    past its 3 keys see only those; one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    args = _pool_args(gen, cuda, hkv, pages)
+    kw = dict(window=window, sink=sink, softcap=softcap,
+              block_pos=torch.tensor(_BPOS, dtype=torch.int32, device=cuda))
+    table = torch.tensor(_TABLE, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3 * BS - 5, 0, 3], dtype=torch.int32, device=cuda)
+    qstart = torch.tensor([3 * BS - 5 - s, 0, 0], dtype=torch.int32,
+                          device=cuda)
+    q = torch.randn((3, s, hq, D), generator=gen, device=cuda).bfloat16()
+    before = dict(_build.LAUNCHES)
+    out = pa.paged_verify_attention(q, *args, table, lens, qstart, D ** -0.5,
+                                    **kw)
+    pos = qstart[:, None] + torch.arange(s, device=cuda)
+    want = pa.paged_attention_plain(q, *args, table, pos, lens, D ** -0.5,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool((out[1] == 0).all())
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
+    sfx = "" if pages == "int8" else "_fp"
+    assert _launched("paged_verify_attention" + sfx, before) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["int8", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,window", [(4, 4, 0), (8, 2, 24)])
+def test_verify_s1_bit_equal_to_decode(cuda, pages, hq, hkv, window):
+    """K9 at S = 1 from qstart = lens - 1 is K7 bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    args = _pool_args(gen, cuda, hkv, pages)
+    kw = dict(window=window, sink=16 if window else 0,
+              block_pos=torch.tensor(_BPOS, dtype=torch.int32, device=cuda))
+    table = torch.tensor(_TABLE, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3 * BS - 5, 1, BS - 2], dtype=torch.int32,
+                        device=cuda)
+    q = torch.randn((3, hq, D), generator=gen, device=cuda).bfloat16()
+    dec = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5, **kw)
+    ver = pa.paged_verify_attention(q[:, None], *args, table, lens, lens - 1,
+                                    D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ver[:, 0], dec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["int8", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,window,softcap",
+                         [(4, 4, 0, 0.0), (8, 2, 24, 0.0), (8, 2, 0, 20.0)])
+def test_stats_and_split_kernels_match_plain(cuda, pages, hq, hkv, window,
+                                             softcap):
+    """K10: out within 2e-2, m and l within 1e-3 relative of plain, the
+    inactive lane at out 0, m -1e30, l 0. K11 at splits 2 and 3 (3 pads
+    the table) within 2e-2 of its plain version and of K7."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    args = _pool_args(gen, cuda, hkv, pages)
+    kw = dict(window=window, sink=16 if window else 0, softcap=softcap,
+              block_pos=torch.tensor(_BPOS, dtype=torch.int32, device=cuda))
+    table = torch.tensor(_TABLE, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3 * BS - 5, 1, BS - 2], dtype=torch.int32,
+                        device=cuda)
+    q = torch.randn((3, hq, D), generator=gen, device=cuda).bfloat16()
+    sfx = "" if pages == "int8" else "_fp"
+    before = dict(_build.LAUNCHES)
+    out, m, l = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5,
+                                          stats=True, **kw)
+    po, pm, pl = pa.paged_decode_attention_stats_plain(
+        q, *args, table, lens, D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == m.dtype == l.dtype == torch.float32
+    assert float((out - po).abs().max()) <= 2e-2
+    live = torch.tensor([0, 2], device=cuda)
+    assert float((m[live] - pm[live]).abs().max()) <= \
+        1e-3 * float(pm[live].abs().max())
+    torch.testing.assert_close(l[live], pl[live], rtol=1e-3, atol=0)
+    assert bool((out[1] == 0).all()) and bool((m[1] == -1e30).all()) \
+        and bool((l[1] == 0).all())
+    assert _launched("paged_decode_attention_stats" + sfx, before) == 1
+    k7 = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5, **kw)
+    for splits in (2, 3):
+        got = pa.paged_decode_attention_split(q, *args, table, lens,
+                                              D ** -0.5, kv_splits=splits,
+                                              **kw)
+        want = pa.paged_decode_attention_split_plain(
+            q, *args, table, lens, D ** -0.5, kv_splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and bool((got[1] == 0).all())
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2
+        assert float((got.float() - k7.float()).abs().max()) <= 2e-2
+    assert _launched("paged_decode_attention_split" + sfx, before) == 2
+    assert _launched("paged_decode_attention_stats" + sfx, before) == 3
+
+
+@pytest.mark.gpu
+def test_verify_limits_raise(cuda):
+    """More than 8 rows, or more rows than a block's shared memory holds
+    (8 rows x 32 query heads a KV head at D = BS = 256), raise."""
+    z = torch.zeros((4, 1, 256, 256), device=cuda).bfloat16()
+    table = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    one = torch.ones((1,), dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 9, 32, 256), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="1..8"):
+        pa.paged_verify_attention(q, z, z, None, None, table, one, one, 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.paged_verify_attention(q[:, :8], z, z, None, None, table, one,
+                                  one, 1.0)
+
+
+def _tiny_serving_model(cuda):
+    """A 2-layer int8_mix / int8-KV Llama at widths the kernels take."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant import (KVCacheQuantAlgo,
+                                                   QuantAlgo, QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      quant=QuantConfig(algo=QuantAlgo.INT8_MIX,
+                                        num_outliers=8,
+                                        kv_cache=KVCacheQuantAlgo.INT8))
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    params = llama.init_random_params(
+        cfg, seed=14, device=cuda,
+        act_scales=sp.distinct_act_scales(cfg, gen, cuda))
+    return params, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [1, 8])
+def test_run_speculative_on_card(cuda, rounds):
+    """run_speculative at a tiny width on the card, gamma 4 and a 1-layer
+    draft: every request ends with its tokens and finite log-probs, K9
+    (verify), K7 (draft steps), K1 -> K2 (the 5-row verify) launch, and
+    the host reads back once per round or per device-paced call."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    draft = dict(params, layers=params["layers"][:1])
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    ex = Executor(params, cfg, max_batch=4, max_seq_len=256, block_size=16,
+                  prefill_chunk=32, device=cuda)
+    prompts = [[(7 * i + j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((5, 40, 17))]
+    ids = [ex.submit(p, max_new_tokens=20) for p in prompts]
+    _build.reset_launches()
+    done = ex.run_speculative(draft, dcfg, gamma=4, rounds_per_call=rounds)
+    torch.cuda.synchronize()
+    for r in ids:
+        assert len(done[r].generated) == 20
+        assert all(map(torch.isfinite, torch.tensor(done[r].logprobs)))
+    for name in ("paged_verify_attention", "paged_decode_attention",
+                 "rmsnorm_quant_split", "mixed_matmul"):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    assert ex.spec_readbacks == ex.spec_calls > 0
+    assert 0 <= ex.spec_accepted <= ex.spec_proposed
+
+
+@pytest.mark.gpu
+def test_split_decode_on_card(cuda, monkeypatch):
+    """MIXQ_KV_SPLITS=2: decode steps launch K11 (and its K10), never K7,
+    and the requests finish."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    monkeypatch.setenv("MIXQ_KV_SPLITS", "2")
+    ex = Executor(params, cfg, max_batch=2, max_seq_len=128, block_size=16,
+                  prefill_chunk=32, device=cuda)
+    ids = [ex.submit(list(range(1, n + 1)), max_new_tokens=8)
+           for n in (3, 50)]
+    _build.reset_launches()
+    done = ex.run()
+    torch.cuda.synchronize()
+    assert all(len(done[r].generated) == 8 for r in ids)
+    assert _build.LAUNCHES.get("paged_decode_attention_split", 0) > 0
+    assert _build.LAUNCHES.get("paged_decode_attention_stats", 0) > 0
+    assert _build.LAUNCHES.get("paged_decode_attention", 0) == 0
