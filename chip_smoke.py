@@ -51,6 +51,15 @@ exits non-zero:
      S = 4 and S = 5 over a short context, one decode step's with
      MIXQ_KV_SPLITS=4, card against CPU; and a fault in K9's row
      positions (every row at qstart) as a control
+  4c. the dense path at full width and depth: the phase-4 model serves the
+     same 8 requests as one static batch through GenerationSession
+     (max_seq_len 768: one 768-token prefill bucket, 32 greedy tokens);
+     K14, K1, K2 and K4 must launch, no paged kernel (K5-K11)
+  5c. cross-device, 2 layers at full width: the session's prefill
+     last-position logits (K14 at a 256-token bucket) and one decode
+     step's logits, card against CPU, with faults in K14's call as
+     controls; the 2-layer model saved with save_checkpoint and served
+     once through LLM on the card
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4 and 5, and S = 8 at
@@ -58,7 +67,11 @@ Phase 3 also holds K9 (verify rows: 8 lanes at S = 4 and 5, and S = 8 at
 bit-equal to K7), K10 (out within 2e-2, m and l within 1e-3 relative of
 the plain stats) and K11 (splits 2 and 4 at 8 lanes and at 1 lane x 4096
 tokens, against K7 and its plain version) on int8 and bf16 pages at
-Llama-2-7B heads, and K1 -> K2 at the 40 rows of a gamma = 4 verify.
+Llama-2-7B heads, and K1 -> K2 at the 40 rows of a gamma = 4 verify,
+and K14 (causal flash attention) at the dense serve's shape (8 x 768, 32
+heads x 128, with SDPA timed as its library call), at D 64 and 256 with
+S 128 and 2048, and causal_self_attention's GQA route (K8 over a page
+view).
 """
 
 from __future__ import annotations
@@ -72,11 +85,11 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-ATTN_TOL = 2e-2       # K7-K11 against their plain f32 versions (bf16 output)
+ATTN_TOL = 2e-2       # K7-K11, K14 against their plain versions (bf16 output)
 STATS_RTOL = 1e-3     # K10's m and l against the plain stats
 GEMM_TOL = 1e-4       # K2-K4, K12, K13 vs plain: f32 sums in another order,
                       # of the largest |output|
-XDEV_TOL = 5e-2       # phases 5 and 5b, relative to the largest |logit|
+XDEV_TOL = 5e-2       # phases 5, 5b, 5c, relative to the largest |logit|
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM: 3.35 TB/s
 BF16_FLOP_PER_MS = 989e9           # H100 SXM dense bf16 tensor-core peak
 INT8_OP_PER_MS = 1979e9            # H100 SXM dense int8 tensor-core peak
@@ -114,7 +127,11 @@ KERNELS = {
                                      "paged_attention.cu"),
     "paged_decode_attention_split_fp": (JOPS + "paged_attention.py:483",
                                         "paged_attention.cu"),
+    # the stock Pallas flash_attention that causal_self_attention calls
+    "flash_causal_attention": (JOPS + "attention.py:58",
+                               "flash_attention.cu"),
 }
+PAGED = [n for n in KERNELS if n.startswith("paged_")]
 # the kernels each main path must launch (K3, the hybrid schedule's
 # epilogue, is on neither: as in the JAX package, where only its kernel
 # test calls mixed_matmul_hybrid; K13 serves w4a16_g, phase 5b)
@@ -136,10 +153,15 @@ ON_PATH = {
               "rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
               "paged_write_token", "paged_write_chunk",
               "paged_prefill_attention"],
+    # phase 4c: GenerationSession over the dense cache: K14 once a layer
+    # at the prefill, the mix linears there, the weight-only ones decoding
+    "dense": ["flash_causal_attention", "rmsnorm_quant_split",
+              "mixed_matmul", "wo_matmul"],
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
-            "spec": [], "split": ["paged_decode_attention"]}
+            "spec": [], "split": ["paged_decode_attention"],
+            "dense": PAGED}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 
 
@@ -171,14 +193,14 @@ def time_cuda(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def device_ms(torch, fn, iters: int, kernel: str = "",
-              counter: str = "") -> float:
+              counter: str = "", names=None) -> float:
     """Device time per call of `fn`: the summed duration of the device
     activity (kernels, copies) that `iters` calls launch, traced by
     torch.profiler after a warm-up. With `counter` (a wrapper's
     launch-count name) the wrapper must count exactly one launch per call;
     with `kernel` only the kernels whose name holds it count, and the time
     is per traced launch: the tracer drops a few events now and then (3 of
-    20 seen)."""
+    20 seen). ``names``, a list, receives the traced kernels' names."""
     from mixq_tensorrt_llm_tpu_torch.ops import _build
     for _ in range(3):
         fn()
@@ -199,6 +221,8 @@ def device_ms(torch, fn, iters: int, kernel: str = "",
         if evs:
             break
     check(len(evs) > 0, f"torch.profiler traced no device time ({kernel})")
+    if names is not None:
+        names.extend(sorted({e.name for e in evs}))
     if counter:
         launched = _build.LAUNCHES.get(counter, 0) - before
         check(launched == iters, f"{counter}: {launched} launches counted "
@@ -1007,6 +1031,100 @@ def check_packed(torch, gen, dev, results):
               f"{weights / HBM_BYTES_PER_MS:.3f} ms)", flush=True)
 
 
+def check_flash(torch, gen, dev, results):
+    """K14 against its plain version (ref.flash_causal_attention): at the
+    dense serve's shape (8 x 768, 32 heads x 128; v a strided view of a
+    fused qkv, as the model hands it over), at D 64 and 256 with S 128 and
+    2048 (B 1), and at a ragged S. Timings at the serve's shape, with SDPA
+    (torch's scaled_dot_product_attention, causal, on (B, H, S, D)) as the
+    library call. Then causal_self_attention's GQA route (Hq 32 / Hkv 8, S
+    768): K8 over the page view against the plain masked attention."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
+    from mixq_tensorrt_llm_tpu_torch.ops import ref
+
+    def run(b, s, h, d, fused: bool):
+        if fused:                       # q, k, v views of one (B, S, 3HD)
+            qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                              device=dev).bfloat16()
+            q, k, v = (x.reshape(b, s, h, d)
+                       for x in qkv.split(h * d, dim=-1))
+        else:
+            q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                                   device=dev).bfloat16() for _ in range(3))
+        before = _build.LAUNCHES.get("flash_causal_attention", 0)
+        out = fa.flash_causal_attention(q, k, v, d ** -0.5)
+        want = ref.flash_causal_attention(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES.get("flash_causal_attention", 0) == before + 1,
+              "K14: the wrapper did not count one launch")
+        check(bool(torch.isfinite(out.float()).all()),
+              "K14 output not finite")
+        err = float((out.float() - want.float()).abs().max())
+        check(err <= ATTN_TOL, f"K14 B={b} S={s} H={h} D={d}: max abs err "
+              f"{err} > {ATTN_TOL}")
+        print(f"K14 flash_causal_attention B={b} S={s} H={h} D={d}"
+              f"{' (strided q/k/v views)' if fused else ''}: max abs err "
+              f"{err:.3e}", flush=True)
+        return q, k, v, err
+
+    worst = 0.0
+    for b, s, h, d in ((1, 128, 8, 64), (1, 2048, 8, 64), (1, 128, 4, 256),
+                       (1, 2048, 4, 256), (1, 2048, 8, 128),
+                       (2, 200, 4, 128)):
+        worst = max(worst, run(b, s, h, d, False)[3])
+    b, s, h, d = 8, 768, 32, 128
+    q, k, v, err = run(b, s, h, d, True)
+    worst = max(worst, err)
+    scale = d ** -0.5
+    ms, pms, wms = measure(
+        torch, lambda: fa.flash_causal_attention(q, k, v, scale),
+        lambda: ref.flash_causal_attention(q, k, v, scale),
+        "flash_causal_kernel", "flash_causal_attention", 50, 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    names = []
+    lib = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        scale=scale), 50, names=names)
+    lib_err = float((sdpa(qt, kt, vt, is_causal=True, scale=scale)
+                     .transpose(1, 2).float()
+                     - ref.flash_causal_attention(q, k, v, scale).float())
+                    .abs().max())
+    backend = ", ".join(n[:80] for n in names) or "none traced"
+    bnd = bound(4 * b * s * h * d * 2, 4.0 * b * h * d * s * (s + 1) / 2)
+    results["flash_causal_attention"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=pms, bound=bnd, library_ms=lib,
+        library=f"scaled_dot_product_attention: {backend}")
+    print(f"K14 timing B={b} S={s} H={h} D={d}: device {ms:.5f} ms per "
+          f"launch (plain {pms:.5f} ms; wrapper {wms:.5f} ms per call; "
+          f"bound {bnd[0]:.5f} ms, by {bnd[1]}; "
+          f"{4.0 * b * h * d * s * (s + 1) / 2 / ms / 1e9:.1f} TFLOP/s); "
+          f"SDPA {lib:.5f} ms (within {lib_err:.3e} of plain; kernels: "
+          f"{backend})", flush=True)
+    del q, k, v, qt, kt, vt
+
+    # the GQA route of causal_self_attention: K8 on a page view
+    hq, hkv, b = 32, 8, 2
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    before = _build.LAUNCHES.get("paged_prefill_attention_fp", 0)
+    out = fa.causal_self_attention(q, k, v, scale)
+    idx = torch.arange(s, device=dev)
+    want = ref.attention(q.float(), k.float(), v.float(),
+                         mask=(idx[None, :] <= idx[:, None])[None, None],
+                         scale=scale)
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES.get("paged_prefill_attention_fp", 0) == before + 1,
+          "causal_self_attention GQA: K8 was not launched once")
+    err = float((out.float() - want).abs().max())
+    check(err <= ATTN_TOL, f"causal_self_attention GQA (K8 page view): max "
+          f"abs err {err} > {ATTN_TOL}")
+    print(f"causal_self_attention GQA B={b} S={s} Hq={hq} Hkv={hkv} D={d}: "
+          f"K8 over the page view, max abs err {err:.3e} against the plain "
+          f"masked attention", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
@@ -1105,6 +1223,51 @@ def serve(torch, params, cfg, seed: int, dev, path: str):
     return launches, done, ids
 
 
+def serve_dense(torch, params, cfg, seed: int, dev):
+    """Phase 4c: the same 8 requests as one static batch through
+    GenerationSession (max_seq_len 768: one 768-token prefill bucket, 32
+    greedy tokens each), every launch count at 0 just before and read just
+    after; K14, K1, K2 and K4 must launch, no paged kernel. Returns the
+    launches."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    prompts = sp.ragged_prompts(seed, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out, wall = sp.serve_dense(params, cfg, prompts, dev)
+    launches = dict(_build.LAUNCHES)
+    check(out.num_generated == [32] * len(prompts),
+          f"dense: not every request got 32 tokens ({out.num_generated})")
+    check(all(math.isfinite(lp) for lps in out.logprobs for lp in lps),
+          "dense: not every token has a finite log-probability")
+    gen_total = sum(out.num_generated)
+    cache_b = sp.dense_cache_bytes(cfg, len(prompts), 768)
+    print(f"main path dense: 8 requests, prompts {[len(p) for p in prompts]} "
+          f"tokens in one 768-token bucket, 32 generated each; wall "
+          f"{wall:.3f} s = prefill {out.prefill_time_s:.3f} s + decode "
+          f"{out.decode_time_s:.3f} s; {gen_total / wall:.1f} generated "
+          f"tok/s ({out.decode_tokens_per_s:.1f} in decode); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dense cache "
+          f"{cache_b / 1e9:.3f} GB", flush=True)
+    print(f"main path dense launches: {json.dumps(launches)}", flush=True)
+    layers = cfg.num_layers
+    print(f"main path dense launches against the per-layer counts: K14 "
+          f"{launches.get('flash_causal_attention', 0)} (1 a layer at the "
+          f"prefill = {layers}), K1 {launches.get('rmsnorm_quant_split', 0)} "
+          f"and K2 {launches.get('mixed_matmul', 0)} (3 a layer at the "
+          f"prefill = {3 * layers}), K4 {launches.get('wo_matmul', 0)} (1 a "
+          f"layer at the prefill + 4 a layer for each of 31 decode steps = "
+          f"{layers + 4 * layers * 31})", flush=True)
+    for name in ON_PATH["dense"]:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the main path dense")
+    for name in OFF_PATH["dense"]:
+        check(launches.get(name, 0) == 0,
+              f"{name} was launched on the main path dense")
+    return launches
+
+
 def cpu_copy(torch, params):
     cpu = torch.device("cpu")
     return {k: ([{m: {n: t.to(cpu) for n, t in p.items()}
@@ -1113,36 +1276,85 @@ def cpu_copy(torch, params):
             for k, v in params.items()}
 
 
+def two_layers(torch, params, cfg):
+    """(the model cut to its first 2 layers: config, params on the card,
+    their CPU copy)."""
+    import dataclasses
+    sub = dict(params, layers=params["layers"][:2])
+    return (dataclasses.replace(cfg, num_layers=2), sub,
+            cpu_copy(torch, sub))
+
+
+def compare_devices(torch, label, dev, run, sub, sub_cpu, phases,
+                    faults=()) -> dict:
+    """Card (kernels) against CPU (plain versions) within XDEV_TOL.
+    ``run(device, params)`` gives one (logits, launches) pair for each
+    entry of ``phases``: (phase, kernels that must launch there, kernels
+    that must not). Then negative controls: the card run again with a
+    fault injected into one kernel's call, to show where such faults land
+    against the tolerance; ``faults`` holds (name, whether the tolerance
+    must catch it, module, function, fault). Returns the card run's
+    launches, summed over its phases."""
+    plain = run(torch.device("cpu"), sub_cpu)
+    check(not any(seen for _, seen in plain), "the CPU run launched a kernel")
+    plain = [x for x, _ in plain]
+    total = {}
+    for (x, seen), want, (phase, must, never) in zip(run(dev, sub), plain,
+                                                     phases):
+        check(bool(torch.isfinite(x).all()),
+              f"cross-device {label}, {phase}: card output not finite")
+        for name in must:
+            check(seen.get(name, 0) > 0, f"cross-device {label}: {name} was "
+                  f"not launched at {phase}")
+        for name in never:
+            check(seen.get(name, 0) == 0, f"cross-device {label}: {name} was "
+                  f"launched at {phase}")
+        for n, c in seen.items():
+            total[n] = total.get(n, 0) + c
+        rel = _rel(x, want)
+        agree = bool((x.argmax(-1) == want.argmax(-1)).all())
+        print(f"cross-device {label}, {phase}: max |card - cpu| / max |cpu| "
+              f"= {rel:.3e} (tolerance {XDEV_TOL}); argmax agrees: {agree}; "
+              f"launches {json.dumps(seen)}", flush=True)
+        check(rel <= XDEV_TOL, f"card vs CPU differ ({label}, {phase}): "
+              f"{rel} > {XDEV_TOL}")
+
+    for name, must_catch, module, attr, fault in faults:
+        real = getattr(module, attr)
+        setattr(module, attr, fault(real))
+        try:
+            r = max(_rel(x, want)
+                    for (x, _), want in zip(run(dev, sub), plain))
+        finally:
+            setattr(module, attr, real)
+        caught = not r <= XDEV_TOL
+        print(f"negative control, {name}: {r:.3e} against tolerance "
+              f"{XDEV_TOL}: {'caught' if caught else 'not caught'}"
+              f"{'' if must_catch else ' (a reading)'}", flush=True)
+        if must_catch:
+            check(caught, f"the cross-device check misses a fault ({name})")
+    return total
+
+
 def cross_device(torch, params, cfg, seed: int, dev, label: str,
                  faults=(), must_launch=((), ())) -> dict:
-    """2 layers at full width: the first prefill chunk's last-position
-    logits and one decode step's logits on the card (kernels) against the
-    CPU (plain versions); the card run must launch the kernels of
-    ``must_launch`` (prefill's, decode's). Then negative controls: the card
-    run again with a fault injected into one kernel's call, to show where
-    such faults land against the tolerance. ``faults`` holds (name,
-    whether the tolerance must catch it, module, function, fault).
-    Returns the card run's launches (prefill and decode)."""
-    import dataclasses
+    """Phases 5 and 5b, 2 layers at full width: the first prefill chunk's
+    last-position logits (a 200-token prompt in a 256-token chunk) and one
+    decode step's logits through forward_paged, card against CPU; the card
+    run must launch the kernels of ``must_launch`` (prefill's, decode's).
+    Returns the card run's launches."""
     import numpy as np
     from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
     from mixq_tensorrt_llm_tpu_torch.ops import _build
     from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    sub = {k: v for k, v in params.items() if k != "layers"}
-    sub["layers"] = params["layers"][:2]
-    cpu = torch.device("cpu")
-    sub_cpu = cpu_copy(torch, sub)
+    cfg2, sub, sub_cpu = two_layers(torch, params, cfg)
     rng = np.random.default_rng(seed + 1)
     c, prompt_len = 256, 200
     tokens = np.zeros((1, c), np.int32)
     tokens[0, :prompt_len] = rng.integers(1, cfg.vocab_size, prompt_len)
     next_token = int(rng.integers(1, cfg.vocab_size))
-    seen = []
 
-    def both_logits(device, p):
-        """(the chunk's last-position logits, the next decode step's); the
-        launches of each call in ``seen``."""
+    def run(device, p):
         state = init_paged_kv(cfg2, 4, 128, device=device)
         t = torch.from_numpy(tokens).to(device)
         pos = torch.arange(c, dtype=torch.int32, device=device)[None]
@@ -1151,56 +1363,180 @@ def cross_device(torch, params, cfg, seed: int, dev, label: str,
         _build.reset_launches()
         pre, _ = forward_paged(p, cfg2, t, pos, state, table, length,
                                last_pos=length - 1)
-        seen[:] = [dict(_build.LAUNCHES)]
+        out = [(pre[0, 0].float().cpu(), dict(_build.LAUNCHES))]
         _build.reset_launches()
         t = torch.tensor([[next_token]], dtype=torch.int32, device=device)
         dec, _ = forward_paged(p, cfg2, t, length[:, None], state, table,
                                length + 1)
-        seen.append(dict(_build.LAUNCHES))
-        return pre[0, 0].float().cpu(), dec[0, 0].float().cpu()
+        return out + [(dec[0, 0].float().cpu(), dict(_build.LAUNCHES))]
 
-    plain = both_logits(cpu, sub_cpu)
-    check(not any(seen), "the CPU run launched a kernel")
-    card = both_logits(dev, sub)
-    check(all(bool(torch.isfinite(x).all()) for x in card),
-          "card logits not finite")
-    print(f"cross-device {label} launches: prefill {json.dumps(seen[0])}, "
-          f"decode {json.dumps(seen[1])}", flush=True)
-    for names, got, phase in zip(must_launch, seen, ("prefill", "decode")):
-        for name in names:
-            check(got.get(name, 0) > 0, f"cross-device {label}: {name} was "
-                  f"not launched at {phase}")
-    card_launches = {n: seen[0].get(n, 0) + seen[1].get(n, 0)
-                     for n in set(seen[0]) | set(seen[1])}
+    return compare_devices(
+        torch, label, dev, run, sub, sub_cpu,
+        [(f"prefill ({prompt_len} tokens)", must_launch[0], ()),
+         ("decode step", must_launch[1], ())], faults)
 
-    def rel_err(xs):
-        """(prefill, decode) max |card - cpu| / max |cpu|."""
-        return [float((x - p).abs().max() / p.abs().max())
-                for x, p in zip(xs, plain)]
 
-    rel = rel_err(card)
-    agree = [int(x.argmax()) == int(p.argmax()) for x, p in zip(card, plain)]
-    print(f"cross-device {label} (2 layers, full width, {prompt_len}-token "
-          f"prompt in a {c}-token chunk, then one decode step): max |card - "
-          f"cpu| / max |cpu| = {rel[0]:.3e} prefill, {rel[1]:.3e} decode "
-          f"(tolerance {XDEV_TOL}); argmax agrees: {agree}", flush=True)
-    check(max(rel) <= XDEV_TOL, f"card vs CPU logits differ ({label}): "
-          f"{rel} > {XDEV_TOL}")
+def k14_faults(torch):
+    """Phase 5c's controls, both enforced: K14 with the logits scale
+    doubled; K14 with every row also seeing the next 16 keys (k and v moved
+    16 positions earlier, so row r sees keys 16 .. r + 16 and loses keys
+    0 .. 15)."""
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
 
-    for name, must_catch, module, attr, fault in faults:
-        real = getattr(module, attr)
-        setattr(module, attr, fault(real))
-        try:
-            r = max(rel_err(both_logits(dev, sub)))
-        finally:
-            setattr(module, attr, real)
-        caught = not r <= XDEV_TOL
-        print(f"negative control, {name}: {r:.3e} against tolerance "
-              f"{XDEV_TOL}: {'caught' if caught else 'not caught'}",
+    def shifted(f):
+        def faulty(q, k, v, scale):
+            return f(q, k.roll(-16, dims=1).contiguous(),
+                     v.roll(-16, dims=1).contiguous(), scale)
+        return faulty
+
+    return [
+        ("K14 with the logits scale doubled", True, fa,
+         "flash_causal_attention",
+         lambda f: lambda q, k, v, scale: f(q, k, v, 2.0 * scale)),
+        ("K14 with every row seeing the next 16 keys", True, fa,
+         "flash_causal_attention", shifted),
+    ]
+
+
+def cross_device_dense(torch, params, cfg, seed: int, dev):
+    """Phase 5c, 2 layers at full width, through GenerationSession.generate
+    as users call it: 2 prompts of 200 and 256 tokens in one 256-token
+    bucket (K14 at every layer), 2 tokens each. A logits processor reads
+    the raw logits the session hands it at the prefill and at the decode
+    step and forces the next token, the same on both devices, so that the
+    decode step's inputs agree. Those logits and the session's logprobs of
+    the forced tokens are held card against CPU, then the K14 controls run.
+    Then the 2-layer model is saved with save_checkpoint and served once
+    through LLM on the card. Returns the card run's launches."""
+    import tempfile
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.api import LLM
+    from mixq_tensorrt_llm_tpu_torch.convert import save_checkpoint
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    cfg2, sub, sub_cpu = two_layers(torch, params, cfg)
+    rng = np.random.default_rng(seed + 2)
+    lens_l, bucket = [200, 256], 256
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens_l]
+    nxt = rng.integers(1, cfg.vocab_size, 2)
+
+    def run(device, p):
+        sess = GenerationSession(p, cfg2, max_seq_len=512, device=device)
+        force = torch.from_numpy(nxt).to(device)[:, None]
+        read = []
+
+        def processor(logits, history):
+            read.append((logits.float().cpu(), dict(_build.LAUNCHES)))
+            _build.reset_launches()
+            cols = torch.arange(logits.shape[-1], device=logits.device)
+            return torch.where(cols[None] == force, 0.0, -torch.inf)
+
+        _build.reset_launches()
+        out = sess.generate(prompts, 2, logits_processors=(processor,))
+        check(out.sequences == [q + [int(t)] * 2
+                                for q, t in zip(prompts, nxt)],
+              "cross-device dense: the forced tokens were not generated")
+        return read + [(torch.tensor(out.logprobs), {})]
+
+    paged = tuple(PAGED)
+    launches = compare_devices(
+        torch, "dense", dev, run, sub, sub_cpu,
+        [(f"prefill (prompts of {lens_l} tokens in a {bucket}-token "
+          f"bucket)", ("flash_causal_attention", "rmsnorm_quant_split",
+                       "mixed_matmul", "wo_matmul"), paged),
+         ("decode step", ("wo_matmul",), paged),
+         ("logprobs of the 2 forced tokens", (), ())],
+        k14_faults(torch))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        save_checkpoint(tmp, sub, cfg2)
+        llm = LLM(tmp, max_seq_len=512, device=dev)
+        _build.reset_launches()
+        out = llm.generate_tokens([prompts[0]], 8)
+        torch.cuda.synchronize()
+        check(out.num_generated == [8] and bool(np.isfinite(
+            out.logprobs[0]).all()), "LLM over the saved checkpoint failed")
+        check(_build.LAUNCHES.get("flash_causal_attention", 0) == 2,
+              "LLM: K14 did not launch at each layer of its prefill")
+        print(f"LLM over a checkpoint saved by save_checkpoint (2 layers): 8 "
+              f"tokens on the card, K14 launched "
+              f"{_build.LAUNCHES.get('flash_causal_attention', 0)} times; "
+              f"save, load and generate {time.perf_counter() - t:.1f} s",
               flush=True)
-        if must_catch:
-            check(caught, f"the cross-device check misses a fault ({name})")
-    return card_launches
+        del llm
+    return launches
+
+
+def rows_at_qstart(f):
+    """A K9 fault: every query row at position qstart (row 0's), so rows
+    1.. lose their own key and the draft keys before it."""
+    def faulty(q, kp, vp, ks, vs, tb, ln, qs, *a, **k):
+        import torch
+        return torch.cat([f(q[:, j:j + 1], kp, vp, ks, vs, tb, ln, qs, *a,
+                            **k) for j in range(q.shape[1])], dim=1)
+    return faulty
+
+
+def cross_device_verify(torch, params, cfg, seed: int, dev) -> dict:
+    """Phase 7, 2 layers at full width, card against CPU: one verify
+    forward's logits at S = 4 (weight-only linears) and S = 5 (K1 -> K2)
+    over a 24-token context, where one key carries weight; one decode
+    step's logits with MIXQ_KV_SPLITS=4 after a 200-token prompt (2 table
+    entries padded to 4 splits). Then the control, enforced: K9 with every
+    row at qstart. Returns the card run's launches."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
+    cfg2, sub, sub_cpu = two_layers(torch, params, cfg)
+    rng = np.random.default_rng(seed + 2)
+    ctx = 24
+    context = rng.integers(1, cfg.vocab_size, ctx)
+    rows = {s: rng.integers(1, cfg.vocab_size, s) for s in (4, 5)}
+    prompt = rng.integers(1, cfg.vocab_size, 200)
+    nxt = int(rng.integers(1, cfg.vocab_size))
+
+    def step(device, p, t, start, state, table, length):
+        t = torch.tensor(t, dtype=torch.int32, device=device)[None]
+        pos = start + torch.arange(t.shape[1], dtype=torch.int32,
+                                   device=device)[None]
+        return forward_paged(p, cfg2, t, pos, state,
+                             torch.tensor([table], dtype=torch.int32,
+                                          device=device),
+                             torch.tensor([length], dtype=torch.int32,
+                                          device=device))[0]
+
+    def run(device, p):
+        out = []
+        for s in (4, 5):
+            state = init_paged_kv(cfg2, 4, 128, device=device)
+            step(device, p, context, 0, state, [1], ctx)
+            _build.reset_launches()
+            x = step(device, p, rows[s], ctx, state, [1], ctx + s)
+            out.append((x[0].float().cpu(), dict(_build.LAUNCHES)))
+        state = init_paged_kv(cfg2, 4, 128, device=device)
+        chunk = np.zeros(256, np.int64)
+        chunk[:200] = prompt
+        step(device, p, chunk, 0, state, [1, 2], 200)
+        _build.reset_launches()
+        with kv_splits(4):
+            x = step(device, p, [nxt], 200, state, [1, 2], 201)
+        return out + [(x[0, 0].float().cpu(), dict(_build.LAUNCHES))]
+
+    return compare_devices(
+        torch, "verify and split decode", dev, run, sub, sub_cpu,
+        [(f"verify S=4 ({ctx}-token context)",
+          ("paged_verify_attention", "wo_matmul"), ()),
+         (f"verify S=5 ({ctx}-token context)",
+          ("paged_verify_attention", "rmsnorm_quant_split", "mixed_matmul"),
+          ()),
+         ("split decode (MIXQ_KV_SPLITS=4, 200-token prompt)",
+          ("paged_decode_attention_split", "paged_decode_attention_stats"),
+          ("paged_decode_attention",))],
+        [("K9 with every row at qstart", True, pa, "paged_verify_attention",
+          rows_at_qstart)])
 
 
 def faults_7b(torch):
@@ -1226,132 +1562,6 @@ def faults_7b(torch):
          lambda f: lambda x, qw, sc, **k: f(x, qw, torch.ones_like(sc),
                                             **k)),
     ]
-
-
-# the K9 row-position control of phase 7 is enforced: it reads more than
-# ten times XDEV_TOL (PERF.md)
-K9_CONTROL_ENFORCED = True
-
-
-def rows_at_qstart(f):
-    """A K9 fault: every query row at position qstart (row 0's), so rows
-    1.. lose their own key and the draft keys before it."""
-    def faulty(q, kp, vp, ks, vs, tb, ln, qs, *a, **k):
-        import torch
-        return torch.cat([f(q[:, j:j + 1], kp, vp, ks, vs, tb, ln, qs, *a,
-                            **k) for j in range(q.shape[1])], dim=1)
-    return faulty
-
-
-def cross_device_verify(torch, params, cfg, seed: int, dev) -> dict:
-    """Phase 7, 2 layers at full width, card (kernels) against CPU (plain)
-    within XDEV_TOL: one verify forward's logits at S = 4 (weight-only
-    linears) and S = 5 (K1 -> K2) over a 24-token context, where one key
-    carries weight; one decode step's logits with MIXQ_KV_SPLITS=4 after a
-    200-token prompt (2 table entries padded to 4 splits). Then the
-    control: K9 with every row at qstart. Returns the card runs'
-    launches."""
-    import dataclasses
-    import numpy as np
-    from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
-    from mixq_tensorrt_llm_tpu_torch.ops import _build
-    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
-    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    sub = {k: v for k, v in params.items() if k != "layers"}
-    sub["layers"] = params["layers"][:2]
-    cpu = torch.device("cpu")
-    sub_cpu = cpu_copy(torch, sub)
-    rng = np.random.default_rng(seed + 2)
-    ctx = 24
-    context = rng.integers(1, cfg.vocab_size, ctx)
-    rows = {s: rng.integers(1, cfg.vocab_size, s) for s in (4, 5)}
-    prompt = rng.integers(1, cfg.vocab_size, 200)
-    nxt = int(rng.integers(1, cfg.vocab_size))
-    total = {}
-
-    def add(seen):
-        for n, c in seen.items():
-            total[n] = total.get(n, 0) + c
-
-    def run(device, p, t, start, state, table, length):
-        t = torch.tensor(t, dtype=torch.int32, device=device)[None]
-        pos = start + torch.arange(t.shape[1], dtype=torch.int32,
-                                   device=device)[None]
-        return forward_paged(p, cfg2, t, pos, state,
-                             torch.tensor([table], dtype=torch.int32,
-                                          device=device),
-                             torch.tensor([length], dtype=torch.int32,
-                                          device=device))[0]
-
-    def verify_logits(device, p, s):
-        state = init_paged_kv(cfg2, 4, 128, device=device)
-        run(device, p, context, 0, state, [1], ctx)
-        _build.reset_launches()
-        out = run(device, p, rows[s], ctx, state, [1], ctx + s)
-        return out[0].float().cpu(), dict(_build.LAUNCHES)
-
-    def split_logits(device, p):
-        state = init_paged_kv(cfg2, 4, 128, device=device)
-        chunk = np.zeros(256, np.int64)
-        chunk[:200] = prompt
-        run(device, p, chunk, 0, state, [1, 2], 200)
-        _build.reset_launches()
-        with kv_splits(4):
-            out = run(device, p, [nxt], 200, state, [1, 2], 201)
-        return out[0, 0].float().cpu(), dict(_build.LAUNCHES)
-
-    must = {4: ("paged_verify_attention", "wo_matmul"),
-            5: ("paged_verify_attention", "rmsnorm_quant_split",
-                "mixed_matmul")}
-    plain = {}
-    for s in (4, 5):
-        plain[s], seen = verify_logits(cpu, sub_cpu, s)
-        check(not seen, "the CPU run launched a kernel")
-        card, seen = verify_logits(dev, sub, s)
-        add(seen)
-        check(bool(torch.isfinite(card).all()), "verify logits not finite")
-        for name in must[s]:
-            check(seen.get(name, 0) > 0, f"cross-device verify S={s}: "
-                  f"{name} was not launched")
-        rel = _rel(card, plain[s])
-        agree = bool((card.argmax(-1) == plain[s].argmax(-1)).all())
-        print(f"cross-device verify S={s} (2 layers, full width, {ctx}-token "
-              f"context): max |card - cpu| / max |cpu| = {rel:.3e} over the "
-              f"{s} rows (tolerance {XDEV_TOL}); argmax agrees on every row: "
-              f"{agree}; launches {json.dumps(seen)}", flush=True)
-        check(rel <= XDEV_TOL, f"verify S={s}: card vs CPU {rel} > "
-              f"{XDEV_TOL}")
-
-    want, seen = split_logits(cpu, sub_cpu)
-    card, seen = split_logits(dev, sub)
-    add(seen)
-    check(seen.get("paged_decode_attention_split", 0) > 0
-          and seen.get("paged_decode_attention_stats", 0) > 0
-          and seen.get("paged_decode_attention", 0) == 0,
-          f"split decode launched {json.dumps(seen)}")
-    rel = _rel(card, want)
-    print(f"cross-device split decode (MIXQ_KV_SPLITS=4, 200-token prompt): "
-          f"max |card - cpu| / max |cpu| = {rel:.3e} (tolerance {XDEV_TOL}); "
-          f"argmax agrees: {int(card.argmax()) == int(want.argmax())}; "
-          f"launches {json.dumps(seen)}", flush=True)
-    check(rel <= XDEV_TOL, f"split decode: card vs CPU {rel} > {XDEV_TOL}")
-
-    real = pa.paged_verify_attention
-    pa.paged_verify_attention = rows_at_qstart(real)
-    try:
-        r = max(_rel(verify_logits(dev, sub, s)[0], plain[s]) for s in (4, 5))
-    finally:
-        pa.paged_verify_attention = real
-    caught = not r <= XDEV_TOL
-    print(f"negative control, K9 with every row at qstart: {r:.3e} against "
-          f"tolerance {XDEV_TOL}: {'caught' if caught else 'not caught'}"
-          f"{'' if K9_CONTROL_ENFORCED else ' (a reading, not enforced)'}",
-          flush=True)
-    if K9_CONTROL_ENFORCED:
-        check(caught, "the cross-device check misses a K9 row-position "
-              "fault")
-    return total
 
 
 def cross_device_13b(torch, seed: int, dev):
@@ -1461,6 +1671,7 @@ def main() -> int:
     check_writes(torch, gen, dev, results, fp=True)
     check_attention(torch, gen, dev, results, fp=True)
     check_packed(torch, gen, dev, results)
+    check_flash(torch, gen, dev, results)
     print(f"phase 3: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4. main path: Llama-2-7B int8_mix / int8 KV
@@ -1498,9 +1709,17 @@ def main() -> int:
     for n, c in cross_device_verify(torch, params, cfg, args.seed,
                                     dev).items():
         xdev[n] = xdev.get(n, 0) + c
+    print(f"phases 6-7: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 4c. the dense GenerationSession path, 5c. its cross-device check
+    t = time.perf_counter()
+    launches["dense"] = serve_dense(torch, params, cfg, args.seed, dev)
+    for n, c in cross_device_dense(torch, params, cfg, args.seed,
+                                   dev).items():
+        xdev[n] = xdev.get(n, 0) + c
     del params
     torch.cuda.empty_cache()
-    print(f"phases 6-7: {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phases 4c-5c: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
@@ -1521,8 +1740,8 @@ def main() -> int:
     print(f"phases 4b-5b: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 8. kernels line: launches summed over the main paths' runs (phases
-    # 4, 4b, 6 and 6b; the cross-device runs' beside them: K13 launches
-    # there only)
+    # 4, 4b, 4c, 6 and 6b; the cross-device runs' beside them: K13
+    # launches there only)
     rows = []
     for name, (replaces, src) in KERNELS.items():
         r = results[name]
@@ -1537,7 +1756,8 @@ def main() -> int:
                                "int8" if name.startswith("paged") else None),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
-                     "bound_by": by, "library_ms": r.get("library_ms")})
+                     "bound_by": by, "library_ms": r.get("library_ms"),
+                     "library": r.get("library")})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

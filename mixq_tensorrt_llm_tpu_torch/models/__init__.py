@@ -1,2 +1,3 @@
-from .common import ModelConfig, forward_paged  # noqa: F401
+from .common import (KVCache, ModelConfig, forward,  # noqa: F401
+                     forward_paged, init_kv_cache)
 from . import llama  # noqa: F401

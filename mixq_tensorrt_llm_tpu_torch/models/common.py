@@ -1,13 +1,16 @@
-"""Model config, RoPE and the paged decoder forward (single device, Llama
-lineage). Counterpart of mixq_tensorrt_llm_tpu/models/common.py.
+"""Model config, RoPE, the dense-cache decoder forward and the paged one
+(single device, Llama lineage). Counterpart of
+mixq_tensorrt_llm_tpu/models/common.py.
 
 Params are plain dicts of tensors; ``params["layers"]`` is a list of
 per-layer dicts (the JAX package stacks them on axis 0 for its layer scan,
 here the layers are a Python loop). q/k/v and gate/up are fused GEMMs.
 
-The paged KV pool is FLAT over layers, as in the JAX package: layer l's
-block b is page row ``l * num_blocks + b``, and the pool tensors are
-updated in place.
+Both KV layouts are updated in place (the JAX package returns new arrays):
+the dense ``KVCache`` (``forward``, the GenerationSession's path) stacks
+layers on axis 0; the paged pool (``forward_paged``, the Executor's) is
+FLAT over layers, as in the JAX package: layer l's block b is page row
+``l * num_blocks + b``.
 """
 
 from __future__ import annotations
@@ -15,11 +18,15 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Tuple
+from functools import partial
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..quant.config import QuantAlgo, QuantConfig
+from ..device import DeviceLike, resolve_device
+from ..quant import core as qcore
+from ..quant.config import KVCacheQuantAlgo, QuantAlgo, QuantConfig
+from ..ops import attention as ops_attn
 from ..ops import dispatch
 from ..ops import paged_attention as pattn
 from ..ops import ref as ops_ref
@@ -147,6 +154,46 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Dense KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Dense KV cache, layers stacked on the leading axis, updated in place.
+
+    bf16 mode: k/v (L, B, Smax, Hkv, D) in the model dtype, no scales.
+    int8 mode: k/v int8 of that shape; k_scale/v_scale (L, B, Smax, Hkv) f32
+    (per token and head, quant/core.quantize_kv)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device: DeviceLike = "cuda") -> KVCache:
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kv = cfg.quant.kv_cache
+    if kv == KVCacheQuantAlgo.INT8:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+            v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev))
+    if kv != KVCacheQuantAlgo.NONE:
+        raise NotImplementedError(
+            f"{kv.value} KV cache: comes with the fp8 slice (ROADMAP queue "
+            "1, item 10)")
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
 
@@ -209,6 +256,57 @@ def block_norm(cfg: ModelConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
 # Decoder
 # ---------------------------------------------------------------------------
 
+def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
+                          layer_cache: dict, write_pos, kv_valid_len,
+                          full_prefill: bool = False) -> torch.Tensor:
+    """Write new_k/new_v (B, S, Hkv, D) into this layer's dense cache at
+    write_pos (B, S) in place, and attend q (B, S, Hq, D) (JAX
+    models/common.py:341-432).
+
+    layer_cache: k/v (B, Smax, Hkv, D) views (+ k_scale/v_scale
+    (B, Smax, Hkv) in int8 mode); kv_valid_len (B,) counts the entries
+    valid AFTER this write. full_prefill asserts the cache held nothing
+    before this write: attention then runs over the fresh new_k/new_v
+    through ``ops.attention.causal_self_attention`` (K14 for MHA), as JAX
+    does, not over the quantized cache. Otherwise the masked einsum over
+    the whole cache (causal in absolute positions, below kv_valid_len, the
+    window), straight over int8 with its scales in int8 mode: plain torch,
+    as JAX leaves it to XLA."""
+    b = q.shape[0]
+    window = cfg.sliding_window
+    scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
+    bidx = torch.arange(b, device=q.device)[:, None]
+    wp = write_pos.long()
+    ck, cv = layer_cache["k"], layer_cache["v"]
+    quantized = "k_scale" in layer_cache
+    if quantized:
+        qk, sk = qcore.quantize_kv(new_k)
+        qv, sv = qcore.quantize_kv(new_v)
+        ck[bidx, wp] = qk
+        cv[bidx, wp] = qv
+        layer_cache["k_scale"][bidx, wp] = sk
+        layer_cache["v_scale"][bidx, wp] = sv
+    else:
+        ck[bidx, wp] = new_k.to(ck.dtype)
+        cv[bidx, wp] = new_v.to(cv.dtype)
+
+    if full_prefill and not softcap:
+        return ops_attn.causal_self_attention(q, new_k, new_v, scale=scale,
+                                              window=window)
+    kv_idx = torch.arange(ck.shape[1], device=q.device)
+    mask = ((kv_idx[None, None, None, :] <= wp[:, None, :, None])
+            & (kv_idx[None, None, None, :]
+               < kv_valid_len.long()[:, None, None, None]))
+    if window:
+        mask &= kv_idx[None, None, None, :] > wp[:, None, :, None] - window
+    if quantized:
+        return ops_ref.attention_int8kv(q, ck, layer_cache["k_scale"], cv,
+                                        layer_cache["v_scale"], mask=mask,
+                                        scale=scale, softcap=softcap)
+    return ops_ref.attention(q, ck, cv, mask=mask, scale=scale,
+                             softcap=softcap)
+
+
 def _kv_splits() -> int:
     """Flash-decoding page-split factor of the decode step (the reference's
     --multi_block_mode): 0/1 = one K7 scan per lane (default); N > 1 sends
@@ -258,10 +356,12 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
 
 
 def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
-                  pools: dict, block_table, write_pos, kv_valid_len,
-                  block_pos=None, window: int = 0,
-                  sink: int = 0) -> torch.Tensor:
-    """One pre-norm Llama block over the paged pool. x (B, S, hidden)."""
+                  attend) -> torch.Tensor:
+    """One pre-norm Llama block. x (B, S, hidden); ``attend(q, k, v)``
+    writes the new k/v (B, S, Hkv, D) into the layer's KV and returns
+    attention of q (B, S, Hq, D) over it: ``_attention_with_cache`` (dense
+    cache) or ``_attention_paged`` (paged pool) with the layer's state
+    bound."""
     b, s, _ = x.shape
 
     # decode regime (S <= 4): mix linears run weight-only on the full
@@ -281,9 +381,7 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     q = apply_rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), sin, cos)
     k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), sin, cos)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    attn = _attention_paged(cfg, q, k, v, pools, block_table, write_pos,
-                            kv_valid_len, block_pos=block_pos, window=window,
-                            sink=sink)
+    attn = attend(q, k, v)
     attn = dispatch.linear(lp["o_proj"], attn.reshape(b, s, cfg.q_size),
                            algo("o_proj"))
     x = x + attn.to(x.dtype)
@@ -335,10 +433,66 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     nb = paged_state.k.shape[0] // num_layers
     pools = paged_state.pools()
     for li, lp in enumerate(params["layers"]):
-        x = decoder_layer(cfg, lp, x, sin, cos, pools,
-                          block_table + li * nb, write_pos, kv_valid_len,
-                          block_pos=block_pos, window=window, sink=sink)
-    if last_pos is not None:
-        idx = last_pos.long().clamp(0, x.shape[1] - 1)
-        x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-    return _head(params, cfg, x).float(), paged_state
+        attend = partial(_attention_paged, cfg, pools=pools,
+                         block_table=block_table + li * nb,
+                         write_pos=write_pos, kv_valid_len=kv_valid_len,
+                         block_pos=block_pos, window=window, sink=sink)
+        x = decoder_layer(cfg, lp, x, sin, cos, attend)
+    return _head(params, cfg, _last(x, last_pos)).float(), paged_state
+
+
+def _last(x: torch.Tensor, last_pos) -> torch.Tensor:
+    """x (B, S, H) -> (B, 1, H) at each lane's last_pos, or x unchanged."""
+    if last_pos is None:
+        return x
+    idx = last_pos.long().clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+
+# forward's options of the JAX package that the port does not honour yet,
+# with the ROADMAP item that brings each
+_UNPORTED_FORWARD = {
+    "collect_stats": "queue 1, item 11 (convert/calibrate.py)",
+    "outlier_state": "queue 1, item 12 (quant/dynamic.py)",
+    "lora_ids": "queue 1, item 14 (convert/lora.py)",
+    "attn_mask": "queue 1, item 14 (runtime/medusa.py tree verification)",
+    "return_hidden": "queue 1, item 14 (runtime/medusa.py heads)",
+    "rope_pos": "queue 1, item 14 (tree and beam verification)",
+}
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            write_pos: torch.Tensor, cache: KVCache,
+            kv_valid_len: torch.Tensor, collect_stats: bool = False,
+            full_prefill: bool = False, outlier_state=None, lora_ids=None,
+            attn_mask=None, return_hidden: bool = False, rope_pos=None,
+            last_pos=None):
+    """Decoder forward over the dense cache (the GenerationSession's path).
+
+    tokens/write_pos (B, S): token ids and their absolute positions (RoPE
+    and cache slot); cache: KVCache, updated IN PLACE; kv_valid_len (B,)
+    valid KV length after this call's writes; full_prefill: the cache is
+    empty before this call, so attention runs over the fresh K/V (K14 on
+    the card for MHA); last_pos: optional (B,) index, the head then runs on
+    that one position per lane and returns (B, 1, V) logits (a port-only
+    option: JAX's session gathers after its head).
+    Returns (logits f32, cache)."""
+    given = dict(collect_stats=collect_stats, outlier_state=outlier_state,
+                 lora_ids=lora_ids, attn_mask=attn_mask,
+                 return_hidden=return_hidden, rope_pos=rope_pos)
+    for name, val in given.items():
+        if val is not None and val is not False:
+            raise NotImplementedError(f"forward({name}=...) is not ported "
+                                      f"yet: ROADMAP {_UNPORTED_FORWARD[name]}")
+    x = _embed(params, cfg, tokens)
+    sin, cos = _positional_arrays(cfg, write_pos)
+    for li, lp in enumerate(params["layers"]):
+        layer_cache = {"k": cache.k[li], "v": cache.v[li]}
+        if cache.quantized:
+            layer_cache.update(k_scale=cache.k_scale[li],
+                               v_scale=cache.v_scale[li])
+        attend = partial(_attention_with_cache, cfg, layer_cache=layer_cache,
+                         write_pos=write_pos, kv_valid_len=kv_valid_len,
+                         full_prefill=full_prefill)
+        x = decoder_layer(cfg, lp, x, sin, cos, attend)
+    return _head(params, cfg, _last(x, last_pos)).float(), cache

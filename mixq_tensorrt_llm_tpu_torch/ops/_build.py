@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("paged_write", "paged_attention", "norm_quant", "mixed_matmul",
-           "wo_matmul")
+           "wo_matmul", "flash_attention")
 # no --use_fast_math: the write kernels rely on exact IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -39,6 +39,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LL = ctypes.c_longlong
 
 
 def count_launch(name: str) -> None:

@@ -151,6 +151,34 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+# the stock Pallas flash kernel's DEFAULT_MASK_VALUE, -0.7 * float32 max
+FLASH_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """Causal MHA as the stock Pallas TPU flash kernel computes it (K14's
+    plain version). q, k, v (B, S, H, D), taken as bf16 -> (B, S, H, D)
+    bf16.
+
+    Logits are f32 products of the bf16 inputs times ``scale``, with the
+    causal mask (key <= row) as the stock kernel's additive
+    FLASH_MASK_VALUE; the softmax is f32 and p is rounded to bf16 before
+    p·v, whose f32 sum is divided by the f32 row sum and rounded to bf16
+    once (jax/experimental/pallas/ops/tpu/flash_attention.py
+    _flash_attention_kernel, which divides by the running sum as it goes).
+    The (B, H, S, S) logits are materialized."""
+    s = q.shape[1]
+    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = logits + torch.where(keep, 0.0, FLASH_MASK_VALUE)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)                                        # (B, H, S)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf)
+    return (out / l.transpose(1, 2)[..., None]).to(torch.bfloat16)
+
+
 def attention_int8kv(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
                      v_q: torch.Tensor, v_s: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,

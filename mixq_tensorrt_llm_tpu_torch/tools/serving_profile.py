@@ -2,7 +2,7 @@
 
     python -m mixq_tensorrt_llm_tpu_torch.tools.serving_profile \
         [--seed N] [--model 7b|13b] [--algo ALGO] [--kv int8|none] \
-        [--gamma G [--draft-layers N]]
+        [--gamma G [--draft-layers N]] [--dense]
 
 Builds a Llama-geometry model with random weights and serves it through
 the ``serve`` loop chip_smoke.py uses. ``--model`` picks the geometry
@@ -28,6 +28,12 @@ layers (default 4), sharing its tensors (as the JAX package's
 tools/serving_bench.py builds its draft). It also prints the acceptance
 rate (accepted / proposed draft tokens). ``MIXQ_KV_SPLITS=N`` in the
 environment sends the decode steps through the split kernel (K11).
+
+``--dense`` serves the same 8 requests as one static batch through
+``GenerationSession`` (``max_seq_len`` 768, so one 768-token prefill
+bucket) over the dense KV cache: the prefill runs K14 (causal flash
+attention) and the mix linears, the decode steps the weight-only linears
+and the dense cache's masked attention in torch ops.
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "decode_kernel": "K7 paged_decode_attention",
                 "verify_kernel": "K9 paged_verify_attention",
                 "decode_stats_kernel": "K10 paged_decode_attention(stats)",
-                "prefill_kernel": "K8 paged_prefill_attention"}
+                "prefill_kernel": "K8 paged_prefill_attention",
+                "flash_causal_kernel": "K14 flash_causal_attention"}
 # the paged-KV kernels are templated on the page type: int8 pages show as
 # "signed char" in a kernel's name; any other page type is a bf16/f32 pool
 FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
@@ -134,6 +141,29 @@ def make_executor(params, cfg, seed: int, device):
     return Executor(params, cfg, max_batch=8, max_seq_len=768,
                     block_size=128, prefill_chunk=256, seed=seed,
                     device=device)
+
+
+def dense_cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
+    """Bytes of the dense KV cache GenerationSession allocates: K and V
+    values, and their f32 per-(token, head) scales in int8 mode."""
+    n = cfg.num_layers * batch * max_len * cfg.num_kv_heads
+    if cfg.quant.kv_cache == KVCacheQuantAlgo.INT8:
+        return 2 * n * (cfg.head_dim + 4)
+    return 2 * n * cfg.head_dim * cfg.dtype.itemsize
+
+
+def serve_dense(params, cfg, prompts, dev):
+    """Serve the prompts once as one static batch through a fresh
+    GenerationSession (max_seq_len 768), 32 greedy tokens each. The session
+    marks its prefill with the "phase::prefill" profiler range itself.
+    Returns (GenerationOutput, wall s)."""
+    from ..runtime.session import GenerationSession
+    sess = GenerationSession(params, cfg, max_seq_len=768, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sess.generate(prompts, 32)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def _group(name: str) -> str:
@@ -218,7 +248,12 @@ def main() -> int:
                     help="serve speculatively with this many draft tokens "
                          "a round (0: plain decode)")
     ap.add_argument("--draft-layers", type=int, default=4)
+    ap.add_argument("--dense", action="store_true",
+                    help="serve through GenerationSession over the dense "
+                         "KV cache (K14 at prefill)")
     args = ap.parse_args()
+    if args.dense and args.gamma:
+        ap.error("--dense serves plain decode; --gamma is the Executor's")
     from ..device import resolve_device
     from ..models import llama
     dev = resolve_device("cuda")
@@ -241,26 +276,38 @@ def main() -> int:
         print(f"speculative: gamma {args.gamma}, draft = the first "
               f"{args.draft_layers} layers")
 
-    serve(params, cfg, prompts, args.seed, dev, spec)   # warm-up (and build)
-    timed = []
-    for _ in range(TIMED_RUNS):
+    def run_once():
+        """(wall s, prefill s, what else to print) of one serve."""
+        if args.dense:
+            out, wall = serve_dense(params, cfg, prompts, dev)
+            return wall, out.prefill_time_s, (
+                f"; dense cache "
+                f"{dense_cache_bytes(cfg, len(prompts), 768) / 1e9:.3f} GB")
         _, _, wall, pre_s, ex = serve(params, cfg, prompts, args.seed, dev,
                                       spec)
+        return wall, pre_s, (
+            f"; acceptance "
+            f"{ex.spec_accepted / max(ex.spec_proposed, 1):.3f} "
+            f"({ex.spec_accepted} / {ex.spec_proposed} draft tokens, "
+            f"{ex.spec_rounds} rounds)" if spec else "")
+
+    if args.dense:
+        print("dense: GenerationSession, one static batch, max_seq_len 768")
+    run_once()                                  # warm-up (and build)
+    timed = []
+    for _ in range(TIMED_RUNS):
+        wall, pre_s, extra = run_once()
         timed.append((wall, pre_s))
-        rate = (f"; acceptance "
-                f"{ex.spec_accepted / max(ex.spec_proposed, 1):.3f} "
-                f"({ex.spec_accepted} / {ex.spec_proposed} draft tokens, "
-                f"{ex.spec_rounds} rounds)" if spec else "")
         print(f"served {len(prompts)} requests x 32 tokens: wall {wall:.3f} "
               f"s = prefill {pre_s:.3f} s + decode {wall - pre_s:.3f} "
-              f"s{rate}")
+              f"s{extra}")
     wall, pre_s = sorted(timed)[len(timed) // 2]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # the profiler's host overhead stretches the wall clock several-fold,
     # so walls come from the run above and device times from this one
     with torch.profiler.profile(activities=acts) as prof:
-        serve(params, cfg, prompts, args.seed, dev, spec)
+        run_once()
     events = prof.events()
     ranges = [e.time_range for e in events if e.name == "phase::prefill"
               and e.device_type == torch.autograd.DeviceType.CPU]

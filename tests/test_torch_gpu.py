@@ -14,8 +14,12 @@ f32, one bf16 step more in bf16; K2 with unit scales and no outliers is
 the int32 product, bit for bit. K12/K13 (packed int4) as K4, against the
 unpack-then-plain versions. K9 (verify rows) within 2e-2 of plain, and at
 S = 1 bit-equal to K7; K10 out within 2e-2 and its (m, l) within 1e-3
-relative; K11 within 2e-2 of its plain version and of K7. Speculative
-serving and split decode at a tiny width, by the kernels they launch."""
+relative; K11 within 2e-2 of its plain version and of K7. K14 (causal
+flash attention) within 2e-2 of its plain version at D 64, 128 and 256,
+S 128, 2048 and a ragged 200, the same bits from strided views as from
+contiguous copies. Speculative serving, split decode and the dense
+session at a tiny width, by the kernels they launch; a CUDA session
+raises when a kernel library does not load."""
 
 import pytest
 import torch
@@ -554,15 +558,17 @@ def test_verify_limits_raise(cuda):
                                   one, 1.0)
 
 
-def _tiny_serving_model(cuda):
-    """A 2-layer int8_mix / int8-KV Llama at widths the kernels take."""
+def _tiny_serving_model(cuda, num_kv_heads=2):
+    """A 2-layer int8_mix / int8-KV Llama at widths the kernels take (4
+    heads of 64; GQA unless num_kv_heads=4)."""
     from mixq_tensorrt_llm_tpu_torch.models import llama
     from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
     from mixq_tensorrt_llm_tpu_torch.quant import (KVCacheQuantAlgo,
                                                    QuantAlgo, QuantConfig)
     from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
-                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      num_layers=2, num_heads=4, num_kv_heads=num_kv_heads,
+                      head_dim=64,
                       quant=QuantConfig(algo=QuantAlgo.INT8_MIX,
                                         num_outliers=8,
                                         kv_cache=KVCacheQuantAlgo.INT8))
@@ -621,3 +627,90 @@ def test_split_decode_on_card(cuda, monkeypatch):
     assert _build.LAUNCHES.get("paged_decode_attention_split", 0) > 0
     assert _build.LAUNCHES.get("paged_decode_attention_stats", 0) > 0
     assert _build.LAUNCHES.get("paged_decode_attention", 0) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [128, 2048, 200])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_kernel_matches_plain(cuda, s, d):
+    """K14 within 2e-2 of its plain version (bf16 output), one launch
+    counted per call; S = 200 is no multiple of the 64-row tiles."""
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((2 if s == 200 else 1, s, 4, d), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    before = _build.LAUNCHES.get("flash_causal_attention", 0)
+    out = fa.flash_causal_attention(q, k, v, d ** -0.5)
+    want = ref.flash_causal_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_causal_attention"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views of one fused (B, S, 3·H·D) projection, as the
+    model hands them over: the same output as from contiguous copies, bit
+    for bit; a view whose rows are not 16-byte aligned is copied first."""
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s, h, d = 2, 256, 4, 64
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device=cuda).bfloat16()
+    q, k, v = (x.reshape(b, s, h, d) for x in qkv.split(h * d, dim=-1))
+    out = fa.flash_causal_attention(q, k, v, 0.125)
+    want = fa.flash_causal_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), 0.125)
+    odd = torch.randn((b, s, h * d + 4), generator=gen,
+                      device=cuda).bfloat16()[..., 4:].reshape(b, s, h, d)
+    got_odd = fa.flash_causal_attention(odd, k, v, 0.125)
+    want_odd = fa.flash_causal_attention(odd.contiguous(), k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(got_odd, want_odd)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_shapes_raise(cuda):
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
+    x = torch.zeros((1, 128, 2, 96), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_causal_attention(x, x, x, 1.0)
+    y = torch.zeros((1, 128, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_causal_attention(y, y, y, 1.0)
+
+
+@pytest.mark.gpu
+def test_dense_session_on_card(cuda):
+    """GenerationSession at a tiny MHA width on the card: a 128-token
+    bucket takes K14 once a layer and no paged kernel launches."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    params, cfg = _tiny_serving_model(cuda, num_kv_heads=4)
+    prompts = [[(5 * i + j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((100, 128))]
+    sess = GenerationSession(params, cfg, max_seq_len=256, device=cuda)
+    _build.reset_launches()
+    out = sess.generate(prompts, 8, return_context_logits=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("flash_causal_attention", 0) == \
+        cfg.num_layers
+    assert not any(n.startswith("paged_") for n in _build.LAUNCHES)
+    assert out.num_generated == [8, 8]
+    assert all(bool(torch.isfinite(c).all()) for c in out.context_logits)
+
+
+@pytest.mark.gpu
+def test_cuda_session_raises_when_a_kernel_library_fails(cuda, monkeypatch):
+    """No fallback: a kernel library that does not load makes the CUDA
+    session raise; the plain versions are not taken instead."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    params, cfg = _tiny_serving_model(cuda, num_kv_heads=4)
+
+    def broken(name):
+        raise OSError(f"cannot load lib{name}")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "load", broken)
+    sess = GenerationSession(params, cfg, max_seq_len=256, device=cuda)
+    with pytest.raises(OSError, match="cannot load"):
+        sess.generate([[1] * 130], 2)
