@@ -12,8 +12,11 @@ exits non-zero:
   3. kernels against their plain PyTorch versions on the card at the main
      paths' shapes (Llama-2-7B: Hkv 32, D 128, BS 128, plus a GQA case
      Hq 32 / Hkv 8; linears at 1024 prefill rows and 8 decode rows.
-     Llama-2-13B: K12/K13 at 8 decode rows (and 64 at qkv), group size
-     128; K5p/K6p and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 / Hkv 8):
+     Llama-2-13B: K12 at 1, 8 and 16 decode rows, K13 at 8 (both at 64 at
+     qkv), group size 128, K12 bit-equal across two launches (its K splits
+     sum in a fixed order) and no slower than torch._weight_int4pack_mm at
+     qkv M = 8; K5p/K6p and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 /
+     Hkv 8):
      K5/K6/K5p/K6p pages (and scales) bit-equal outside trash row 0, K7/K8
      within 2e-2; K1 codes at most 1 apart (> 99.9% equal), scales rtol
      1e-5; K2/K3/K4/K12/K13 within 1e-4 of the largest output (+ one bf16
@@ -70,8 +73,8 @@ tokens, against K7 and its plain version) on int8 and bf16 pages at
 Llama-2-7B heads, and K1 -> K2 at the 40 rows of a gamma = 4 verify,
 and K14 (causal flash attention) at the dense serve's shape (8 x 768, 32
 heads x 128, with SDPA timed as its library call), at D 64 and 256 with
-S 128 and 2048, and causal_self_attention's GQA route (K8 over a page
-view).
+S 128 and 2048, at S 1, 65 and 200, and causal_self_attention's GQA
+route (K8 over a page view).
 """
 
 from __future__ import annotations
@@ -968,74 +971,106 @@ def int4pack_library(torch, x, q, scale_g, want):
 
 
 def check_packed(torch, gen, dev, results):
-    """K12 and K13 at Llama-2-13B decode shapes (8 rows; 64 rows at qkv),
-    group size 128: random packed bytes (every nibble value), f32 scales."""
+    """K12 at the four Llama-2-13B decode shapes at M = 1, 8 and 16 (and 64
+    at qkv), with two launches on the same inputs required bit-equal (its
+    K splits are summed in a fixed order); K13 at the same shapes at M = 8
+    (and 64 at qkv), group size 128. Random packed bytes (every nibble
+    value), f32 scales; torch._weight_int4pack_mm timed beside each."""
     from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
     from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
     bf, gs, h = torch.bfloat16, 128, 5120
     step = {"wo_matmul_packed": 0.0, "wo_matmul_packed_grouped": 0.0}
-    for label, k, n, mk in (("qkv", h, 3 * h, 8), ("o_proj", h, h, 8),
-                            ("gate_up", h, 2 * 13824, 8),
-                            ("down_proj", 13824, h, 8), ("qkv", h, 3 * h, 64)):
+    shapes = (("qkv", h, 3 * h), ("o_proj", h, h),
+              ("gate_up", h, 2 * 13824), ("down_proj", 13824, h))
+    cases = [(lb, k, n, mk, "wo_matmul_packed") for mk in (1, 8, 16)
+             for lb, k, n in shapes]
+    cases += [(lb, k, n, 8, "wo_matmul_packed_grouped")
+              for lb, k, n in shapes]
+    cases += [("qkv", h, 3 * h, 64, name)
+              for name in ("wo_matmul_packed", "wo_matmul_packed_grouped")]
+    for label, k, n, mk, name in cases:
         x = torch.randn((mk, k), generator=gen, device=dev).to(bf)
         qp = torch.randint(-128, 128, (k // 2, n), generator=gen, device=dev,
                            dtype=torch.int8)
-        scol = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
-        sg = torch.rand((k // gs, n), generator=gen, device=dev) * 2e-3 + 1e-4
-        for name, kfn, pfn, mark, scale_b in (
-                ("wo_matmul_packed",
-                 lambda: wm.wo_matmul_packed(x, qp, scol),
-                 lambda: wm.wo_matmul_packed_plain(x, qp, scol),
-                 "packed_gemv_kernel", n * 4),
-                ("wo_matmul_packed_grouped",
-                 lambda: wm.wo_matmul_packed_grouped(x, qp, sg, gs),
-                 lambda: wm.wo_matmul_packed_grouped_plain(x, qp, sg, gs),
-                 "packed_grouped_gemv_kernel", (k // gs) * n * 4)):
-            err = gemm_err(kfn(), pfn())
-            check(err <= gemm_tol(bf), f"{name} {label} M={mk}: rel err {err}"
-                  f" > {gemm_tol(bf)}")
-            ms, pms, wms = measure(torch, kfn, pfn, mark, name, 100, 5)
-            bnd = bound(mk * k * 2 + (k // 2) * n + scale_b + mk * n * 2,
-                        2.0 * mk * n * k)
-            tag = "K12" if name == "wo_matmul_packed" else "K13"
-            lib = None
-            if mk == 8:
-                step[name] += ms
-                lib_scales = (scol[None].expand(k // gs, n) if tag == "K12"
-                              else sg)
-                try:
-                    call, lerr = int4pack_library(
-                        torch, x, qcore.unpack_int4(qp), lib_scales, pfn())
-                    lib = device_ms(torch, call, 50)
-                    print(f"  torch._weight_int4pack_mm (bf16 scales): rel "
-                          f"err {lerr:.2e} against {tag}'s plain version",
-                          flush=True)
-                except (RuntimeError, NotImplementedError, TypeError,
-                        ValueError) as e:
-                    print(f"  torch._weight_int4pack_mm: none on this card "
-                          f"({str(e).splitlines()[0][:100]})", flush=True)
-            print(f"{tag} {name} {label} M={mk} K={k} N={n}: max rel err "
-                  f"{err:.2e}; device {ms:.5f} ms per launch (plain {pms:.5f}"
-                  f" ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, by "
-                  f"{bnd[1]}; {(k // 2) * n / ms / 1e9:.3f} TB/s of packed "
-                  f"weight; library "
-                  f"{'none' if lib is None else f'{lib:.5f} ms'})", flush=True)
-            if label == "qkv" and mk == 8:
-                results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                     bound=bnd, library_ms=lib)
+        if name == "wo_matmul_packed":
+            tag, mark, scale_b = "K12", "packed_mma_kernel", n * 4
+            sc = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
+            lib_scales = sc[None].expand(k // gs, n)
+
+            def kfn():
+                return wm.wo_matmul_packed(x, qp, sc)
+
+            def pfn():
+                return wm.wo_matmul_packed_plain(x, qp, sc)
+        else:
+            tag, mark = "K13", "packed_grouped_gemv_kernel"
+            sc = torch.rand((k // gs, n), generator=gen, device=dev) * 2e-3 \
+                + 1e-4
+            scale_b, lib_scales = (k // gs) * n * 4, sc
+
+            def kfn():
+                return wm.wo_matmul_packed_grouped(x, qp, sc, gs)
+
+            def pfn():
+                return wm.wo_matmul_packed_grouped_plain(x, qp, sc, gs)
+        out, want = kfn(), pfn()
+        err = gemm_err(out, want)
+        check(err <= gemm_tol(bf), f"{name} {label} M={mk}: rel err {err} > "
+              f"{gemm_tol(bf)}")
+        plan = ""
+        if tag == "K12":
+            again = kfn()
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"{name} {label} M={mk}: two "
+                  f"launches on the same inputs differ")
+            p = wm.packed_plan(mk, k, n, wm.sm_count(dev.index or 0))
+            plan = (f"; {p.splits} splits x {p.chunks_per_split} chunks, "
+                    f"{p.grid[0] * p.grid[1] * p.grid[2]} blocks, repeat "
+                    f"bit-equal")
+        ms, pms, wms = measure(torch, kfn, pfn, mark, name, 100, 5)
+        bnd = bound(mk * k * 2 + (k // 2) * n + scale_b + mk * n * 2,
+                    2.0 * mk * n * k)
+        lib = None
+        try:
+            call, lerr = int4pack_library(
+                torch, x, qcore.unpack_int4(qp), lib_scales, want)
+            lib = device_ms(torch, call, 50)
+            print(f"  torch._weight_int4pack_mm (bf16 scales): rel err "
+                  f"{lerr:.2e} against {tag}'s plain version", flush=True)
+        except (RuntimeError, NotImplementedError, TypeError,
+                ValueError) as e:
+            print(f"  torch._weight_int4pack_mm: none on this card "
+                  f"({str(e).splitlines()[0][:100]})", flush=True)
+        if mk == 8:
+            step[name] += ms
+        print(f"{tag} {name} {label} M={mk} K={k} N={n}: max rel err "
+              f"{err:.2e}; device {ms:.5f} ms per launch (plain {pms:.5f} "
+              f"ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, by "
+              f"{bnd[1]}; {(k // 2) * n / ms / 1e9:.3f} TB/s of packed "
+              f"weight; library "
+              f"{'none' if lib is None else f'{lib:.5f} ms'}){plan}",
+              flush=True)
+        if label == "qkv" and mk == 8:
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                 bound=bnd, library_ms=lib)
     weights = 40 * (h * 3 * h + h * h + h * 2 * 13824 + 13824 * h) / 2
     for name, ms in step.items():
         print(f"{name}: one decode step's four linears {ms:.5f} ms a layer, "
               f"{40 * ms:.3f} ms for 40 layers (bound: "
               f"{weights / 1e9:.3f} GB of packed weights, "
               f"{weights / HBM_BYTES_PER_MS:.3f} ms)", flush=True)
+    k12 = results["wo_matmul_packed"]
+    if k12["library_ms"] is not None:
+        check(k12["ms"] <= k12["library_ms"],
+              f"K12 at qkv M=8: {k12['ms']:.5f} ms, slower than "
+              f"torch._weight_int4pack_mm's {k12['library_ms']:.5f} ms")
 
 
 def check_flash(torch, gen, dev, results):
     """K14 against its plain version (ref.flash_causal_attention): at the
     dense serve's shape (8 x 768, 32 heads x 128; v a strided view of a
     fused qkv, as the model hands it over), at D 64 and 256 with S 128 and
-    2048 (B 1), and at a ragged S. Timings at the serve's shape, with SDPA
+    2048 (B 1), and at ragged S (200; 1 and 65 at every D). Timings at the serve's shape, with SDPA
     (torch's scaled_dot_product_attention, causal, on (B, H, S, D)) as the
     library call. Then causal_self_attention's GQA route (Hq 32 / Hkv 8, S
     768): K8 over the page view against the plain masked attention."""
@@ -1071,7 +1106,8 @@ def check_flash(torch, gen, dev, results):
     worst = 0.0
     for b, s, h, d in ((1, 128, 8, 64), (1, 2048, 8, 64), (1, 128, 4, 256),
                        (1, 2048, 4, 256), (1, 2048, 8, 128),
-                       (2, 200, 4, 128)):
+                       (2, 200, 4, 128), (2, 1, 4, 128), (2, 65, 4, 128),
+                       (2, 65, 4, 64), (2, 65, 4, 256)):
         worst = max(worst, run(b, s, h, d, False)[3])
     b, s, h, d = 8, 768, 32, 128
     q, k, v, err = run(b, s, h, d, True)

@@ -7,7 +7,8 @@
 // same: f32 q·kᵀ of the bf16 inputs, times `scale`, the causal mask (key <=
 // row) as the stock kernel's additive -0.7·FLT_MAX, an online softmax in
 // f32, p cast to bf16 before p·v (f32 accumulators), the output rounded to
-// bf16 once.
+// bf16 once. The softmax runs in base 2 (exp2f, log2(e) folded into the
+// scale): the same function up to the last bits of each exponential.
 //
 // Layout: q, k, v and out are (B, S, H, D) bf16, read and written through
 // their batch, sequence and head strides (D contiguous), so the model's
@@ -17,24 +18,35 @@
 // 8·B·S·H·D bytes against 2·B·H·D·S(S+1) causal FLOP (two products), about
 // S/4 FLOP a byte: at the dense prefill's buckets up to ~1024 tokens the
 // bytes bound it (3.35 TB/s), above that the bf16 tensor cores (989
-// TFLOP/s). Design: both products run on the tensor cores
-// (mma.sync.m16n8k16, bf16 in, f32 accumulators); the S x S logits never
-// leave registers; each k/v tile is read from device memory once per q
-// tile, and only the tiles at or below the diagonal are visited (the stock
-// kernel's below_or_on_diag skip), the mask applied only on tiles that
-// cross it.
+// TFLOP/s). The design is FlashAttention-3's shape for sm_90a: no thread
+// spends instructions on a copy or a scalar shared-memory load.
 //
-// One block of 4 warps per (q tile of 64 rows, head, batch); each warp owns
-// 16 query rows and keeps their logits tile, running (m, l) and 16 x D
-// output accumulator in registers, in the mma fragment layouts (so a row's
-// max and sum need two lane shuffles, and the logits fragments are p·v's A
-// operand as they stand). K and V tiles of BK keys (64; 32 at D = 256, for
-// registers) are staged in shared memory one tile at a time, rows padded
-// by 8 bf16 so that the fragment loads of a warp hit distinct banks. No
-// cp.async double-buffering and no wgmma/TMA yet: a later PR's work. The
-// q tiles with the most keys launch first (blockIdx.x runs from the last q
-// tile down). Any S >= 1: rows past S are read as zeros and not written.
+// - one block per 128 query rows, head and batch: two consumer warpgroups
+//   own 64 rows each, one thread of a producer warpgroup issues every copy
+//   by TMA; setmaxnreg moves the producer's registers to the consumers
+//   (240 a thread: the 64 x 256 f32 output at D = 256 does not spill). A
+//   persistent grid with a static schedule measured slower: causal tiles
+//   differ in work, and the block scheduler balances them (PERF.md);
+// - Q is loaded once; K and V tiles (kBK keys: 128, or 64 at D = 256 for
+//   registers) go into a ring of kStages stages with full and empty
+//   mbarriers, so the next tile's copy overlaps this tile's math. The
+//   tensor maps are 4-D over the (B, S, H, D) strided views, boxes of 64
+//   columns (one 128-byte swizzle row); TMA's out-of-bounds fill gives the
+//   zero rows past S;
+// - S = Q·Kᵀ is wgmma m64n{kBK}k16 with both operands in shared memory
+//   (K-major, 128-byte swizzle); P stays in registers, cast to bf16, as the
+//   register A operand of wgmma m64n{D}k16, and V is its shared-memory B
+//   operand, MN-major through the descriptor's transpose bit; O stays in
+//   f32 registers;
+// - only tiles at or below the diagonal are visited, the mask applied only
+//   on tiles that cross it; the q tiles with the most keys launch first.
+//
+// cuTensorMapEncodeTiled comes through cudaGetDriverEntryPoint, so the
+// library needs no -lcuda. Any S >= 1; rows past S are not written.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <float.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -42,142 +54,343 @@
 namespace mixq {
 namespace {
 
-constexpr int kFlashThreads = 128;      // 4 warps x 16 query rows
-constexpr int kBlockQ = 64;
-constexpr int kPad = 8;                 // bf16 of padding per shared row
-// the stock kernel's DEFAULT_MASK_VALUE, -0.7 * float32 max
-constexpr float kMaskValue = -0.7f * 3.40282346638528859811704183484516925e38f;
+constexpr int kBlockQ = 128;                    // 2 warpgroups x 64 rows
+constexpr int kConsumers = 256;
+constexpr int kFlashThreads = kConsumers + 128; // + the producer warpgroup
+// registers a thread after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 64 K
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kStages = 2;
+constexpr int kBoxCols = 64;                    // 64 bf16 = 128 bytes
+constexpr int kRowBytes = kBoxCols * 2;
+constexpr float kMaskValue = -0.7f * FLT_MAX;   // the stock kernel's
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct FlashTile {
-  static constexpr int kBlockK = D > 128 ? 32 : 64;
-  static constexpr int kLd = D + kPad;
+struct FlashCfg {
+  static constexpr int kBK = D > 128 ? 64 : 128;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kQBytes = kBlockQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;  // one K (or V) tile
+  // + 1024: the swizzled tiles start on a 1024-byte boundary
   static constexpr size_t kSmem =
-      static_cast<size_t>(kBlockQ + 2 * kBlockK) * kLd * sizeof(__nv_bfloat16);
+      static_cast<size_t>(kQBytes) + 2 * kStages * kKVBytes + 1024;
+  static_assert(kSmem <= 232448, "over the 227 KB of shared memory");
 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (K-major: SBO = 1024 between 8-row groups, LBO
+// unused; MN-major: LBO between 64-element atoms along MN, SBO between
+// 8-row groups along K)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x: low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
-// c += a · b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B
-// (column-major fragment) and a 16x8 f32 C. Fragments (g = lane / 4,
-// t = lane % 4): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] =
-// A[g][2t+8..], a[3] = A[g+8][2t+8..]; b0 = B[2t..2t+1][g], b1 =
-// B[2t+8..2t+9][g]; c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..].
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+// Generated operand lists (64 x N f32 accumulators, N/2 a thread).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// rows [row0, row0 + rows) of one (batch, head) slice into shared memory,
-// 16 bytes a thread at a time; rows at or past S read as zeros
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int BK>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (BK == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int rows, int S) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < rows * kVec; i += kFlashThreads) {
-    const int r = i / kVec, c = i % kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * FlashTile<D>::kLd + c * 8) = v;
-  }
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 struct Strides {
   long long b, s, h;
 };
 
+// Accumulator layout of wgmma m64nN (per thread of a warpgroup; w = warp in
+// the warpgroup, g = lane / 4, t = lane % 4): element 4j + e is row w·16 +
+// g + 8·(e >> 1), column 8j + 2t + (e & 1). The register A operand of
+// m64k16 has the mma.sync fragment layout, so two 8-column blocks of the
+// logits are one 16-key step of p·v as they stand.
 template <int D>
-__global__ void __launch_bounds__(kFlashThreads)
-    flash_causal_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out, int S, Strides qst,
-                        Strides kst, Strides vst, Strides ost, float scale) {
-  constexpr int BK = FlashTile<D>::kBlockK;
-  constexpr int LD = FlashTile<D>::kLd;
-  constexpr int NT = D / 8;    // 8-column tiles of the output
-  constexpr int KT = BK / 8;   // 8-key tiles of the logits
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * LD;
-  __nv_bfloat16* vs = ks + BK * LD;
+__global__ void __launch_bounds__(kFlashThreads, 1)
+    flash_causal_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        __nv_bfloat16* __restrict__ out, int S, Strides ost,
+                        float scale_log2) {
+  using Cfg = FlashCfg<D>;
+  constexpr int BK = Cfg::kBK;
+  constexpr int NS = BK / 2;       // logits registers a thread
+  constexpr int NO = D / 2;        // output registers a thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + Cfg::kQBytes;          // stage s: + s·kKVBytes
+  unsigned char* vs = ks + kStages * Cfg::kKVBytes;
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
   const int qt = static_cast<int>(gridDim.x) - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * kBlockQ;
-  const int wrow = q0 + warp * 16;             // the warp's first row
-  const int row_lo = wrow + g, row_hi = row_lo + 8;
-
-  load_tile<D>(qs, q + b * qst.b + h * qst.h, qst.s, q0, kBlockQ, S);
-  const __nv_bfloat16* kb = k + b * kst.b + h * kst.h;
-  const __nv_bfloat16* vb = v + b * vst.b + h * vst.h;
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-
-  // keys 0 .. min(S, q0 + 64) - 1: the diagonal tile is the last
+  // keys 0 .. min(S, q0 + 128) - 1: the diagonal tile is the last
   const int n_kt = (min(S, q0 + kBlockQ) + BK - 1) / BK;
-  for (int j = 0; j < n_kt; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();                         // the last tile's readers
-    load_tile<D>(ks, kb, kst.s, k0, BK, S);
-    load_tile<D>(vs, vb, vst.s, k0, BK, S);
-    __syncthreads();
-    if (k0 > wrow + 15) continue;            // above every row of the warp
+  const int tid = threadIdx.x;
 
-    // logits = q · kᵀ for the warp's 16 rows x BK keys
-    float s[KT][4];
-#pragma unroll
-    for (int n = 0; n < KT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* qr = qs + (warp * 16 + g) * LD + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qr), ld32(qr + 8 * LD), ld32(qr + 8),
-                             ld32(qr + 8 * LD + 8)};
-#pragma unroll
-      for (int n = 0; n < KT; ++n) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[n], a, ld32(kr), ld32(kr + 8));
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);   // lane 0 of each warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {                     // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, Cfg::kQBytes);
+      for (int bx = 0; bx < Cfg::kBoxes; ++bx)
+        tma_load_4d(qs + bx * kBlockQ * kRowBytes, &qmap, q_full,
+                    bx * kBoxCols, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * Cfg::kKVBytes);
+        for (int bx = 0; bx < Cfg::kBoxes; ++bx) {
+          const int off = s * Cfg::kKVBytes + bx * BK * kRowBytes;
+          tma_load_4d(ks + off, &kmap, &full[s], bx * kBoxCols, h, j * BK, b);
+          tma_load_4d(vs + off, &vmap, &full[s], bx * kBoxCols, h, j * BK, b);
+        }
       }
     }
+    return;
+  }
 
-    // scale, the causal mask on tiles that cross the diagonal, row max
-    const bool diag = k0 + BK - 1 > wrow;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp_row = q0 + wg * 64 + warp * 16;    // the warp's first row
+  const int row_lo = warp_row + g, row_hi = row_lo + 8;
+  const int wg_last = q0 + wg * 64 + 63;
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * kRowBytes;
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * BK;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    if (k0 > wg_last) {                        // above all 64 rows
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+
+    // logits = q · kᵀ: 64 rows x BK keys, both operands in shared memory
+    float sc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+    const uint32_t k_addr = smem_u32(ks + s * Cfg::kKVBytes);
+    fence_regs<NS>(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;       // bytes into the box row
+      wgmma_ss<BK>(sc,
+                   sw128_desc(q_addr + (kk / 4) * kBlockQ * kRowBytes + col,
+                              16, 1024),
+                   sw128_desc(k_addr + (kk / 4) * BK * kRowBytes + col, 16,
+                              1024),
+                   kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs<NS>(sc);
+
+    // scale (base 2), the causal mask on tiles that cross the diagonal,
+    // row max over the 4 threads of a row
+    const bool diag = k0 + BK - 1 > warp_row;
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < KT; ++n) {
+    for (int jn = 0; jn < BK / 8; ++jn) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        float x = sc[4 * jn + e] * scale_log2;
+        const int key = k0 + jn * 8 + 2 * t + (e & 1);
         if (diag && key > (e < 2 ? row_lo : row_hi)) x = kMaskValue;
-        s[n][e] = x;
+        sc[4 * jn + e] = x;
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
     }
 #pragma unroll
     for (int o_ = 1; o_ <= 2; o_ <<= 1) {
@@ -186,18 +399,18 @@ __global__ void __launch_bounds__(kFlashThreads)
     }
     // key 0 is in tile 0 and below every row, so m is finite from tile 0
     const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
+    const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
     m_lo = mn_lo;
     m_hi = mn_hi;
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-    for (int n = 0; n < KT; ++n) {
-      s[n][0] = expf(s[n][0] - mn_lo);
-      s[n][1] = expf(s[n][1] - mn_lo);
-      s[n][2] = expf(s[n][2] - mn_hi);
-      s[n][3] = expf(s[n][3] - mn_hi);
-      sum_lo += s[n][0] + s[n][1];
-      sum_hi += s[n][2] + s[n][3];
+    for (int jn = 0; jn < BK / 8; ++jn) {
+      sc[4 * jn] = exp2f(sc[4 * jn] - mn_lo);
+      sc[4 * jn + 1] = exp2f(sc[4 * jn + 1] - mn_lo);
+      sc[4 * jn + 2] = exp2f(sc[4 * jn + 2] - mn_hi);
+      sc[4 * jn + 3] = exp2f(sc[4 * jn + 3] - mn_hi);
+      sum_lo += sc[4 * jn] + sc[4 * jn + 1];
+      sum_hi += sc[4 * jn + 2] + sc[4 * jn + 3];
     }
 #pragma unroll
     for (int o_ = 1; o_ <= 2; o_ <<= 1) {
@@ -207,58 +420,111 @@ __global__ void __launch_bounds__(kFlashThreads)
     l_lo = al_lo * l_lo + sum_lo;
     l_hi = al_hi * l_hi + sum_hi;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= al_lo;
-      o[n][1] *= al_lo;
-      o[n][2] *= al_hi;
-      o[n][3] *= al_hi;
+    for (int i = 0; i < NO; i += 4) {
+      o[i] *= al_lo;
+      o[i + 1] *= al_lo;
+      o[i + 2] *= al_hi;
+      o[i + 3] *= al_hi;
     }
-
-    // o += bf16(p) · v: two 8-key logits tiles are one 16-key A fragment
+    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
-                             pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                             pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vr = vs + (kk * 16 + 2 * t) * LD + n * 8 + g;
-        mma_bf16(o[n], a, pack_bf16(vr[0], vr[LD]),
-                 pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
+      pa[kk][0] = pack_f32(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
+
+    // o += bf16(p) · v: v (keys x D, D contiguous) as an MN-major B
+    const uint32_t v_addr = smem_u32(vs + s * Cfg::kKVBytes);
+    fence_regs<NO>(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk],
+                  sw128_desc(v_addr + kk * 16 * kRowBytes, BK * kRowBytes,
+                             1024));
+    wg_commit();
+    wg_wait_all();
+    fence_regs<NO>(o);
+    if (lane == 0) mbar_arrive(&empty[s]);     // this warp is done with s
   }
 
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
   __nv_bfloat16* ob = out + b * ost.b + h * ost.h;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + 2 * t;
+  for (int jn = 0; jn < D / 8; ++jn) {
+    const int col = jn * 8 + 2 * t;
     if (row_lo < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + row_lo * ost.s + col) =
-          __floats2bfloat162_rn(o[n][0] * inv_lo, o[n][1] * inv_lo);
+          __floats2bfloat162_rn(o[4 * jn] * inv_lo, o[4 * jn + 1] * inv_lo);
     if (row_hi < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + row_hi * ost.s + col) =
-          __floats2bfloat162_rn(o[n][2] * inv_hi, o[n][3] * inv_hi);
+          __floats2bfloat162_rn(o[4 * jn + 2] * inv_hi,
+                                o[4 * jn + 3] * inv_hi);
   }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime
+PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, S, H, D) bf16 view as a 4-D tensor map (D, H, S, B), boxes of 64
+// columns x `rows` rows of one head, 128-byte swizzle, zeros out of bounds
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+             Strides st, int rows) {
+  const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int B, int S, int H, Strides qst, Strides kst, Strides vst,
                  Strides ost, float scale, cudaStream_t st) {
-  const size_t smem = FlashTile<D>::kSmem;
-  cudaError_t e = cudaFuncSetAttribute(
+  using Cfg = FlashCfg<D>;
+  CUtensorMap qmap, kmap, vmap;
+  int e = make_map(&qmap, q, B, S, H, D, qst, kBlockQ);
+  if (!e) e = make_map(&kmap, k, B, S, H, D, kst, Cfg::kBK);
+  if (!e) e = make_map(&vmap, v, B, S, H, D, vst, Cfg::kBK);
+  if (e) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
       flash_causal_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+      static_cast<int>(Cfg::kSmem));
+  if (a != cudaSuccess) return static_cast<int>(a);
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_causal_kernel<D><<<grid, kFlashThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      S, qst, kst, vst, ost, scale);
+  flash_causal_kernel<D><<<grid, kFlashThreads, Cfg::kSmem, st>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, ost,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,7 +538,7 @@ extern "C" const char* mixq_error_string(int err) {
 }
 
 // q, k, v, out (B, S, H, D) bf16 with element strides (batch, seq, head)
-// each, head_dim contiguous; pointers 16-byte aligned and strides
+// each, head_dim contiguous; pointers 16-byte aligned and strides positive
 // multiples of 8 (the wrapper checks). D is 64, 128 or 256.
 extern "C" int mixq_flash_causal_attention(
     const void* q, const void* k, const void* v, void* out, int B, int S,

@@ -27,24 +27,26 @@
 // regimes differ from the plain version (an f32-accumulated bf16 product)
 // only in the order of the sums.
 //
-// K12 / K13: packed-int4 weight-only GEMM (packed_gemv_kernel below).
-// Replaces ops/wo_matmul.py _wo_packed_kernel (wo_matmul_packed, K12) and
-// _wo_packed_grouped_kernel (wo_matmul_packed_grouped, K13). The weight is
-// quant.core.pack_int4's K-half layout, int8 (K/2, N): byte (kp, n) holds
-// row kp in its low nibble and row kp + K/2 in its high nibble, so the low
-// nibbles dot x[:, :K/2] and the high ones x[:, K/2:]. It is read in place
-// at 0.5 byte per weight and split into sign-extended nibbles in
-// registers: no unpacked copy exists in device memory. Bound by bytes in
-// decode (0.5 byte per 2*M flops). One block owns 32 columns and walks all
-// K/2 packed rows; a thread reads 4 bytes (4 columns) of 8 consecutive
-// packed rows per 256-row chunk, while the chunk's two halves of x are
-// staged, transposed to f32, in shared memory. K13 multiplies each
-// thread's f32 partial sum over its 8 rows (which lie in one group:
-// group_size % 8 == 0) by the group's scale before adding it in; the
-// weights are never scaled. Up to 16 rows of x per block; larger M runs
-// 16-row slabs as blockIdx.x, so the slabs of one column block are
-// scheduled together and share its weight reads in L2. Sums across
-// threads: a fixed shuffle butterfly, then the 8 warps in order.
+// K12 / K13: packed-int4 weight-only GEMMs. The weight is quant.core.pack_int4's
+// K-half layout, int8 (K/2, N): byte (kp, n) holds row kp in its low nibble
+// and row kp + K/2 in its high nibble. It is read in place at 0.5 byte per
+// weight: no unpacked copy exists in device memory. Bound by bytes in decode
+// (0.5 byte per 2*M flops).
+//
+//   packed_mma_kernel (K12, per-channel scales; replaces ops/wo_matmul.py
+//     _wo_packed_kernel). At M = 8 its 2·M flops a weight would take the
+//     f32 CUDA cores longer than the bytes take, so two weight bytes are
+//     two bf16x2 operands of a tensor-core mma (a byte permute, a mask and
+//     a subtract each: no float convert); the weight and x stream through
+//     a 4-stage ring of 16-byte cp.async copies (3 stages, 34 KB, in
+//     flight a block; up to 4 blocks an SM), and K/2 is split across
+//     blocks so that every 13B decode shape fills the 132 SMs twice over;
+//     the splits' partials are summed in a fixed order by the last block
+//     to arrive, in the same launch. A deeper ring (6, 8 stages) and TMA
+//     tensor-map boxes in place of cp.async measured no faster on the
+//     H100 (PERF.md).
+//   packed_grouped_gemv_kernel (K13, per-group scales; replaces
+//     _wo_packed_grouped_kernel): the earlier CUDA-core GEMV, unchanged.
 
 #include <mma.h>
 
@@ -274,8 +276,304 @@ wo_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K12 / K13: packed int4 (K-half layout), per-channel or per-group scales
+// K12: packed int4 (K-half layout), per-channel scales, on the tensor cores
 // ---------------------------------------------------------------------------
+// Operands swapped, as the weight-only decode GEMMs of TensorRT-LLM and
+// Marlin lay them out: the mma's 16 rows are output columns, its n = 8 are
+// rows of x (two n-tiles at M <= 16). Its 16-deep k step covers 8 packed
+// rows r0..r0+7: thread t's k pairs (2t, 2t+1) are the low nibbles of
+// packed rows r0 + 2t and r0 + 2t + 1, its pairs (2t+8, 2t+9) their high
+// nibbles. So an A register is one column's byte from each of two
+// neighbouring rows (a byte permute, then a mask that puts two nibbles in
+// two bf16 mantissas), and a B register is two neighbouring values of one
+// half of x, one 32-bit read.
+constexpr int kQmThreads = 256;                  // 8 warps
+constexpr int kQmCols = 128;                     // output columns per block
+constexpr int kQmChunk = 64;                     // packed rows per stage
+constexpr int kQmStages = 4;                     // the ring of async copies
+// bytes per staged weight row: 16 bytes of padding put a warp's 32-bit
+// reads of rows 2t and 2t + 1 in 32 distinct banks
+constexpr int kQmLdw = kQmCols + 16;
+constexpr int kQmLdx = kQmChunk + 8;             // bf16 per staged x row
+constexpr int kQmColGroups = kQmCols / 32;       // warps across the columns
+constexpr int kQmKGroups = kQmThreads / 32 / kQmColGroups;  // and along K
+constexpr int kQmSlab = 16;                      // rows of x per block
+
+// One ring stage: 64 packed rows x 128 columns of the weight, and the two
+// halves of x at those rows, x[m][kp] and x[m][kp + K/2], for MT rows.
+template <int MT>
+struct QmStage {
+  static constexpr int kW = kQmChunk * kQmLdw;
+  static constexpr int kX = MT * kQmLdx * 2;     // bytes of one half
+  static constexpr int kBytes = kW + 2 * kX;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronous; zeros where !in
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The nibbles at bits 0-3 and 16-19 of `v` as bf16x2, each sign-extended:
+// u = nibble ^ 8 in the mantissa of 128.0 (bf16 0x4300) is 128 + (s + 8)
+// exactly, and subtracting 136 leaves s. Exact: |s| <= 8.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"          // (a & b) ^ c
+      : "=r"(r)
+      : "r"(v), "n"(0x000F000F), "n"(0x43084308));
+  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&r);
+  h = __hsub2(h, __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d += a · b, m16n8k16, bf16 in, f32 accumulators (g = lane / 4, t = lane
+// % 4): a[0] = A[g][2t..], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..], a[3]
+// = A[g+8][2t+8..]; b0 = B[2t..2t+1][g], b1 = B[2t+8..][g]; d[0..1] =
+// D[g][2t..2t+1], d[2..3] = D[g+8][2t..].
+__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (blockIdx.x: 128 columns, .y: split of K/2, .z: 16-row slab of x).
+// The split's chunks of 64 packed rows, with their slice of x, stream
+// through a ring of kQmStages stages by 16-byte cp.async.cg copies. Warp
+// (cg, kg) owns 32 columns and half of each chunk's rows. A thread's two
+// 32-bit reads of a k step, rows 2t and 2t + 1 of columns 4g..4g+3, feed
+// two mma tiles: tile tau's row g + 8h is column 4g + 2·tau + h of the
+// warp's 32 (byte 2·tau + h of each word). Sums: the K groups of a block in
+// order, then (splits > 1) the last block of a column tile to arrive, by an
+// atomic ticket, adds the splits' f32 partials in split order: fixed
+// order, one launch.
+template <int MT, typename OutT>
+__global__ void __launch_bounds__(kQmThreads)
+packed_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                  const int8_t* __restrict__ w,
+                  const float* __restrict__ scale, OutT* __restrict__ out,
+                  float* __restrict__ part, unsigned* __restrict__ tickets,
+                  int M, int K, int N, int chunks_per_split) {
+  using Stage = QmStage<MT>;
+  constexpr int NT = MT / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last_block;
+  const int Kp = K / 2;
+  const int n_chunks = (Kp + kQmChunk - 1) / kQmChunk;
+  const int tile = blockIdx.x, split = blockIdx.y, slab = blockIdx.z;
+  const int splits = gridDim.y;
+  const int c_begin = split * chunks_per_split;
+  const int c_end = min(n_chunks, c_begin + chunks_per_split);
+  const int n0 = tile * kQmCols, m0 = slab * kQmSlab;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // 16-byte copies of x where K % 16 == 0 (then K/2 % 8 == 0 and a copy
+  // is all in range or all out), else one value at a time
+  const bool x_vec = K % 16 == 0;
+
+  auto load_stage = [&](int c) {
+    unsigned char* dst = smem + ((c - c_begin) % kQmStages) * Stage::kBytes;
+    const int kp0 = c * kQmChunk;
+    for (int i = tid; i < kQmChunk * (kQmCols / 16); i += kQmThreads) {
+      const int r = i / (kQmCols / 16), v = i % (kQmCols / 16);
+      const bool in = kp0 + r < Kp;
+      const int8_t* src =
+          w + static_cast<size_t>(in ? kp0 + r : 0) * N + n0 + v * 16;
+      cp_async16(smem_u32(dst + r * kQmLdw + v * 16), src, in);
+    }
+    auto* xs = reinterpret_cast<__nv_bfloat16*>(dst + Stage::kW);
+    if (x_vec) {
+      for (int i = tid; i < 2 * MT * (kQmChunk / 8); i += kQmThreads) {
+        const int half = i / (MT * (kQmChunk / 8));
+        const int m = (i / (kQmChunk / 8)) % MT, j = (i % (kQmChunk / 8)) * 8;
+        const bool in = m0 + m < M && kp0 + j < Kp;
+        const __nv_bfloat16* src =
+            in ? x + static_cast<size_t>(m0 + m) * K + half * Kp + kp0 + j : x;
+        cp_async16(smem_u32(xs + (half * MT + m) * kQmLdx + j), src, in);
+      }
+    } else {
+      for (int i = tid; i < 2 * MT * kQmChunk; i += kQmThreads) {
+        const int half = i / (MT * kQmChunk);
+        const int m = (i / kQmChunk) % MT, j = i % kQmChunk;
+        const bool in = m0 + m < M && kp0 + j < Kp;
+        xs[(half * MT + m) * kQmLdx + j] =
+            in ? x[static_cast<size_t>(m0 + m) * K + half * Kp + kp0 + j]
+               : __float2bfloat16(0.f);
+      }
+    }
+  };
+  for (int s = 0; s < kQmStages - 1; ++s) {
+    if (c_begin + s < c_end) load_stage(c_begin + s);
+    cp_async_commit();
+  }
+
+  const int cg = warp % kQmColGroups, kg = warp / kQmColGroups;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int tau = 0; tau < 2; ++tau)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[tau][nt][e] = 0.f;
+
+  for (int c = c_begin; c < c_end; ++c) {
+    cp_async_wait<kQmStages - 2>();   // chunk c has landed
+    __syncthreads();                  // ... for every thread; c - 1 is read
+    if (c + kQmStages - 1 < c_end) load_stage(c + kQmStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + ((c - c_begin) % kQmStages) * Stage::kBytes;
+    const unsigned char* ws = st + cg * 32 + 4 * g;
+    const auto* xs = reinterpret_cast<const __nv_bfloat16*>(st + Stage::kW);
+#pragma unroll
+    for (int ks = 0; ks < kQmChunk / (8 * kQmKGroups); ++ks) {
+      const int r0 = kg * (kQmChunk / kQmKGroups) + ks * 8;
+      const uint32_t w0 =
+          *reinterpret_cast<const uint32_t*>(ws + (r0 + 2 * t) * kQmLdw);
+      const uint32_t w1 =
+          *reinterpret_cast<const uint32_t*>(ws + (r0 + 2 * t + 1) * kQmLdw);
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const __nv_bfloat16* xr = xs + (nt * 8 + g) * kQmLdx + r0 + 2 * t;
+        b[nt][0] = *reinterpret_cast<const uint32_t*>(xr);
+        b[nt][1] = *reinterpret_cast<const uint32_t*>(xr + MT * kQmLdx);
+      }
+#pragma unroll
+      for (int tau = 0; tau < 2; ++tau) {
+        // byte 2·tau (row g) of w0 and w1 as bytes 0 and 2 of p0, byte
+        // 2·tau + 1 (row g + 8) as those of p1
+        const uint32_t p0 = __byte_perm(w0, w1, 0x4400 + 0x1111 * 2 * tau);
+        const uint32_t p1 =
+            __byte_perm(w0, w1, 0x4400 + 0x1111 * (2 * tau + 1));
+        const uint32_t a[4] = {nibbles_bf16x2(p0), nibbles_bf16x2(p1),
+                               nibbles_bf16x2(p0 >> 4),
+                               nibbles_bf16x2(p1 >> 4)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_16816(acc[tau][nt], a, b[nt][0], b[nt][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free: the K groups
+
+  float* red = reinterpret_cast<float*>(smem);   // [kg][m][column]
+#pragma unroll
+  for (int tau = 0; tau < 2; ++tau)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = cg * 32 + 4 * g + 2 * tau + (e >> 1);
+        const int m = nt * 8 + 2 * t + (e & 1);
+        red[(kg * MT + m) * kQmCols + col] = acc[tau][nt][e];
+      }
+  __syncthreads();
+  float* mine = part + (static_cast<size_t>(split) * gridDim.z + slab) * MT * N;
+  for (int i = tid; i < MT * kQmCols; i += kQmThreads) {
+    const int m = i / kQmCols, col = i % kQmCols;
+    float v = red[m * kQmCols + col];
+#pragma unroll
+    for (int q = 1; q < kQmKGroups; ++q) v += red[(q * MT + m) * kQmCols + col];
+    if (splits == 1) {
+      if (m0 + m < M)
+        store_f(out + static_cast<size_t>(m0 + m) * N + n0 + col,
+                v * scale[n0 + col]);
+    } else {
+      mine[static_cast<size_t>(m) * N + n0 + col] = v;
+    }
+  }
+  if (splits == 1) return;
+
+  // the last split of this column tile to arrive sums all, in split order
+  __threadfence();
+  __syncthreads();
+  unsigned* ticket = tickets + static_cast<size_t>(slab) * gridDim.x + tile;
+  if (tid == 0) last_block = atomicAdd(ticket, 1u) == splits - 1u;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const size_t split_stride = static_cast<size_t>(gridDim.z) * MT * N;
+  const float* first = part + static_cast<size_t>(slab) * MT * N;
+  for (int i = tid; i < MT * kQmCols; i += kQmThreads) {
+    const int m = i / kQmCols, col = i % kQmCols;
+    if (m0 + m >= M) continue;
+    const float* p = first + static_cast<size_t>(m) * N + n0 + col;
+    float v = __ldcg(p);
+    for (int s = 1; s < splits; ++s) v += __ldcg(p + s * split_stride);
+    store_f(out + static_cast<size_t>(m0 + m) * N + n0 + col,
+            v * scale[n0 + col]);
+  }
+  if (tid == 0) *ticket = 0u;         // ready for the next launch
+}
+
+template <int MT, typename OutT>
+int launch_packed_mma_mt(dim3 grid, size_t smem, cudaStream_t st,
+                         const __nv_bfloat16* x, const int8_t* w,
+                         const float* scale, OutT* out, float* part,
+                         unsigned* tickets, int M, int K, int N, int cps) {
+  cudaError_t e = cudaFuncSetAttribute(
+      packed_mma_kernel<MT, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  packed_mma_kernel<MT, OutT><<<grid, kQmThreads, smem, st>>>(
+      x, w, scale, out, part, tickets, M, K, N, cps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int launch_packed_mma(const void* x, const void* w, const void* scale,
+                      void* out, void* part, void* tickets, int M, int K,
+                      int N, int splits, int cps, cudaStream_t st) {
+  const int n_chunks = (K / 2 + kQmChunk - 1) / kQmChunk;
+  if (splits < 1 || cps < 1 || N % kQmCols ||
+      static_cast<long long>(splits) * cps < n_chunks ||
+      (splits - 1) * cps >= n_chunks || (splits > 1 && !part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mt = M <= 8 ? 8 : 16;
+  const size_t smem = static_cast<size_t>(kQmStages) *
+                      (mt == 8 ? QmStage<8>::kBytes : QmStage<16>::kBytes);
+  const dim3 grid(N / kQmCols, splits, (M + kQmSlab - 1) / kQmSlab);
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* wp = static_cast<const int8_t*>(w);
+  auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<OutT*>(out);
+  auto* pp = static_cast<float*>(part);
+  auto* tp = static_cast<unsigned*>(tickets);
+  if (mt == 8)
+    return launch_packed_mma_mt<8>(grid, smem, st, xp, wp, sp, op, pp, tp, M,
+                                   K, N, cps);
+  return launch_packed_mma_mt<16>(grid, smem, st, xp, wp, sp, op, pp, tp, M,
+                                  K, N, cps);
+}
+
+// ---------------------------------------------------------------------------
+// K13: packed int4 (K-half layout), per-group scales
+// ---------------------------------------------------------------------------
+// One block owns 32 columns and walks all K/2 packed rows; a thread reads 4
+// bytes (4 columns) of 8 consecutive packed rows per 256-row chunk, while
+// the chunk's two halves of x are staged, transposed to f32, in shared
+// memory; nibbles are split in registers. Each thread's f32 partial sum
+// over its 8 rows (which lie in one group: group_size % 8 == 0) is
+// multiplied by the group's scale before it is added in; the weights are
+// never scaled. Up to 16 rows of x per block; larger M runs 16-row slabs as
+// blockIdx.x. Sums across threads: a fixed shuffle butterfly, then the 8
+// warps in order.
 constexpr int kPkThreads = 256;
 constexpr int kPkCols = 32;                       // columns per block
 constexpr int kPkTPR = kPkCols / 4;               // threads per packed row
@@ -293,14 +591,15 @@ __device__ __forceinline__ float nib_hi(uint32_t word, int c) {
   return static_cast<float>(static_cast<int32_t>(word << (24 - 8 * c)) >> 28);
 }
 
-// x (M, K) bf16; w (K/2, N) packed int8; GROUPED: scale (K/gs, N) f32,
-// else scale (N,) f32. Block (blockIdx.x: 16-row slab of x, blockIdx.y:
-// 32 columns). The body of both kernels below.
-template <int MT, bool GROUPED, typename OutT>
-__device__ __forceinline__ void packed_gemv(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K,
-    int N, int gs) {
+// x (M, K) bf16; w (K/2, N) packed int8; scale (K/gs, N) f32. Block
+// (blockIdx.x: 16-row slab of x, blockIdx.y: 32 columns).
+template <int MT, typename OutT>
+__global__ void __launch_bounds__(kPkThreads)
+packed_grouped_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                           const int8_t* __restrict__ w,
+                           const float* __restrict__ scale,
+                           OutT* __restrict__ out, int M, int K, int N,
+                           int gs) {
   // the chunk's low-half and high-half x rows, transposed; (MT + 1) keeps
   // the rows a warp reads in distinct banks. Reused for the final sums.
   __shared__ float xs[2 * kPkChunk * (MT + 1)];
@@ -312,7 +611,7 @@ __device__ __forceinline__ void packed_gemv(
   const int col = n0 + ct * 4;
   const int Kp = K / 2;
   const int8_t* wcol = w + col;
-  const int nlo_groups = GROUPED ? Kp / gs : 0;
+  const int nlo_groups = Kp / gs;
 
   float acc[MT][4];
 #pragma unroll
@@ -336,62 +635,41 @@ __device__ __forceinline__ void packed_gemv(
       xhi[r * (MT + 1) + m] = in ? __bfloat162float(xr[Kp]) : 0.f;
     }
     __syncthreads();
-    if constexpr (GROUPED) {
-      // the thread's 8 rows lie in one group of each half: partial sums
-      // over them, scaled by the group's scales, then accumulated
-      float part[MT][4];
+    // the thread's 8 rows lie in one group of each half: partial sums over
+    // them, scaled by the group's scales, then accumulated
+    float part[MT][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[m][c] = 0.f;
+      const float* xb = half ? xhi : xlo;
+#pragma unroll
+      for (int u = 0; u < kPkRows; ++u) {
+        const float* xr = xb + (rt * kPkRows + u) * (MT + 1);
+        float wf[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wf[c] = half ? nib_hi(wv[u], c) : nib_lo(wv[u], c);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xm = xr[m];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            part[m][c] = fmaf(xm, wf[c], part[m][c]);
+        }
+      }
+      if (r0 < Kp) {
+        const int g = r0 / gs + (half ? nlo_groups : 0);
+        const float4 s4 = *reinterpret_cast<const float4*>(
+            scale + static_cast<size_t>(g) * N + col);
+        const float sg[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) part[m][c] = 0.f;
-        const float* xb = half ? xhi : xlo;
-#pragma unroll
-        for (int u = 0; u < kPkRows; ++u) {
-          const float* xr = xb + (rt * kPkRows + u) * (MT + 1);
-          float wf[4];
-#pragma unroll
           for (int c = 0; c < 4; ++c)
-            wf[c] = half ? nib_hi(wv[u], c) : nib_lo(wv[u], c);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float xm = xr[m];
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              part[m][c] = fmaf(xm, wf[c], part[m][c]);
-          }
-        }
-        if (r0 < Kp) {
-          const int g = r0 / gs + (half ? nlo_groups : 0);
-          const float4 s4 = *reinterpret_cast<const float4*>(
-              scale + static_cast<size_t>(g) * N + col);
-          const float sg[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[m][c] = fmaf(part[m][c], sg[c], acc[m][c]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < kPkRows; ++u) {
-        const float* xl = xlo + (rt * kPkRows + u) * (MT + 1);
-        const float* xh = xhi + (rt * kPkRows + u) * (MT + 1);
-        float lo[4], hi[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          lo[c] = nib_lo(wv[u], c);
-          hi[c] = nib_hi(wv[u], c);
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float a = xl[m], b = xh[m];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[m][c] = fmaf(b, hi[c], fmaf(a, lo[c], acc[m][c]));
-        }
+            acc[m][c] = fmaf(part[m][c], sg[c], acc[m][c]);
       }
     }
     __syncthreads();
@@ -422,63 +700,34 @@ __device__ __forceinline__ void packed_gemv(
     float s = 0.f;
 #pragma unroll
     for (int v = 0; v < kPkWarps; ++v) s += red[(v * MT + m) * kPkCols + c];
-    if constexpr (!GROUPED) s *= scale[n0 + c];
     store_f(out + static_cast<size_t>(m0 + m) * N + n0 + c, s);
   }
 }
 
-// K12 (per-channel scales) and K13 (group scales): two names, so a trace
-// tells them apart
-template <int MT, typename OutT>
-__global__ void __launch_bounds__(kPkThreads)
-packed_gemv_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, OutT* __restrict__ out,
-                   int M, int K, int N, int gs) {
-  packed_gemv<MT, false, OutT>(x, w, scale, out, M, K, N, gs);
-}
-
-template <int MT, typename OutT>
-__global__ void __launch_bounds__(kPkThreads)
-packed_grouped_gemv_kernel(const __nv_bfloat16* __restrict__ x,
-                           const int8_t* __restrict__ w,
-                           const float* __restrict__ scale,
-                           OutT* __restrict__ out, int M, int K, int N,
-                           int gs) {
-  packed_gemv<MT, true, OutT>(x, w, scale, out, M, K, N, gs);
-}
-
-template <int MT, bool GROUPED, typename OutT>
-void launch_packed_mt(dim3 grid, cudaStream_t st,
-                      const __nv_bfloat16* x, const int8_t* w,
-                      const float* scale, OutT* out, int M, int K, int N,
-                      int gs) {
-  if constexpr (GROUPED)
-    packed_grouped_gemv_kernel<MT, OutT><<<grid, kPkThreads, 0, st>>>(
-        x, w, scale, out, M, K, N, gs);
-  else
-    packed_gemv_kernel<MT, OutT><<<grid, kPkThreads, 0, st>>>(
-        x, w, scale, out, M, K, N, gs);
-}
-
-template <bool GROUPED, typename OutT>
-int launch_packed(const void* x, const void* w, const void* scale, void* out,
-                  int M, int K, int N, int gs, cudaStream_t st) {
+template <typename OutT>
+int launch_packed_grouped(const void* x, const void* w, const void* scale,
+                          void* out, int M, int K, int N, int gs,
+                          cudaStream_t st) {
   auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* wp = static_cast<const int8_t*>(w);
   auto* sp = static_cast<const float*>(scale);
   auto* op = static_cast<OutT*>(out);
   const dim3 grid((M + kPkSlab - 1) / kPkSlab, N / kPkCols);
   if (M <= 1)
-    launch_packed_mt<1, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+    packed_grouped_gemv_kernel<1, OutT><<<grid, kPkThreads, 0, st>>>(
+        xp, wp, sp, op, M, K, N, gs);
   else if (M <= 2)
-    launch_packed_mt<2, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+    packed_grouped_gemv_kernel<2, OutT><<<grid, kPkThreads, 0, st>>>(
+        xp, wp, sp, op, M, K, N, gs);
   else if (M <= 4)
-    launch_packed_mt<4, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+    packed_grouped_gemv_kernel<4, OutT><<<grid, kPkThreads, 0, st>>>(
+        xp, wp, sp, op, M, K, N, gs);
   else if (M <= 8)
-    launch_packed_mt<8, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+    packed_grouped_gemv_kernel<8, OutT><<<grid, kPkThreads, 0, st>>>(
+        xp, wp, sp, op, M, K, N, gs);
   else
-    launch_packed_mt<16, GROUPED>(grid, st, xp, wp, sp, op, M, K, N, gs);
+    packed_grouped_gemv_kernel<16, OutT><<<grid, kPkThreads, 0, st>>>(
+        xp, wp, sp, op, M, K, N, gs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,25 +780,44 @@ extern "C" int mixq_wo_matmul(const void* x, const void* w, const void* scol,
 }
 
 // K12: x (M, K) bf16, w (K/2, N) packed int4 (K-half layout), scale_col
-// (N,) f32 -> out (M, N). K13 (group_size > 0): scale (K/group_size, N) f32
-// group scales instead. The wrapper guarantees M >= 1, K % 2 == 0,
-// N % 128 == 0, 16-byte aligned w and scale, and for K13
-// group_size % 8 == 0 and (K/2) % group_size == 0.
+// (N,) f32 -> out (M, N). K/2 is cut into `splits` ranges of
+// chunks_per_split chunks of 64 packed rows (ops/wo_matmul.py
+// packed_plan); with splits > 1, part holds splits x ceil(M/16) x MT x N f32
+// partials (MT = 8 for M <= 8, else 16) and tickets ceil(M/16) x N/128
+// zeroed counters, which the kernel leaves zeroed. The wrapper guarantees
+// M >= 1, K % 2 == 0, N % 128 == 0 and 16-byte aligned w.
 extern "C" int mixq_wo_matmul_packed(const void* x, const void* w,
-                                     const void* scale, void* out, int M,
-                                     int K, int N, int group_size,
+                                     const void* scale, void* out,
+                                     void* part, void* tickets, int M, int K,
+                                     int N, int splits, int chunks_per_split,
                                      int out_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool grouped = group_size > 0;
   if (out_dtype == kBF16)
-    return grouped ? launch_packed<true, __nv_bfloat16>(x, w, scale, out, M,
-                                                        K, N, group_size, st)
-                   : launch_packed<false, __nv_bfloat16>(x, w, scale, out, M,
-                                                         K, N, 0, st);
+    return launch_packed_mma<__nv_bfloat16>(x, w, scale, out, part, tickets,
+                                            M, K, N, splits,
+                                            chunks_per_split, st);
   if (out_dtype == kF32)
-    return grouped ? launch_packed<true, float>(x, w, scale, out, M, K, N,
-                                                group_size, st)
-                   : launch_packed<false, float>(x, w, scale, out, M, K, N, 0,
-                                                 st);
+    return launch_packed_mma<float>(x, w, scale, out, part, tickets, M, K, N,
+                                    splits, chunks_per_split, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K13: x (M, K) bf16, w (K/2, N) packed int4 (K-half layout), scale
+// (K/group_size, N) f32 group scales -> out (M, N). The wrapper guarantees
+// M >= 1, K % 2 == 0, N % 128 == 0, 16-byte aligned w and scale,
+// group_size % 8 == 0 and (K/2) % group_size == 0.
+extern "C" int mixq_wo_matmul_packed_grouped(const void* x, const void* w,
+                                             const void* scale, void* out,
+                                             int M, int K, int N,
+                                             int group_size, int out_dtype,
+                                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (out_dtype == kBF16)
+    return launch_packed_grouped<__nv_bfloat16>(x, w, scale, out, M, K, N,
+                                                group_size, st);
+  if (out_dtype == kF32)
+    return launch_packed_grouped<float>(x, w, scale, out, M, K, N,
+                                        group_size, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,18 +33,19 @@ def _flash_available(s: int, d: int) -> bool:
 
 
 def _strided_ok(t: torch.Tensor) -> bool:
-    """K14 reads rows of D bf16 through their strides, 16 bytes at a time."""
+    """K14's tensor maps take a 16-byte aligned base and positive strides
+    that are multiples of 16 bytes, rows of D bf16 contiguous."""
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in t.stride()[:-1]))
+            and all(st > 0 and st % 8 == 0 for st in t.stride()[:-1]))
 
 
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float) -> torch.Tensor:
     """K14: causal MHA, q, k, v (B, S, H, D) bf16 -> (B, S, H, D) bf16.
 
-    A CUDA tensor launches the kernel (read through its strides; a view
-    whose rows are not 16-byte aligned is copied first), or raises; a CPU
-    tensor takes ``ops.ref.flash_causal_attention``."""
+    A CUDA tensor launches the kernel (read by TMA through its strides; a
+    view whose rows are not 16-byte aligned is copied first), or raises; a
+    CPU tensor takes ``ops.ref.flash_causal_attention``."""
     if not q.is_cuda:
         return ref.flash_causal_attention(q, k, v, scale)
     what = "flash_causal_attention"

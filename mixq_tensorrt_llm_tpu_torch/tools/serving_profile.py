@@ -55,7 +55,7 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "mixed_epilogue_kernel": "K3 mixed_matmul_hybrid",
                 "wo_gemv_kernel": "K4 wo_matmul (decode GEMV)",
                 "wo_gemm_kernel": "K4 wo_matmul (prefill GEMM)",
-                "packed_gemv_kernel": "K12 wo_matmul_packed",
+                "packed_mma_kernel": "K12 wo_matmul_packed",
                 "packed_grouped_gemv_kernel": "K13 wo_matmul_packed_grouped",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",

@@ -16,8 +16,9 @@ unpack-then-plain versions. K9 (verify rows) within 2e-2 of plain, and at
 S = 1 bit-equal to K7; K10 out within 2e-2 and its (m, l) within 1e-3
 relative; K11 within 2e-2 of its plain version and of K7. K14 (causal
 flash attention) within 2e-2 of its plain version at D 64, 128 and 256,
-S 128, 2048 and a ragged 200, the same bits from strided views as from
-contiguous copies. Speculative serving, split decode and the dense
+S 1, 63, 65, 128, 200 and 2048 on strided views, the same bits from
+strided views as from contiguous copies. K12 across its K splits: within
+tolerance and bit-equal on a repeated launch. Speculative serving, split decode and the dense
 session at a tiny width, by the kernels they launch; a CUDA session
 raises when a kernel library does not load."""
 
@@ -368,12 +369,12 @@ def test_attention_kernels_fp_pages_match_plain(cuda, pool_dtype, hq, hkv,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 64, 128])
+@pytest.mark.parametrize("m", list(range(1, 18)) + [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_kernels_match_plain(cuda, m, dtype):
     """K12 and K13 against unpack + plain. K/2 = 640 is not a multiple of
-    the kernels' 256-row chunk; group size 320 puts a group boundary
-    inside a chunk."""
+    K13's 256-row chunk; group size 320 puts a group boundary inside a
+    chunk."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     k, n = 1280, 384
     x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
@@ -398,6 +399,29 @@ def test_packed_kernels_match_plain(cuda, m, dtype):
         assert _close(out, want, dtype), gs
     assert _launched("wo_matmul_packed", before) == 1
     assert _launched("wo_matmul_packed_grouped", before) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17])
+@pytest.mark.parametrize("k,n", [(1240, 384), (130, 128), (13824, 5120)])
+def test_packed_split_k_edges_and_repeats(cuda, m, k, n):
+    """K12 where K/2 (620, 65, 6912) is no multiple of its 64-row chunk
+    and K/2 is split across blocks: within GEMM tolerance of plain, and
+    two launches on the same inputs bit-equal (the splits are summed in a
+    fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    qp = torch.randint(-128, 128, (k // 2, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scol = torch.rand((n,), generator=gen, device=cuda) * 2e-2 + 1e-3
+    plan = wm.packed_plan(m, k, n, wm.sm_count(cuda.index or 0))
+    out = wm.wo_matmul_packed(x, qp, scol, out_dtype=torch.float32)
+    again = wm.wo_matmul_packed(x, qp, scol, out_dtype=torch.float32)
+    want = wm.wo_matmul_packed_plain(x, qp, scol, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert plan.splits > 1 or k == 130
+    assert _close(out, want, torch.float32)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
@@ -630,15 +654,20 @@ def test_split_decode_on_card(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [128, 2048, 200])
+@pytest.mark.parametrize("s", [1, 63, 65, 128, 200, 2048])
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_kernel_matches_plain(cuda, s, d):
     """K14 within 2e-2 of its plain version (bf16 output), one launch
-    counted per call; S = 200 is no multiple of the 64-row tiles."""
+    counted per call, on q, k, v views of one fused projection (the
+    model's layout). S = 1, 63, 65 and 200 are no multiple of the 128-row
+    q tiles or the key tiles: TMA's out-of-bounds rows are zeros and the
+    rows past S are not written."""
     from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
     gen = torch.Generator(device=cuda).manual_seed(s + d)
-    q, k, v = (torch.randn((2 if s == 200 else 1, s, 4, d), generator=gen,
-                           device=cuda).bfloat16() for _ in range(3))
+    b, h = (2 if s == 200 else 1), 4
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device=cuda).bfloat16()
+    q, k, v = (x.reshape(b, s, h, d) for x in qkv.split(h * d, dim=-1))
     before = _build.LAUNCHES.get("flash_causal_attention", 0)
     out = fa.flash_causal_attention(q, k, v, d ** -0.5)
     want = ref.flash_causal_attention(q, k, v, d ** -0.5)
