@@ -11,12 +11,15 @@ exits non-zero:
   2. build: every CUDA kernel from csrc/ (one nvcc per source, in parallel)
   3. kernels against their plain PyTorch versions on the card at the main
      paths' shapes (Llama-2-7B: Hkv 32, D 128, BS 128, plus a GQA case
-     Hq 32 / Hkv 8; linears at 1024 prefill rows and 8 decode rows.
-     Llama-2-13B: K12 at 1, 8 and 16 decode rows, K13 at 8 (both at 64 at
-     qkv), group size 128, K12 bit-equal across two launches (its K splits
-     sum in a fixed order) and no slower than torch._weight_int4pack_mm at
-     qkv M = 8; K5p/K6p and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 /
-     Hkv 8):
+     Hq 32 / Hkv 8; linears at 1024 prefill rows and 8 decode rows; K4 in
+     its three regimes: the four 7B decode linears at 1, 8 and 16 rows,
+     7B down_proj at 17, 40 (the verify), 64, 128, 129 and 1024 rows and
+     the four 13B linears at 1024, then both of its kernels at 16-128 rows
+     for the crossover. Llama-2-13B: K12 and K13 (group size 128) at 1, 8
+     and 16 decode rows and 64 at qkv, each no slower than
+     torch._weight_int4pack_mm at qkv M = 8; K4, K12 and K13 bit-equal
+     across two launches (their K splits sum in a fixed order); K5p/K6p
+     and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 / Hkv 8):
      K5/K6/K5p/K6p pages (and scales) bit-equal outside trash row 0, K7/K8
      within 2e-2; K1 codes at most 1 apart (> 99.9% equal), scales rtol
      1e-5; K2/K3/K4/K12/K13 within 1e-4 of the largest output (+ one bf16
@@ -24,7 +27,7 @@ exits non-zero:
      time per launch and its plain version's device time per call come
      from torch.profiler, the wrapper's time per call (host included) from
      CUDA events, and the library call's where one computes the same
-     function (K4: torch._weight_int8pack_mm; K12, K13:
+     function (K4: torch._weight_int8pack_mm, at every shape; K12, K13:
      torch._weight_int4pack_mm)
   4. main path at full width: a Llama-2-7B-geometry int8_mix (128
      outliers) / int8-KV model with random weights serves 8 ragged
@@ -37,16 +40,17 @@ exits non-zero:
      injected into K8's, K2's or K4's call must land outside the tolerance
   4b. the int4 path at full width and depth: a Llama-2-13B-geometry
      (40 layers) w4a16 / bf16-KV model serves the same requests; K12, K4
-     (prefill, on the unpacked weight), K5p, K6p and K7/K8 on bf16 pages
-     must launch, K1, K2 and K13 must not
+     (its prefill regime, on the unpacked weight), K5p, K6p and K7/K8 on
+     bf16 pages must launch, K1, K2 and K13 must not
   5b. cross-device at 13B width, 2 layers, as phase 5, for w4a16 + bf16
      KV, w4a16_g (groups of 128) + int8 KV and int4_mix (128 outliers) +
      bf16 KV, each with the kernels it must launch, and negative controls
      in K12's, K13's and K5p's calls
   6. speculative serving at full width: the phase-4 model (32 layers)
      serves the same requests through run_speculative, gamma 4, a draft of
-     its first 4 layers, 8 rounds a call; K9 (verify), K7 (draft steps) and
-     K1 -> K2 (the 5-row verify's linears) must launch, the device-paced
+     its first 4 layers, 8 rounds a call; K9 (verify), K7 (draft steps),
+     K1 -> K2 and K4's mid regime (the 5-row verify's linears: 40 rows)
+     must launch, the device-paced
      rounds must run with one host readback a call
   6b. split decode on the main path: the phase-4 model serves with
      MIXQ_KV_SPLITS=4; K11 (and its K10) must launch at decode, K7 not
@@ -140,15 +144,20 @@ PAGED = [n for n in KERNELS if n.startswith("paged_")]
 # test calls mixed_matmul_hybrid; K13 serves w4a16_g, phase 5b)
 ON_PATH = {
     "7b": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+           "wo_matmul.decode", "wo_matmul.prefill",
            "paged_write_token", "paged_write_chunk", "paged_decode_attention",
            "paged_prefill_attention"],
-    "13b": ["wo_matmul_packed", "wo_matmul", "paged_write_token_fp",
-            "paged_write_chunk_fp", "paged_decode_attention_fp",
-            "paged_prefill_attention_fp"],
-    # phase 6: the verify (K9; gamma 4 = 5 rows, so K1 -> K2), the draft's
-    # steps (K7, K4, K5) and prefill, the target's prefill and steps
+    # K4 where a prefill call has more than 128 rows (on the unpacked
+    # weight), K12 at decode and on smaller calls
+    "13b": ["wo_matmul_packed", "wo_matmul", "wo_matmul.prefill",
+            "paged_write_token_fp", "paged_write_chunk_fp",
+            "paged_decode_attention_fp", "paged_prefill_attention_fp"],
+    # phase 6: the verify (K9; gamma 4 = 5 rows, so K1 -> K2, and K4's mid
+    # regime for down_proj's 8 x 5 = 40 rows), the draft's steps (K7, K4,
+    # K5) and prefill, the target's prefill and steps
     "spec": ["paged_verify_attention", "paged_decode_attention",
              "rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+             "wo_matmul.mid", "wo_matmul.decode", "wo_matmul.prefill",
              "paged_write_token", "paged_write_chunk",
              "paged_prefill_attention"],
     # phase 6b: every decode step through K11 (one K10 launch each)
@@ -159,7 +168,8 @@ ON_PATH = {
     # phase 4c: GenerationSession over the dense cache: K14 once a layer
     # at the prefill, the mix linears there, the weight-only ones decoding
     "dense": ["flash_causal_attention", "rmsnorm_quant_split",
-              "mixed_matmul", "wo_matmul"],
+              "mixed_matmul", "wo_matmul", "wo_matmul.prefill",
+              "wo_matmul.decode"],
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
@@ -903,50 +913,139 @@ def check_linears(torch, gen, dev, results):
               f"ms; wrapper {wms:.5f} ms); K1 codes at most {diff} apart",
               flush=True)
 
-    # K4: every decode linear at 8 lanes, then prefill's down_proj
-    step_ms = 0.0
-    for label, k, n, mk in (("qkv", h, 12288, 8), ("o_proj", h, h, 8),
-                            ("gate_up", h, 22016, 8),
-                            ("down_proj", 11008, h, 8),
-                            ("down_proj prefill", 11008, h, m)):
-        xk = torch.randn((mk, k), generator=gen, device=dev).to(bf)
-        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                           dtype=torch.int8)
-        scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
+    check_k4(torch, gen, dev, results, m, h)
+
+
+K4_MARKS = {"decode": "wo_small_mma_kernel", "mid": "wo_mid_mma_kernel",
+            "prefill": "wo_wgmma_kernel"}
+# K4's regime rows in the kernels line: (label, M, K, N)
+K4_REGIMES = {"decode": ("qkv", 8, 4096, 12288),
+              "verify": ("down_proj", 40, 11008, 4096),
+              "prefill": ("13B qkv", 1024, 5120, 15360)}
+
+
+def int8pack_library(torch, x, qw, scol, want, iters: int):
+    """torch._weight_int8pack_mm, the library's W8A16 product ((N, K) int8
+    weight, bf16 scales: the same function up to the scales' rounding):
+    (device ms, max rel err against K4's plain output), or None where the
+    card has no such kernel."""
+    wt = qw.t().contiguous()
+    sb = scol.to(torch.bfloat16)
+    try:
+        err = gemm_err(torch._weight_int8pack_mm(x, wt, sb), want)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch._weight_int8pack_mm: none on this card "
+              f"({str(e).splitlines()[0][:100]})", flush=True)
+        return None
+    return device_ms(torch, lambda: torch._weight_int8pack_mm(x, wt, sb),
+                     iters), err
+
+
+def check_k4(torch, gen, dev, results, m: int, h: int):
+    """K4 in its three regimes, each against its plain version, two
+    launches bit-equal, with its bound and torch._weight_int8pack_mm: the
+    four 7B decode linears at 1, 8 and 16 rows (mma, decode), 7B down_proj
+    at 17, 40 (the speculative verify), 64, 128 and 129 rows (mma, mid, and
+    the edge to the GEMM), and prefill (wgmma) at `m` rows for 7B down_proj
+    and the four 13B linears (the int4 prefill runs K4 on the unpacked
+    weight), with cuBLAS over a dequantized copy as a reading beside them.
+    Then both regimes at 16-128 rows: the crossover K4_MMA_MAX_ROWS
+    follows."""
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    bf, sms = torch.bfloat16, wm.sm_count(dev.index or 0)
+    h13, i13 = 5120, 13824
+    seven = (("qkv", h, 3 * h), ("o_proj", h, h), ("gate_up", h, 22016),
+             ("down_proj", 11008, h))
+    cases = [(lb, k, n, mk) for mk in (1, 8, 16) for lb, k, n in seven]
+    cases += [("down_proj", 11008, h, mk) for mk in (17, 40, 64, 128, 129, m)]
+    cases += [("13B " + lb, k, n, m) for lb, k, n in (
+        ("qkv", h13, 3 * h13), ("o_proj", h13, h13),
+        ("gate_up", h13, 2 * i13), ("down_proj", i13, h13))]
+
+    def operands(mk, k, n):
+        return (torch.randn((mk, k), generator=gen, device=dev).to(bf),
+                torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8),
+                torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5)
+
+    step_ms, regimes = 0.0, {}
+    for label, k, n, mk in cases:
+        xk, qw, scol = operands(mk, k, n)
+        regime = wm.k4_regime(wm.wo_plan(mk, k, n, sms))
         k4 = (lambda: wm.wo_matmul(xk, qw, scol),
               lambda: wm.wo_matmul_plain(xk, qw, scol))
-        err = gemm_err(k4[0](), k4[1]())
-        check(err <= gemm_tol(bf), f"K4 {label}: rel err {err}")
-        name = "wo_gemv_kernel" if mk <= wm.GEMV_MAX_ROWS else "wo_gemm_kernel"
-        ms, pms, wms = measure(torch, *k4, name, "wo_matmul",
-                               100 if mk <= 16 else 20, 10)
-        bnd = bound(mk * k * 2 + k * n + n * 4 + mk * n * 2, 2.0 * mk * n * k)
-        lib = None
-        if mk <= 16:
+        out, again, want = k4[0](), k4[0](), k4[1]()
+        torch.cuda.synchronize()
+        err = gemm_err(out, want)
+        check(err <= gemm_tol(bf), f"K4 {label} M={mk}: rel err {err}")
+        check(torch.equal(out, again), f"K4 {label} M={mk}: two launches "
+              f"on the same inputs differ")
+        large = mk >= 1024
+        ms, pms, wms = measure(torch, *k4, K4_MARKS[regime], "wo_matmul",
+                               20 if large else 100, 3 if large else 10)
+        flops = 2.0 * mk * n * k
+        bnd = bound(mk * k * 2 + k * n + n * 4 + mk * n * 2, flops)
+        lib = int8pack_library(torch, xk, qw, scol, want,
+                               3 if large else 20 if mk > 16 else 50)
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if bnd[1] == "operations"
+                else f"{k * n / ms / 1e9:.3f} TB/s of weight")
+        lib_s = ("none" if lib is None
+                 else f"{lib[0]:.5f} ms, rel err {lib[1]:.2e}")
+        print(f"K4 wo_matmul ({regime}) {label} M={mk} K={k} N={n}: max rel "
+              f"err {err:.2e}, repeat bit-equal; device {ms:.5f} ms per "
+              f"launch (plain {pms:.5f} ms; wrapper {wms:.5f} ms; bound "
+              f"{bnd[0]:.5f} ms, by {bnd[1]}; {rate}; "
+              f"torch._weight_int8pack_mm {lib_s})", flush=True)
+        if large:
+            wd = qw.to(bf)
+            cub = device_ms(torch, lambda: torch.matmul(xk, wd), 20)
+            print(f"  reading: cuBLAS bf16 x @ a dequantized bf16 copy of the "
+                  f"weight (not the same function: no int8 read, no scale) "
+                  f"{cub:.5f} ms, {flops / cub / 1e9:.1f} TFLOP/s", flush=True)
+            del wd
+        row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound=bnd,
+                   library_ms=None if lib is None else lib[0])
+        for name, (lb, rm, rk, rn) in K4_REGIMES.items():
+            if (label, mk, k, n) == (lb, rm, rk, rn):
+                regimes[name] = dict(row, M=mk, K=k, N=n, kernel=regime,
+                                     bound_ms=bnd[0], bound_by=bnd[1])
+        if mk == 8:
             step_ms += ms
-            wt = qw.t().contiguous()              # the library's (N, K)
-            sb = scol.to(bf)
-            try:
-                torch._weight_int8pack_mm(xk, wt, sb)
-                lib = device_ms(torch, lambda: torch._weight_int8pack_mm(
-                    xk, wt, sb), 50)
-            except (RuntimeError, NotImplementedError) as e:
-                print(f"  torch._weight_int8pack_mm: none on this card "
-                      f"({str(e).splitlines()[0][:100]})", flush=True)
-            del wt
-        print(f"K4 wo_matmul {label} M={mk} K={k} N={n}: max rel err "
-              f"{err:.2e}; device {ms:.5f} ms per launch (plain {pms:.5f} "
-              f"ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, by "
-              f"{bnd[1]}; {(k * n) / ms / 1e9:.3f} TB/s of weight; "
-              f"torch._weight_int8pack_mm "
-              f"{'none' if lib is None else f'{lib:.5f} ms'})", flush=True)
-        if label == "qkv":
-            results["wo_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                        bound=bnd, library_ms=lib)
-    print(f"K4 one decode step's four linears: {step_ms:.5f} ms a layer, "
-          f"{32 * step_ms:.3f} ms for 32 layers (bound: 202.4 MB of int8 "
-          f"weights a layer, {32 * 202.4e6 / HBM_BYTES_PER_MS:.3f} ms)",
+    check(len(regimes) == len(K4_REGIMES), f"K4 regimes measured: {regimes}")
+    results["wo_matmul"] = dict(
+        {key: regimes["decode"][key] for key in
+         ("max_abs_err", "ms", "plain_ms", "bound", "library_ms")},
+        regimes={name: {key: r[key] for key in (
+            "M", "K", "N", "kernel", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")}
+            for name, r in regimes.items()})
+    print(f"K4 one decode step's four linears at 8 rows: {step_ms:.5f} ms a "
+          f"layer, {32 * step_ms:.3f} ms for 32 layers (bound: 202.4 MB of "
+          f"int8 weights a layer, {32 * 202.4e6 / HBM_BYTES_PER_MS:.3f} ms)",
           flush=True)
+
+    # the crossover: both regimes at 16-128 rows, 7B down_proj and 13B qkv
+    threshold = wm.K4_MMA_MAX_ROWS
+    for label, k, n in (("7B down_proj", 11008, h), ("13B qkv", h13, 3 * h13)):
+        readings = []
+        for mk in (16, 32, 40, 64, 96, 128):
+            xk, qw, scol = operands(mk, k, n)
+            times = {}
+            try:
+                for regime, rows in (("mma", 1 << 30), ("wgmma", 0)):
+                    wm.K4_MMA_MAX_ROWS = rows
+                    mark = K4_MARKS[wm.k4_regime(wm.wo_plan(mk, k, n, sms,
+                                                            rows))]
+                    times[regime] = device_ms(
+                        torch, lambda: wm.wo_matmul(xk, qw, scol), 30, mark,
+                        "wo_matmul")
+            finally:
+                wm.K4_MMA_MAX_ROWS = threshold
+            readings.append(f"M={mk} mma {times['mma']:.5f} / wgmma "
+                            f"{times['wgmma']:.5f}")
+        print(f"K4 regimes at {label} (K={k} N={n}), device ms a launch: "
+              f"{'; '.join(readings)}; K4_MMA_MAX_ROWS = {threshold}",
+              flush=True)
 
 
 def int4pack_library(torch, x, q, scale_g, want):
@@ -971,21 +1070,21 @@ def int4pack_library(torch, x, q, scale_g, want):
 
 
 def check_packed(torch, gen, dev, results):
-    """K12 at the four Llama-2-13B decode shapes at M = 1, 8 and 16 (and 64
-    at qkv), with two launches on the same inputs required bit-equal (its
-    K splits are summed in a fixed order); K13 at the same shapes at M = 8
-    (and 64 at qkv), group size 128. Random packed bytes (every nibble
-    value), f32 scales; torch._weight_int4pack_mm timed beside each."""
+    """K12 and K13 (group size 128) at the four Llama-2-13B decode shapes
+    at M = 1, 8 and 16 (and 64 at qkv), with two launches on the same
+    inputs required bit-equal (their K splits are summed in a fixed order).
+    Random packed bytes (every nibble value), f32 scales;
+    torch._weight_int4pack_mm timed beside each, and each kernel at qkv M
+    = 8 no slower than it."""
     from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
     from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
     bf, gs, h = torch.bfloat16, 128, 5120
     step = {"wo_matmul_packed": 0.0, "wo_matmul_packed_grouped": 0.0}
     shapes = (("qkv", h, 3 * h), ("o_proj", h, h),
               ("gate_up", h, 2 * 13824), ("down_proj", 13824, h))
-    cases = [(lb, k, n, mk, "wo_matmul_packed") for mk in (1, 8, 16)
-             for lb, k, n in shapes]
-    cases += [(lb, k, n, 8, "wo_matmul_packed_grouped")
-              for lb, k, n in shapes]
+    cases = [(lb, k, n, mk, name)
+             for name in ("wo_matmul_packed", "wo_matmul_packed_grouped")
+             for mk in (1, 8, 16) for lb, k, n in shapes]
     cases += [("qkv", h, 3 * h, 64, name)
               for name in ("wo_matmul_packed", "wo_matmul_packed_grouped")]
     for label, k, n, mk, name in cases:
@@ -1003,7 +1102,7 @@ def check_packed(torch, gen, dev, results):
             def pfn():
                 return wm.wo_matmul_packed_plain(x, qp, sc)
         else:
-            tag, mark = "K13", "packed_grouped_gemv_kernel"
+            tag, mark = "K13", "packed_grouped_mma_kernel"
             sc = torch.rand((k // gs, n), generator=gen, device=dev) * 2e-3 \
                 + 1e-4
             scale_b, lib_scales = (k // gs) * n * 4, sc
@@ -1017,16 +1116,16 @@ def check_packed(torch, gen, dev, results):
         err = gemm_err(out, want)
         check(err <= gemm_tol(bf), f"{name} {label} M={mk}: rel err {err} > "
               f"{gemm_tol(bf)}")
-        plan = ""
-        if tag == "K12":
-            again = kfn()
-            torch.cuda.synchronize()
-            check(torch.equal(out, again), f"{name} {label} M={mk}: two "
-                  f"launches on the same inputs differ")
-            p = wm.packed_plan(mk, k, n, wm.sm_count(dev.index or 0))
-            plan = (f"; {p.splits} splits x {p.chunks_per_split} chunks, "
-                    f"{p.grid[0] * p.grid[1] * p.grid[2]} blocks, repeat "
-                    f"bit-equal")
+        again = kfn()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{name} {label} M={mk}: two "
+              f"launches on the same inputs differ")
+        sms = wm.sm_count(dev.index or 0)
+        p = (wm.packed_plan(mk, k, n, sms) if tag == "K12"
+             else wm.grouped_plan(mk, k, n, gs, sms))
+        plan = (f"; {p.splits} splits x {p.chunks_per_split} chunks, "
+                f"{p.grid[0] * p.grid[1] * p.grid[2]} blocks, repeat "
+                f"bit-equal")
         ms, pms, wms = measure(torch, kfn, pfn, mark, name, 100, 5)
         bnd = bound(mk * k * 2 + (k // 2) * n + scale_b + mk * n * 2,
                     2.0 * mk * n * k)
@@ -1059,11 +1158,13 @@ def check_packed(torch, gen, dev, results):
               f"{40 * ms:.3f} ms for 40 layers (bound: "
               f"{weights / 1e9:.3f} GB of packed weights, "
               f"{weights / HBM_BYTES_PER_MS:.3f} ms)", flush=True)
-    k12 = results["wo_matmul_packed"]
-    if k12["library_ms"] is not None:
-        check(k12["ms"] <= k12["library_ms"],
-              f"K12 at qkv M=8: {k12['ms']:.5f} ms, slower than "
-              f"torch._weight_int4pack_mm's {k12['library_ms']:.5f} ms")
+    for tag, name in (("K12", "wo_matmul_packed"),
+                      ("K13", "wo_matmul_packed_grouped")):
+        r = results[name]
+        if r["library_ms"] is not None:
+            check(r["ms"] <= r["library_ms"],
+                  f"{tag} at qkv M=8: {r['ms']:.5f} ms, slower than "
+                  f"torch._weight_int4pack_mm's {r['library_ms']:.5f} ms")
 
 
 def check_flash(torch, gen, dev, results):
@@ -1783,10 +1884,16 @@ def main() -> int:
         r = results[name]
         bms, by = r["bound"]
         by_path = {p: n.get(name, 0) for p, n in launches.items()}
+        extra = {}
+        if name == "wo_matmul":
+            extra = {"launches_by_regime": {
+                rg: sum(n.get(f"{name}.{rg}", 0) for n in launches.values())
+                for rg in ("decode", "mid", "prefill")},
+                "regimes": r["regimes"]}
         rows.append({"name": name, "route": "cuda", "source": SRC + src,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),
-                     "launches_by_path": by_path,
+                     "launches_by_path": by_path, **extra,
                      "launches_cross_device": xdev.get(name, 0),
                      "pages": ("bf16" if name.endswith("_fp") else
                                "int8" if name.startswith("paged") else None),

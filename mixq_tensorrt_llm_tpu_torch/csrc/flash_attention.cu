@@ -44,12 +44,10 @@
 // cuTensorMapEncodeTiled comes through cudaGetDriverEntryPoint, so the
 // library needs no -lcuda. Any S >= 1; rows past S are not written.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <float.h>
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace mixq {
 namespace {
@@ -77,90 +75,6 @@ struct FlashCfg {
       static_cast<size_t>(kQBytes) + 2 * kStages * kKVBytes + 1024;
   static_assert(kSmem <= 232448, "over the 227 KB of shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completion counted in bytes on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (K-major: SBO = 1024 between 8-row groups, LBO
-// unused; MN-major: LBO between 64-element atoms along MN, SBO between
-// 8-row groups along K)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of wgmma accumulators
-// across the asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Generated operand lists (64 x N f32 accumulators, N/2 a thread).
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
@@ -206,23 +120,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
                                               uint64_t db) {
   asm volatile(
@@ -259,7 +156,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128<1>(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }
 
@@ -463,25 +360,6 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
           __floats2bfloat162_rn(o[4 * jn + 2] * inv_hi,
                                 o[4 * jn + 3] * inv_hi);
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime
-PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a (B, S, H, D) bf16 view as a 4-D tensor map (D, H, S, B), boxes of 64

@@ -4,21 +4,22 @@
 
 ``out = (bf16 x @ int8 qweight) * scale_col`` with f32 sums, the weight in
 the JAX package's (K, N) layout. A CPU tensor takes the plain version
-(``ops.ref.wo_matmul``). A CUDA tensor launches the kernel of
-csrc/wo_matmul.cu, which reads the int8 weight in place — a GEMV-style
-kernel for M <= 16 (decode), a bf16 tensor-core GEMM over int8 tiles
-converted in shared memory above that (prefill) — or raises. The kernel
-takes K % 32 == 0 and N % 128 == 0 (the JAX kernel asks for multiples of
-128 of both).
+(``ops.ref.wo_matmul``). A CUDA tensor launches a kernel of
+csrc/wo_matmul.cu, which reads the int8 weight in place, or raises. K4
+runs in two regimes, chosen by ``wo_plan`` from M alone: up to
+K4_MMA_MAX_ROWS rows (decode, the speculative verify) the mma kernel, its
+weight rows split across blocks and summed in a fixed order in the one
+launch; above that (prefill) the wgmma + TMA GEMM. It takes K % 32 == 0
+and N % 128 == 0 (the JAX kernel asks for multiples of 128 of both).
 
 K12/K13 take the weight packed two int4 values a byte in quant.core's
 K-half layout, int8 (K/2, N), and read it in place (0.5 byte a weight),
-for any M (16-row slabs above 16 rows). K12 runs on the tensor cores with
-K/2 split across blocks by ``packed_plan``, its splits summed in a fixed
-order inside the one launch; K13 is a CUDA-core GEMV. Their plain versions
-unpack (``quant.core.unpack_int4``) and run ``ref.wo_matmul`` /
-``ref.wo_matmul_grouped``. They take K even and N % 128 == 0; K13 also
-group_size % 8 == 0 and (K/2) % group_size == 0.
+for any M (16-row slabs above 16 rows), on the same mma kernel: K/2 split
+by ``packed_plan`` / ``grouped_plan`` (K13's splits hold whole groups).
+Their plain versions unpack (``quant.core.unpack_int4``) and run
+``ref.wo_matmul`` / ``ref.wo_matmul_grouped``. They take K even and N %
+128 == 0; K13 also group_size % 64 == 0 and (K/2) % group_size == 0 (its
+plain version any group size).
 """
 
 from __future__ import annotations
@@ -33,48 +34,101 @@ from ..quant import core as qcore
 from . import _build, ref
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-GEMV_MAX_ROWS = 16          # the kernel's decode regime: M <= 16
 
-# K12's tiling (csrc/wo_matmul.cu packed_mma_kernel)
-PACKED_COLS = 128           # output columns a block
-PACKED_CHUNK = 64           # packed rows a ring stage
-PACKED_STAGES = 4           # stages of the ring
-PACKED_SLAB = 16            # rows of x a block
-BLOCKS_PER_SM = 2           # the grid the split plan aims for
+# the mma kernel's tiling (csrc/wo_matmul.cu wo_mma_body): K4 at small and
+# mid M, K12 and K13
+MMA_COLS = 128              # output columns a block
+MMA_CHUNK = 64              # weight rows a ring stage
+MMA_STAGES = 4              # stages of the ring
+K4_MTS = (8, 16, 24, 32, 40, 48, 64)   # K4's rows of x a block
+# K4 above this M runs the wgmma GEMM (wo_wgmma_kernel), whose block is
+# GEMM_ROWS rows of x by GEMM_COLS columns with a GEMM_SMEM-byte ring: the
+# crossover measured on the H100 (PERF.md, chip_smoke.py's K4 regimes)
+K4_MMA_MAX_ROWS = 128
+GEMM_ROWS, GEMM_COLS = 128, 256
+GEMM_SMEM = 4 * (2 * 64 * 128 + 128 * 64 * 2) + 1024
 
 
-class PackedPlan(NamedTuple):
-    """How K12 cuts one (M, K) x (K/2, N) product into blocks."""
-    mt: int                 # rows of x an mma covers: 8 (M <= 8) or 16
-    slabs: int              # 16-row slabs of x
+def blocks_per_sm(mt: int) -> int:
+    """Blocks of the mma kernel an SM holds: two (128 registers a thread)
+    but at 64 rows of x (csrc/wo_matmul.cu's launch bounds)."""
+    return 2 if mt < 64 else 1
+
+
+class MmaPlan(NamedTuple):
+    """How one weight-only product is cut into blocks. mt = 0 is K4's
+    wgmma GEMM (no split, grid of row and column tiles)."""
+    mt: int                 # rows of x a block
+    slabs: int              # mt-row slabs of x
     tiles: int              # 128-column tiles
-    chunks: int             # 64-row chunks of the K/2 packed rows
-    splits: int             # K ranges, one block each per tile and slab
+    chunks: int             # 64-row chunks of the weight's rows
+    splits: int             # ranges of chunks, one block each per tile, slab
     chunks_per_split: int
     grid: Tuple[int, int, int]
     smem: int               # dynamic shared memory a block, bytes
     scratch: Optional[Tuple[int, int, int, int]]   # f32 partials, if split
 
 
+def _mma_plan(mt: int, m: int, rows: int, n: int, sms: int, halves: int,
+              unit: int = 1) -> MmaPlan:
+    """Split the weight's `rows` so that the grid fills the blocks the
+    SMs hold (``blocks_per_sm``) once, or twice where one wave would leave
+    a quarter of them idle (the blocks of a second, partial wave stream
+    alone at a fraction of the card's rate); then equal ranges of whole
+    units of `unit` chunks, none empty (the last may be shorter). A ring
+    stage holds a chunk of the weight (rows padded by 16 bytes) and
+    `halves` slices of x at its rows (padded by 8 values)."""
+    slabs = -(-m // mt)
+    tiles = n // MMA_COLS
+    chunks = -(-rows // MMA_CHUNK)
+    units = -(-chunks // unit)
+    slots, base = blocks_per_sm(mt) * sms, tiles * slabs
+    splits = max(1, slots // base)
+    if base * splits < 0.75 * slots:
+        splits = max(1, 2 * slots // base)
+    per_split = -(-units // min(splits, units))
+    splits = -(-units // per_split)
+    smem = MMA_STAGES * (MMA_CHUNK * (MMA_COLS + 16)
+                         + halves * mt * (MMA_CHUNK + 8) * 2)
+    return MmaPlan(mt, slabs, tiles, chunks, splits, per_split * unit,
+                   (tiles, splits, slabs), smem,
+                   (splits, slabs, mt, n) if splits > 1 else None)
+
+
 @functools.lru_cache(maxsize=4096)
-def packed_plan(m: int, k: int, n: int, sms: int) -> PackedPlan:
-    """K12's split of K/2: enough splits that the grid holds
-    BLOCKS_PER_SM blocks an SM where the K range allows it, then equal
-    ranges of whole chunks, none empty (the last may be shorter). A ring
-    stage holds a chunk of the weight (rows padded by 16 bytes) and both
-    halves of x at its rows (padded by 8 values)."""
-    mt = 8 if m <= 8 else 16
-    slabs = -(-m // PACKED_SLAB)
-    tiles = n // PACKED_COLS
-    chunks = -(-(k // 2) // PACKED_CHUNK)
-    splits = max(1, -(-BLOCKS_PER_SM * sms // (tiles * slabs)))
-    cps = -(-chunks // min(splits, chunks))
-    splits = -(-chunks // cps)
-    smem = PACKED_STAGES * (PACKED_CHUNK * (PACKED_COLS + 16)
-                            + 2 * mt * (PACKED_CHUNK + 8) * 2)
-    return PackedPlan(mt, slabs, tiles, chunks, splits, cps,
-                      (tiles, splits, slabs), smem,
-                      (splits, slabs, mt, n) if splits > 1 else None)
+def packed_plan(m: int, k: int, n: int, sms: int) -> MmaPlan:
+    """K12's split of the K/2 packed rows; 8 or 16 rows of x a block."""
+    return _mma_plan(8 if m <= 8 else 16, m, k // 2, n, sms, 2)
+
+
+@functools.lru_cache(maxsize=4096)
+def grouped_plan(m: int, k: int, n: int, group_size: int,
+                 sms: int) -> MmaPlan:
+    """K13's: as K12's, every split whole groups of group_size packed rows
+    (group_size % 64 == 0 and (K/2) % group_size == 0, which the wrapper
+    checks)."""
+    return _mma_plan(8 if m <= 8 else 16, m, k // 2, n, sms, 2,
+                     unit=group_size // MMA_CHUNK)
+
+
+@functools.lru_cache(maxsize=4096)
+def wo_plan(m: int, k: int, n: int, sms: int,
+            mma_max_rows: int = K4_MMA_MAX_ROWS) -> MmaPlan:
+    """K4's regime and cut: up to mma_max_rows rows of x the mma kernel,
+    the smallest of K4_MTS that holds M (64-row slabs above 64) and K split
+    as K12's; above that the wgmma GEMM."""
+    if m > mma_max_rows:
+        grid = (-(-m // GEMM_ROWS), -(-n // GEMM_COLS), 1)
+        return MmaPlan(0, grid[0], grid[1], -(-k // MMA_CHUNK), 1,
+                       -(-k // MMA_CHUNK), grid, GEMM_SMEM, None)
+    mt = next((t for t in K4_MTS if t >= m), K4_MTS[-1])
+    return _mma_plan(mt, m, k, n, sms, 1)
+
+
+def k4_regime(plan: MmaPlan) -> str:
+    """K4's regime under ``plan``: "decode" (the mma kernel, <= 16 rows of
+    x a block), "mid" (the mma kernel, more) or "prefill" (wgmma)."""
+    return "prefill" if plan.mt == 0 else "decode" if plan.mt <= 16 else "mid"
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,9 +136,15 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# device -> K12's buffers, reused by every launch on the device's stream
-# in turn: the split tickets (zeros, and left zeroed by every launch: the
-# last block of a column tile resets its counter) and the f32 partials
+def _sms(dev: torch.device) -> int:
+    return sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+
+
+# device -> the mma kernel's buffers, reused by every launch on the
+# device's stream in turn: the split tickets (zeros, and left zeroed by
+# every launch: the last block of a column tile resets its counter) and
+# the f32 partials
 _TICKETS: dict = {}
 _PARTIALS: dict = {}
 
@@ -95,6 +155,18 @@ def _grown(cache: dict, dev: torch.device, n: int, make) -> torch.Tensor:
         buf = make(max(n, 4096))
         cache[dev] = buf
     return buf
+
+
+def _scratch(dev: torch.device, plan: MmaPlan):
+    """(partials or None, tickets) for a launch of the mma kernel."""
+    part = (_grown(_PARTIALS, dev, math.prod(plan.scratch),
+                   lambda size: torch.empty((size,), dtype=torch.float32,
+                                            device=dev))
+            if plan.scratch else None)
+    tickets = _grown(_TICKETS, dev, plan.tiles * plan.slabs,
+                     lambda size: torch.zeros((size,), dtype=torch.int32,
+                                              device=dev))
+    return None if part is None else part.data_ptr(), tickets.data_ptr()
 
 
 def wo_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
@@ -126,17 +198,22 @@ def wo_matmul(x: torch.Tensor, qweight: torch.Tensor,
             and qweight.is_contiguous() and qweight.data_ptr() % 16 == 0):
         raise ValueError("wo_matmul: qweight must be a contiguous, 16-byte "
                          "aligned CUDA int8 tensor")
+    dev = x.device
     xb = _build.aligned(x.to(torch.bfloat16))
-    scol = scale_col.to(x.device, torch.float32).contiguous()
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    scol = _build.aligned(scale_col.to(dev, torch.float32))
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
+    plan = wo_plan(m, k, n, _sms(dev), K4_MMA_MAX_ROWS)
+    part, tickets = _scratch(dev, plan)
     fn = _build.bind("wo_matmul", "mixq_wo_matmul",
-                     [_build.P] * 4 + [_build.I] * 4 + [_build.P])
+                     [_build.P] * 6 + [_build.I] * 7 + [_build.P])
     err = fn(xb.data_ptr(), qweight.data_ptr(), scol.data_ptr(),
-             out.data_ptr(), m, k, n, _OUT_DTYPES[out_dtype],
-             _build.stream_ptr(x.device))
+             out.data_ptr(), part, tickets, m, k, n, plan.mt, plan.splits,
+             plan.chunks_per_split, _OUT_DTYPES[out_dtype],
+             _build.stream_ptr(dev))
     _build.count_launch("wo_matmul")
+    _build.count_launch("wo_matmul." + k4_regime(plan))   # by regime
     _build.check("wo_matmul", err, "wo_matmul")
     return out
 
@@ -177,50 +254,33 @@ def _packed_checks(x, qweight_packed, out_dtype, what: str):
     return m, k, n
 
 
-def _launch_packed(x, qweight_packed, scale_col, out_dtype) -> torch.Tensor:
-    what = "wo_matmul_packed"
+def _launch_packed(x, qweight_packed, scale, out_dtype,
+                   group_size: int = 0) -> torch.Tensor:
+    """K12 (group_size 0) or K13 on the mma kernel."""
+    what = ("wo_matmul_packed_grouped" if group_size
+            else "wo_matmul_packed")
     m, k, n = _packed_checks(x, qweight_packed, out_dtype, what)
     dev = x.device
     xb = _build.aligned(x.to(torch.bfloat16))
-    sc = _build.aligned(scale_col.to(dev, torch.float32))
+    sc = _build.aligned(scale.to(dev, torch.float32))
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    plan = packed_plan(m, k, n, sm_count(dev.index
-                                         if dev.index is not None
-                                         else torch.cuda.current_device()))
-    part = (_grown(_PARTIALS, dev, math.prod(plan.scratch),
-                   lambda size: torch.empty((size,), dtype=torch.float32,
-                                            device=dev))
-            if plan.scratch else None)
-    tickets = _grown(_TICKETS, dev, plan.tiles * plan.slabs,
-                     lambda size: torch.zeros((size,), dtype=torch.int32,
-                                              device=dev))
-    fn = _build.bind("wo_matmul", "mixq_wo_matmul_packed",
-                     [_build.P] * 6 + [_build.I] * 6 + [_build.P])
+    if group_size:
+        plan = grouped_plan(m, k, n, group_size, _sms(dev))
+        fn = _build.bind("wo_matmul", "mixq_wo_matmul_packed_grouped",
+                         [_build.P] * 6 + [_build.I] * 8 + [_build.P])
+        lead = (group_size,)
+    else:
+        plan = packed_plan(m, k, n, _sms(dev))
+        fn = _build.bind("wo_matmul", "mixq_wo_matmul_packed",
+                         [_build.P] * 6 + [_build.I] * 7 + [_build.P])
+        lead = ()
+    part, tickets = _scratch(dev, plan)
     err = fn(xb.data_ptr(), qweight_packed.data_ptr(), sc.data_ptr(),
-             out.data_ptr(), None if part is None else part.data_ptr(),
-             tickets.data_ptr(), m, k, n, plan.splits, plan.chunks_per_split,
-             _OUT_DTYPES[out_dtype], _build.stream_ptr(dev))
-    _build.count_launch(what)
-    _build.check("wo_matmul", err, what)
-    return out
-
-
-def _launch_packed_grouped(x, qweight_packed, scale_g, group_size,
-                           out_dtype) -> torch.Tensor:
-    what = "wo_matmul_packed_grouped"
-    m, k, n = _packed_checks(x, qweight_packed, out_dtype, what)
-    xb = _build.aligned(x.to(torch.bfloat16))
-    sc = _build.aligned(scale_g.to(x.device, torch.float32))
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    fn = _build.bind("wo_matmul", "mixq_wo_matmul_packed_grouped",
-                     [_build.P] * 4 + [_build.I] * 5 + [_build.P])
-    err = fn(xb.data_ptr(), qweight_packed.data_ptr(), sc.data_ptr(),
-             out.data_ptr(), m, k, n, group_size, _OUT_DTYPES[out_dtype],
-             _build.stream_ptr(x.device))
+             out.data_ptr(), part, tickets, m, k, n, *lead, plan.mt,
+             plan.splits, plan.chunks_per_split, _OUT_DTYPES[out_dtype],
+             _build.stream_ptr(dev))
     _build.count_launch(what)
     _build.check("wo_matmul", err, what)
     return out
@@ -249,11 +309,11 @@ def wo_matmul_packed_grouped(x: torch.Tensor, qweight_packed: torch.Tensor,
         return wo_matmul_packed_grouped_plain(x, qweight_packed, scale_g,
                                               group_size, out_dtype)
     kp, n = qweight_packed.shape
-    if group_size <= 0 or group_size % 8 or kp % group_size \
+    if group_size <= 0 or group_size % MMA_CHUNK or kp % group_size \
             or scale_g.shape != (2 * kp // group_size, n):
         raise ValueError(f"wo_matmul_packed_grouped: group_size "
                          f"{group_size}, scale_g {tuple(scale_g.shape)} and "
                          f"packed weight {(kp, n)} — the CUDA kernel takes "
-                         "group_size % 8 == 0 and (K/2) % group_size == 0")
-    return _launch_packed_grouped(x, qweight_packed, scale_g, group_size,
-                                  out_dtype)
+                         f"group_size % {MMA_CHUNK} == 0 and (K/2) % "
+                         "group_size == 0")
+    return _launch_packed(x, qweight_packed, scale_g, out_dtype, group_size)

@@ -53,10 +53,11 @@ from ..quant import KVCacheQuantAlgo, QuantAlgo, QuantConfig
 PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "mixed_matmul_kernel": "K2 mixed_matmul",
                 "mixed_epilogue_kernel": "K3 mixed_matmul_hybrid",
-                "wo_gemv_kernel": "K4 wo_matmul (decode GEMV)",
-                "wo_gemm_kernel": "K4 wo_matmul (prefill GEMM)",
+                "wo_small_mma_kernel": "K4 wo_matmul (decode, mma)",
+                "wo_mid_mma_kernel": "K4 wo_matmul (verify / mid M, mma)",
+                "wo_wgmma_kernel": "K4 wo_matmul (prefill, wgmma)",
                 "packed_mma_kernel": "K12 wo_matmul_packed",
-                "packed_grouped_gemv_kernel": "K13 wo_matmul_packed_grouped",
+                "packed_grouped_mma_kernel": "K13 wo_matmul_packed_grouped",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",
                 "decode_kernel": "K7 paged_decode_attention",

@@ -17,8 +17,10 @@ S = 1 bit-equal to K7; K10 out within 2e-2 and its (m, l) within 1e-3
 relative; K11 within 2e-2 of its plain version and of K7. K14 (causal
 flash attention) within 2e-2 of its plain version at D 64, 128 and 256,
 S 1, 63, 65, 128, 200 and 2048 on strided views, the same bits from
-strided views as from contiguous copies. K12 across its K splits: within
-tolerance and bit-equal on a repeated launch. Speculative serving, split decode and the dense
+strided views as from contiguous copies. K4 (mma and wgmma regimes), K12
+and K13 across their K splits: within tolerance and bit-equal on a
+repeated launch; K4 and K13 on integer inputs (unit or power-of-two
+scales) equal to the exact product bit for bit. Speculative serving, split decode and the dense
 session at a tiny width, by the kernels they launch; a CUDA session
 raises when a kernel library does not load."""
 
@@ -224,11 +226,15 @@ def test_mixed_matmul_int32_exact(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 100, 300])
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 40, 64, 100, 128, 129, 300,
+                               1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wo_matmul_kernel_matches_plain(cuda, m, dtype):
+    """K4 in both regimes (the mma kernel to K4_MMA_MAX_ROWS rows, the
+    wgmma GEMM above): K = 1056 is no multiple of the 64-row stage, N = 384
+    no multiple of the GEMM's 256-column tile."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    k, n = 1056, 384                 # K not a multiple of the GEMV chunk
+    k, n = 1056, 384
     x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
     qw = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
                        dtype=torch.int8)
@@ -240,6 +246,45 @@ def test_wo_matmul_kernel_matches_plain(cuda, m, dtype):
     assert out.dtype == dtype and out.shape == (m, n)
     assert _close(out, want, dtype)
     assert _launched("wo_matmul", before) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 17, 40, 64, 100, 300])
+def test_wo_matmul_exact_on_integer_inputs(cuda, m):
+    """Integer x and unit scales: every product and sum is exact in f32,
+    so K4 equals the integer product bit for bit in both regimes: the int8
+    -> bf16 conversion is exact for every byte."""
+    gen = torch.Generator(device=cuda).manual_seed(11 + m)
+    k, n = 2048, 512
+    xi = torch.randint(-8, 9, (m, k), generator=gen, device=cuda)
+    qw = torch.randint(-128, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    out = wm.wo_matmul(xi.bfloat16(), qw, torch.ones((n,), device=cuda),
+                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, (xi.double() @ qw.double()).float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 64, 128])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096)])
+def test_wo_matmul_split_repeats_bit_equal(cuda, m, k, n):
+    """K4's mma regime with K split across blocks (7B shapes): two launches
+    on the same inputs bit-equal (the splits are summed in a fixed
+    order), within tolerance of plain."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    qw = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scol = torch.rand((n,), generator=gen, device=cuda) * 2e-3 + 1e-4
+    plan = wm.wo_plan(m, k, n, wm.sm_count(cuda.index or 0))
+    out = wm.wo_matmul(x, qw, scol, out_dtype=torch.float32)
+    again = wm.wo_matmul(x, qw, scol, out_dtype=torch.float32)
+    want = wm.wo_matmul_plain(x, qw, scol, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert plan.mt > 0 and plan.splits > 1
+    assert _close(out, want, torch.float32)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
@@ -441,6 +486,46 @@ def test_packed_kernels_exact_on_integer_inputs(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 16, 40])
+@pytest.mark.parametrize("gs", [64, 128])
+def test_grouped_kernel_exact_and_repeats(cuda, m, gs):
+    """K13 on integer x with power-of-two group scales: every group's
+    partial, its scaling and the sums are exact in f32, so K13 equals the
+    exact product bit for bit; then on random inputs across its K splits
+    (13B down_proj's K/2 = 6912) two launches bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(12 + m + gs)
+    k, n = 2048, 256
+    xi = torch.randint(-8, 9, (m, k), generator=gen, device=cuda)
+    q = torch.randint(-8, 8, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    sg = torch.exp2(torch.randint(-3, 4, (k // gs, n), generator=gen,
+                                  device=cuda).float())
+    out = wm.wo_matmul_packed_grouped(xi.bfloat16(), qcore.pack_int4(q), sg,
+                                      gs, out_dtype=torch.float32)
+    exact = sum(xi[:, i * gs:(i + 1) * gs].double()
+                @ q[i * gs:(i + 1) * gs].double() * sg[i].double()
+                for i in range(k // gs))
+    torch.cuda.synchronize()
+    assert torch.equal(out, exact.float())
+
+    k, n = 13824, 5120
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    qp = torch.randint(-128, 128, (k // 2, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    sg = torch.rand((k // gs, n), generator=gen, device=cuda) * 2e-2 + 1e-3
+    plan = wm.grouped_plan(m, k, n, gs, wm.sm_count(cuda.index or 0))
+    out = wm.wo_matmul_packed_grouped(x, qp, sg, gs, out_dtype=torch.float32)
+    again = wm.wo_matmul_packed_grouped(x, qp, sg, gs,
+                                        out_dtype=torch.float32)
+    want = wm.wo_matmul_packed_grouped_plain(x, qp, sg, gs,
+                                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert plan.splits > 1
+    assert _close(out, want, torch.float32)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
 def test_packed_shapes_raise(cuda):
     x = torch.zeros((4, 256), device=cuda).bfloat16()
     qp = torch.zeros((128, 256), device=cuda, dtype=torch.int8)
@@ -450,6 +535,10 @@ def test_packed_shapes_raise(cuda):
     with pytest.raises(ValueError, match="group_size"):
         wm.wo_matmul_packed_grouped(x, qp, torch.ones((4, 256),
                                                       device=cuda), 64 + 4)
+    # the kernel takes whole 64-row stages a group; the plain version any
+    with pytest.raises(ValueError, match="group_size % 64"):
+        wm.wo_matmul_packed_grouped(x, qp, torch.ones((8, 256),
+                                                      device=cuda), 32)
 
 
 def _pool_args(gen, dev, hkv, pages):
