@@ -21,12 +21,15 @@ exits non-zero:
      across two launches (their K splits sum in a fixed order); K5p/K6p
      and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 / Hkv 8):
      K5/K6/K5p/K6p pages (and scales) bit-equal outside trash row 0, K7/K8
-     within 2e-2; K1 codes at most 1 apart (> 99.9% equal), scales rtol
+     within 2e-2, K7 bit-equal across two launches (its splits merge in a
+     fixed order); K1 codes at most 1 apart (> 99.9% equal), scales rtol
      1e-5; K2/K3/K4/K12/K13 within 1e-4 of the largest output (+ one bf16
-     step), K2 bit-equal on the int32-exact case; each kernel's device
-     time per launch and its plain version's device time per call come
-     from torch.profiler, the wrapper's time per call (host included) from
-     CUDA events, and the library call's where one computes the same
+     step), K2 bit-equal on the int32-exact case and across two launches,
+     timed at the three 7B mix shapes at 1024 and 40 rows; each kernel's
+     device time per launch and its plain version's device time per call
+     come from torch.profiler, the wrapper's time per call (host
+     included) from CUDA events, and the library call's where one
+     computes the same
      function (K4: torch._weight_int8pack_mm, at every shape; K12, K13:
      torch._weight_int4pack_mm)
   4. main path at full width: a Llama-2-7B-geometry int8_mix (128
@@ -37,7 +40,8 @@ exits non-zero:
   5. cross-device: the same weights at 2 layers, the first prefill chunk's
      last-position logits and one decode step's logits on the card
      (kernels) against the CPU (plain), plus negative controls: faults
-     injected into K8's, K2's or K4's call must land outside the tolerance
+     injected into K8's, K2's, K4's or K7's call (K7's merge leaving out
+     the last split that saw a key) must land outside the tolerance
   4b. the int4 path at full width and depth: a Llama-2-13B-geometry
      (40 layers) w4a16 / bf16-KV model serves the same requests; K12, K4
      (its prefill regime, on the unpacked weight), K5p, K6p and K7/K8 on
@@ -71,10 +75,11 @@ exits non-zero:
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4 and 5, and S = 8 at
 8 query heads a KV head, the largest shared-memory case; at S = 1
-bit-equal to K7), K10 (out within 2e-2, m and l within 1e-3 relative of
-the plain stats) and K11 (splits 2 and 4 at 8 lanes and at 1 lane x 4096
-tokens, against K7 and its plain version) on int8 and bf16 pages at
-Llama-2-7B heads, and K1 -> K2 at the 40 rows of a gamma = 4 verify,
+bit-equal to K10's output rounded to q's dtype), K10 (out within 2e-2,
+m and l within 1e-3 relative of the plain stats) and K11 (splits 2 and 4
+at 8 lanes and at 1 lane x 4096 tokens, against K7 and its plain
+version) on int8 and bf16 pages at Llama-2-7B heads, and K1 -> K2 at
+the 40 rows of a gamma = 4 verify,
 and K14 (causal flash attention) at the dense serve's shape (8 x 768, 32
 heads x 128, with SDPA timed as its library call), at D 64 and 256 with
 S 128 and 2048, at S 1, 65 and 200, and causal_self_attention's GQA
@@ -414,6 +419,7 @@ def check_attention(torch, gen, dev, results, fp: bool = False):
     """K7/K8 on int8 pages at Llama-2-7B heads (Hq 32: MHA and Hkv 8), or
     (fp) on bf16 pages at Llama-2-13B heads (Hq 40: MHA and Hkv 8)."""
     from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
     bs, d, hq, np_ = 128, 128, (40 if fp else 32), 128
     scale = d ** -0.5
     sfx, pages = ("_fp", "bf16") if fp else ("", "int8")
@@ -441,12 +447,16 @@ def check_attention(torch, gen, dev, results, fp: bool = False):
                       softcap=softcap)
             out = pa.paged_decode_attention(q, *args, table, lens_t, scale,
                                             **kw)
+            again = pa.paged_decode_attention(q, *args, table, lens_t, scale,
+                                              **kw)
             ref = pa.paged_attention_plain(q[:, None], *args, table,
                                            (lens_t - 1)[:, None], lens_t,
                                            scale, **kw)[:, 0]
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()), "K7 output not finite")
             check(bool((out[1] == 0).all()), "K7 inactive lane is not 0")
+            check(torch.equal(out, again), f"K7 {pages} hkv={hkv}: two "
+                  f"launches on the same inputs differ")
             err = float((out.float() - ref.float()).abs().max())
             check(err <= ATTN_TOL, f"K7 {pages} hkv={hkv} window={window} "
                   f"softcap={softcap}: max abs err {err} > {ATTN_TOL}")
@@ -454,23 +464,26 @@ def check_attention(torch, gen, dev, results, fp: bool = False):
                 worst["paged_decode_attention" + sfx], err)
             print(f"K7 paged_decode_attention {pages} Hq={hq} Hkv={hkv} "
                   f"window={window} sink={sink} softcap={softcap}: "
-                  f"max abs err {err:.3e}", flush=True)
+                  f"max abs err {err:.3e}, repeat bit-equal", flush=True)
         kw = dict(block_pos=bpos)
         ms, pms, wms = measure(
             torch, lambda: pa.paged_decode_attention(
                 q, *args, table, lens_t, scale, **kw),
             lambda: pa.paged_attention_plain(
                 q[:, None], *args, table, (lens_t - 1)[:, None], lens_t,
-                scale, **kw), "decode_kernel", "paged_decode_attention" + sfx,
-            200, 20)
+                scale, **kw), "decode_split_kernel",
+            "paged_decode_attention" + sfx, 200, 20)
         visited = int((bpos < lens_t[:, None]).sum())
         keys = sum(lens)
         nbytes = (visited * hkv * bs * tok_b
                   + 2 * b * hq * d * 2 + b * mb * 8 + b * 4)
         bnd = bound(nbytes, 4.0 * hq * d * keys)
         times[("paged_decode_attention" + sfx, hkv)] = (ms, pms, bnd)
-        print(f"K7 timing {pages} B={b} Hq={hq} Hkv={hkv} pages={visited}: "
-              f"device "
+        plan = pa.decode_plan(b, hkv, hq // hkv, d, mb,
+                              wm.sm_count(dev.index or 0))
+        print(f"K7 timing {pages} B={b} Hq={hq} Hkv={hkv} pages={visited} "
+              f"({plan.splits} splits of {plan.pages_per_split} entries, "
+              f"{hkv * b * plan.splits} blocks): device "
               f"{ms:.5f} ms per launch (plain {pms:.5f} ms; wrapper "
               f"{wms:.5f} ms per call; bound {bnd[0]:.5f} ms)", flush=True)
 
@@ -554,6 +567,7 @@ def check_decode_modes(torch, gen, dev, results):
     geometry asks for) and K7 against K11 on 1 lane of 4096 tokens. The
     kernels line carries MHA, S = 5 (gamma 4) for K9, splits 4 for K11."""
     from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
     bs, d, hq, np_, b, mb = 128, 128, 32, 128, 8, 6
     scale = d ** -0.5
     lens = [700, 1, 256, 640, 129, 513, 384, 300]
@@ -622,20 +636,24 @@ def check_decode_modes(torch, gen, dev, results):
                     results["paged_verify_attention" + sfx] = dict(
                         ms=ms, plain_ms=pms, bound=bnd)
 
-            # K9 at S = 1 is K7, bit for bit
+            # K9 at S = 1 is the decode kernel's K10 mode rounded to q's
+            # dtype, bit for bit (K7 is the split-page kernel)
             q = torch.randn((b, hq, d), generator=gen, device=dev).bfloat16()
             for window, sink, softcap in masks:
                 kw = dict(block_pos=bpos, window=window, sink=sink,
                           softcap=softcap)
-                k7 = pa.paged_decode_attention(q, *args, table, lens_t,
-                                               scale, **kw)
+                k10 = pa.paged_decode_attention(q, *args, table, lens_t,
+                                                scale, stats=True,
+                                                **kw)[0].to(q.dtype)
                 k9 = pa.paged_verify_attention(q[:, None], *args, table,
                                                lens_t, lens_t - 1, scale,
                                                **kw)[:, 0]
                 torch.cuda.synchronize()
-                check(torch.equal(k7, k9), f"K9 at S=1 differs from K7 "
-                      f"({tag}, window={window}, softcap={softcap})")
-            print(f"K9 at S=1 {tag}: bit-equal to K7 (3 masks)", flush=True)
+                check(torch.equal(k10, k9), f"K9 at S=1 differs from K10 "
+                      f"in q's dtype ({tag}, window={window}, "
+                      f"softcap={softcap})")
+            print(f"K9 at S=1 {tag}: bit-equal to K10's output in q's dtype "
+                  f"(3 masks)", flush=True)
 
             # K10: out, and (m, l) against the plain stats
             for window, sink, softcap in masks:
@@ -758,7 +776,7 @@ def check_decode_modes(torch, gen, dev, results):
                                        block_pos=bpos)
         k7_ms = device_ms(torch, lambda: pa.paged_decode_attention(
             q, *args, table, lens_t, scale, block_pos=bpos), 200,
-            "decode_kernel", "paged_decode_attention" + sfx)
+            "decode_split_kernel", "paged_decode_attention" + sfx)
         line = []
         for splits in (2, 4):
             kw = dict(block_pos=bpos, kv_splits=splits)
@@ -782,8 +800,11 @@ def check_decode_modes(torch, gen, dev, results):
                         f"{call_ms:.5f} ms a call, its K10 {k10_ms:.5f} ms "
                         f"(err {err:.2e})")
         nbytes = mb1 * hq * bs * (2 * d * 2 if fp else 2 * d + 8)
-        print(f"1 lane x 4096 tokens, {pages} pages, Hq=Hkv={hq}: K7 (32 "
-              f"blocks) {k7_ms:.5f} ms; {'; '.join(line)}; bound "
+        k7_blocks = hq * pa.decode_plan(1, hq, 1, d, mb1,
+                                        wm.sm_count(dev.index or 0)).splits
+        print(f"1 lane x 4096 tokens, {pages} pages, Hq=Hkv={hq}: K7 "
+              f"({k7_blocks} blocks on 132 SMs) {k7_ms:.5f} ms; "
+              f"{'; '.join(line)}; bound "
               f"{nbytes / HBM_BYTES_PER_MS:.5f} ms", flush=True)
 
 
@@ -833,30 +854,52 @@ def check_linears(torch, gen, dev, results):
 
     # K2 at the three mix shapes, K3 and the int32-exact case at qkv's
     q_x, srow, xo = nq.rmsnorm_quant_split(x, gamma, ind)
+    sms = wm.sm_count(dev.index or 0)
+    k2_shapes = []
+
+    def time_k2(label, args, rows, n, iters, plain_iters):
+        """K2 against plain, two launches bit-equal, timed with its bound
+        and int8 TOP/s: the row of the kernels line's `shapes`."""
+        k2 = (lambda: mm.mixed_matmul(*args),
+              lambda: mm.mixed_matmul_plain(*args))
+        out, again, want = k2[0](), k2[0](), k2[1]()
+        torch.cuda.synchronize()
+        err = gemm_err(out, want)
+        check(err <= gemm_tol(bf), f"K2 {label} M={rows}: rel err {err} > "
+              f"{gemm_tol(bf)}")
+        check(torch.equal(out, again), f"K2 {label} M={rows}: two launches "
+              f"on the same inputs differ")
+        ms, pms, wms = measure(torch, *k2, "mixed_wgmma_kernel",
+                               "mixed_matmul", iters, plain_iters)
+        nbytes = (rows * h + rows * 4 + rows * ko * 2 + h * n + n * 4
+                  + ko * n * 2 + rows * n * 2)
+        bnd = bound(nbytes, 2.0 * rows * n * ko, 2.0 * rows * n * h)
+        p = mm.mixed_plan(rows, h, n, sms)
+        tops = 2.0 * rows * n * h / ms / 1e9
+        print(f"K2 mixed_matmul {label} M={rows} K={h} N={n} ko={ko}: max "
+              f"rel err {err:.2e}, repeat bit-equal; device {ms:.5f} ms per "
+              f"launch (plain {pms:.5f} ms; wrapper {wms:.5f} ms; bound "
+              f"{bnd[0]:.5f} ms, by {bnd[1]}; {tops:.1f} int8 TOP/s, "
+              f"{nbytes / ms / 1e9:.3f} TB/s; {p.nx}-row tiles, {p.splits} "
+              f"splits, {p.grid[0] * p.grid[1] * p.grid[2]} blocks)",
+              flush=True)
+        k2_shapes.append(dict(label=label, M=rows, K=h, N=n, ms=ms,
+                              plain_ms=pms, bound_ms=bnd[0],
+                              bound_by=bnd[1], int8_tops=tops,
+                              max_abs_err=err))
+        return err, ms, pms, bnd
+
     for label, n in (("qkv", 12288), ("o_proj", 4096), ("gate_up", 22016)):
         qw = torch.randint(-127, 128, (h, n), generator=gen, device=dev,
                            dtype=torch.int8)
         scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
         fpw = (torch.randn((ko, n), generator=gen, device=dev) * 0.02).to(bf)
         args = (q_x, srow, xo, qw, scol, fpw)
-        k2 = (lambda: mm.mixed_matmul(*args), lambda: mm.mixed_matmul_plain(
-            *args))
-        err = gemm_err(k2[0](), k2[1]())
-        check(err <= gemm_tol(bf), f"K2 {label}: rel err {err} > "
-              f"{gemm_tol(bf)}")
-        ms, pms, wms = measure(torch, *k2, "mixed_matmul_kernel",
-                               "mixed_matmul", 20, 5)
-        nbytes = (m * h + m * 4 + m * ko * 2 + h * n + n * 4 + ko * n * 2
-                  + m * n * 2)
-        bnd = bound(nbytes, 2.0 * m * n * ko, 2.0 * m * n * h)
-        print(f"K2 mixed_matmul {label} M={m} K={h} N={n} ko={ko}: max rel "
-              f"err {err:.2e}; device {ms:.5f} ms per launch (plain "
-              f"{pms:.5f} ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, "
-              f"{2.0 * m * n * h / ms / 1e9:.1f} int8 TOP/s)", flush=True)
+        err, ms, pms, bnd = time_k2(label, args, m, n, 20, 5)
         if label != "qkv":
             continue
         results["mixed_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                       bound=bnd)
+                                       bound=bnd, shapes=k2_shapes)
         imm = device_ms(torch, lambda: torch._int_mm(q_x, qw), 20)
         print(f"  torch._int_mm at the same shape (the int32 product alone, "
               f"not the same function): device {imm:.5f} ms", flush=True)
@@ -901,17 +944,8 @@ def check_linears(torch, gen, dev, results):
                            dtype=torch.int8)
         scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
         fpw = (torch.randn((ko, n), generator=gen, device=dev) * 0.02).to(bf)
-        args = (*got, qw, scol, fpw)
-        k2 = (lambda: mm.mixed_matmul(*args),
-              lambda: mm.mixed_matmul_plain(*args))
-        err = gemm_err(k2[0](), k2[1]())
-        check(err <= gemm_tol(bf), f"K2 {label} M={m40}: rel err {err}")
-        ms, pms, wms = measure(torch, *k2, "mixed_matmul_kernel",
-                               "mixed_matmul", 50, 10)
-        print(f"K2 mixed_matmul {label} M={m40} K={h} N={n}: max rel err "
-              f"{err:.2e}; device {ms:.5f} ms per launch (plain {pms:.5f} "
-              f"ms; wrapper {wms:.5f} ms); K1 codes at most {diff} apart",
-              flush=True)
+        time_k2(label, (*got, qw, scol, fpw), m40, n, 50, 10)
+    print(f"K1 at M={m40}: codes at most {diff} apart", flush=True)
 
     check_k4(torch, gen, dev, results, m, h)
 
@@ -1676,6 +1710,19 @@ def cross_device_verify(torch, params, cfg, seed: int, dev) -> dict:
           rows_at_qstart)])
 
 
+def drop_last_split(f):
+    """A K7 fault: its in-kernel merge leaves out the last split that saw a
+    key (through the wrapper's test hook, reset after the call)."""
+    def faulty(*a, **k):
+        from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+        pa.K7_MERGE_DROP = 1
+        try:
+            return f(*a, **k)
+        finally:
+            pa.K7_MERGE_DROP = 0
+    return faulty
+
+
 def faults_7b(torch):
     """Phase 5's controls. The K8 mask fault is subtle on purpose: its
     reading says how small a fault the check can see."""
@@ -1698,6 +1745,8 @@ def faults_7b(torch):
         ("K4 without scale_col", True, wm, "wo_matmul",
          lambda f: lambda x, qw, sc, **k: f(x, qw, torch.ones_like(sc),
                                             **k)),
+        ("K7's merge without the last split that saw a key", True, pa,
+         "paged_decode_attention", drop_last_split),
     ]
 
 
@@ -1885,6 +1934,8 @@ def main() -> int:
         bms, by = r["bound"]
         by_path = {p: n.get(name, 0) for p, n in launches.items()}
         extra = {}
+        if name == "mixed_matmul":
+            extra = {"shapes": r["shapes"]}
         if name == "wo_matmul":
             extra = {"launches_by_regime": {
                 rg: sum(n.get(f"{name}.{rg}", 0) for n in launches.values())

@@ -40,6 +40,14 @@ int with_page_types(int dtype, int page_dtype, F f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// f(Type<OutT>{}) for the output type (f32 or bf16) a wrapper passes
+template <typename F>
+int with_out_type(int out_dtype, F f) {
+  if (out_dtype == kBF16) return f(Type<__nv_bfloat16>{});
+  if (out_dtype == kF32) return f(Type<float>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
-// (flash_attention.cu, wo_matmul.cu): mbarriers, TMA tensor-map loads,
-// wgmma descriptors and fences, and cuTensorMapEncodeTiled reached through
-// the runtime's entry-point query (so no library links -lcuda).
+// (flash_attention.cu, wo_matmul.cu, mixed_matmul.cu) and the bulk-copy
+// ring of paged_attention.cu: mbarriers, TMA tensor-map and 1-D bulk
+// loads, wgmma descriptors and fences, and cuTensorMapEncodeTiled reached
+// through the runtime's entry-point query (so no library links -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -13,6 +14,10 @@ namespace mixq {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
@@ -71,6 +76,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into shared memory, completion counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (K-major: SBO = 1024 between 8-row groups, LBO
 // unused; MN-major: LBO between 64-element atoms along MN, SBO between
@@ -99,6 +115,12 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x: low half
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -125,6 +147,84 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// d (64 x N s32) += a · b, exact: a (64 x 32 s8) from registers, the
+// mma.sync m16n8k32 fragment of each warp's 16 rows (a0 row g, k 4t..4t+3;
+// a1 row g+8; a2, a3 the same rows at k 16+4t..), b (N x 32 s8) a K-major
+// shared-memory descriptor. s8 takes N = 8, 16, 24, 32 and multiples of 16
+// up to 256; one instantiation per N used, since N is part of the opcode.
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a,
+                                            uint64_t db);
+// d (64 x N f32) += a · b, bf16: a from registers as for wgmma_rs_n128, b
+// a K-major shared-memory descriptor (N = 128 is wgmma_rs_n128<0>)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a,
+                                              uint64_t db);
+
+// Generated operand lists (N/2 accumulators a thread).
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<16>(int* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<48>(int* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(int* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<16>(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<48>(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
 // cuTensorMapEncodeTiled, through the runtime's entry-point query
 inline PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled fn = nullptr;
@@ -142,6 +242,26 @@ inline PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
       fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
   }
   return fn;
+}
+
+// a row-major (rows, cols) matrix as a 2-D tensor map, boxes of
+// box_cols x box_rows, 128-byte swizzle, zeros out of bounds
+inline int make_map_2d(CUtensorMap* map, const void* ptr,
+                       CUtensorMapDataType type, int elem_bytes, int rows,
+                       int cols, int box_cols, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace mixq

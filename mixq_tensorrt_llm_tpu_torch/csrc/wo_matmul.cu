@@ -105,9 +105,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // The nibbles at bits 0-3 and 16-19 of `v` as bf16x2, each sign-extended:
 // u = nibble ^ 8 in the mantissa of 128.0 (bf16 0x4300) is 128 + (s + 8)
@@ -644,26 +641,6 @@ __global__ void __launch_bounds__(kGmThreads, 1)
     }
 }
 
-// a row-major (rows, cols) matrix as a 2-D tensor map, boxes of
-// box_cols x box_rows, 128-byte swizzle, zeros out of bounds
-int make_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-                int elem_bytes, int rows, int cols, int box_cols,
-                int box_rows) {
-  const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
-  if (!encode) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <typename OutT>
 int launch_wgmma(const void* x, const void* w, const void* scol, void* out,
                  int M, int K, int N, cudaStream_t st) {
@@ -683,13 +660,6 @@ int launch_wgmma(const void* x, const void* w, const void* scol, void* out,
       xmap, wmap, static_cast<const float*>(scol), static_cast<OutT*>(out), M,
       K, N);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename F>
-int with_out_type(int out_dtype, F f) {
-  if (out_dtype == kBF16) return f(Type<__nv_bfloat16>{});
-  if (out_dtype == kF32) return f(Type<float>{});
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace mixq

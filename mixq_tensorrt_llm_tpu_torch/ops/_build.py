@@ -10,12 +10,14 @@ is never loaded. ``build()`` starts one nvcc per source, all at once.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0. A wrapper bumps ``LAUNCHES[name]``
 exactly where it launches its kernel, so a run can show which kernels its
-main path went through.
+main path went through. ``scratch`` holds the split kernels' shared
+partials and tickets.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -127,6 +129,51 @@ def aligned(t):
     time), copied only when it is not already."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# device -> the buffers every split kernel (K2, K4, K12, K13, K7) reuses
+# launch after launch on the device's stream: the tickets (zeros, left
+# zeroed by every launch: the last block of a tile resets its counter) and
+# the partials (4-byte elements: f32 sums, or K2's int32 ones)
+_TICKETS: Dict = {}
+_PARTIALS: Dict = {}
+
+
+def _grown(cache: dict, dev, n: int, make):
+    buf = cache.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = make(max(n, 4096))
+        cache[dev] = buf
+    return buf
+
+
+def scratch(dev, n_part: int, n_tickets: int):
+    """(pointer to at least ``n_part`` 4-byte partials, or None where
+    ``n_part`` is 0; pointer to at least ``n_tickets`` zeroed tickets) on
+    ``dev``, shared by every split kernel's launches."""
+    import torch
+    part = (_grown(_PARTIALS, dev, n_part,
+                   lambda size: torch.empty((size,), dtype=torch.float32,
+                                            device=dev))
+            if n_part else None)
+    tickets = _grown(_TICKETS, dev, n_tickets,
+                     lambda size: torch.zeros((size,), dtype=torch.int32,
+                                              device=dev))
+    return None if part is None else part.data_ptr(), tickets.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the split
+    kernels' plans fill them)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(dev) -> int:
+    import torch
+    return sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
 
 
 def stream_ptr(device) -> int:

@@ -7,13 +7,17 @@
 
 A CPU tensor takes the plain version (``ops.ref.mixed_matmul``). A CUDA
 tensor launches the kernels of csrc/mixed_matmul.cu or raises: K2 does the
-int8 GEMM, the outlier side GEMM and the epilogue in one launch; K3 runs
-the same side GEMM and epilogue over an int32 accumulator from
-``torch._int_mm`` (the JAX function leaves that product to an XLA dot).
-The kernels take K % 64 == 0, N % 128 == 0 and ko % 8 == 0; any M.
+int8 GEMM (int8 wgmma over a TMA ring), the outlier side GEMM and the
+epilogue in one launch, cut into blocks by ``mixed_plan`` from the shapes
+alone; K3 runs the same side GEMM and epilogue over an int32 accumulator
+from ``torch._int_mm`` (the JAX function leaves that product to an XLA
+dot). The kernels take K % 64 == 0, N % 128 == 0 and ko % 8 == 0; any M.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,6 +25,45 @@ from . import _build, ref
 from . import norm_quant as nq
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K2's tiling (csrc/mixed_matmul.cu mixed_wgmma_kernel)
+MIX_NX = (16, 48, 128)      # rows of x a block: wgmma's n, chosen from M
+MIX_COLS = 256              # output columns a block
+MIX_DEPTH = 128             # k a ring stage
+MIX_STAGES = 4
+
+
+class MixedPlan(NamedTuple):
+    """How one K2 product is cut into blocks."""
+    nx: int                 # rows of x a block
+    row_tiles: int
+    col_tiles: int
+    steps: int              # 128-deep k steps
+    splits: int             # ranges of k steps, one block each per tile
+    steps_per_split: int
+    grid: Tuple[int, int, int]
+    smem: int               # dynamic shared memory a block, bytes
+    scratch: Optional[int]  # int32 partials, if split
+
+
+@functools.lru_cache(maxsize=4096)
+def mixed_plan(m: int, k: int, n: int, sms: int) -> MixedPlan:
+    """The smallest of MIX_NX that holds M (128-row tiles above), 256
+    columns a block, and K split into equal ranges of whole k steps where
+    the tiles fill less than one block an SM (the 40-row verify: 48 tiles
+    at qkv): as many splits as keep the grid within one wave, none empty
+    (the last may be shorter)."""
+    nx = next((t for t in MIX_NX if t >= m), MIX_NX[-1])
+    row_tiles, col_tiles = -(-m // nx), -(-n // MIX_COLS)
+    steps = -(-k // MIX_DEPTH)
+    tiles = row_tiles * col_tiles
+    splits = max(1, min(steps, sms // tiles))
+    per_split = -(-steps // splits)
+    splits = -(-steps // per_split)
+    smem = MIX_STAGES * (2 * MIX_DEPTH * 128 + nx * 128) + 1024
+    return MixedPlan(nx, row_tiles, col_tiles, steps, splits, per_split,
+                     (row_tiles, col_tiles, splits), smem,
+                     splits * tiles * nx * MIX_COLS if splits > 1 else None)
 
 
 def mixed_matmul_plain(q_x, scale_row, x_outliers, qweight, scale_col,
@@ -83,12 +126,17 @@ def mixed_matmul(q_x: torch.Tensor, scale_row: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=q_x.device)
     if m == 0:
         return out
+    dev = q_x.device
+    plan = mixed_plan(m, k, n, _build.device_sms(dev))
+    part, tickets = _build.scratch(dev, plan.scratch or 0,
+                                   plan.row_tiles * plan.col_tiles)
     fn = _build.bind("mixed_matmul", "mixq_mixed_matmul",
-                     [_build.P] * 7 + [_build.I] * 6 + [_build.P])
+                     [_build.P] * 9 + [_build.I] * 9 + [_build.P])
     err = fn(qx.data_ptr(), srow.data_ptr(), xo.data_ptr(),
              qweight.data_ptr(), scol.data_ptr(), fp_weight.data_ptr(),
-             out.data_ptr(), m, k, n, ko, int(silu), _OUT_DTYPES[out_dtype],
-             _build.stream_ptr(q_x.device))
+             out.data_ptr(), part, tickets, m, k, n, ko, int(silu), plan.nx,
+             plan.splits, plan.steps_per_split, _OUT_DTYPES[out_dtype],
+             _build.stream_ptr(dev))
     _build.count_launch("mixed_matmul")
     _build.check("mixed_matmul", err, "mixed_matmul")
     return out

@@ -21,14 +21,17 @@ instantiation for int8 pools, its unquantized one (no scale multiplies,
 null scales; launches counted as ``*_fp``) for bf16 and f32 pools. The
 kernels accept 16 <= BS <= 256, BS % 16 == 0, head_dim a multiple of 32
 up to 256, and at most 227 KB of shared memory a block (K9: S * Hq/Hkv
-rows of 2 * D + BS + 3 floats). K11 launches K10 once over all splits and
-merges the parts with torch ops in f32 (in JAX that merge is jnp outside
-the Pallas call too), then casts once.
+rows of 2 * D + BS + 3 floats). K7 splits each lane's table across the
+blocks of its one launch (``decode_plan``, from the shapes alone) and
+merges the splits in the same launch. K11 launches K10 once over all
+splits and merges the parts with torch ops in f32 (in JAX that merge is
+jnp outside the Pallas call too), then casts once.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +43,58 @@ _PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
 PAD_POS = 1 << 30
 MAX_VERIFY_ROWS = 8           # the verify route's query rows per lane
 _MAX_SMEM = 232448            # bytes of shared memory a block may opt in to
+# K7's blocks (csrc/paged_attention.cu decode_split_kernel)
+SPLIT_THREADS = 256
+SPLIT_STAGES = 2              # stages of the ring
+SPLIT_STAGE_KV = 32 * 1024    # bytes of K and V a ring stage, at most
+# the grid a plan aims at: the blocks an SM holds at the main shapes (about
+# 72 KB of shared memory each); other targets measured no faster at the
+# smoke's decode shapes (PERF.md)
+SPLIT_BLOCKS_PER_SM = 3
+# test hook for the negative controls: 1 leaves the last split that saw a
+# key out of K7's merge (a fault the checks must catch); 0 otherwise
+K7_MERGE_DROP = 0
+
+
+class DecodePlan(NamedTuple):
+    """How K7 cuts each lane's table: `splits` ranges of
+    `pages_per_split` entries, one block each per (lane, KV head)."""
+    splits: int
+    pages_per_split: int
+    grid: Tuple[int, int, int]
+    scratch: Optional[int]     # f32 partials, if split
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(b: int, hkv: int, g: int, d: int, mb: int,
+                sms: int) -> DecodePlan:
+    """As many splits as bring the grid to SPLIT_BLOCKS_PER_SM blocks an
+    SM, one wave of resident blocks, at most one an entry of the table
+    (the lengths stay on the device, so the table width MB bounds them),
+    then equal ranges of whole entries: every entry in exactly one split,
+    none empty (the last may be shorter)."""
+    splits = max(1, min(mb, -(-SPLIT_BLOCKS_PER_SM * sms // (b * hkv))))
+    per = -(-mb // splits)
+    splits = -(-mb // per)
+    return DecodePlan(splits, per, (hkv, b, splits),
+                      b * hkv * splits * g * (d + 2) if splits > 1 else None)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_split_smem(g: int, d: int, bs: int, page_bytes: int,
+                      quant: bool) -> int:
+    """K7's dynamic shared memory a block (csrc split_layout): the ring's
+    stages of ST tokens' K, V (and scales), q padded per 16-byte chunk,
+    the probabilities, the token groups' partial sums and 3 stats a row."""
+    st = bs
+    while st % 2 == 0 and st > 8 and 2 * st * d * page_bytes > SPLIT_STAGE_KV:
+        st //= 2
+    stage = -(-(2 * st * d * page_bytes + (8 * st if quant else 0)) // 128) \
+        * 128
+    ce = 16 // page_bytes
+    q_floats = g * (d * page_bytes // 16) * (ce if (ce // 4) % 2 else ce + 4)
+    tg = SPLIT_THREADS // (d // 4)
+    return SPLIT_STAGES * stage + 4 * (q_floats + g * st + tg * g * d + 3 * g)
 
 
 def check_kernel_geometry(block_size: int, head_dim: int) -> None:
@@ -149,18 +204,34 @@ _TAIL = [_build.F, _build.I, _build.I, _build.F, _build.I, _build.I,
          _build.P]          # scale, window, sink, softcap, dtypes, stream
 
 
+def _check_heads(q_d: int, hq: int, hkv: int, d: int, what: str) -> None:
+    if q_d != d or hq % hkv:
+        raise ValueError(f"{what}: q with {hq} heads of dim {q_d} does not "
+                         f"fit pages with {hkv} heads of dim {d}")
+
+
 def _check_q(q_d: int, hq: int, hkv: int, d: int, s: int, bs: int,
              what: str) -> None:
     """Raise unless q's heads fit the pages and the block's S * Hq/Hkv
     query rows fit the decode kernels' shared memory."""
-    if q_d != d or hq % hkv:
-        raise ValueError(f"{what}: q with {hq} heads of dim {q_d} does not "
-                         f"fit pages with {hkv} heads of dim {d}")
+    _check_heads(q_d, hq, hkv, d, what)
     rows = s * (hq // hkv)
     need = (2 * rows * d + rows * bs + 3 * rows) * 4
     if need > _MAX_SMEM:
         raise ValueError(f"{what}: {rows} query rows per KV head need {need} "
                          f"bytes of shared memory (at most {_MAX_SMEM})")
+
+
+def _check_split(q_d: int, hq: int, hkv: int, d: int, bs: int,
+                 page_bytes: int, quant: bool, what: str) -> None:
+    """Raise unless q's heads fit the pages and K7's block fits its shared
+    memory."""
+    _check_heads(q_d, hq, hkv, d, what)
+    need = decode_split_smem(hq // hkv, d, bs, page_bytes, quant)
+    if need > _MAX_SMEM:
+        raise ValueError(f"{what}: {hq // hkv} query heads per KV head need "
+                         f"{need} bytes of shared memory (at most "
+                         f"{_MAX_SMEM})")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
@@ -189,13 +260,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
         q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos, what)
     b, hq, _ = q.shape
-    _check_q(q.shape[2], hq, hkv, d, 1, bs, what)
     q = q.contiguous()
     lens = lens.to(q.device, torch.int32).contiguous()
-    dims = (b, hq, hkv, d, bs, table.shape[1])
-    tail = (float(scale), int(window), int(sink), float(softcap),
-            _DTYPES[q.dtype], page_dtype, _build.stream_ptr(q.device))
+    mb = table.shape[1]
+    tail = (float(scale), int(window), int(sink), float(softcap))
+    codes = (_DTYPES[q.dtype], page_dtype, _build.stream_ptr(q.device))
     if stats:
+        _check_q(q.shape[2], hq, hkv, d, 1, bs, what)
         out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
@@ -204,14 +275,26 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                          [_build.P] * 11 + [_build.I] * 6 + _TAIL)
         err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
                  lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 *dims, *tail)
+                 b, hq, hkv, d, bs, mb, *tail, *codes)
         result = (out, m, l)
     else:
+        _check_split(q.shape[2], hq, hkv, d, bs, k_pages.element_size(),
+                     k_scale is not None, what)
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must be 16-byte aligned")
+        plan = decode_plan(b, hkv, hq // hkv, d, mb,
+                           _build.device_sms(q.device))
+        part, tickets = _build.scratch(q.device, plan.scratch or 0, b * hkv)
         out = torch.empty_like(q)
         fn = _build.bind("paged_attention", "mixq_paged_decode_attention",
-                         [_build.P] * 9 + [_build.I] * 6 + _TAIL)
+                         [_build.P] * 11 + [_build.I] * 8
+                         + [_build.F, _build.I, _build.I, _build.F]
+                         + [_build.I] * 3 + [_build.P])
         err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), *dims, *tail)
+                 lens.data_ptr(), out.data_ptr(), part, tickets, b, hq, hkv,
+                 d, bs, mb, plan.splits, plan.pages_per_split, *tail,
+                 int(K7_MERGE_DROP), *codes)
         result = out
     name = what + sfx
     _build.count_launch(name)
@@ -258,10 +341,11 @@ def paged_verify_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     """K9: q (B, S, Hq, D), 1 <= S <= 8 query rows per lane at absolute
     positions qstart .. qstart+S-1 -> (B, S, Hq, D) in q's dtype: the
     speculative verify's gamma+1 rows, on the decode kernel's rows. At
-    S = 1 with qstart = lens-1 it is K7, bit for bit. A row past lens-1
-    (a short draft prefill's padding) sees only the keys below lens, as
-    in the JAX package's gather path; its Pallas kernel lets such rows
-    see the page's unwritten slots, and no caller reads them."""
+    S = 1 with qstart = lens-1 it is K10's output in q's dtype, bit for
+    bit. A row past lens-1 (a short draft prefill's padding) sees only
+    the keys below lens, as in the JAX package's gather path; its Pallas
+    kernel lets such rows see the page's unwritten slots, and no caller
+    reads them."""
     b, s, hq, qd = q.shape
     if not q.is_cuda:
         q_pos = qstart[:, None] + torch.arange(s, device=q.device)
@@ -349,8 +433,8 @@ def paged_decode_attention_split(q: torch.Tensor, k_pages, v_pages, k_scale,
                                  kv_splits: int = 2) -> torch.Tensor:
     """K11, flash-decoding: paged_decode_attention with each lane's page
     list split over ``kv_splits`` lanes of one K10 launch (Hkv x B*splits
-    blocks instead of K7's Hkv x B, for long contexts at small batch), the
-    parts merged exactly in f32 and cast once to q's dtype."""
+    blocks, for long contexts at small batch), the parts merged exactly
+    in f32 by torch ops and cast once to q's dtype."""
     if not q.is_cuda:
         return paged_decode_attention_split_plain(
             q, k_pages, v_pages, k_scale, v_scale, block_table, lens, scale,

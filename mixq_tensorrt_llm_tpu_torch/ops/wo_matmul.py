@@ -32,6 +32,7 @@ import torch
 
 from ..quant import core as qcore
 from . import _build, ref
+from ._build import sm_count  # noqa: F401  (kept as wo_matmul.sm_count)
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -131,42 +132,10 @@ def k4_regime(plan: MmaPlan) -> str:
     return "prefill" if plan.mt == 0 else "decode" if plan.mt <= 16 else "mid"
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sms(dev: torch.device) -> int:
-    return sm_count(dev.index if dev.index is not None
-                    else torch.cuda.current_device())
-
-
-# device -> the mma kernel's buffers, reused by every launch on the
-# device's stream in turn: the split tickets (zeros, and left zeroed by
-# every launch: the last block of a column tile resets its counter) and
-# the f32 partials
-_TICKETS: dict = {}
-_PARTIALS: dict = {}
-
-
-def _grown(cache: dict, dev: torch.device, n: int, make) -> torch.Tensor:
-    buf = cache.get(dev)
-    if buf is None or buf.numel() < n:
-        buf = make(max(n, 4096))
-        cache[dev] = buf
-    return buf
-
-
 def _scratch(dev: torch.device, plan: MmaPlan):
     """(partials or None, tickets) for a launch of the mma kernel."""
-    part = (_grown(_PARTIALS, dev, math.prod(plan.scratch),
-                   lambda size: torch.empty((size,), dtype=torch.float32,
-                                            device=dev))
-            if plan.scratch else None)
-    tickets = _grown(_TICKETS, dev, plan.tiles * plan.slabs,
-                     lambda size: torch.zeros((size,), dtype=torch.int32,
-                                              device=dev))
-    return None if part is None else part.data_ptr(), tickets.data_ptr()
+    return _build.scratch(dev, math.prod(plan.scratch) if plan.scratch
+                          else 0, plan.tiles * plan.slabs)
 
 
 def wo_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
@@ -204,7 +173,7 @@ def wo_matmul(x: torch.Tensor, qweight: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    plan = wo_plan(m, k, n, _sms(dev), K4_MMA_MAX_ROWS)
+    plan = wo_plan(m, k, n, _build.device_sms(dev), K4_MMA_MAX_ROWS)
     part, tickets = _scratch(dev, plan)
     fn = _build.bind("wo_matmul", "mixq_wo_matmul",
                      [_build.P] * 6 + [_build.I] * 7 + [_build.P])
@@ -267,12 +236,12 @@ def _launch_packed(x, qweight_packed, scale, out_dtype,
     if m == 0:
         return out
     if group_size:
-        plan = grouped_plan(m, k, n, group_size, _sms(dev))
+        plan = grouped_plan(m, k, n, group_size, _build.device_sms(dev))
         fn = _build.bind("wo_matmul", "mixq_wo_matmul_packed_grouped",
                          [_build.P] * 6 + [_build.I] * 8 + [_build.P])
         lead = (group_size,)
     else:
-        plan = packed_plan(m, k, n, _sms(dev))
+        plan = packed_plan(m, k, n, _build.device_sms(dev))
         fn = _build.bind("wo_matmul", "mixq_wo_matmul_packed",
                          [_build.P] * 6 + [_build.I] * 7 + [_build.P])
         lead = ()

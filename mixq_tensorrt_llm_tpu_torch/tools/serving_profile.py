@@ -51,7 +51,7 @@ from ..models.common import ModelConfig
 from ..quant import KVCacheQuantAlgo, QuantAlgo, QuantConfig
 
 PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
-                "mixed_matmul_kernel": "K2 mixed_matmul",
+                "mixed_wgmma_kernel": "K2 mixed_matmul",
                 "mixed_epilogue_kernel": "K3 mixed_matmul_hybrid",
                 "wo_small_mma_kernel": "K4 wo_matmul (decode, mma)",
                 "wo_mid_mma_kernel": "K4 wo_matmul (verify / mid M, mma)",
@@ -60,7 +60,7 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "packed_grouped_mma_kernel": "K13 wo_matmul_packed_grouped",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",
-                "decode_kernel": "K7 paged_decode_attention",
+                "decode_split_kernel": "K7 paged_decode_attention",
                 "verify_kernel": "K9 paged_verify_attention",
                 "decode_stats_kernel": "K10 paged_decode_attention(stats)",
                 "prefill_kernel": "K8 paged_prefill_attention",
@@ -69,7 +69,8 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
 # "signed char" in a kernel's name; any other page type is a bf16/f32 pool
 FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
                "write_chunk_kernel": "K6p paged_write_chunk (float pool)",
-               "decode_kernel": "K7 paged_decode_attention (float pages)",
+               "decode_split_kernel": "K7 paged_decode_attention "
+                                      "(float pages)",
                "verify_kernel": "K9 paged_verify_attention (float pages)",
                "decode_stats_kernel": "K10 paged_decode_attention(stats) "
                                       "(float pages)",

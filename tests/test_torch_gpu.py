@@ -13,8 +13,9 @@ versions only in the order of f32 sums: 1e-4 of the largest |output| in
 f32, one bf16 step more in bf16; K2 with unit scales and no outliers is
 the int32 product, bit for bit. K12/K13 (packed int4) as K4, against the
 unpack-then-plain versions. K9 (verify rows) within 2e-2 of plain, and at
-S = 1 bit-equal to K7; K10 out within 2e-2 and its (m, l) within 1e-3
-relative; K11 within 2e-2 of its plain version and of K7. K14 (causal
+S = 1 bit-equal to K10's output rounded to q's dtype; K10 out within
+2e-2 and its (m, l) within 1e-3 relative; K11 within 2e-2 of its plain
+version and of K7. K14 (causal
 flash attention) within 2e-2 of its plain version at D 64, 128 and 256,
 S 1, 63, 65, 128, 200 and 2048 on strided views, the same bits from
 strided views as from contiguous copies. K4 (mma and wgmma regimes), K12
@@ -215,6 +216,51 @@ def test_mixed_matmul_kernels_match_plain(cuda, m, silu, dtype):
 def test_mixed_matmul_int32_exact(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
     m, k, n = 200, 4096, 256
+    ops = _mix_operands(gen, cuda, m, k, n, 128)
+    ops.update(scale_row=torch.ones((m,), device=cuda),
+               scale_col=torch.ones((n,), device=cuda),
+               x_outliers=torch.zeros((m, 128), device=cuda).bfloat16())
+    out = mm.mixed_matmul(**ops, out_dtype=torch.float32)
+    exact = ref.int8_matmul(ops["q_x"], ops["qweight"]).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 384), (40, 2048, 384),
+                                   (129, 2048, 384), (1024, 2048, 384),
+                                   (1024, 1024, 4096)])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_wgmma_matches_plain_and_repeats(cuda, m, k, n, silu, dtype):
+    """K2 at the row tiles it serves (16, 48 and 128 rows of x a block;
+    129 a ragged second tile), N = 384 half a 256-column tile, 72 outlier
+    channels (a ragged side stage); K split across blocks where the tiles
+    leave SMs idle (every case but the last, whose 128 tiles fill the
+    card): within tolerance of plain, two launches bit-equal (the split
+    sums are integers), one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(30 + m)
+    ops = _mix_operands(gen, cuda, m, k, n, 72)
+    plan = mm.mixed_plan(m, k, n, wm.sm_count(cuda.index or 0))
+    before = dict(_build.LAUNCHES)
+    out = mm.mixed_matmul(**ops, silu=silu, out_dtype=dtype)
+    again = mm.mixed_matmul(**ops, silu=silu, out_dtype=dtype)
+    want = mm.mixed_matmul_plain(**ops, silu=silu, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert (plan.splits == 1) == (n == 4096)
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _close(out, want, dtype)
+    assert torch.equal(out, again)
+    assert _launched("mixed_matmul", before) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 40, 1024])
+def test_mixed_wgmma_int32_exact_split(cuda, m):
+    """Unit scales and no outliers at 7B o_proj's K and a 256-column N: the
+    int32 product bit for bit, K split 8 or more ways at 1 and 40 rows."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + m)
+    k, n = 4096, 256
     ops = _mix_operands(gen, cuda, m, k, n, 128)
     ops.update(scale_row=torch.ones((m,), device=cuda),
                scale_col=torch.ones((n,), device=cuda),
@@ -592,7 +638,9 @@ def test_verify_kernel_matches_plain(cuda, pages, s, hq, hkv, window, sink,
 @pytest.mark.parametrize("pages", ["int8", "bfloat16"])
 @pytest.mark.parametrize("hq,hkv,window", [(4, 4, 0), (8, 2, 24)])
 def test_verify_s1_bit_equal_to_decode(cuda, pages, hq, hkv, window):
-    """K9 at S = 1 from qstart = lens - 1 is K7 bit for bit."""
+    """K9 at S = 1 from qstart = lens - 1 is the decode kernel's K10 mode
+    (the decode query's f32 output) rounded to q's dtype, bit for bit: the
+    same arithmetic (K7 itself is the split-page kernel, held to plain)."""
     gen = torch.Generator(device=cuda).manual_seed(12)
     args = _pool_args(gen, cuda, hkv, pages)
     kw = dict(window=window, sink=16 if window else 0,
@@ -601,7 +649,8 @@ def test_verify_s1_bit_equal_to_decode(cuda, pages, hq, hkv, window):
     lens = torch.tensor([3 * BS - 5, 1, BS - 2], dtype=torch.int32,
                         device=cuda)
     q = torch.randn((3, hq, D), generator=gen, device=cuda).bfloat16()
-    dec = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5, **kw)
+    dec = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5,
+                                    stats=True, **kw)[0].to(q.dtype)
     ver = pa.paged_verify_attention(q[:, None], *args, table, lens, lens - 1,
                                     D ** -0.5, **kw)
     torch.cuda.synchronize()
@@ -654,6 +703,84 @@ def test_stats_and_split_kernels_match_plain(cuda, pages, hq, hkv, window,
         assert float((got.float() - k7.float()).abs().max()) <= 2e-2
     assert _launched("paged_decode_attention_split" + sfx, before) == 2
     assert _launched("paged_decode_attention_stats" + sfx, before) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("hq,hkv,window,sink,softcap",
+                         [(4, 4, 0, 0, 0.0), (8, 2, 0, 0, 0.0),
+                          (8, 2, 40, 16, 0.0), (4, 4, 0, 0, 20.0)])
+def test_decode_split_kernel_matches_plain(cuda, pages, hq, hkv, window,
+                                           sink, softcap):
+    """K7 (each lane's table split across the blocks of one launch, merged
+    in the same launch) within 2e-2 of plain at lengths 1, BS, BS + 1 and
+    over recycled windowed tables (out-of-order block_pos, a sink), MHA and
+    GQA; the inactive lane exactly 0; two launches bit-equal; one launch a
+    call whatever the splits."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    args = _pool_args(gen, cuda, hkv, pages)
+    mb = 6
+    lens = [1, BS, BS + 1, 1, 6 * BS - 3, 4 * BS + 2]
+    table = torch.randint(1, NP_, (6, mb), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    bpos = torch.full((6, mb), PAD_POS, dtype=torch.int32, device=cuda)
+    for i, ln in enumerate(lens):
+        n = -(-ln // BS)
+        bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=cuda) * BS
+    # lanes 4 and 5: recycled (sink page first, the rest out of order)
+    bpos[4, :6] = torch.tensor([0, 4, 2, 5, 1, 3], device=cuda) * BS
+    bpos[5, :5] = torch.tensor([0, 3, 4, 1, 2], device=cuda) * BS
+    table[3], bpos[3] = 0, PAD_POS                   # inactive lane
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((6, hq, D), generator=gen, device=cuda).bfloat16()
+    kw = dict(block_pos=bpos, window=window, sink=sink, softcap=softcap)
+    plan = pa.decode_plan(6, hkv, hq // hkv, D, mb,
+                          wm.sm_count(cuda.index or 0))
+    sfx = "" if pages == "int8" else "_fp"
+    before = dict(_build.LAUNCHES)
+    out = pa.paged_decode_attention(q, *args, table, lens_t, D ** -0.5, **kw)
+    again = pa.paged_decode_attention(q, *args, table, lens_t, D ** -0.5,
+                                      **kw)
+    want = pa.paged_attention_plain(q[:, None], *args, table,
+                                    (lens_t - 1)[:, None], lens_t,
+                                    D ** -0.5, **kw)[:, 0]
+    torch.cuda.synchronize()
+    assert plan.splits > 1
+    assert bool(torch.isfinite(out).all()) and bool((out[3] == 0).all())
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
+    assert torch.equal(out, again)
+    assert _launched("paged_decode_attention" + sfx, before) == 2
+
+
+@pytest.mark.gpu
+def test_decode_split_merge_fault_is_seen(cuda):
+    """The negative controls' hook: K7 with the last split that saw a key
+    left out of its merge differs from plain by more than 2e-2 on a
+    lane whose keys span several splits, and the hook leaves K7 right once
+    it is reset."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    args = _pool_args(gen, cuda, 4, "int8")
+    table = torch.arange(1, 7, dtype=torch.int32, device=cuda)[None]
+    bpos = (torch.arange(6, dtype=torch.int32, device=cuda) * BS)[None]
+    lens = torch.tensor([6 * BS], dtype=torch.int32, device=cuda)
+    q = torch.randn((1, 4, D), generator=gen, device=cuda).bfloat16()
+    # the last page's keys point along each head's query: it takes nearly
+    # all the attention, so leaving its split out moves every output
+    args[0][6] = (torch.sign(q[0].float())[:, None, :] * 100).to(torch.int8)
+    want = pa.paged_attention_plain(q[:, None], *args, table,
+                                    (lens - 1)[:, None], lens, D ** -0.5,
+                                    block_pos=bpos)[:, 0]
+    try:
+        pa.K7_MERGE_DROP = 1
+        bad = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5,
+                                        block_pos=bpos)
+    finally:
+        pa.K7_MERGE_DROP = 0
+    good = pa.paged_decode_attention(q, *args, table, lens, D ** -0.5,
+                                     block_pos=bpos)
+    torch.cuda.synchronize()
+    assert float((bad.float() - want.float()).abs().max()) > 2e-2
+    assert float((good.float() - want.float()).abs().max()) <= 2e-2
 
 
 @pytest.mark.gpu

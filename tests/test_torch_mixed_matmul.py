@@ -98,3 +98,69 @@ def test_mix_linear_matches_pallas():
                           out_dtype=jnp.float32, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2,
                                atol=2e-2)
+
+
+# K2's launch plan (ops/mixed_matmul.py mixed_plan), pure Python: the
+# kernel itself runs only on the card (tests/test_torch_gpu.py)
+SMS, SMEM_MAX = 132, 232448
+MIX_SHAPES = {"7b": [(4096, 12288), (4096, 4096), (4096, 22016)],
+              "13b": [(5120, 15360), (5120, 5120), (5120, 27648)]}
+
+
+def _check_mixed_plan(p, m, k, n):
+    """Row and column tiles cover M and N; every 128-deep k step is in
+    exactly one split, none empty; one wave of blocks where K is split;
+    the ring within the block's shared memory."""
+    assert p.row_tiles * p.nx >= m > (p.row_tiles - 1) * p.nx
+    assert p.col_tiles * tmm.MIX_COLS >= n > (p.col_tiles - 1) * tmm.MIX_COLS
+    assert p.steps == -(-k // tmm.MIX_DEPTH)
+    covered = []
+    for s in range(p.splits):
+        lo = s * p.steps_per_split
+        hi = min(lo + p.steps_per_split, p.steps)
+        assert lo < hi
+        covered.extend(range(lo, hi))
+    assert covered == list(range(p.steps))
+    tiles = p.row_tiles * p.col_tiles
+    assert p.grid == (p.row_tiles, p.col_tiles, p.splits)
+    assert tiles * p.splits <= SMS or p.splits == 1
+    assert p.smem <= SMEM_MAX
+    assert (p.scratch is None) == (p.splits == 1)
+    if p.scratch:
+        assert p.scratch == p.splits * tiles * p.nx * tmm.MIX_COLS
+
+
+@pytest.mark.parametrize("model", ["7b", "13b"])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 40, 48, 49, 128, 129, 1024])
+def test_mixed_plan_tiles_and_splits(model, m):
+    """At every 7B and 13B mix linear (qkv, o_proj, gate_up): x's row tile
+    is the smallest of MIX_NX that holds M (128-row tiles above), and where
+    the tiles leave SMs idle K is split so that at least half of the 132
+    SMs get a block (the 40-row verify: 96-128 blocks at 7B, 108-120 at
+    13B), unless every k step is a split already."""
+    for k, n in MIX_SHAPES[model]:
+        p = tmm.mixed_plan(m, k, n, SMS)
+        assert p.nx == min(t for t in tmm.MIX_NX if t >= min(m, 128))
+        _check_mixed_plan(p, m, k, n)
+        tiles = p.row_tiles * p.col_tiles
+        assert (tiles * p.splits >= SMS // 2 or tiles > SMS // 2
+                or p.splits == p.steps)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (3, 192, 384),
+                                   (100, 512, 384), (300, 512, 384),
+                                   (129, 1024, 256), (40, 11008, 4096),
+                                   (2048, 64, 27648)])
+def test_mixed_plan_edges(m, k, n):
+    """K below one step or not a multiple of it, N a half column tile, M
+    past a tile: every row, column and k step in exactly one block."""
+    _check_mixed_plan(tmm.mixed_plan(m, k, n, SMS), m, k, n)
+
+
+def test_mixed_plan_reads_shapes_only():
+    """The plan depends on the shapes and the SM count alone, so a launch
+    reads nothing back from the device."""
+    import inspect
+    assert list(inspect.signature(tmm.mixed_plan).parameters) == \
+        ["m", "k", "n", "sms"]
+    assert tmm.mixed_plan(40, 4096, 12288, SMS).splits == 2

@@ -188,3 +188,64 @@ def test_cuda_kernel_geometry_checked():
         tpa.check_kernel_geometry(8, 128)
     with pytest.raises(ValueError, match="head_dim"):
         tpa.check_kernel_geometry(128, 80)
+
+
+# K7's launch plan and shared memory (ops/paged_attention.py decode_plan,
+# decode_split_smem), pure Python: the kernel runs only on the card
+SMS = 132
+
+
+@pytest.mark.parametrize("b,hkv,g", [(8, 32, 1), (8, 40, 1), (8, 8, 4),
+                                     (8, 8, 5), (1, 32, 1), (16, 32, 1),
+                                     (64, 8, 4), (256, 40, 1)])
+@pytest.mark.parametrize("mb", [1, 2, 5, 6, 7, 32, 64])
+def test_decode_plan_covers_the_table(b, hkv, g, mb):
+    """Every table entry of a lane in exactly one split, none empty; the
+    grid (Hkv, B, splits) gives every SM a block unless each entry is its
+    own split, and stays within SPLIT_BLOCKS_PER_SM blocks an SM where it
+    splits at all; the partials hold (acc, m, l) per row and split."""
+    p = tpa.decode_plan(b, hkv, g, 128, mb, SMS)
+    covered = []
+    for s in range(p.splits):
+        lo, hi = s * p.pages_per_split, min((s + 1) * p.pages_per_split, mb)
+        assert lo < hi
+        covered.extend(range(lo, hi))
+    assert covered == list(range(mb))
+    assert p.grid == (hkv, b, p.splits)
+    blocks = hkv * b * p.splits
+    assert blocks >= SMS or p.splits == mb
+    assert p.splits == 1 or hkv * b * (p.splits - 1) \
+        < tpa.SPLIT_BLOCKS_PER_SM * SMS
+    assert (p.scratch is None) == (p.splits == 1)
+    if p.scratch:
+        assert p.scratch == b * hkv * p.splits * g * (128 + 2)
+
+
+def test_decode_plan_fills_the_card_at_the_main_shapes():
+    """The smoke's decode shapes (8 lanes, a 6-entry table): Llama-2-7B
+    (32 KV heads) and 13B (40) split each lane in 2, GQA (8 KV heads)
+    takes one entry a split, 1 lane x 32 entries 11 splits of 3; the plan
+    reads shapes only, never the lane lengths, so the launch needs no host
+    readback."""
+    import inspect
+    assert "lens" not in inspect.signature(tpa.decode_plan).parameters
+    assert tpa.decode_plan(8, 32, 1, 128, 6, SMS).splits == 2
+    assert tpa.decode_plan(8, 40, 1, 128, 6, SMS).splits == 2
+    assert tpa.decode_plan(8, 8, 4, 128, 6, SMS).splits == 6
+    assert tpa.decode_plan(1, 32, 1, 128, 32, SMS)[:2] == (11, 3)
+
+
+@pytest.mark.parametrize("page_bytes,quant", [(1, True), (2, False),
+                                              (4, False)])
+def test_decode_split_smem_fits(page_bytes, quant):
+    """K7's block fits the 227 KB of shared memory for every page geometry
+    the kernels take (BS 16-256, head_dim 32-256) up to 16 query heads a
+    KV head; a ring stage's K and V stay within SPLIT_STAGE_KV."""
+    for g in (1, 4, 8, 16):
+        for d in range(32, 257, 32):
+            for bs in range(16, 257, 16):
+                need = tpa.decode_split_smem(g, d, bs, page_bytes, quant)
+                assert need <= 232448
+    # Llama-2-7B int8 pages: a whole 128-token page a stage
+    assert tpa.decode_split_smem(1, 128, 128, 1, True) == \
+        2 * (2 * 128 * 128 + 8 * 128) + 4 * (8 * 20 + 128 + 8 * 128 + 3)
