@@ -21,15 +21,15 @@ exits non-zero:
      across two launches (their K splits sum in a fixed order); K5p/K6p
      and K7/K8 on bf16 pages at Hkv 40, plus Hq 40 / Hkv 8):
      K5/K6/K5p/K6p pages (and scales) bit-equal outside trash row 0, K7/K8
-     within 2e-2, K7 bit-equal across two launches (its splits merge in a
-     fixed order); K1 codes at most 1 apart (> 99.9% equal), scales rtol
-     1e-5; K2/K3/K4/K12/K13 within 1e-4 of the largest output (+ one bf16
-     step), K2 bit-equal on the int32-exact case and across two launches,
-     timed at the three 7B mix shapes at 1024 and 40 rows; each kernel's
-     device time per launch and its plain version's device time per call
-     come from torch.profiler, the wrapper's time per call (host
-     included) from CUDA events, and the library call's where one
-     computes the same
+     within 2e-2, K7 and K8 bit-equal across two launches (K7's splits
+     merge in a fixed order), K8 timed in TFLOP/s; K1 codes at most 1
+     apart (> 99.9% equal), scales rtol 1e-5; K2/K3/K4/K12/K13 within
+     1e-4 of the largest output (+ one bf16 step), K2 bit-equal on the
+     int32-exact case and across two launches, timed at the three 7B
+     mix shapes at 1024 and 40 rows; each kernel's device time per
+     launch and its plain version's device time per call come from
+     torch.profiler, the wrapper's time per call (host included) from
+     CUDA events, and the library call's where one computes the same
      function (K4: torch._weight_int8pack_mm, at every shape; K12, K13:
      torch._weight_int4pack_mm)
   4. main path at full width: a Llama-2-7B-geometry int8_mix (128
@@ -73,10 +73,11 @@ exits non-zero:
      once through LLM on the card
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
-Phase 3 also holds K9 (verify rows: 8 lanes at S = 4 and 5, and S = 8 at
-8 query heads a KV head, the largest shared-memory case; at S = 1
-bit-equal to K10's output rounded to q's dtype), K10 (out within 2e-2,
-m and l within 1e-3 relative of the plain stats) and K11 (splits 2 and 4
+Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
+and S = 8 at 8 query heads a KV head, 64 rows a block; at S = 1 bit-equal
+to K10's output rounded to q's dtype; bit-equal across two launches;
+timed in TB/s), K10 (out within 2e-2, m and l within 1e-3 relative of
+the plain stats; bit-equal across two launches) and K11 (splits 2 and 4
 at 8 lanes and at 1 lane x 4096 tokens, against K7 and its plain
 version) on int8 and bf16 pages at Llama-2-7B heads, and K1 -> K2 at
 the 40 rows of a gamma = 4 verify,
@@ -508,9 +509,13 @@ def check_attention(torch, gen, dev, results, fp: bool = False):
                       softcap=softcap)
             out = pa.paged_prefill_attention(q, *args, table, qs_t, lens_t,
                                              scale, **kw)
+            again = pa.paged_prefill_attention(q, *args, table, qs_t,
+                                               lens_t, scale, **kw)
             ref = pa.paged_attention_plain(q, *args, table, pos, lens_t,
                                            scale, **kw)
             torch.cuda.synchronize()
+            check(torch.equal(out, again), f"K8 {pages} hkv={hkv}: two "
+                  f"launches on the same inputs differ")
             diff = torch.where(valid, (out.float() - ref.float()).abs(), 0.0)
             check(bool(torch.isfinite(torch.where(valid, out.float(),
                                                   0.0)).all()),
@@ -522,31 +527,37 @@ def check_attention(torch, gen, dev, results, fp: bool = False):
                 worst["paged_prefill_attention" + sfx], err)
             print(f"K8 paged_prefill_attention {pages} Hq={hq} Hkv={hkv} "
                   f"window={window} sink={sink} softcap={softcap}: "
-                  f"max abs err {err:.3e}", flush=True)
+                  f"max abs err {err:.3e}, repeat bit-equal", flush=True)
         kw = dict(block_pos=bpos)
         ms, pms, wms = measure(
             torch, lambda: pa.paged_prefill_attention(
                 q, *args, table, qs_t, lens_t, scale, **kw),
             lambda: pa.paged_attention_plain(
                 q, *args, table, pos, lens_t, scale, **kw),
-            "prefill_kernel", "paged_prefill_attention" + sfx, 50, 10)
+            "prefill_wgmma_kernel", "paged_prefill_attention" + sfx, 50,
+            10)
         last = [min(qs + c, ln) - 1 for qs, ln in zip(qstart, lens)]
         visited = sum(int(((bpos[i] <= last[i])
                            & (bpos[i] < lens[i])).sum())
                       for i in range(b))
         pairs = sum(sum(p + 1 for p in range(qs, min(qs + c, ln)))
                     for qs, ln in zip(qstart, lens))
-        # the bound reads each visited page once; K8's blocks are per query
-        # head, so under GQA the kernel reads each page Hq/Hkv times
+        # the bound reads each visited page once; K8's blocks hold 128 rows
+        # (the Hq/Hkv query heads of a KV head x 128 / (Hq/Hkv) tokens), so
+        # the kernel reads a page once for each of its lane's tiles that
+        # reaches it
         nbytes = (visited * hkv * bs * tok_b
                   + 2 * b * c * hq * d * 2 + b * mb * 8 + b * 8)
-        bnd = bound(nbytes, 4.0 * hq * d * pairs)
+        flops = 4.0 * hq * d * pairs
+        bnd = bound(nbytes, flops)
         times[("paged_prefill_attention" + sfx, hkv)] = (ms, pms, bnd)
+        tiles = -(-c // (128 // (hq // hkv)))
         print(f"K8 timing {pages} B={b} C={c} Hq={hq} Hkv={hkv} "
-              f"pages={visited} "
-              f"(read {hq // hkv}x each): device {ms:.5f} ms per launch "
+              f"pages={visited} ({tiles} tiles of "
+              f"{128 // (hq // hkv)} tokens a lane and KV head): device "
+              f"{ms:.5f} ms per launch, {flops / ms / 1e9:.2f} TFLOP/s "
               f"(plain {pms:.5f} ms; wrapper {wms:.5f} ms per call; bound "
-              f"{bnd[0]:.5f} ms)", flush=True)
+              f"{bnd[0]:.5f} ms, by {bnd[1]})", flush=True)
     # the kernels line carries the main paths' geometry: MHA
     for name in worst:
         ms, pms, bnd = times[(name, hq)]
@@ -594,7 +605,7 @@ def check_decode_modes(torch, gen, dev, results):
 
             # K9: the rows of a gamma = 3 / gamma = 4 verify, ending at
             # each lane's last key
-            for s_rows in (4, 5):
+            for s_rows in ((4, 5) if fp else (4, 5, 8)):
                 q = torch.randn((b, s_rows, hq, d), generator=gen,
                                 device=dev).bfloat16()
                 qs = torch.clamp(lens_t - s_rows, min=0)
@@ -604,11 +615,15 @@ def check_decode_modes(torch, gen, dev, results):
                               softcap=softcap)
                     out = pa.paged_verify_attention(q, *args, table, lens_t,
                                                     qs, scale, **kw)
+                    again = pa.paged_verify_attention(q, *args, table,
+                                                      lens_t, qs, scale, **kw)
                     ref = pa.paged_attention_plain(q, *args, table, pos,
                                                    lens_t, scale, **kw)
                     torch.cuda.synchronize()
                     check(bool(torch.isfinite(out).all()),
                           "K9 output not finite")
+                    check(torch.equal(out, again), f"K9 {tag} S={s_rows}: "
+                          f"two launches on the same inputs differ")
                     check(bool((out[1] == 0).all()),
                           "K9 inactive lane is not 0")
                     err = float((out.float() - ref.float()).abs().max())
@@ -617,21 +632,28 @@ def check_decode_modes(torch, gen, dev, results):
                     worst["paged_verify_attention" + sfx] = max(
                         worst["paged_verify_attention" + sfx], err)
                 print(f"K9 paged_verify_attention {tag} S={s_rows} (3 "
-                      f"masks): max abs err {err:.3e} (last)", flush=True)
+                      f"masks): max abs err {err:.3e} (last), repeat "
+                      f"bit-equal", flush=True)
                 kw = dict(block_pos=bpos)
                 ms, pms, wms = measure(
                     torch, lambda: pa.paged_verify_attention(
                         q, *args, table, lens_t, qs, scale, **kw),
                     lambda: pa.paged_attention_plain(
                         q, *args, table, pos, lens_t, scale, **kw),
-                    "verify_kernel", "paged_verify_attention" + sfx, 200, 20)
+                    "verify_rows_kernel", "paged_verify_attention" + sfx,
+                    200, 20)
                 keys = int(torch.minimum(pos + 1, lens_t[:, None]).sum())
-                bnd = bound(pages_b + 2 * b * s_rows * hq * d * 2 + tab_b
-                            + b * 4, 4.0 * hq * d * keys)
-                print(f"K9 timing {tag} S={s_rows} pages={visited}: device "
-                      f"{ms:.5f} ms per launch (plain {pms:.5f} ms; wrapper "
-                      f"{wms:.5f} ms per call; bound {bnd[0]:.5f} ms)",
-                      flush=True)
+                nbytes = (pages_b + 2 * b * s_rows * hq * d * 2 + tab_b
+                          + b * 4)
+                bnd = bound(nbytes, 4.0 * hq * d * keys)
+                plan = pa.rows_plan(b, hkv, s_rows * (hq // hkv), d, mb,
+                                    wm.sm_count(dev.index or 0))
+                print(f"K9 timing {tag} S={s_rows} pages={visited} "
+                      f"({plan.splits} splits, {hkv * b * plan.grid[2]} "
+                      f"blocks): device {ms:.5f} ms per launch, "
+                      f"{nbytes / ms / 1e9:.3f} TB/s (plain {pms:.5f} ms; "
+                      f"wrapper {wms:.5f} ms per call; bound {bnd[0]:.5f} "
+                      f"ms)", flush=True)
                 if hkv == hq and s_rows == 5:
                     results["paged_verify_attention" + sfx] = dict(
                         ms=ms, plain_ms=pms, bound=bnd)
@@ -661,9 +683,14 @@ def check_decode_modes(torch, gen, dev, results):
                           softcap=softcap)
                 out, m, l = pa.paged_decode_attention(
                     q, *args, table, lens_t, scale, stats=True, **kw)
+                again = pa.paged_decode_attention(
+                    q, *args, table, lens_t, scale, stats=True, **kw)
                 po, pm, pl = pa.paged_decode_attention_stats_plain(
                     q, *args, table, lens_t, scale, **kw)
                 torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip((out, m, l),
+                                                            again)),
+                      f"K10 {tag}: two launches on the same inputs differ")
                 live = lens_t > 1
                 err = float((out - po).abs().max())
                 mrel, lrel = _rel(m[live], pm[live]), _rel(l[live], pl[live])
@@ -681,21 +708,22 @@ def check_decode_modes(torch, gen, dev, results):
                     worst["paged_decode_attention_stats" + sfx], err)
             print(f"K10 paged_decode_attention(stats) {tag} (3 masks): out "
                   f"max abs err {err:.3e}, m max rel {mrel:.2e}, l max rel "
-                  f"{lrel:.2e} (last)", flush=True)
+                  f"{lrel:.2e} (last), repeat bit-equal", flush=True)
             kw = dict(block_pos=bpos)
             ms, pms, wms = measure(
                 torch, lambda: pa.paged_decode_attention(
                     q, *args, table, lens_t, scale, stats=True, **kw),
                 lambda: pa.paged_decode_attention_stats_plain(
                     q, *args, table, lens_t, scale, **kw),
-                "decode_stats_kernel", "paged_decode_attention_stats" + sfx,
+                "stats_rows_kernel", "paged_decode_attention_stats" + sfx,
                 200, 20)
             keys = sum(lens)
-            bnd = bound(pages_b + b * hq * d * (2 + 4) + 2 * b * hq * 4
-                        + tab_b, 4.0 * hq * d * keys)
-            print(f"K10 timing {tag}: device {ms:.5f} ms per launch (plain "
-                  f"{pms:.5f} ms; wrapper {wms:.5f} ms per call; bound "
-                  f"{bnd[0]:.5f} ms)", flush=True)
+            nbytes = pages_b + b * hq * d * (2 + 4) + 2 * b * hq * 4 + tab_b
+            bnd = bound(nbytes, 4.0 * hq * d * keys)
+            print(f"K10 timing {tag}: device {ms:.5f} ms per launch, "
+                  f"{nbytes / ms / 1e9:.3f} TB/s (plain {pms:.5f} ms; "
+                  f"wrapper {wms:.5f} ms per call; bound {bnd[0]:.5f} ms)",
+                  flush=True)
             if hkv == hq:
                 results["paged_decode_attention_stats" + sfx] = dict(
                     ms=ms, plain_ms=pms, bound=bnd)
@@ -739,8 +767,7 @@ def check_decode_modes(torch, gen, dev, results):
         for name, err in worst.items():
             results[name]["max_abs_err"] = err
 
-    # K9 at S = 8 and 8 query heads a KV head: 64 rows, 99 KB of shared
-    # memory a block
+    # K9 at S = 8 and 8 query heads a KV head: 64 rows (4 m-tiles) a block
     hkv, s_rows = 4, 8
     pools = make_pools(torch, gen, dev, np_, hkv, bs, d)
     args = (pools["k"], pools["v"], pools["k_scale"], pools["v_scale"])
@@ -756,9 +783,10 @@ def check_decode_modes(torch, gen, dev, results):
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     check(err <= ATTN_TOL, f"K9 S=8 Hq=32 Hkv=4: max abs err {err}")
+    smem = pa.rows_smem(64, d, bs, 1, True, True)
     print(f"K9 paged_verify_attention int8 S=8 Hq={hq} Hkv={hkv} (64 rows, "
-          f"{(2 * 64 * d + 64 * bs + 3 * 64) * 4} bytes of shared memory): "
-          f"max abs err {err:.3e}", flush=True)
+          f"{smem} bytes of shared memory a block): max abs err {err:.3e}",
+          flush=True)
 
     # 1 lane x 4096 tokens: K7's 32 blocks against K11's 32 x splits
     for fp in (False, True):
@@ -795,7 +823,7 @@ def check_decode_modes(torch, gen, dev, results):
             k10_ms = device_ms(
                 torch, lambda: pa.paged_decode_attention_split(
                     q, *args, table, lens_t, scale, **kw), 200,
-                "decode_stats_kernel", "paged_decode_attention_stats" + sfx)
+                "stats_rows_kernel", "paged_decode_attention_stats" + sfx)
             line.append(f"K11 splits={splits} ({32 * splits} blocks) "
                         f"{call_ms:.5f} ms a call, its K10 {k10_ms:.5f} ms "
                         f"(err {err:.2e})")

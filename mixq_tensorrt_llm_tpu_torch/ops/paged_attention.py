@@ -20,12 +20,16 @@ tensor launches the kernel of csrc/paged_attention.cu, or raises: its int8
 instantiation for int8 pools, its unquantized one (no scale multiplies,
 null scales; launches counted as ``*_fp``) for bf16 and f32 pools. The
 kernels accept 16 <= BS <= 256, BS % 16 == 0, head_dim a multiple of 32
-up to 256, and at most 227 KB of shared memory a block (K9: S * Hq/Hkv
-rows of 2 * D + BS + 3 floats). K7 splits each lane's table across the
-blocks of its one launch (``decode_plan``, from the shapes alone) and
-merges the splits in the same launch. K11 launches K10 once over all
-splits and merges the parts with torch ops in f32 (in JAX that merge is
-jnp outside the Pallas call too), then casts once.
+up to 256, and at most 227 KB of shared memory a block. K7 splits each
+lane's table across the blocks of its one launch (``decode_plan``, from
+the shapes alone) and merges the splits in the same launch; K9 and K10
+share K7's skeleton with the S * Hq/Hkv rows of a KV head in groups of up
+to 16 a warp (``rows_plan``). Routes by dtype: bf16 q on int8 or bf16
+pages runs K9/K10 on mma.sync and K8 on wgmma tensor cores; f32 q or f32
+pages (the f32 test models) run f32 arithmetic on CUDA cores (K9/K10's
+body in f32, K8's prefill_kernel). K11 launches K10 once over all splits and merges
+the parts with torch ops in f32 (in JAX that merge is jnp outside the
+Pallas call too), then casts once.
 """
 
 from __future__ import annotations
@@ -51,6 +55,15 @@ SPLIT_STAGE_KV = 32 * 1024    # bytes of K and V a ring stage, at most
 # 72 KB of shared memory each); other targets measured no faster at the
 # smoke's decode shapes (PERF.md)
 SPLIT_BLOCKS_PER_SM = 3
+# K9 / K10's blocks (csrc/paged_attention.cu decode_rows_body): ROWS_WARPS
+# warps where a KV head has at most 16 rows (one m-tile), 8 above (up to
+# 16 rows a warp), a 2-stage ring (SPLIT_STAGES) of at most ROWS_STAGE_KV
+# bytes of K and V a stage; the grid a plan aims at: ROWS_BLOCKS_PER_SM
+# blocks an SM (measured faster at the smoke's shapes than 2 or 3 with
+# more splits, and than 8 warps at one m-tile; PERF.md)
+ROWS_WARPS = 4
+ROWS_STAGE_KV = 32 * 1024
+ROWS_BLOCKS_PER_SM = 1
 # test hook for the negative controls: 1 leaves the last split that saw a
 # key out of K7's merge (a fault the checks must catch); 0 otherwise
 K7_MERGE_DROP = 0
@@ -95,6 +108,65 @@ def decode_split_smem(g: int, d: int, bs: int, page_bytes: int,
     q_floats = g * (d * page_bytes // 16) * (ce if (ce // 4) % 2 else ce + 4)
     tg = SPLIT_THREADS // (d // 4)
     return SPLIT_STAGES * stage + 4 * (q_floats + g * st + tg * g * d + 3 * g)
+
+
+def rows_warps(rows: int) -> int:
+    """The warps of a K9 / K10 block for `rows` rows of a KV head."""
+    return ROWS_WARPS if rows <= 16 else 8
+
+
+class RowsPlan(NamedTuple):
+    """How K9 / K10 cut their work: blocks of `warps` warps, the S *
+    Hq/Hkv rows of a KV head in `groups` of up to 16 a warp, each lane's
+    table in `splits` ranges of `pages_per_split` entries; one block each
+    per (lane, KV head)."""
+    warps: int
+    groups: int
+    splits: int
+    pages_per_split: int
+    grid: Tuple[int, int, int]
+    scratch: Optional[int]     # f32 partials, if split
+    tickets: int
+
+
+@functools.lru_cache(maxsize=4096)
+def rows_plan(b: int, hkv: int, rows: int, d: int, mb: int,
+              sms: int) -> RowsPlan:
+    """decode_plan's rule for K9 / K10's blocks of rows_warps(rows) warps
+    (16 rows each at most): as many splits as bring the grid to
+    ROWS_BLOCKS_PER_SM blocks an SM, at most one an entry of the table,
+    then equal ranges of whole entries (none empty). The lengths stay on
+    the device: shapes only."""
+    warps = rows_warps(rows)
+    groups = -(-rows // (16 * warps))
+    lanes = b * hkv * groups
+    splits = max(1, min(mb, -(-ROWS_BLOCKS_PER_SM * sms // lanes)))
+    per = -(-mb // splits)
+    splits = -(-mb // per)
+    return RowsPlan(warps, groups, splits, per, (hkv, b, groups * splits),
+                    b * hkv * splits * rows * (d + 2) if splits > 1 else None,
+                    lanes)
+
+
+@functools.lru_cache(maxsize=4096)
+def rows_smem(rows: int, d: int, bs: int, page_bytes: int, quant: bool,
+              mma: bool) -> int:
+    """K9 / K10's dynamic shared memory a block of rows_warps(rows) warps
+    (csrc rows_layout): the ring's 2 stages of ST tokens' K, V (and
+    scales; ST the largest multiple of 16 dividing BS whose K and V fit
+    ROWS_STAGE_KV) and q (mma fragments, or f32 rows) for the m-tiles of
+    min(rows, 16 x warps) rows; the warps' merge slots reuse that memory
+    at the end."""
+    warps = rows_warps(rows)
+    st = next((c for c in range(bs, 16, -16)
+               if bs % c == 0 and 2 * c * d * page_bytes <= ROWS_STAGE_KV), 16)
+    stage = -(-(2 * st * d * page_bytes + (8 * st if quant else 0)) // 128) \
+        * 128
+    mt = -(-min(rows, 16 * warps) // 16)
+    mtp = 8 if mt > 4 else 4 if mt > 2 else mt
+    merge = 4 * warps * 32 * (d // 2 + 4)
+    q_bytes = mtp * (d // 16) * 32 * 16 if mma else mtp * 16 * d * 4
+    return max(SPLIT_STAGES * stage + q_bytes, merge)
 
 
 def check_kernel_geometry(block_size: int, head_dim: int) -> None:
@@ -187,8 +259,10 @@ def _cuda_args(q, k_pages, v_pages, k_scale, v_scale, block_table,
         if not (t.is_cuda and t.dtype == dt and t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be a contiguous CUDA "
                              f"{dt} tensor")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"{what}: page pools must be 16-byte aligned")
+    if any(t is not None and t.data_ptr() % 16
+           for t in (k_pages, v_pages, k_scale, v_scale)):
+        raise ValueError(f"{what}: page pools and scales must be 16-byte "
+                         "aligned")
     if block_pos is None:
         block_pos = identity_block_pos(block_table, bs)
     dev = q.device
@@ -210,13 +284,14 @@ def _check_heads(q_d: int, hq: int, hkv: int, d: int, what: str) -> None:
                          f"fit pages with {hkv} heads of dim {d}")
 
 
-def _check_q(q_d: int, hq: int, hkv: int, d: int, s: int, bs: int,
-             what: str) -> None:
-    """Raise unless q's heads fit the pages and the block's S * Hq/Hkv
-    query rows fit the decode kernels' shared memory."""
-    _check_heads(q_d, hq, hkv, d, what)
+def _check_q(q, hq: int, hkv: int, d: int, s: int, bs: int, k_pages,
+             quant: bool, what: str) -> None:
+    """Raise unless q's heads fit the pages and K9 / K10's block fits its
+    shared memory (``rows_smem``)."""
+    _check_heads(q.shape[-1], hq, hkv, d, what)
     rows = s * (hq // hkv)
-    need = (2 * rows * d + rows * bs + 3 * rows) * 4
+    mma = q.dtype == torch.bfloat16 and k_pages.dtype != torch.float32
+    need = rows_smem(rows, d, bs, k_pages.element_size(), quant, mma)
     if need > _MAX_SMEM:
         raise ValueError(f"{what}: {rows} query rows per KV head need {need} "
                          f"bytes of shared memory (at most {_MAX_SMEM})")
@@ -266,23 +341,25 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     tail = (float(scale), int(window), int(sink), float(softcap))
     codes = (_DTYPES[q.dtype], page_dtype, _build.stream_ptr(q.device))
     if stats:
-        _check_q(q.shape[2], hq, hkv, d, 1, bs, what)
+        _check_q(q, hq, hkv, d, 1, bs, k_pages, k_scale is not None, what)
+        plan = rows_plan(b, hkv, hq // hkv, d, mb,
+                         _build.device_sms(q.device))
+        part, tickets = _build.scratch(q.device, plan.scratch or 0,
+                                       plan.tickets)
         out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
         fn = _build.bind("paged_attention",
                          "mixq_paged_decode_attention_stats",
-                         [_build.P] * 11 + [_build.I] * 6 + _TAIL)
+                         [_build.P] * 13 + [_build.I] * 10 + _TAIL)
         err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
                  lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 b, hq, hkv, d, bs, mb, *tail, *codes)
+                 part, tickets, b, hq, hkv, d, bs, mb, plan.groups,
+                 plan.splits, plan.pages_per_split, plan.warps, *tail, *codes)
         result = (out, m, l)
     else:
         _check_split(q.shape[2], hq, hkv, d, bs, k_pages.element_size(),
                      k_scale is not None, what)
-        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if t is not None and t.data_ptr() % 16:
-                raise ValueError(f"{what}: {name} must be 16-byte aligned")
         plan = decode_plan(b, hkv, hq // hkv, d, mb,
                            _build.device_sms(q.device))
         part, tickets = _build.scratch(q.device, plan.scratch or 0, b * hkv)
@@ -346,7 +423,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     the keys below lens, as in the JAX package's gather path; its Pallas
     kernel lets such rows see the page's unwritten slots, and no caller
     reads them."""
-    b, s, hq, qd = q.shape
+    b, s, hq, _ = q.shape
     if not q.is_cuda:
         q_pos = qstart[:, None] + torch.arange(s, device=q.device)
         return paged_attention_plain(q, k_pages, v_pages, k_scale, v_scale,
@@ -358,16 +435,21 @@ def paged_verify_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                          f"{MAX_VERIFY_ROWS} (K8 takes longer chunks)")
     ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
         q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos, what)
-    _check_q(qd, hq, hkv, d, s, bs, what)
+    _check_q(q, hq, hkv, d, s, bs, k_pages, k_scale is not None, what)
     q = q.contiguous()
     qstart = qstart.to(q.device, torch.int32).contiguous()
     lens = lens.to(q.device, torch.int32).contiguous()
+    mb = table.shape[1]
+    plan = rows_plan(b, hkv, s * (hq // hkv), d, mb,
+                     _build.device_sms(q.device))
+    part, tickets = _build.scratch(q.device, plan.scratch or 0, plan.tickets)
     out = torch.empty_like(q)
     fn = _build.bind("paged_attention", "mixq_paged_verify_attention",
-                     [_build.P] * 10 + [_build.I] * 7 + _TAIL)
+                     [_build.P] * 12 + [_build.I] * 11 + _TAIL)
     err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
-             lens.data_ptr(), qstart.data_ptr(), out.data_ptr(), b, s, hq,
-             hkv, d, bs, table.shape[1], float(scale), int(window),
+             lens.data_ptr(), qstart.data_ptr(), out.data_ptr(), part,
+             tickets, b, s, hq, hkv, d, bs, mb, plan.groups, plan.splits,
+             plan.pages_per_split, plan.warps, float(scale), int(window),
              int(sink), float(softcap), _DTYPES[q.dtype], page_dtype,
              _build.stream_ptr(q.device))
     name = what + sfx
@@ -458,8 +540,11 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                             ) -> torch.Tensor:
     """K8: q (B, C, Hq, D) at positions q_start[b] + 0..C-1 -> (B, C, Hq, D).
 
-    Any C: the kernel tiles 16 query tokens per block and masks the tail.
-    Rows past the prompt are don't-care; callers select by position."""
+    Any C >= 1: bf16 q on int8 or bf16 pages runs on wgmma, a block of 128
+    rows (the Hq/Hkv query heads of a KV head x 128 / (Hq/Hkv) tokens)
+    reading each page once; f32 q or f32 pages run the f32 CUDA-core
+    kernel (16 tokens of one query head a block). Rows past the prompt are
+    don't-care; callers select by position."""
     if not q.is_cuda:
         c = q.shape[1]
         q_pos = q_start[:, None] + torch.arange(c, device=q.device)
@@ -473,7 +558,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     if q.shape[3] != d or hq % hkv:
         raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} does "
                          f"not fit pages with {hkv} heads of dim {d}")
-    q = q.contiguous()
+    q = _build.aligned(q)
     q_start = q_start.to(q.device, torch.int32).contiguous()
     lens = lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)

@@ -1,7 +1,8 @@
-"""Device time of K2 and K7 at the main paths' shapes, for comparing two
-trees of the port on one card.
+"""Device time of K2, K7, K8, K9 and K10 at the main paths' shapes, for
+comparing two trees of the port on one card.
 
     python3 mixq_tensorrt_llm_tpu_torch/tools/kernel_times.py [--root DIR]
+        [--kernels K2,K7,K9,K8]
 
 Imports the port from ``--root`` (a checkout or a ``git archive`` of
 another commit; by default the tree holding this file), so one call can
@@ -16,7 +17,15 @@ must count one launch a call), after a warm-up:
      verify), 128 outlier channels;
   K7 paged_decode_attention on 8 lanes of 1-700 tokens (one inactive, one
      recycled table), 128-token pages, head_dim 128: int8 pages at 32
-     heads (Llama-2-7B), bf16 pages at 40 (Llama-2-13B).
+     heads (Llama-2-7B), bf16 pages at 40 (Llama-2-13B);
+  K9 paged_verify_attention on the same lanes, S = 5 rows (gamma = 4)
+     ending at each lane's last key: int8 pages at 32 heads (and at 8 KV
+     heads of 4 query heads each), bf16 at 40;
+  K10 paged_decode_attention(stats=True) on the same lanes, int8 pages at
+     32 heads;
+  K8 paged_prefill_attention on 4 lanes x a 256-token chunk (a 200-token
+     prompt, two later chunks of a 512- and a 700-token prompt, an
+     inactive lane): int8 pages at 32 heads, bf16 at 40.
 
 Prints one line a reading and a JSON line with all of them, after the
 card's name and power limit. Needs a CUDA card.
@@ -79,41 +88,106 @@ def k2_times(torch, build, dev, gen):
     return out
 
 
+def _pools(torch, gen, dev, pages, hkv, np_=128, bs=128, d=128):
+    """(K, V, K scale, V scale, launch-count suffix): int8 pages with
+    scales, or bf16 pages without."""
+    shape = (np_, hkv, bs, d)
+    if pages == "int8":
+        return (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8),
+                torch.rand(shape[:3], generator=gen, device=dev) * 0.02,
+                torch.rand(shape[:3], generator=gen, device=dev) * 0.02, "")
+    return (torch.randn(shape, generator=gen, device=dev).bfloat16(),
+            torch.randn(shape, generator=gen, device=dev).bfloat16(),
+            None, None, "_fp")
+
+
+def _decode_lanes(torch, gen, dev, np_=128, bs=128, b=8, mb=6):
+    """The smoke's 8 decode lanes: table, block_pos (lane 3 recycled, lane
+    1 inactive) and lengths."""
+    lens = [700, 1, 256, 640, 129, 513, 384, 300]
+    table = (torch.randperm(np_ - 1, generator=gen, device=dev)[:b * mb]
+             + 1).int().reshape(b, mb)
+    bpos = torch.full((b, mb), 1 << 30, dtype=torch.int32, device=dev)
+    for i, ln in enumerate(lens):
+        n = -(-ln // bs)
+        bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev) * bs
+    bpos[3, :5] = torch.tensor([0, 3, 1, 4, 2], device=dev) * bs
+    table[1], bpos[1] = 0, 1 << 30                 # inactive lane
+    return table, bpos, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
 def k7_times(torch, build, dev, gen):
     from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
-    bs, d, np_, b, mb = 128, 128, 128, 8, 6
-    lens = [700, 1, 256, 640, 129, 513, 384, 300]
+    d, b = 128, 8
     out = []
     for pages, hkv in (("int8", 32), ("bf16", 40)):
-        shape = (np_, hkv, bs, d)
-        if pages == "int8":
-            kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
-                               dtype=torch.int8)
-            vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
-                               dtype=torch.int8)
-            ks = torch.rand(shape[:3], generator=gen, device=dev) * 0.02
-            vs = torch.rand(shape[:3], generator=gen, device=dev) * 0.02
-            counter = "paged_decode_attention"
-        else:
-            kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
-            vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
-            ks = vs = None
-            counter = "paged_decode_attention_fp"
-        table = (torch.randperm(np_ - 1, generator=gen, device=dev)[:b * mb]
-                 + 1).int().reshape(b, mb)
-        bpos = torch.full((b, mb), 1 << 30, dtype=torch.int32, device=dev)
-        for i, ln in enumerate(lens):
-            n = -(-ln // bs)
-            bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev) * bs
-        bpos[3, :5] = torch.tensor([0, 3, 1, 4, 2], device=dev) * bs
-        table[1], bpos[1] = 0, 1 << 30                 # inactive lane
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kp, vp, ks, vs, sfx = _pools(torch, gen, dev, pages, hkv)
+        table, bpos, lens_t = _decode_lanes(torch, gen, dev)
         q = torch.randn((b, hkv, d), generator=gen, device=dev).bfloat16()
         ms = device_ms(torch, build, lambda: pa.paged_decode_attention(
             q, kp, vp, ks, vs, table, lens_t, d ** -0.5, block_pos=bpos),
-            200, counter)
+            200, "paged_decode_attention" + sfx)
         out.append(dict(kernel="K7", pages=pages, B=b, Hq=hkv, Hkv=hkv, D=d,
-                        BS=bs, ms=ms))
+                        BS=128, ms=ms))
+    return out
+
+
+def k9_k10_times(torch, build, dev, gen):
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    d, b, s = 128, 8, 5
+    out = []
+    for pages, hq, hkv in (("int8", 32, 32), ("int8", 32, 8),
+                           ("bf16", 40, 40)):
+        kp, vp, ks, vs, sfx = _pools(torch, gen, dev, pages, hkv)
+        table, bpos, lens_t = _decode_lanes(torch, gen, dev)
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+        qs = torch.clamp(lens_t - s, min=0)
+        ms = device_ms(torch, build, lambda: pa.paged_verify_attention(
+            q, kp, vp, ks, vs, table, lens_t, qs, d ** -0.5, block_pos=bpos),
+            200, "paged_verify_attention" + sfx)
+        out.append(dict(kernel="K9", pages=pages, B=b, S=s, Hq=hq, Hkv=hkv,
+                        D=d, BS=128, ms=ms))
+        if pages == "int8" and hkv == hq:
+            q1 = torch.randn((b, hkv, d), generator=gen, device=dev
+                             ).bfloat16()
+            ms = device_ms(torch, build, lambda: pa.paged_decode_attention(
+                q1, kp, vp, ks, vs, table, lens_t, d ** -0.5,
+                block_pos=bpos, stats=True), 200,
+                "paged_decode_attention_stats" + sfx)
+            out.append(dict(kernel="K10", pages=pages, B=b, Hq=hkv,
+                            Hkv=hkv, D=d, BS=128, ms=ms))
+    return out
+
+
+def k8_times(torch, build, dev, gen):
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    d, b, c, bs, mb = 128, 4, 256, 128, 6
+    qstart, lens = [0, 256, 512, 0], [200, 512, 700, 0]
+    out = []
+    for pages, hkv in (("int8", 32), ("bf16", 40)):
+        kp, vp, ks, vs, sfx = _pools(torch, gen, dev, pages, hkv)
+        table = (torch.randperm(127, generator=gen, device=dev)[:b * mb]
+                 + 1).int().reshape(b, mb)
+        bpos = torch.full((b, mb), 1 << 30, dtype=torch.int32, device=dev)
+        for i, ln in enumerate([200, 512, 700]):
+            n = -(-ln // bs)
+            bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev) * bs
+        bpos[1, :4] = torch.tensor([0, 2, 3, 1], device=dev) * bs
+        table[3] = 0                                   # inactive lane
+        qs_t = torch.tensor(qstart, dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((b, c, hkv, d), generator=gen, device=dev).bfloat16()
+        ms = device_ms(torch, build, lambda: pa.paged_prefill_attention(
+            q, kp, vp, ks, vs, table, qs_t, lens_t, d ** -0.5,
+            block_pos=bpos), 50, "paged_prefill_attention" + sfx)
+        pairs = sum(sum(p + 1 for p in range(qs, min(qs + c, ln)))
+                    for qs, ln in zip(qstart, lens))
+        out.append(dict(kernel="K8", pages=pages, B=b, C=c, Hq=hkv,
+                        Hkv=hkv, D=d, BS=bs, ms=ms,
+                        tflops=4.0 * hkv * d * pairs / ms / 1e9))
     return out
 
 
@@ -122,6 +196,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="tree whose mixq_tensorrt_llm_tpu_torch to time")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default="K2,K7,K9,K8",
+                    help="comma-separated groups to time (K9 includes K10)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -137,8 +213,11 @@ def main() -> int:
     _build.build(["mixed_matmul", "paged_attention"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = k2_times(torch, _build, dev, gen) + k7_times(torch, _build, dev,
-                                                         gen)
+    groups = {"K2": k2_times, "K7": k7_times, "K9": k9_k10_times,
+              "K8": k8_times}
+    rows = []
+    for name in args.kernels.split(","):
+        rows += groups[name](torch, _build, dev, gen)
     for r in rows:
         print(json.dumps(r), flush=True)
     print(json.dumps({"tree": root, "card": smi, "times": rows}), flush=True)

@@ -61,9 +61,10 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",
                 "decode_split_kernel": "K7 paged_decode_attention",
-                "verify_kernel": "K9 paged_verify_attention",
-                "decode_stats_kernel": "K10 paged_decode_attention(stats)",
-                "prefill_kernel": "K8 paged_prefill_attention",
+                "verify_rows_kernel": "K9 paged_verify_attention",
+                "stats_rows_kernel": "K10 paged_decode_attention(stats)",
+                "prefill_wgmma_kernel": "K8 paged_prefill_attention",
+                "prefill_kernel": "K8 paged_prefill_attention (f32 route)",
                 "flash_causal_kernel": "K14 flash_causal_attention"}
 # the paged-KV kernels are templated on the page type: int8 pages show as
 # "signed char" in a kernel's name; any other page type is a bf16/f32 pool
@@ -71,10 +72,13 @@ FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
                "write_chunk_kernel": "K6p paged_write_chunk (float pool)",
                "decode_split_kernel": "K7 paged_decode_attention "
                                       "(float pages)",
-               "verify_kernel": "K9 paged_verify_attention (float pages)",
-               "decode_stats_kernel": "K10 paged_decode_attention(stats) "
-                                      "(float pages)",
-               "prefill_kernel": "K8 paged_prefill_attention (float pages)"}
+               "verify_rows_kernel": "K9 paged_verify_attention "
+                                     "(float pages)",
+               "stats_rows_kernel": "K10 paged_decode_attention(stats) "
+                                    "(float pages)",
+               "prefill_wgmma_kernel": "K8 paged_prefill_attention "
+                                       "(float pages)",
+               "prefill_kernel": "K8 paged_prefill_attention (f32 route)"}
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "gemv", "nvjet", "cublas")
 TIMED_RUNS = 5
 

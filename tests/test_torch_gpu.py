@@ -658,7 +658,7 @@ def test_verify_s1_bit_equal_to_decode(cuda, pages, hq, hkv, window):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pages", ["int8", "bfloat16"])
+@pytest.mark.parametrize("pages", ["int8", "bfloat16", "float32"])
 @pytest.mark.parametrize("hq,hkv,window,softcap",
                          [(4, 4, 0, 0.0), (8, 2, 24, 0.0), (8, 2, 0, 20.0)])
 def test_stats_and_split_kernels_match_plain(cuda, pages, hq, hkv, window,
@@ -783,19 +783,189 @@ def test_decode_split_merge_fault_is_seen(cuda):
     assert float((good.float() - want.float()).abs().max()) <= 2e-2
 
 
+def _edge_lanes(gen, dev, mb=6):
+    """K7's edge lanes: lengths 1, BS, BS + 1, an inactive lane, and two
+    recycled tables (sink page first, the rest out of order)."""
+    lens = [1, BS, BS + 1, 1, 6 * BS - 3, 4 * BS + 2]
+    table = torch.randint(1, NP_, (6, mb), generator=gen, device=dev,
+                          dtype=torch.int32)
+    bpos = torch.full((6, mb), PAD_POS, dtype=torch.int32, device=dev)
+    for i, ln in enumerate(lens):
+        n = -(-ln // BS)
+        bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev) * BS
+    bpos[4, :6] = torch.tensor([0, 4, 2, 5, 1, 3], device=dev) * BS
+    bpos[5, :5] = torch.tensor([0, 3, 4, 1, 2], device=dev) * BS
+    table[3], bpos[3] = 0, PAD_POS                   # inactive lane
+    return table, bpos, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("hq,hkv,window,sink,softcap",
+                         [(4, 4, 0, 0, 0.0), (8, 2, 0, 0, 0.0),
+                          (8, 2, 40, 16, 0.0), (4, 4, 0, 0, 20.0)])
+def test_rows_kernels_edges_and_repeats(cuda, pages, hq, hkv, window, sink,
+                                        softcap):
+    """K9 (S = 5, rows from len - 3: the last two past len - 1) and K10 at
+    lengths 1, BS and BS + 1 and over recycled windowed tables, MHA and
+    GQA: within 2e-2 of plain (K10's m and l within 1e-3 relative), the
+    inactive lane exactly 0 (K10: m -1e30, l 0), rows past len - 1 seeing
+    only the keys below len, two launches bit-equal, one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    args = _pool_args(gen, cuda, hkv, pages)
+    table, bpos, lens = _edge_lanes(gen, cuda)
+    kw = dict(block_pos=bpos, window=window, sink=sink, softcap=softcap)
+    sfx = "" if pages == "int8" else "_fp"
+    s = 5
+    qstart = torch.clamp(lens - 3, min=0)
+    q = torch.randn((6, s, hq, D), generator=gen, device=cuda).bfloat16()
+    before = dict(_build.LAUNCHES)
+    out = pa.paged_verify_attention(q, *args, table, lens, qstart, D ** -0.5,
+                                    **kw)
+    again = pa.paged_verify_attention(q, *args, table, lens, qstart,
+                                      D ** -0.5, **kw)
+    pos = qstart[:, None] + torch.arange(s, device=cuda)
+    want = pa.paged_attention_plain(q, *args, table, pos, lens, D ** -0.5,
+                                    **kw)
+    q1 = q[:, 0].contiguous()
+    o, m, l = pa.paged_decode_attention(q1, *args, table, lens, D ** -0.5,
+                                        stats=True, **kw)
+    o2, m2, l2 = pa.paged_decode_attention(q1, *args, table, lens,
+                                           D ** -0.5, stats=True, **kw)
+    po, pm, pl = pa.paged_decode_attention_stats_plain(
+        q1, *args, table, lens, D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool((out[3] == 0).all())
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
+    assert torch.equal(out, again)
+    assert _launched("paged_verify_attention" + sfx, before) == 2
+    live = torch.tensor([0, 1, 2, 4, 5], device=cuda)
+    assert float((o - po).abs().max()) <= 2e-2
+    assert float((m[live] - pm[live]).abs().max()) <= \
+        1e-3 * float(pm[live].abs().max())
+    torch.testing.assert_close(l[live], pl[live], rtol=1e-3, atol=0)
+    assert bool((o[3] == 0).all()) and bool((m[3] == -1e30).all()) \
+        and bool((l[3] == 0).all())
+    assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+    assert _launched("paged_decode_attention_stats" + sfx, before) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("c", [9, 100, 256, 300])
+def test_prefill_kernel_chunks_and_groups(cuda, pages, g, c):
+    """K8 at C = 9 (the shortest chunk past the verify's 8 rows), 100, 256
+    and 300 (ragged 128-row tiles), G = 1, 4 and 8 query heads a KV head
+    (128 / G tokens a tile): a whole prompt, a later chunk whose prompt
+    ends inside it over a recycled table, and an inactive lane; within
+    2e-2 of plain on the rows below len, two launches bit-equal, one
+    launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(19 + c + g)
+    hkv, np_ = 8 // g, 48
+    hq = hkv * g
+    shape = (np_, hkv, BS, D)
+    if pages == "int8":
+        args = (torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                              dtype=torch.int8),
+                torch.rand(shape[:3], generator=gen, device=cuda) * 0.02
+                + 1e-3,
+                torch.rand(shape[:3], generator=gen, device=cuda) * 0.02
+                + 1e-3)
+    else:
+        dt = getattr(torch, pages)
+        args = tuple((torch.randn(shape, generator=gen, device=cuda)
+                      * 2).to(dt) for _ in range(2)) + (None, None)
+    qstart = [0, 2 * BS + 3, 0]
+    lens = [c, 2 * BS + 3 + c - 4, 0]
+    mb = -(-(lens[1]) // BS)
+    table = torch.zeros((3, mb), dtype=torch.int32, device=cuda)
+    bpos = torch.full((3, mb), PAD_POS, dtype=torch.int32, device=cuda)
+    perm = torch.randperm(np_ - 1, generator=gen, device=cuda) + 1
+    for i in range(2):
+        n = -(-lens[i] // BS)
+        table[i, :n] = perm[i * mb:i * mb + n].int()
+        table[i, n:] = table[i, n - 1]
+        bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=cuda) * BS
+    n1 = -(-lens[1] // BS)
+    order = torch.cat([torch.zeros(1, dtype=torch.long, device=cuda),
+                       torch.randperm(n1 - 1, generator=gen,
+                                      device=cuda) + 1])
+    table[1, :n1], bpos[1, :n1] = table[1, :n1][order], bpos[1, :n1][order]
+    qs = torch.tensor(qstart, dtype=torch.int32, device=cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((3, c, hq, D), generator=gen, device=cuda).bfloat16()
+    sfx = "" if pages == "int8" else "_fp"
+    before = dict(_build.LAUNCHES)
+    out = pa.paged_prefill_attention(q, *args, table, qs, ln, D ** -0.5,
+                                     block_pos=bpos)
+    again = pa.paged_prefill_attention(q, *args, table, qs, ln, D ** -0.5,
+                                       block_pos=bpos)
+    pos = qs[:, None] + torch.arange(c, device=cuda)
+    want = pa.paged_attention_plain(q, *args, table, pos, ln, D ** -0.5,
+                                    block_pos=bpos)
+    torch.cuda.synchronize()
+    valid = (pos < ln[:, None])[:, :, None, None]
+    err = torch.where(valid, (out.float() - want.float()).abs(), 0.0)
+    assert bool(torch.isfinite(torch.where(valid, out.float(), 0.0)).all())
+    assert float(err.max()) <= 2e-2
+    assert torch.equal(out, again)
+    assert _launched("paged_prefill_attention" + sfx, before) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,window,sink", [(384, 0, 0), (640, 0, 0),
+                                           (640, 96, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_prefill_page_view_odd_block_size(cuda, s, window, sink, d):
+    """causal_self_attention's GQA route: K8 over a page view whose block
+    size is no power of two (S = 384: BS 192; S = 640: BS 160), with and
+    without a window, within 2e-2 of the masked plain attention."""
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
+    gen = torch.Generator(device=cuda).manual_seed(s + d + window)
+    b, hq, hkv = 2, 8, 2
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, s, hkv, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, s, hkv, d), generator=gen, device=cuda).bfloat16()
+    before = dict(_build.LAUNCHES)
+    out = fa.causal_self_attention(q, k, v, d ** -0.5, window=window,
+                                   sink=sink)
+    idx = torch.arange(s, device=cuda)
+    mask = idx[None, :] <= idx[:, None]
+    if window:
+        mask &= (idx[None, :] > idx[:, None] - window) | (idx[None, :] < sink)
+    want = ref.attention(q.float(), k.float(), v.float(),
+                         mask=mask[None, None], scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert _launched("paged_prefill_attention_fp", before) == 1
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
+
+
 @pytest.mark.gpu
 def test_verify_limits_raise(cuda):
-    """More than 8 rows, or more rows than a block's shared memory holds
-    (8 rows x 32 query heads a KV head at D = BS = 256), raise."""
-    z = torch.zeros((4, 1, 256, 256), device=cuda).bfloat16()
-    table = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
-    one = torch.ones((1,), dtype=torch.int32, device=cuda)
-    q = torch.zeros((1, 9, 32, 256), device=cuda).bfloat16()
+    """More than 8 rows raise. 8 rows x 32 query heads a KV head at D =
+    BS = 256 (256 rows: two row groups of 128), which the first verify
+    kernel refused for its shared memory, now runs and matches plain."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    z = (torch.randn((4, 1, 256, 256), generator=gen, device=cuda)
+         * 0.5).bfloat16()
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([300], dtype=torch.int32, device=cuda)
+    qstart = lens - 8
+    q = torch.randn((1, 9, 32, 256), generator=gen, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="1..8"):
-        pa.paged_verify_attention(q, z, z, None, None, table, one, one, 1.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        pa.paged_verify_attention(q[:, :8], z, z, None, None, table, one,
-                                  one, 1.0)
+        pa.paged_verify_attention(q, z, z, None, None, table, lens, qstart,
+                                  1.0)
+    q8 = q[:, :8].contiguous()
+    out = pa.paged_verify_attention(q8, z, z, None, None, table, lens,
+                                    qstart, 256 ** -0.5)
+    pos = qstart[:, None] + torch.arange(8, device=cuda)
+    want = pa.paged_attention_plain(q8, z, z, None, None, table, pos, lens,
+                                    256 ** -0.5)
+    torch.cuda.synchronize()
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
 
 
 def _tiny_serving_model(cuda, num_kv_heads=2):

@@ -249,3 +249,89 @@ def test_decode_split_smem_fits(page_bytes, quant):
     # Llama-2-7B int8 pages: a whole 128-token page a stage
     assert tpa.decode_split_smem(1, 128, 128, 1, True) == \
         2 * (2 * 128 * 128 + 8 * 128) + 4 * (8 * 20 + 128 + 8 * 128 + 3)
+
+
+# K9 / K10's launch plan and shared memory (ops/paged_attention.py
+# rows_plan, rows_smem), pure Python: the kernels run only on the card
+@pytest.mark.parametrize("b,hkv,rows", [(8, 32, 1), (8, 32, 5), (8, 8, 20),
+                                        (8, 40, 5), (1, 32, 1), (4, 4, 64),
+                                        (1, 1, 256), (64, 8, 40),
+                                        (2, 1, 700)])
+@pytest.mark.parametrize("mb", [1, 2, 6, 7, 32])
+def test_rows_plan_covers_the_table(b, hkv, rows, mb):
+    """Every table entry of a lane in exactly one split, none empty; the
+    rows in groups of at most 16 a warp (4 warps at one m-tile, 8 above),
+    every row in one group; the grid (Hkv, B, groups x splits) comes
+    within a factor 2 of ROWS_BLOCKS_PER_SM blocks an SM (whole entries a
+    split: rounding may halve the splits) unless each entry is its own
+    split, and stays within it where it splits at all; partials (acc, m,
+    l) per row and split, a ticket per (lane, KV head, group)."""
+    p = tpa.rows_plan(b, hkv, rows, 128, mb, SMS)
+    assert p.warps == (tpa.ROWS_WARPS if rows <= 16 else 8)
+    covered = []
+    for s in range(p.splits):
+        lo, hi = s * p.pages_per_split, min((s + 1) * p.pages_per_split, mb)
+        assert lo < hi
+        covered.extend(range(lo, hi))
+    assert covered == list(range(mb))
+    group_rows = [min(16 * p.warps, rows - g * 16 * p.warps)
+                  for g in range(p.groups)]
+    assert all(r > 0 for r in group_rows) and sum(group_rows) == rows
+    assert p.grid == (hkv, b, p.groups * p.splits)
+    lanes = hkv * b * p.groups
+    per_sm = tpa.ROWS_BLOCKS_PER_SM
+    assert 2 * p.splits > min(mb, -(-per_sm * SMS // lanes))
+    assert p.splits == 1 or lanes * (p.splits - 1) < per_sm * SMS
+    assert p.tickets == lanes
+    assert (p.scratch is None) == (p.splits == 1)
+    if p.scratch:
+        assert p.scratch == b * hkv * p.splits * rows * (128 + 2)
+
+
+def test_rows_plan_at_the_main_shapes():
+    """The smoke's verify and decode shapes (8 lanes, a 6-entry table):
+    Llama-2-7B MHA at S = 5 and S = 1 one block a (lane, KV head), GQA (8
+    KV heads, 20 rows: 8 warps) 3 splits of 2 entries, 1 lane x 32
+    entries 5 splits of 7; the plan reads shapes only, never the lengths,
+    so no launch reads back."""
+    import inspect
+    assert "lens" not in inspect.signature(tpa.rows_plan).parameters
+    assert tpa.rows_plan(8, 32, 5, 128, 6, SMS)[:4] == (4, 1, 1, 6)
+    assert tpa.rows_plan(8, 32, 1, 128, 6, SMS)[:4] == (4, 1, 1, 6)
+    assert tpa.rows_plan(8, 8, 20, 128, 6, SMS)[:4] == (8, 1, 3, 2)
+    assert tpa.rows_plan(1, 32, 1, 128, 32, SMS)[:4] == (4, 1, 5, 7)
+
+
+def _old_verify_smem(rows, d, bs):
+    """The shared memory the first K9 / K10 kernel asked for (every row's
+    q, probabilities and sums in f32), which bounded what the wrappers
+    accepted before."""
+    return (2 * rows * d + rows * bs + 3 * rows) * 4
+
+
+@pytest.mark.parametrize("page_bytes,quant,mma", [(1, True, True),
+                                                   (2, False, True),
+                                                   (1, True, False),
+                                                   (2, False, False),
+                                                   (4, False, False)])
+def test_rows_smem_fits_every_shape_accepted_before(page_bytes, quant, mma):
+    """K9 / K10's block fits the 227 KB of shared memory for every page
+    geometry (BS 16-256, head_dim 32-256) and every row count the first
+    kernel accepted (S = 8 x G = 8 at D = 256 among them), on every route
+    (mma for bf16 q on int8 / bf16 pages, f32 otherwise); above 128 rows
+    (8 warps of 16) the block's memory no longer grows (more row groups
+    instead)."""
+    for d in range(32, 257, 32):
+        for bs in range(16, 257, 16):
+            for rows in range(1, 129):
+                assert tpa.rows_smem(rows, d, bs, page_bytes, quant,
+                                     mma) <= 232448, (rows, d, bs)
+            top = max(r for r in range(1, 1024)
+                      if _old_verify_smem(r, d, bs) <= 232448)
+            assert tpa.rows_smem(top, d, bs, page_bytes, quant, mma) == \
+                tpa.rows_smem(128, d, bs, page_bytes, quant, mma)
+    # the smoke's main shape: int8 pages, 128-token pages, one 32 KB stage
+    # of a whole page, and q's fragments of one m-tile
+    assert tpa.rows_smem(5, 128, 128, 1, True, True) == \
+        2 * (2 * 128 * 128 + 8 * 128) + 1 * 8 * 32 * 16
+    assert tpa.rows_smem(64, 256, 256, 1, True, True) <= 232448
