@@ -23,8 +23,10 @@ exits non-zero:
      K5/K6/K5p/K6p pages (and scales) bit-equal outside trash row 0, K7/K8
      within 2e-2, K7 and K8 bit-equal across two launches (K7's splits
      merge in a fixed order), K8 timed in TFLOP/s; K1 codes at most 1
-     apart (> 99.9% equal), scales rtol 1e-5; K2/K3/K4/K12/K13 within
-     1e-4 of the largest output (+ one bf16 step), K2 bit-equal on the
+     apart (> 99.9% equal), scales rtol 1e-5, at 1024 and 40 rows of 7B
+     width and 40 rows of K 32768 (its two kernels), bit-equal across two
+     launches, timed at 1024 and 40 rows; K2/K3/K4/K12/K13 within 1e-4 of
+     the largest output (+ one bf16 step), K2 bit-equal on the
      int32-exact case and across two launches, timed at the three 7B
      mix shapes at 1024 and 40 rows; each kernel's device time per
      launch and its plain version's device time per call come from
@@ -57,7 +59,8 @@ exits non-zero:
      must launch, the device-paced
      rounds must run with one host readback a call
   6b. split decode on the main path: the phase-4 model serves with
-     MIXQ_KV_SPLITS=4; K11 (and its K10) must launch at decode, K7 not
+     MIXQ_KV_SPLITS=4; K11 must launch at decode (one launch of K7's
+     kernel a step and layer), neither K7 nor K10
   7. cross-device, 2 layers at full width: one verify forward's logits at
      S = 4 and S = 5 over a short context, one decode step's with
      MIXQ_KV_SPLITS=4, card against CPU; and a fault in K9's row
@@ -77,9 +80,12 @@ Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
 and S = 8 at 8 query heads a KV head, 64 rows a block; at S = 1 bit-equal
 to K10's output rounded to q's dtype; bit-equal across two launches;
 timed in TB/s), K10 (out within 2e-2, m and l within 1e-3 relative of
-the plain stats; bit-equal across two launches) and K11 (splits 2 and 4
-at 8 lanes and at 1 lane x 4096 tokens, against K7 and its plain
-version) on int8 and bf16 pages at Llama-2-7B heads, and K1 -> K2 at
+the plain stats; bit-equal across two launches) and K11 (one launch of
+K7's kernel a call and no other device work; splits 2 and 4 at 8 lanes
+with 3 masks, bit-equal across two launches, and at 1 lane x 4096
+tokens, against K7 and its plain version; its merge leaving out the last
+split that saw a key as an enforced control) on int8 and bf16 pages at
+Llama-2-7B heads, and K1 -> K2 at
 the 40 rows of a gamma = 4 verify,
 and K14 (causal flash attention) at the dense serve's shape (8 x 768, 32
 heads x 128, with SDPA timed as its library call), at D 64 and 256 with
@@ -166,8 +172,9 @@ ON_PATH = {
              "wo_matmul.mid", "wo_matmul.decode", "wo_matmul.prefill",
              "paged_write_token", "paged_write_chunk",
              "paged_prefill_attention"],
-    # phase 6b: every decode step through K11 (one K10 launch each)
-    "split": ["paged_decode_attention_split", "paged_decode_attention_stats",
+    # phase 6b: every decode step through K11 (one launch of K7's kernel
+    # each), neither K7's nor K10's wrapper
+    "split": ["paged_decode_attention_split",
               "rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
               "paged_write_token", "paged_write_chunk",
               "paged_prefill_attention"],
@@ -179,7 +186,8 @@ ON_PATH = {
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
-            "spec": [], "split": ["paged_decode_attention"],
+            "spec": [], "split": ["paged_decode_attention",
+                                  "paged_decode_attention_stats"],
             "dense": PAGED}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 
@@ -728,39 +736,57 @@ def check_decode_modes(torch, gen, dev, results):
                 results["paged_decode_attention_stats" + sfx] = dict(
                     ms=ms, plain_ms=pms, bound=bnd)
 
-            # K11: splits 2 and 4 against K7 and the plain split
-            k7 = pa.paged_decode_attention(q, *args, table, lens_t, scale,
-                                           block_pos=bpos)
+            # K11: splits 2 and 4 against K7 and the plain split, 3 masks
             for splits in (2, 4):
-                out = pa.paged_decode_attention_split(
-                    q, *args, table, lens_t, scale, block_pos=bpos,
-                    kv_splits=splits)
-                ref = pa.paged_decode_attention_split_plain(
-                    q, *args, table, lens_t, scale, block_pos=bpos,
-                    kv_splits=splits)
-                torch.cuda.synchronize()
-                err = max(float((out.float() - ref.float()).abs().max()),
-                          float((out.float() - k7.float()).abs().max()))
-                check(err <= ATTN_TOL and bool((out[1] == 0).all()),
-                      f"K11 {tag} splits={splits}: max abs err {err}")
-                worst["paged_decode_attention_split" + sfx] = max(
-                    worst["paged_decode_attention_split" + sfx], err)
+                for window, sink, softcap in masks:
+                    kw = dict(block_pos=bpos, window=window, sink=sink,
+                              softcap=softcap)
+                    k7 = pa.paged_decode_attention(q, *args, table, lens_t,
+                                                   scale, **kw)
+                    out, again = (pa.paged_decode_attention_split(
+                        q, *args, table, lens_t, scale, kv_splits=splits,
+                        **kw) for _ in range(2))
+                    ref = pa.paged_decode_attention_split_plain(
+                        q, *args, table, lens_t, scale, kv_splits=splits,
+                        **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, again), f"K11 {tag} splits="
+                          f"{splits}: two launches on the same inputs differ")
+                    err = max(float((out.float() - ref.float()).abs().max()),
+                              float((out.float() - k7.float()).abs().max()))
+                    check(err <= ATTN_TOL and bool((out[1] == 0).all()),
+                          f"K11 {tag} splits={splits} window={window} "
+                          f"softcap={softcap}: max abs err {err}")
+                    worst["paged_decode_attention_split" + sfx] = max(
+                        worst["paged_decode_attention_split" + sfx], err)
                 print(f"K11 paged_decode_attention_split {tag} splits="
-                      f"{splits}: max abs err {err:.3e} against plain and "
-                      f"K7", flush=True)
+                      f"{splits} (3 masks): max abs err {err:.3e} (last) "
+                      f"against plain and K7, repeat bit-equal", flush=True)
+            if hkv == hq and not fp:
+                k11_merge_control(torch, pa, pools, q, hq, bs, d, scale)
+            # the whole call's device work must be K7's kernel, once
             kw = dict(block_pos=bpos, kv_splits=4)
-            # device time of the whole call: K10 over 4 splits + the merge
-            ms, pms, wms = measure(
-                torch, lambda: pa.paged_decode_attention_split(
-                    q, *args, table, lens_t, scale, **kw),
-                lambda: pa.paged_decode_attention_split_plain(
-                    q, *args, table, lens_t, scale, **kw),
-                "", "paged_decode_attention_split" + sfx, 200, 20)
+            names = []
+            ms = device_ms(torch, lambda: pa.paged_decode_attention_split(
+                q, *args, table, lens_t, scale, **kw), 200, "",
+                "paged_decode_attention_split" + sfx, names)
+            check(all("decode_split_kernel" in n for n in names),
+                  f"K11 {tag}: device work other than decode_split_kernel: "
+                  f"{names}")
+            pms = device_ms(
+                torch, lambda: pa.paged_decode_attention_split_plain(
+                    q, *args, table, lens_t, scale, **kw), 20)
+            wms = time_cuda(torch, lambda: pa.paged_decode_attention_split(
+                q, *args, table, lens_t, scale, **kw), 200)
             bnd = bound(pages_b + 2 * b * hq * d * 2 + tab_b,
                         4.0 * hq * d * keys)
-            print(f"K11 timing {tag} splits=4: device {ms:.5f} ms per call "
-                  f"(K10 + merge; plain {pms:.5f} ms; wrapper {wms:.5f} ms "
-                  f"per call; bound {bnd[0]:.5f} ms, K7's)", flush=True)
+            plan = pa.split_decode_plan(b, hkv, hq // hkv, d, mb, 4,
+                                        wm.sm_count(dev.index or 0))
+            print(f"K11 timing {tag} splits=4 ({plan.splits} kernel splits "
+                  f"of {plan.pages_per_split} entries, {hkv * b * plan.splits}"
+                  f" blocks, one launch): device {ms:.5f} ms per call "
+                  f"(plain {pms:.5f} ms; wrapper {wms:.5f} ms per call; "
+                  f"bound {bnd[0]:.5f} ms, K7's)", flush=True)
             if hkv == hq:
                 results["paged_decode_attention_split" + sfx] = dict(
                     ms=ms, plain_ms=pms, bound=bnd)
@@ -788,7 +814,7 @@ def check_decode_modes(torch, gen, dev, results):
           f"{smem} bytes of shared memory a block): max abs err {err:.3e}",
           flush=True)
 
-    # 1 lane x 4096 tokens: K7's 32 blocks against K11's 32 x splits
+    # 1 lane x 4096 tokens: K7 against K11, both one launch a call
     for fp in (False, True):
         pages = "bf16" if fp else "int8"
         sfx = "_fp" if fp else ""
@@ -818,15 +844,12 @@ def check_decode_modes(torch, gen, dev, results):
             check(err <= ATTN_TOL, f"K11 1 x 4096 {pages} splits={splits}: "
                   f"max abs err {err}")
             call_ms = device_ms(torch, lambda: pa.paged_decode_attention_split(
-                q, *args, table, lens_t, scale, **kw), 200, "",
-                "paged_decode_attention_split" + sfx)
-            k10_ms = device_ms(
-                torch, lambda: pa.paged_decode_attention_split(
-                    q, *args, table, lens_t, scale, **kw), 200,
-                "stats_rows_kernel", "paged_decode_attention_stats" + sfx)
-            line.append(f"K11 splits={splits} ({32 * splits} blocks) "
-                        f"{call_ms:.5f} ms a call, its K10 {k10_ms:.5f} ms "
-                        f"(err {err:.2e})")
+                q, *args, table, lens_t, scale, **kw), 200,
+                "decode_split_kernel", "paged_decode_attention_split" + sfx)
+            plan = pa.split_decode_plan(1, hq, 1, d, mb1, splits,
+                                        wm.sm_count(dev.index or 0))
+            line.append(f"K11 splits={splits} ({hq * plan.splits} blocks) "
+                        f"{call_ms:.5f} ms a call (err {err:.2e})")
         nbytes = mb1 * hq * bs * (2 * d * 2 if fp else 2 * d + 8)
         k7_blocks = hq * pa.decode_plan(1, hq, 1, d, mb1,
                                         wm.sm_count(dev.index or 0)).splits
@@ -834,6 +857,36 @@ def check_decode_modes(torch, gen, dev, results):
               f"({k7_blocks} blocks on 132 SMs) {k7_ms:.5f} ms; "
               f"{'; '.join(line)}; bound "
               f"{nbytes / HBM_BYTES_PER_MS:.5f} ms", flush=True)
+
+
+def k11_merge_control(torch, pa, pools, q, hq, bs, d, scale):
+    """K11's negative control, enforced: 1 lane of 6 pages whose last
+    page's keys point along each head's query, so it takes nearly all the
+    attention; with K7_MERGE_DROP the merge leaves that range out and the
+    output must move by more than ATTN_TOL (splits 2 and 4)."""
+    dev = q.device
+    kp = pools["k"].clone()
+    kp[6] = (torch.sign(q[0].float())[:, None, :] * 100).to(torch.int8)
+    args = (kp, pools["v"], pools["k_scale"], pools["v_scale"])
+    table = torch.arange(1, 7, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([6 * bs], dtype=torch.int32, device=dev)
+    seen = []
+    for splits in (2, 4):
+        want = pa.paged_decode_attention_split_plain(
+            q[:1], *args, table, lens, scale, kv_splits=splits)
+        bad = drop_last_split(pa.paged_decode_attention_split)(
+            q[:1], *args, table, lens, scale, kv_splits=splits)
+        good = pa.paged_decode_attention_split(q[:1], *args, table, lens,
+                                               scale, kv_splits=splits)
+        torch.cuda.synchronize()
+        err = float((bad.float() - want.float()).abs().max())
+        ok = float((good.float() - want.float()).abs().max())
+        check(err > ATTN_TOL and ok <= ATTN_TOL,
+              f"K11 merge control splits={splits}: fault {err}, "
+              f"unfaulted {ok} (tolerance {ATTN_TOL})")
+        seen.append(f"splits={splits}: {err:.3e}")
+    print(f"K11 control (merge without the last split that saw a key): "
+          f"caught, {'; '.join(seen)} > {ATTN_TOL}", flush=True)
 
 
 def check_linears(torch, gen, dev, results):
@@ -847,42 +900,73 @@ def check_linears(torch, gen, dev, results):
     bf = torch.bfloat16
 
     # K1: input_norm -> qkv (with the norm) and the o_proj input (without)
+    # at a prefill call's 1024 rows and the gamma = 4 verify's 40, at 7B
+    # width (the register kernel), and 40 rows of the widest row the
+    # wrapper takes (the shared-memory kernel)
     x = (torch.randn((m, h), generator=gen, device=dev) * 2).to(bf)
     gamma = torch.rand((h,), generator=gen, device=dev) + 0.5
     ind = torch.randperm(h, generator=gen, device=dev)[:ko].sort().values
     ind = ind.int()
-    k1 = (lambda: nq.rmsnorm_quant_split(x, gamma, ind),
-          lambda: nq.rmsnorm_quant_split_plain(x, gamma, ind))
-    worst = 0
-    for label, (kfn, pfn) in (("norm", k1),
-                              ("no norm", (lambda: nq.quant_split(x, ind),
-                                           lambda: nq.quant_split_plain(
-                                               x, ind)))):
-        got, want = kfn(), pfn()
-        torch.cuda.synchronize()
-        diff = (got[0].int() - want[0].int()).abs()
-        dmax, same = int(diff.max()), float((diff == 0).float().mean())
-        srel = float(((got[1] - want[1]).abs() / want[1]).max())
-        oerr = float((got[2].float() - want[2].float()).abs().max())
-        check(dmax <= 1 and same > 0.999 and srel <= 1e-5 and oerr <= 1e-2,
-              f"K1 ({label}) differs from plain: codes {dmax} apart, "
-              f"{same:.5f} equal, scale rel {srel}, x_out {oerr}")
-        worst = max(worst, dmax)
-        print(f"K1 rmsnorm_quant_split ({label}) M={m} K={h} ko={ko}: codes "
-              f"at most {dmax} apart, {same:.6f} equal; scale_row max rel "
-              f"err {srel:.2e}; x_out max abs err {oerr:.2e}", flush=True)
-    ms, pms, wms = measure(torch, *k1, "norm_quant_kernel",
-                           "rmsnorm_quant_split", 200, 20)
-    bnd = bound(m * h * 2 + h * 4 + ko * 4 + m * h + m * 4 + m * ko * 2)
-    results["rmsnorm_quant_split"] = dict(max_abs_err=float(worst), ms=ms,
-                                          plain_ms=pms, bound=bnd)
-    print(f"K1 timing: device {ms:.5f} ms per launch (plain {pms:.5f} ms; "
-          f"wrapper {wms:.5f} ms per call; bound {bnd[0]:.5f} ms)",
-          flush=True)
+    sms = wm.sm_count(dev.index or 0)
+    worst, k1_shapes = 0, []
+    wide = 32768
+    xw = (torch.randn((40, wide), generator=gen, device=dev) * 2).to(bf)
+    gw = torch.rand((wide,), generator=gen, device=dev) + 0.5
+    iw = torch.randperm(wide, generator=gen, device=dev)[:ko].sort().values
+    for xk, gk, ik in ((x, gamma, ind), (x[:40].contiguous(), gamma, ind),
+                       (xw, gw, iw.int())):
+        rows, k = xk.shape
+        plan = nq.norm_quant_plan(rows, k, sms)
+        k1 = (lambda: nq.rmsnorm_quant_split(xk, gk, ik),
+              lambda: nq.rmsnorm_quant_split_plain(xk, gk, ik))
+        for label, (kfn, pfn) in (("norm", k1),
+                                  ("no norm", (lambda: nq.quant_split(xk, ik),
+                                               lambda: nq.quant_split_plain(
+                                                   xk, ik)))):
+            got, again, want = kfn(), kfn(), pfn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K1 ({label}) M={rows} K={k}: two launches on the same "
+                  f"inputs differ")
+            diff = (got[0].int() - want[0].int()).abs()
+            dmax, same = int(diff.max()), float((diff == 0).float().mean())
+            srel = float(((got[1] - want[1]).abs() / want[1]).max())
+            oerr = float((got[2].float() - want[2].float()).abs().max())
+            check(dmax <= 1 and same > 0.999 and srel <= 1e-5
+                  and oerr <= 1e-2,
+                  f"K1 ({label}) M={rows} K={k} differs from plain: codes "
+                  f"{dmax} apart, {same:.5f} equal, scale rel {srel}, "
+                  f"x_out {oerr}")
+            worst = max(worst, dmax)
+            print(f"K1 rmsnorm_quant_split ({label}) M={rows} K={k} ko={ko} "
+                  f"({plan.variant} kernel, {plan.threads} threads x "
+                  f"{plan.chunks_per_thread} chunks): codes at most {dmax} "
+                  f"apart, {same:.6f} equal; scale_row max rel err "
+                  f"{srel:.2e}; x_out max abs err {oerr:.2e}; repeat "
+                  f"bit-equal", flush=True)
+        if k != h:
+            continue
+        ms, pms, wms = measure(torch, *k1, "norm_quant_regs_kernel",
+                               "rmsnorm_quant_split", 200, 20)
+        bnd = bound(rows * k * 2 + k * 4 + ko * 4 + rows * k + rows * 4
+                    + rows * ko * 2)
+        print(f"K1 timing M={rows} K={k}: device {ms:.5f} ms per launch, "
+              f"{bnd[0] / ms:.3f} of its bound (plain {pms:.5f} ms; wrapper "
+              f"{wms:.5f} ms per call; bound {bnd[0]:.5f} ms)", flush=True)
+        k1_shapes.append(dict(M=rows, K=k, ms=ms, plain_ms=pms,
+                              wrapper_ms=wms, bound_ms=bnd[0],
+                              bound_by=bnd[1], variant=plan.variant,
+                              threads=plan.threads,
+                              chunks_per_thread=plan.chunks_per_thread))
+        if rows == m:
+            results["rmsnorm_quant_split"] = dict(ms=ms, plain_ms=pms,
+                                                  bound=bnd,
+                                                  shapes=k1_shapes)
+    results["rmsnorm_quant_split"]["max_abs_err"] = float(worst)
+    del xw
 
     # K2 at the three mix shapes, K3 and the int32-exact case at qkv's
     q_x, srow, xo = nq.rmsnorm_quant_split(x, gamma, ind)
-    sms = wm.sm_count(dev.index or 0)
     k2_shapes = []
 
     def time_k2(label, args, rows, n, iters, plain_iters):
@@ -962,18 +1046,13 @@ def check_linears(torch, gen, dev, results):
     # the gamma = 4 verify: 8 lanes x 5 rows = 40 rows through K1 -> K2
     # (prefill chunks give K2 block-size multiples; these are not)
     m40 = 40
-    x40 = x[:m40].contiguous()
-    got, want = (nq.rmsnorm_quant_split(x40, gamma, ind),
-                 nq.rmsnorm_quant_split_plain(x40, gamma, ind))
-    diff = int((got[0].int() - want[0].int()).abs().max())
-    check(diff <= 1, f"K1 at M={m40}: codes {diff} apart")
+    got = nq.rmsnorm_quant_split(x[:m40].contiguous(), gamma, ind)
     for label, n in (("qkv", 12288), ("o_proj", 4096), ("gate_up", 22016)):
         qw = torch.randint(-127, 128, (h, n), generator=gen, device=dev,
                            dtype=torch.int8)
         scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
         fpw = (torch.randn((ko, n), generator=gen, device=dev) * 0.02).to(bf)
         time_k2(label, (*got, qw, scol, fpw), m40, n, 50, 10)
-    print(f"K1 at M={m40}: codes at most {diff} apart", flush=True)
 
     check_k4(torch, gen, dev, results, m, h)
 
@@ -1681,9 +1760,10 @@ def cross_device_verify(torch, params, cfg, seed: int, dev) -> dict:
     """Phase 7, 2 layers at full width, card against CPU: one verify
     forward's logits at S = 4 (weight-only linears) and S = 5 (K1 -> K2)
     over a 24-token context, where one key carries weight; one decode
-    step's logits with MIXQ_KV_SPLITS=4 after a 200-token prompt (2 table
-    entries padded to 4 splits). Then the control, enforced: K9 with every
-    row at qstart. Returns the card run's launches."""
+    step's logits with MIXQ_KV_SPLITS=4 after a 200-token prompt (a
+    2-entry table in 4 ranges, two of them past it). Then the control,
+    enforced: K9 with every row at qstart. Returns the card run's
+    launches."""
     import numpy as np
     from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
     from mixq_tensorrt_llm_tpu_torch.ops import _build
@@ -1732,8 +1812,8 @@ def cross_device_verify(torch, params, cfg, seed: int, dev) -> dict:
           ("paged_verify_attention", "rmsnorm_quant_split", "mixed_matmul"),
           ()),
          ("split decode (MIXQ_KV_SPLITS=4, 200-token prompt)",
-          ("paged_decode_attention_split", "paged_decode_attention_stats"),
-          ("paged_decode_attention",))],
+          ("paged_decode_attention_split",),
+          ("paged_decode_attention", "paged_decode_attention_stats"))],
         [("K9 with every row at qstart", True, pa, "paged_verify_attention",
           rows_at_qstart)])
 
@@ -1961,9 +2041,7 @@ def main() -> int:
         r = results[name]
         bms, by = r["bound"]
         by_path = {p: n.get(name, 0) for p, n in launches.items()}
-        extra = {}
-        if name == "mixed_matmul":
-            extra = {"shapes": r["shapes"]}
+        extra = {"shapes": r["shapes"]} if "shapes" in r else {}
         if name == "wo_matmul":
             extra = {"launches_by_regime": {
                 rg: sum(n.get(f"{name}.{rg}", 0) for n in launches.values())

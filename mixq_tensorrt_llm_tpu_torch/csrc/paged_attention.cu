@@ -6,9 +6,10 @@
 //   K9  _decode_kernel, s > 1 (paged_verify_attention: 1..8 query rows per
 //       lane at consecutive positions, the speculative verify)
 //   K10 _decode_kernel, stats=True (paged_decode_attention(stats=True):
-//       f32 output plus the softmax's running (m, l); K11,
-//       paged_decode_attention_split, runs it over page splits and merges
-//       the parts in ops/paged_attention.py)
+//       f32 output plus the softmax's running (m, l))
+//   K11 paged_decode_attention_split (K10 over kv_splits page ranges a
+//       lane, then merge_attention_stats): K7's kernel with its splits
+//       inside those ranges, merged in the same launch
 //   K8  _prefill_kernel (paged_prefill_attention: a chunk of C query tokens)
 // in both of their modes: int8 pages with per-(token, head) scales
 // (quantized=True), and unquantized bf16 or f32 pages (quantized=False).
@@ -33,6 +34,8 @@
 //        2-stage ring of 1-D bulk copies (cp.async.bulk, mbarrier
 //        completion), f32 CUDA-core arithmetic on 16-byte and 4-value page
 //        reads, the splits merged in the same launch by the last to arrive.
+//   K11  the same kernel and launch over the lanes' own tables, each split
+//        inside one of the kv_splits ranges (no host-side split or merge).
 //   K9, K10  verify_rows_kernel, stats_rows_kernel: one body on K7's
 //        skeleton (grid, plan, ring, merge) with the rows on tensor cores:
 //        mma.sync m16n8k16 bf16 for bf16 q on int8 or bf16 pages.
@@ -88,11 +91,16 @@ constexpr int kTileQ = 16;        // K8 query tokens per block
 constexpr float kClampSub = 0.5f * kNegInf;
 
 // ---------------------------------------------------------------------------
-// K7: decode_split_kernel. One block of 256 threads per (kv head h, lane b,
-// split): split z owns the table entries z * pages_per_split .. + pages
-// - 1 and skips those with base >= len (and, within a page, the ring
-// stages that start at or past len). The G query heads of the kv head are
-// its rows; each page is read once for all of them.
+// K7 / K11: decode_split_kernel. One block of 256 threads per (kv head h,
+// lane b, split): the table's entries fall into ranges of range_pages
+// entries, each cut into splits_per_range splits of pages_per_split; split
+// z is split z % splits_per_range of range z / splits_per_range and owns
+// its entries below MB (K7: one range of the whole table; K11: the
+// kv_splits ranges of ops/paged_attention.py split_decode_plan, entries
+// past MB never materialised). A split skips entries with base >= len
+// (and, within a page, the ring stages that start at or past len). The G
+// query heads of the kv head are its rows; each page is read once for all
+// of them.
 //   - A ring stage holds ST tokens of one page (K, V and, on int8 pages,
 //     their scales): BS, halved until K and V fit kSplitStageKV bytes; a
 //     (page, head) slab is contiguous, so thread 0 brings a stage with 2-4
@@ -116,6 +124,15 @@ constexpr float kClampSub = 0.5f * kNegInf;
 //     l·e^(m - big), at least 1e-20) and casts once; an empty split reports
 //     m = kNegInf, l = 0 and weighs nothing. merge_drop = 1 leaves out the
 //     last split that saw a key: a fault for the negative controls only.
+//     For K11 this is merge_attention_stats over the kv_splits ranges
+//     (each range's splits merged the same way first gives the same sums
+//     up to f32 rounding), cast once to q's dtype: no (out, m, l) parts
+//     leave the launch.
+// Bound on the H100 (K7 and K11 alike): bytes, every visited page's K, V
+// and scales read once (0.00843 ms int8, 0.01632 ms bf16 at the smoke's 8
+// lanes of 1-700 tokens, 32 heads of 128); the design reads each page
+// once and merges in the launch, so K11 moves K7's bytes plus its splits'
+// partials (written once, read once by the last split).
 // ---------------------------------------------------------------------------
 constexpr int kSplitThreads = 256;
 constexpr int kSplitWarps = kSplitThreads / 32;
@@ -223,7 +240,8 @@ __global__ void __launch_bounds__(kSplitThreads)
                         const int* __restrict__ lens, T* __restrict__ out,
                         float* __restrict__ part,
                         unsigned* __restrict__ tickets, int Hq, int Hkv,
-                        int D, int BS, int MB, int pages_per_split,
+                        int D, int BS, int MB, int range_pages,
+                        int splits_per_range, int pages_per_split,
                         float scale, int window, int sink, float softcap,
                         int merge_drop) {
   constexpr bool kQ = kQuantPages<P>;
@@ -252,7 +270,11 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int len = lens[b];
   const int* brow = bpos + static_cast<size_t>(b) * MB;
   const int* trow = table + static_cast<size_t>(b) * MB;
-  const int j1 = min(MB, (split + 1) * pages_per_split);
+  const int zr = split / splits_per_range;
+  const int r1 = min(MB, (zr + 1) * range_pages);
+  const int j0 = min(r1, zr * range_pages + (split - zr * splits_per_range) *
+                                               pages_per_split);
+  const int j1 = min(r1, j0 + pages_per_split);
   // the (entry, stage of the page) units this split visits, in order: a
   // page whose base is below len, and its stages that start below len
   auto first_page = [&](int j) {
@@ -277,7 +299,7 @@ __global__ void __launch_bounds__(kSplitThreads)
       bulk_load(st + 2 * kv_bytes + 4 * ST, vs + tok0, 4 * ST, &full[stage]);
     }
   };
-  int j = first_page(split * pages_per_split), sub = 0;
+  int j = first_page(j0), sub = 0;
   int ja = j, suba = 0;                        // the next unit to copy
   if (tid == 0) {
     for (int s = 0; s < kSplitStages; ++s) mbar_init(&full[s], 1);
@@ -289,12 +311,16 @@ __global__ void __launch_bounds__(kSplitThreads)
     advance(ja, suba);
   }
 
+  // a split with no key to visit (past len, or a K11 range past MB)
+  // stages nothing and reports acc 0, m kNegInf, l 0
+  const bool visits = j < j1;
   const T* qb = q + (static_cast<size_t>(b) * Hq + h * G) * D;
-  for (int i = tid; i < G * D; i += kSplitThreads) {
+  for (int i = tid; visits && i < G * D; i += kSplitThreads) {
     const int r = i / D, d = i - r * D;
     qs[r * qrow + (d / kCE) * kQld + d % kCE] = to_f(qb[i]) * scale;
   }
-  for (int i = tid; i < L.acc_floats; i += kSplitThreads) accs[i] = 0.f;
+  for (int i = tid; visits && i < L.acc_floats; i += kSplitThreads)
+    accs[i] = 0.f;
   for (int r = tid; r < G; r += kSplitThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
@@ -428,7 +454,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   // the token groups' sums, in order
   auto summed = [&](int r, int d) {
     float a = 0.f;
-    for (int g = 0; g < TG; ++g) a += accs[(g * G + r) * D + d];
+    for (int g = 0; visits && g < TG; ++g) a += accs[(g * G + r) * D + d];
     return a;
   };
   const size_t row0 = (static_cast<size_t>(b) * Hq + h * G) * D;
@@ -1699,12 +1725,15 @@ int launch_decode_split(const void* q, const void* kp, const void* vp,
                         const void* ks, const void* vs, const void* table,
                         const void* bpos, const void* lens, void* out,
                         void* part, void* tickets, int B, int Hq, int Hkv,
-                        int D, int BS, int MB, int splits,
-                        int pages_per_split, float scale, int window,
-                        int sink, float softcap, int merge_drop,
-                        cudaStream_t st) {
-  if (splits < 1 || pages_per_split < 1 ||
-      static_cast<long long>(splits) * pages_per_split < MB ||
+                        int D, int BS, int MB, int splits, int range_pages,
+                        int splits_per_range, int pages_per_split,
+                        float scale, int window, int sink, float softcap,
+                        int merge_drop, cudaStream_t st) {
+  if (splits < 1 || pages_per_split < 1 || splits_per_range < 1 ||
+      splits % splits_per_range ||
+      static_cast<long long>(splits_per_range) * pages_per_split <
+          range_pages ||
+      static_cast<long long>(splits / splits_per_range) * range_pages < MB ||
       (splits > 1 && (!part || !tickets)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = split_layout<P>(Hq / Hkv, D, BS).bytes;
@@ -1717,8 +1746,9 @@ int launch_decode_split(const void* q, const void* kp, const void* vp,
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(bpos), static_cast<const int*>(lens),
       static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<unsigned*>(tickets), Hq, Hkv, D, BS, MB, pages_per_split,
-      scale, window, sink, softcap, merge_drop);
+      static_cast<unsigned*>(tickets), Hq, Hkv, D, BS, MB, range_pages,
+      splits_per_range, pages_per_split, scale, window, sink, softcap,
+      merge_drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1861,27 +1891,31 @@ extern "C" const char* mixq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K7: q/out (B, Hq, D) of `dtype`; pages (NP, Hkv, BS, D) of
+// K7 and K11: q/out (B, Hq, D) of `dtype`; pages (NP, Hkv, BS, D) of
 // `page_dtype`: int8 with scales (NP, Hkv, BS) f32, or bf16/f32 with null
 // scales; table/bpos (B, MB) int32; lens (B,) int32. Each lane's MB
-// entries cut into `splits` ranges of pages_per_split
-// (ops/paged_attention.py decode_plan); with splits > 1, part holds B x
-// Hkv x splits x (Hq/Hkv) x (D + 2) f32 partials and tickets B x Hkv
-// zeroed counters, which the kernel leaves zeroed. merge_drop: 0, or 1 for
-// the negative controls' fault (the last split that saw a key left out).
+// entries fall into ranges of range_pages entries, each cut into
+// splits_per_range splits of pages_per_split, `splits` in all
+// (ops/paged_attention.py decode_plan for K7: one range;
+// split_decode_plan for K11: kv_splits ranges); with splits > 1, part
+// holds B x Hkv x splits x (Hq/Hkv) x (D + 2) f32 partials and tickets B x
+// Hkv zeroed counters, which the kernel leaves zeroed. merge_drop: 0, or 1
+// for the negative controls' fault (the last split that saw a key left
+// out).
 extern "C" int mixq_paged_decode_attention(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* table, const void* bpos, const void* lens,
     void* out, void* part, void* tickets, int B, int Hq, int Hkv, int D,
-    int BS, int MB, int splits, int pages_per_split, float scale,
-    int window, int sink, float softcap, int merge_drop, int dtype,
-    int page_dtype, void* stream) {
+    int BS, int MB, int splits, int range_pages, int splits_per_range,
+    int pages_per_split, float scale, int window, int sink, float softcap,
+    int merge_drop, int dtype, int page_dtype, void* stream) {
   return with_page_types(dtype, page_dtype, [&](auto t, auto p) {
     return launch_decode_split<typename decltype(t)::type,
                                typename decltype(p)::type>(
         q, kp, vp, ks, vs, table, bpos, lens, out, part, tickets, B, Hq, Hkv,
-        D, BS, MB, splits, pages_per_split, scale, window, sink, softcap,
-        merge_drop, static_cast<cudaStream_t>(stream));
+        D, BS, MB, splits, range_pages, splits_per_range, pages_per_split,
+        scale, window, sink, softcap, merge_drop,
+        static_cast<cudaStream_t>(stream));
   });
 }
 

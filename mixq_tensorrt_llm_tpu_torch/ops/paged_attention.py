@@ -27,9 +27,11 @@ share K7's skeleton with the S * Hq/Hkv rows of a KV head in groups of up
 to 16 a warp (``rows_plan``). Routes by dtype: bf16 q on int8 or bf16
 pages runs K9/K10 on mma.sync and K8 on wgmma tensor cores; f32 q or f32
 pages (the f32 test models) run f32 arithmetic on CUDA cores (K9/K10's
-body in f32, K8's prefill_kernel). K11 launches K10 once over all splits and merges
-the parts with torch ops in f32 (in JAX that merge is jnp outside the
-Pallas call too), then casts once.
+body in f32, K8's prefill_kernel). K11 is one launch of K7's kernel over
+the lanes' own tables, its splits inside the kv_splits ranges
+(``split_decode_plan``), merged exactly in f32 in the same launch and
+cast once (in JAX the merge is jnp outside the Pallas call); its plain
+version splits the lanes and merges K10's plain parts with torch ops.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ ROWS_WARPS = 4
 ROWS_STAGE_KV = 32 * 1024
 ROWS_BLOCKS_PER_SM = 1
 # test hook for the negative controls: 1 leaves the last split that saw a
-# key out of K7's merge (a fault the checks must catch); 0 otherwise
+# key out of K7's (and K11's, the same kernel's) merge (a fault the checks
+# must catch); 0 otherwise
 K7_MERGE_DROP = 0
 
 
@@ -91,6 +94,46 @@ def decode_plan(b: int, hkv: int, g: int, d: int, mb: int,
     splits = -(-mb // per)
     return DecodePlan(splits, per, (hkv, b, splits),
                       b * hkv * splits * g * (d + 2) if splits > 1 else None)
+
+
+class SplitDecodePlan(NamedTuple):
+    """How K11 cuts each lane's table: kv_splits ranges of `range_pages`
+    entries (the table's width rounded up to a multiple of kv_splits, as
+    the JAX package pads it), each cut into `splits_per_range` splits of
+    `pages_per_split` entries; `splits` in all, one block each per (lane,
+    KV head), merged in split order."""
+    range_pages: int
+    splits_per_range: int
+    pages_per_split: int
+    splits: int
+    scratch: Optional[int]     # f32 partials, if split
+
+
+@functools.lru_cache(maxsize=4096)
+def split_decode_plan(b: int, hkv: int, g: int, d: int, mb: int,
+                      kv_splits: int, sms: int) -> SplitDecodePlan:
+    """K11's plan: kv_splits ranges of ceil(MB / kv_splits) entries, each
+    cut into the fewest equal splits that give at least decode_plan's
+    split count in all (so the grid fills the card as K7's does). A split
+    lies inside one range; entries past MB (the JAX package's padding)
+    belong to no split, and a range past MB is an empty split. Shapes
+    only, as decode_plan."""
+    if kv_splits < 1:
+        raise ValueError(f"kv_splits {kv_splits}: must be >= 1")
+    width = -(-mb // kv_splits)
+    least = decode_plan(b, hkv, g, d, mb, sms).splits
+    # cutting a range into `sub` equal parts of `per` entries leaves
+    # ceil(width / per) non-empty ones; sub = width (one entry each) gives
+    # kv_splits * width >= MB >= least, so the search ends
+    sub = -(-least // kv_splits)
+    while kv_splits * -(-width // -(-width // sub)) < least:
+        sub += 1
+    per = -(-width // sub)
+    sub = -(-width // per)
+    splits = kv_splits * sub
+    return SplitDecodePlan(width, sub, per, splits,
+                           b * hkv * splits * g * (d + 2) if splits > 1
+                           else None)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -362,21 +405,36 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                      k_scale is not None, what)
         plan = decode_plan(b, hkv, hq // hkv, d, mb,
                            _build.device_sms(q.device))
-        part, tickets = _build.scratch(q.device, plan.scratch or 0, b * hkv)
-        out = torch.empty_like(q)
-        fn = _build.bind("paged_attention", "mixq_paged_decode_attention",
-                         [_build.P] * 11 + [_build.I] * 8
-                         + [_build.F, _build.I, _build.I, _build.F]
-                         + [_build.I] * 3 + [_build.P])
-        err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), part, tickets, b, hq, hkv,
-                 d, bs, mb, plan.splits, plan.pages_per_split, *tail,
-                 int(K7_MERGE_DROP), *codes)
-        result = out
+        err, result = _decode_split(q, ptrs, table, bpos, lens, plan.splits,
+                                    plan.splits * plan.pages_per_split,
+                                    plan.splits, plan.pages_per_split,
+                                    plan.scratch, hkv, d, bs, tail, codes)
     name = what + sfx
     _build.count_launch(name)
     _build.check("paged_attention", err, name)
     return result
+
+
+def _decode_split(q, ptrs, table, bpos, lens, splits: int, range_pages: int,
+                  splits_per_range: int, pages_per_split: int,
+                  scratch: Optional[int], hkv: int, d: int, bs: int, tail,
+                  codes):
+    """One launch of decode_split_kernel (K7 and K11) on checked
+    arguments: `splits` splits in ranges of range_pages entries,
+    splits_per_range a range, `scratch` f32 partials. Returns (error
+    code, out in q's dtype)."""
+    b, hq, _ = q.shape
+    part, tickets = _build.scratch(q.device, scratch or 0, b * hkv)
+    out = torch.empty_like(q)
+    fn = _build.bind("paged_attention", "mixq_paged_decode_attention",
+                     [_build.P] * 11 + [_build.I] * 10
+                     + [_build.F, _build.I, _build.I, _build.F]
+                     + [_build.I] * 3 + [_build.P])
+    err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), part, tickets, b, hq, hkv, d,
+             bs, table.shape[1], splits, range_pages, splits_per_range,
+             pages_per_split, *tail, int(K7_MERGE_DROP), *codes)
+    return err, out
 
 
 def _gather_scales(scales: torch.Tensor, block_table: torch.Tensor
@@ -514,22 +572,33 @@ def paged_decode_attention_split(q: torch.Tensor, k_pages, v_pages, k_scale,
                                  sink: int = 0, softcap: float = 0.0,
                                  kv_splits: int = 2) -> torch.Tensor:
     """K11, flash-decoding: paged_decode_attention with each lane's page
-    list split over ``kv_splits`` lanes of one K10 launch (Hkv x B*splits
-    blocks, for long contexts at small batch), the parts merged exactly
-    in f32 by torch ops and cast once to q's dtype."""
+    list split into ``kv_splits`` ranges (for long contexts at small
+    batch), the ranges' softmax parts merged exactly in f32 and cast once
+    to q's dtype. On the card: one launch of K7's kernel over the lanes'
+    own tables, its splits inside those ranges (``split_decode_plan``),
+    merged in the launch."""
     if not q.is_cuda:
         return paged_decode_attention_split_plain(
             q, k_pages, v_pages, k_scale, v_scale, block_table, lens, scale,
             block_pos, window, sink, softcap, kv_splits)
-    q2, lens2, table2, bpos2 = _split_lanes(q, lens, block_table, block_pos,
-                                            k_pages.shape[2], kv_splits)
-    parts = paged_decode_attention(q2, k_pages, v_pages, k_scale, v_scale,
-                                   table2, lens2, scale, block_pos=bpos2,
-                                   window=window, sink=sink, softcap=softcap,
-                                   stats=True)
-    _build.count_launch("paged_decode_attention_split"
-                        + ("" if k_scale is not None else "_fp"))
-    return _merge_splits(*parts, kv_splits, q.dtype)
+    what = "paged_decode_attention_split"
+    ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
+        q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos, what)
+    b, hq, _ = q.shape
+    _check_split(q.shape[2], hq, hkv, d, bs, k_pages.element_size(),
+                 k_scale is not None, what)
+    plan = split_decode_plan(b, hkv, hq // hkv, d, table.shape[1], kv_splits,
+                             _build.device_sms(q.device))
+    lens = lens.to(q.device, torch.int32).contiguous()
+    tail = (float(scale), int(window), int(sink), float(softcap))
+    codes = (_DTYPES[q.dtype], page_dtype, _build.stream_ptr(q.device))
+    err, out = _decode_split(q.contiguous(), ptrs, table, bpos, lens,
+                             plan.splits, plan.range_pages,
+                             plan.splits_per_range, plan.pages_per_split,
+                             plan.scratch, hkv, d, bs, tail, codes)
+    _build.count_launch(what + sfx)
+    _build.check("paged_attention", err, what + sfx)
+    return out
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages, k_scale,

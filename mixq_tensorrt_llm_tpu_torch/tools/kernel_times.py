@@ -1,8 +1,8 @@
-"""Device time of K2, K7, K8, K9 and K10 at the main paths' shapes, for
-comparing two trees of the port on one card.
+"""Device time of K1, K2, K7, K8, K9, K10 and K11 at the main paths'
+shapes, for comparing two trees of the port on one card.
 
     python3 mixq_tensorrt_llm_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--kernels K2,K7,K9,K8]
+        [--kernels K1,K2,K7,K9,K11,K8]
 
 Imports the port from ``--root`` (a checkout or a ``git archive`` of
 another commit; by default the tree holding this file), so one call can
@@ -12,6 +12,9 @@ from one seed, so both time the same work. Times are device time per
 call from ``torch.profiler`` (every kernel a call launches; the wrapper
 must count one launch a call), after a warm-up:
 
+  K1 rmsnorm_quant_split on bf16 rows of Llama-2-7B width (4096, 128
+     outlier channels) at 1024 rows (a prefill call) and 40 (the gamma = 4
+     verify);
   K2 mixed_matmul at the three Llama-2-7B mix shapes (qkv, o_proj,
      gate_up) at 1024 rows (a prefill call) and 40 rows (the gamma = 4
      verify), 128 outlier channels;
@@ -23,6 +26,9 @@ must count one launch a call), after a warm-up:
      heads of 4 query heads each), bf16 at 40;
   K10 paged_decode_attention(stats=True) on the same lanes, int8 pages at
      32 heads;
+  K11 paged_decode_attention_split (kv_splits 4) on the same lanes, int8
+     and bf16 pages at 32 heads, and on 1 lane of 4096 tokens beside K7
+     there;
   K8 paged_prefill_attention on 4 lanes x a 256-token chunk (a 200-token
      prompt, two later chunks of a 512- and a 700-token prompt, an
      inactive lane): int8 pages at 32 heads, bf16 at 40.
@@ -63,6 +69,20 @@ def device_ms(torch, build, fn, iters: int, counter: str) -> float:
         raise RuntimeError(f"{counter}: {len(evs)} device events, "
                            f"{launched} launches for {iters} calls")
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
+
+
+def k1_times(torch, build, dev, gen):
+    from mixq_tensorrt_llm_tpu_torch.ops import norm_quant as nq
+    h, ko, out = 4096, 128, []
+    gamma = torch.rand((h,), generator=gen, device=dev) + 0.5
+    ind = torch.randperm(h, generator=gen, device=dev)[:ko].sort().values
+    ind = ind.int()
+    for m in (1024, 40):
+        x = (torch.randn((m, h), generator=gen, device=dev) * 2).bfloat16()
+        ms = device_ms(torch, build, lambda: nq.rmsnorm_quant_split(
+            x, gamma, ind), 200, "rmsnorm_quant_split")
+        out.append(dict(kernel="K1", M=m, K=h, ko=ko, ms=ms))
+    return out
 
 
 def k2_times(torch, build, dev, gen):
@@ -162,6 +182,39 @@ def k9_k10_times(torch, build, dev, gen):
     return out
 
 
+def k11_times(torch, build, dev, gen):
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    d, b, hkv, splits = 128, 8, 32, 4
+    out = []
+    for pages in ("int8", "bf16"):
+        kp, vp, ks, vs, sfx = _pools(torch, gen, dev, pages, hkv)
+        table, bpos, lens_t = _decode_lanes(torch, gen, dev)
+        q = torch.randn((b, hkv, d), generator=gen, device=dev).bfloat16()
+        ms = device_ms(torch, build, lambda: pa.paged_decode_attention_split(
+            q, kp, vp, ks, vs, table, lens_t, d ** -0.5, block_pos=bpos,
+            kv_splits=splits), 200, "paged_decode_attention_split" + sfx)
+        out.append(dict(kernel="K11", pages=pages, B=b, Hq=hkv, Hkv=hkv,
+                        D=d, BS=128, kv_splits=splits, ms=ms))
+    # 1 lane x 4096 tokens, int8 pages: K11 beside K7
+    kp, vp, ks, vs, _ = _pools(torch, gen, dev, "int8", hkv)
+    table = torch.arange(1, 33, dtype=torch.int32, device=dev)[None]
+    bpos = torch.arange(32, dtype=torch.int32, device=dev)[None] * 128
+    lens_t = torch.tensor([4096], dtype=torch.int32, device=dev)
+    q = torch.randn((1, hkv, d), generator=gen, device=dev).bfloat16()
+    for name, fn in (("K7", lambda: pa.paged_decode_attention(
+            q, kp, vp, ks, vs, table, lens_t, d ** -0.5, block_pos=bpos)),
+                     ("K11", lambda: pa.paged_decode_attention_split(
+            q, kp, vp, ks, vs, table, lens_t, d ** -0.5, block_pos=bpos,
+            kv_splits=splits))):
+        counter = ("paged_decode_attention" if name == "K7"
+                   else "paged_decode_attention_split")
+        out.append(dict(kernel=name, pages="int8", B=1, tokens=4096,
+                        Hq=hkv, Hkv=hkv, D=d, BS=128,
+                        kv_splits=splits if name == "K11" else None,
+                        ms=device_ms(torch, build, fn, 200, counter)))
+    return out
+
+
 def k8_times(torch, build, dev, gen):
     from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
     d, b, c, bs, mb = 128, 4, 256, 128, 6
@@ -196,7 +249,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="tree whose mixq_tensorrt_llm_tpu_torch to time")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="K2,K7,K9,K8",
+    ap.add_argument("--kernels", default="K1,K2,K7,K9,K11,K8",
                     help="comma-separated groups to time (K9 includes K10)")
     args = ap.parse_args()
     import torch
@@ -210,11 +263,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"{smi}; tree {root}", flush=True)
-    _build.build(["mixed_matmul", "paged_attention"])
+    _build.build(["norm_quant", "mixed_matmul", "paged_attention"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    groups = {"K2": k2_times, "K7": k7_times, "K9": k9_k10_times,
-              "K8": k8_times}
+    groups = {"K1": k1_times, "K2": k2_times, "K7": k7_times,
+              "K9": k9_k10_times, "K11": k11_times, "K8": k8_times}
     rows = []
     for name in args.kernels.split(","):
         rows += groups[name](torch, _build, dev, gen)

@@ -27,7 +27,8 @@ draft tokens a round; the draft is the target's first ``--draft-layers``
 layers (default 4), sharing its tensors (as the JAX package's
 tools/serving_bench.py builds its draft). It also prints the acceptance
 rate (accepted / proposed draft tokens). ``MIXQ_KV_SPLITS=N`` in the
-environment sends the decode steps through the split kernel (K11).
+environment sends the decode steps through K11 (K7's kernel with its
+splits inside N page ranges a lane).
 
 ``--dense`` serves the same 8 requests as one static batch through
 ``GenerationSession`` (``max_seq_len`` 768, so one 768-token prefill
@@ -50,7 +51,8 @@ import torch
 from ..models.common import ModelConfig
 from ..quant import KVCacheQuantAlgo, QuantAlgo, QuantConfig
 
-PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
+PORT_KERNELS = {"norm_quant_regs_kernel": "K1 rmsnorm_quant_split",
+                "norm_quant_smem_kernel": "K1 rmsnorm_quant_split (wide)",
                 "mixed_wgmma_kernel": "K2 mixed_matmul",
                 "mixed_epilogue_kernel": "K3 mixed_matmul_hybrid",
                 "wo_small_mma_kernel": "K4 wo_matmul (decode, mma)",
@@ -60,7 +62,8 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
                 "packed_grouped_mma_kernel": "K13 wo_matmul_packed_grouped",
                 "write_token_kernel": "K5 paged_write_token",
                 "write_chunk_kernel": "K6 paged_write_chunk",
-                "decode_split_kernel": "K7 paged_decode_attention",
+                "decode_split_kernel": "K7 paged_decode_attention (K11 "
+                                       "under MIXQ_KV_SPLITS)",
                 "verify_rows_kernel": "K9 paged_verify_attention",
                 "stats_rows_kernel": "K10 paged_decode_attention(stats)",
                 "prefill_wgmma_kernel": "K8 paged_prefill_attention",
@@ -70,7 +73,7 @@ PORT_KERNELS = {"norm_quant_kernel": "K1 rmsnorm_quant_split",
 # "signed char" in a kernel's name; any other page type is a bf16/f32 pool
 FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
                "write_chunk_kernel": "K6p paged_write_chunk (float pool)",
-               "decode_split_kernel": "K7 paged_decode_attention "
+               "decode_split_kernel": "K7 / K11 paged_decode_attention "
                                       "(float pages)",
                "verify_rows_kernel": "K9 paged_verify_attention "
                                      "(float pages)",

@@ -5,7 +5,9 @@ quantization, and the split without the norm. Same numpy inputs to both.
 Tolerances are the JAX package's own for this kernel
 (tests/test_pallas_kernels.py): int8 codes at most 1 apart and more than
 99.9% equal (the f32 order of the norm's sum differs, which can move a
-value across a rounding boundary), scale_row rtol 1e-5, x_out 1e-2."""
+value across a rounding boundary), scale_row rtol 1e-5, x_out 1e-2. The
+kernel's launch plan (``norm_quant_plan``), pure Python: which of its two
+kernels each width takes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -83,3 +85,33 @@ def test_batched_shape_and_f32_norm():
     want = ref.quant_split(normed, torch.from_numpy(ind))
     for a, b in zip((q, s, o), want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k,variant", [
+    (4096, "registers"),         # Llama-2-7B qkv, o_proj, gate_up inputs
+    (5120, "registers"),         # Llama-2-13B (int4_mix)
+    (11008, "registers"),        # 7B down_proj input
+    (13824, "registers"),        # 13B down_proj input
+    (16384, "registers"),        # the widest row in registers
+    (16392, "shared"),
+    (32768, "shared"),           # the widest the wrapper takes
+])
+@pytest.mark.parametrize("m", [1, 40, 1024])
+def test_norm_quant_plan_picks_the_variant(k, variant, m):
+    """Rows of up to REG_THREADS x REG_MAX_CHUNKS chunks of 8 values live
+    in registers: warps' worth of threads that cover the row with no idle
+    warp, FEW_ROW_CHUNKS chunks a thread where the rows do not fill the
+    132 SMs, MANY_ROW_CHUNKS where they do (more where the row needs them
+    to fit); wider rows in shared memory."""
+    p = tnq.norm_quant_plan(m, k, 132)
+    assert p.variant == variant
+    chunks = k // 8
+    if variant == "shared":
+        assert (p.threads, p.chunks_per_thread) == (tnq.SHARED_THREADS, 0)
+        return
+    cpt = p.chunks_per_thread
+    assert p.threads % 32 == 0 and 32 <= p.threads <= tnq.REG_THREADS
+    assert 1 <= cpt <= tnq.REG_MAX_CHUNKS
+    assert p.threads * cpt >= chunks > (p.threads - 32) * cpt
+    want = tnq.MANY_ROW_CHUNKS if m >= 132 else tnq.FEW_ROW_CHUNKS
+    assert cpt == max(want, -(-chunks // tnq.REG_THREADS))

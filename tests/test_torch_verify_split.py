@@ -14,7 +14,8 @@ mode; inputs from numpy with a seed):
 - K11 ``paged_decode_attention_split`` at splits 2, 3, 4 (3 pads the
   table), int8 and bf16 pages, and windowed: against the JAX split within
   2e-2 (tests/test_kv_split.py), and against the port's single scan in f32
-  within 1e-5."""
+  within 1e-5. Its kernel's split plan (``split_decode_plan``), pure
+  Python: the ranges each split covers, as the kernel computes them."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -253,3 +254,62 @@ def test_split_windowed_vs_jax():
     torch.testing.assert_close(got, tpa.paged_decode_attention(
         _t(q), *_args(pool, "bf16", "torch"), _t(table), _t(lens), 0.125,
         **kw), rtol=1e-5, atol=1e-5)
+
+
+# K11's kernel plan, pure Python (the kernel runs only on the card)
+SMS = 132
+
+
+def _kernel_ranges(p, mb):
+    """[(range, first entry, end)] of each kernel split, as
+    csrc/paged_attention.cu decode_split_kernel computes them."""
+    out = []
+    for z in range(p.splits):
+        zr = z // p.splits_per_range
+        r1 = min(mb, (zr + 1) * p.range_pages)
+        j0 = min(r1, zr * p.range_pages
+                 + (z % p.splits_per_range) * p.pages_per_split)
+        out.append((zr, j0, min(r1, j0 + p.pages_per_split)))
+    return out
+
+
+@pytest.mark.parametrize("kv_splits", range(1, 9))
+@pytest.mark.parametrize("mb", [1, 2, 5, 6, 7, 10, 11, 32])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("hkv,g", [(32, 1), (8, 4)])
+def test_split_decode_plan_covers_the_ranges(kv_splits, mb, b, hkv, g):
+    """Every real table entry in exactly one kernel split; no split
+    straddles one of the kv_splits equal ranges of the table's width
+    rounded up to a multiple of kv_splits (the JAX package's padding);
+    the split count a multiple of kv_splits and at least K7's plan's."""
+    p = tpa.split_decode_plan(b, hkv, g, D, mb, kv_splits, SMS)
+    width = -(-mb // kv_splits)
+    assert p.range_pages == width
+    assert p.splits == kv_splits * p.splits_per_range
+    assert p.splits >= tpa.decode_plan(b, hkv, g, D, mb, SMS).splits
+    covered = []
+    for zr, lo, hi in _kernel_ranges(p, mb):
+        assert lo <= hi                          # empty past the table
+        if lo < hi:
+            assert zr * width <= lo and hi <= (zr + 1) * width
+        covered.extend(range(lo, hi))
+    assert covered == list(range(mb))
+    assert p.scratch == (b * hkv * p.splits * g * (D + 2) if p.splits > 1
+                         else None)
+
+
+def test_split_decode_plan_at_the_smoke_shapes():
+    """8 lanes of a 6-entry table at 32 KV heads, splits 4: ranges of 2
+    entries, the last past the table (an empty split, as the JAX package's
+    padded lane); 1 lane x 32 entries: 12 splits of at most 3 entries
+    against K7's 11. Shapes only: no lengths, so no host readback."""
+    import inspect
+    assert "lens" not in inspect.signature(
+        tpa.split_decode_plan).parameters
+    p = tpa.split_decode_plan(8, 32, 1, 128, 6, 4, SMS)
+    assert (p.splits, p.range_pages, p.pages_per_split) == (4, 2, 2)
+    assert _kernel_ranges(p, 6)[-1][1:] == (6, 6)
+    p = tpa.split_decode_plan(1, 32, 1, 128, 32, 4, SMS)
+    assert (p.splits, p.pages_per_split) == (12, 3)
+    with pytest.raises(ValueError):
+        tpa.split_decode_plan(8, 32, 1, 128, 6, 0, SMS)
