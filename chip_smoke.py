@@ -90,7 +90,15 @@ the 40 rows of a gamma = 4 verify,
 and K14 (causal flash attention) at the dense serve's shape (8 x 768, 32
 heads x 128, with SDPA timed as its library call), at D 64 and 256 with
 S 128 and 2048, at S 1, 65 and 200, and causal_self_attention's GQA
-route (K8 over a page view).
+route (K8 over a page view). And it holds the KV write as a layer calls
+it: runtime/kv_cache.paged_write with the Executor's block_pos (a
+recycled table, an inactive lane), a valid mask or kv_valid_len and new
+V a strided view of the qkv output, at S = 1 and 5 (8 lanes: K5's
+route) and 256 (4 lanes: K6's), on int8 pages at 32 heads and bf16 at
+40: bit-equal to the plain route (_locate, then the plain scatter or the
+chunk's drop rule) outside trash row 0, one kernel a call by the traced
+names, timed a call on the device and through the wrapper; the plain
+route with every slot shifted by one is the control, and must be seen.
 """
 
 from __future__ import annotations
@@ -220,14 +228,17 @@ def time_cuda(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def device_ms(torch, fn, iters: int, kernel: str = "",
-              counter: str = "", names=None) -> float:
+              counter: str = "", names=None, only: str = "") -> float:
     """Device time per call of `fn`: the summed duration of the device
     activity (kernels, copies) that `iters` calls launch, traced by
     torch.profiler after a warm-up. With `counter` (a wrapper's
     launch-count name) the wrapper must count exactly one launch per call;
     with `kernel` only the kernels whose name holds it count, and the time
     is per traced launch: the tracer drops a few events now and then (3 of
-    20 seen). ``names``, a list, receives the traced kernels' names."""
+    20 seen). ``names``, a list, receives the traced kernels' names.
+    With ``only`` every traced device activity must be a kernel whose name
+    holds it, at most one a call: the call queued that kernel and no other
+    device work."""
     from mixq_tensorrt_llm_tpu_torch.ops import _build
     for _ in range(3):
         fn()
@@ -235,8 +246,11 @@ def device_ms(torch, fn, iters: int, kernel: str = "",
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # now and then the tracer returns no device activity at all for a
-    # window: trace it again, up to three times
-    for _ in range(3):
+    # window (three empty windows in a row were seen once in a smoke run):
+    # trace it again, up to six times, a pause between the windows
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.2)
         before = _build.LAUNCHES.get(counter, 0)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
@@ -250,6 +264,10 @@ def device_ms(torch, fn, iters: int, kernel: str = "",
     check(len(evs) > 0, f"torch.profiler traced no device time ({kernel})")
     if names is not None:
         names.extend(sorted({e.name for e in evs}))
+    if only:
+        check(all(only in e.name for e in evs) and len(evs) <= iters,
+              f"{len(evs)} device activities for {iters} calls, not one "
+              f"{only} a call: {sorted({e.name for e in evs})}")
     if counter:
         launched = _build.LAUNCHES.get(counter, 0) - before
         check(launched == iters, f"{counter}: {launched} launches counted "
@@ -392,13 +410,129 @@ def check_writes(torch, gen, dev, results, fp: bool = False):
         lambda: pw.paged_write_chunk_plain(pln, blk, off, nk, nv),
         "write_chunk_kernel", "paged_write_chunk" + sfx, 100, 20)
     landed = int(pw.chunk_write_mask(blk, off, bs).sum())
+    # every token's values read (the bound kept from the first design) and,
+    # beside it, only the landed tokens' (the kernel reads no other)
     nbytes = (2 * b * s * h * d * 2 + 2 * b * s * 4
               + landed * h * (d * val_b + scale_b) * 2)
+    moved = 2 * b * s * 4 + landed * h * (d * (2 + val_b) + scale_b) * 2
     results["paged_write_chunk" + sfx] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound=bound(nbytes))
+        max_abs_err=err, ms=ms, plain_ms=pms, bound=bound(nbytes),
+        bound_landed_ms=bound(moved)[0])
     print(f"K6{tag} paged_write_chunk: bit-equal; device {ms:.5f} ms per "
           f"launch (plain {pms:.5f} ms; wrapper {wms:.5f} ms per call) "
-          f"B={b} S={s} H={h} D={d}, {landed} tokens landed", flush=True)
+          f"B={b} S={s} H={h} D={d}, {landed} tokens landed; bound "
+          f"{bound(nbytes)[0]:.5f} ms (every token read), "
+          f"{bound(moved)[0]:.5f} ms (the landed tokens')", flush=True)
+    check_layer_writes(torch, gen, dev, results, fp)
+
+
+def layer_write_cases(torch, gen, dev, h, bs, d, np_):
+    """(label, S, write_pos, block_table, block_pos, valid, kv_valid_len)
+    as the Executor hands them to a layer: 8 decode lanes of 1-700 tokens
+    (one inactive, one recycled table) at S = 1 (kv_valid_len) and S = 5
+    (a verify's valid mask), and K8's 4 lanes x a 256-token chunk (a
+    200-token prompt, two later chunks, an inactive lane; kv_valid_len)
+    and x the draft prefill's 64 tokens (positions arange(64) expanded
+    over the lanes, a lane stride of 0; K5's route)."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import PAD_POS
+    lens = [700, 1, 256, 640, 129, 513, 384, 300]
+    table, bpos = _attn_tables(torch, gen, dev, 8, 6, bs, np_, lens, 3)
+    table[1], bpos[1] = 0, int(PAD_POS)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cases = []
+    for s in (1, 5):
+        pos = torch.clamp(lens_t - s, min=0)[:, None] + torch.arange(
+            s, dtype=torch.int32, device=dev)
+        valid = pos < lens_t[:, None] if s == 5 else None
+        cases.append((f"S={s} x 8 lanes", s, pos, table, bpos, valid,
+                      None if s == 5 else lens_t))
+    qstart, lens = [0, 256, 512, 0], [200, 512, 700, 0]
+    table, bpos = _attn_tables(torch, gen, dev, 4, 6, bs, np_, lens, 1)
+    table[3] = 0
+    pos = torch.tensor(qstart, dtype=torch.int32, device=dev)[:, None] + \
+        torch.arange(256, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cases.append(("S=256 x 4 lanes", 256, pos, table, bpos, None, lens_t))
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None].expand(4, 64)
+    cases.append(("S=64 x 4 lanes, expanded pos", 64, pos, table, bpos,
+                  None, lens_t))
+    return cases
+
+
+def check_layer_writes(torch, gen, dev, results, fp: bool = False):
+    """kv_cache.paged_write as a layer calls it (the Executor's block_pos
+    with a recycled table, a valid mask or kv_valid_len, new V a strided
+    view of the qkv projection's output): pools and scales bit-equal to
+    the plain route (_locate, then the plain scatter or the chunk's drop
+    rule) outside trash row 0, one kernel a call by the traced names, the
+    device time of the call and its wrapper time; the plain route with
+    every slot shifted by one must be reported unequal (a control)."""
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_write as pw
+    from mixq_tensorrt_llm_tpu_torch.runtime import kv_cache as kvc
+    h, bs, d, np_ = (40 if fp else 32), 128, 128, 128
+    sfx, tag = ("_fp", "p") if fp else ("", "")
+    val_b, scale_b = (2, 0) if fp else (1, 4)
+    pools = make_pools(torch, gen, dev, np_, h, bs, d, fp)
+    calls = {}
+    for label, s, pos, table, bpos, valid, lens in layer_write_cases(
+            torch, gen, dev, h, bs, d, np_):
+        b = pos.shape[0]
+        qkv = (torch.randn((b, s, 3 * h * d), generator=gen, device=dev)
+               * (torch.rand((b, s, 1), generator=gen, device=dev) * 4
+                  + 0.01)).bfloat16()
+        nk = qkv[..., h * d:2 * h * d].reshape(b, s, h, d).contiguous()
+        nv = qkv[..., 2 * h * d:].reshape(b, s, h, d)       # strided
+        kw = dict(valid=valid, block_pos=bpos, kv_valid_len=lens)
+        chunk = pw.chunk_route(s, bs)
+        name, kname = (("paged_write_chunk", "write_chunk_kernel") if chunk
+                       else ("paged_write_token", "write_token_kernel"))
+        ker, pln, ctl = clone_pools(pools), clone_pools(pools), \
+            clone_pools(pools)
+        kvc.paged_write(ker, table, pos, nk, nv, **kw)
+        kvc.paged_write_plain(pln, table, pos, nk, nv, **kw)
+        # the control: the plain scatter with every slot one further on
+        mask = valid if lens is None else pos < lens[:, None]
+        blk, off = kvc._locate(table, pos, bs, bpos, mask)
+        if chunk:
+            land = pw.chunk_write_mask(blk, off, bs)
+        else:
+            land = blk != 0
+        pw.paged_write_token_plain(ctl, blk[land], (off[land] + 1) % bs,
+                                   nk[land], nv[land])
+        torch.cuda.synchronize()
+        err = pools_equal_outside_trash(ker, pln)
+        check(err == 0.0, f"K{'6' if chunk else '5'}{tag} "
+              f"kv_cache.paged_write {label} differs from plain ({err})")
+        ctl_err = pools_equal_outside_trash(ker, ctl)
+        check(ctl_err > 0.0, f"K{'6' if chunk else '5'}{tag} {label}: the "
+              f"shifted-slot control was not seen")
+        fn = lambda: kvc.paged_write(ker, table, pos, nk, nv, **kw)
+        names = []
+        ms = device_ms(torch, fn, 200 if s < 256 else 100, "", name + sfx,
+                       names, only=kname)
+        pms = device_ms(torch, lambda: kvc.paged_write_plain(
+            pln, table, pos, nk, nv, **kw), 20)
+        wms = time_cuda(torch, fn, 200)
+        landed = int(land.sum())
+        # positions as held (the expanded case holds one row of them)
+        idx_b = (table.numel() + bpos.numel()) * 4 + \
+            pos.untyped_storage().nbytes() + (
+                b * 4 if lens is not None else pos.numel())
+        moved = landed * h * 2 * (d * (2 + val_b) + scale_b) + idx_b
+        bms = bound(moved)[0]
+        calls[label] = dict(ms=ms, wrapper_ms=wms, plain_ms=pms,
+                            bound_ms=bms, tokens_landed=landed,
+                            kernels=names)
+        print(f"K{'6' if chunk else '5'}{tag} kv_cache.paged_write {label} "
+              f"({'int8' if not fp else 'bf16'} pages, H={h}): bit-equal, "
+              f"one {kname} a call; device {ms:.5f} ms a call (plain route "
+              f"{pms:.5f} ms; wrapper {wms:.5f} ms a call; bound "
+              f"{bms:.6f} ms for {landed} landed tokens); shifted-slot "
+              f"control seen ({ctl_err:.3g})", flush=True)
+    results["paged_write_token" + sfx]["layer_calls"] = {
+        k: v for k, v in calls.items() if not k.startswith("S=256")}
+    results["paged_write_chunk" + sfx]["layer_calls"] = {
+        k: v for k, v in calls.items() if k.startswith("S=256")}
 
 
 def _attn_tables(torch, gen, dev, b, mb, bs, np_, lens, recycled_lane):
@@ -1884,7 +2018,10 @@ def cross_device_13b(torch, seed: int, dev):
            lambda f: lambda x, qp, sg, gs, **k: f(
                x, qp, sg[:1].expand_as(sg).contiguous(), gs, **k))
     k5p = ("K5p skipping the decode token's write in every layer", True,
-           pw, "paged_write_token", lambda f: lambda pools, *a: pools)
+           pw, "paged_write_located",
+           lambda f: lambda pools, table, pos, nk, *a, **k: (
+               pools if nk.shape[1] == 1 else f(pools, table, pos, nk, *a,
+                                                **k)))
     fp = ("paged_write_chunk_fp", "paged_prefill_attention_fp")
     fd = ("paged_write_token_fp", "paged_decode_attention_fp")
     configs = [
@@ -2042,6 +2179,9 @@ def main() -> int:
         bms, by = r["bound"]
         by_path = {p: n.get(name, 0) for p, n in launches.items()}
         extra = {"shapes": r["shapes"]} if "shapes" in r else {}
+        for key in ("layer_calls", "bound_landed_ms"):
+            if key in r:
+                extra[key] = r[key]
         if name == "wo_matmul":
             extra = {"launches_by_regime": {
                 rg: sum(n.get(f"{name}.{rg}", 0) for n in launches.values())

@@ -319,7 +319,9 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
                      block_table, write_pos, kv_valid_len, block_pos=None,
                      window: int = 0, sink: int = 0) -> torch.Tensor:
     """Write new K/V (B, S, Hkv, D) into the pool in place and attend q
-    (B, S, Hq, D) over the lane's pages.
+    (B, S, Hq, D) over the lane's pages. The write is kv_cache.paged_write
+    given kv_valid_len (positions at or past it go to the trash): on the
+    card one launch of K5 or K6.
 
     S == 1 -> K7 (paged_decode_attention), or K11
     (paged_decode_attention_split) when MIXQ_KV_SPLITS > 1; 1 < S <= 8 ->
@@ -332,9 +334,8 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
 
     window = window or cfg.sliding_window
     scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
-    valid = write_pos < kv_valid_len[:, None]
     pkv.paged_write(pools, block_table, write_pos, new_k, new_v,
-                    valid=valid, block_pos=block_pos)
+                    block_pos=block_pos, kv_valid_len=kv_valid_len)
     s = q.shape[1]
     args = (pools["k"], pools["v"], pools.get("k_scale"),
             pools.get("v_scale"), block_table)

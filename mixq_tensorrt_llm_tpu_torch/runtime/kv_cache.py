@@ -230,27 +230,48 @@ def _locate(block_table: torch.Tensor, write_pos: torch.Tensor, bs: int,
 def paged_write(pools: dict, block_table: torch.Tensor,
                 write_pos: torch.Tensor, new_k: torch.Tensor,
                 new_v: torch.Tensor, valid: Optional[torch.Tensor] = None,
-                block_pos: Optional[torch.Tensor] = None) -> dict:
+                block_pos: Optional[torch.Tensor] = None,
+                kv_valid_len: Optional[torch.Tensor] = None) -> dict:
     """Write new K/V (B, S, H, D) at absolute positions (B, S) into the
     pool, in place. block_table holds GLOBAL page rows (layer offset
     folded in); invalid writes go to the trash block 0; block_pos = None
-    means the identity layout (entry j covers [j*BS, (j+1)*BS)).
+    means the identity layout (entry j covers [j*BS, (j+1)*BS)). A token
+    is invalid where ``valid`` (B, S) is False or its position is at or
+    past ``kv_valid_len`` (B,), when given.
 
-    Routing as in the JAX package: S == 1 -> K5; S <= 8 -> one K5 per
-    column; S % BS == 0 -> K6 (the executor's page-aligned chunks);
-    anything else -> a plain scatter. Unquantized pools take K5p / K6p in
-    the same places."""
+    On the card this is one launch (ops/paged_write.paged_write_located:
+    the kernel locates each token itself): S % BS == 0 above 8 tokens ->
+    K6 (the executor's page-aligned chunks, with the JAX kernel's drop
+    rule); anything else -> K5, every column in the launch. Unquantized
+    pools take K5p / K6p. On the CPU: paged_write_plain."""
+    if new_k.is_cuda:
+        return pwrite.paged_write_located(pools, block_table, write_pos,
+                                          new_k, new_v, valid=valid,
+                                          block_pos=block_pos,
+                                          kv_valid_len=kv_valid_len)
+    return paged_write_plain(pools, block_table, write_pos, new_k, new_v,
+                             valid=valid, block_pos=block_pos,
+                             kv_valid_len=kv_valid_len)
+
+
+def paged_write_plain(pools: dict, block_table: torch.Tensor,
+                      write_pos: torch.Tensor, new_k: torch.Tensor,
+                      new_v: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None,
+                      block_pos: Optional[torch.Tensor] = None,
+                      kv_valid_len: Optional[torch.Tensor] = None) -> dict:
+    """paged_write in torch ops, as the JAX package routes it: _locate,
+    then the chunk's drop rule on K6's route or a scatter of every token
+    (the JAX package's token kernel, its columns and its scatter agree
+    outside the trash row)."""
+    if kv_valid_len is not None:
+        below = write_pos < kv_valid_len[:, None]
+        valid = below if valid is None else valid & below
     bs = pools["k"].shape[2]
-    s = new_k.shape[1]
+    b, s, h, d = new_k.shape
     blk, off = _locate(block_table, write_pos, bs, block_pos, valid)
-    if s <= 8:
-        for j in range(s):
-            pwrite.paged_write_token(pools, blk[:, j], off[:, j],
-                                     new_k[:, j], new_v[:, j])
-        return pools
-    if s % bs == 0:
-        return pwrite.paged_write_chunk(pools, blk, off, new_k, new_v)
-    h, d = new_k.shape[2:]
+    if pwrite.chunk_route(s, bs):
+        return pwrite.paged_write_chunk_plain(pools, blk, off, new_k, new_v)
     return pwrite.paged_write_token_plain(
         pools, blk.reshape(-1), off.reshape(-1), new_k.reshape(-1, h, d),
         new_v.reshape(-1, h, d))

@@ -1,8 +1,8 @@
-"""Device time of K1, K2, K7, K8, K9, K10 and K11 at the main paths'
-shapes, for comparing two trees of the port on one card.
+"""Device time of K1, K2, K5, K6, K7, K8, K9, K10 and K11 at the main
+paths' shapes, for comparing two trees of the port on one card.
 
     python3 mixq_tensorrt_llm_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--kernels K1,K2,K7,K9,K11,K8]
+        [--kernels K1,K2,K7,K9,K11,K8,K5]
 
 Imports the port from ``--root`` (a checkout or a ``git archive`` of
 another commit; by default the tree holding this file), so one call can
@@ -31,7 +31,16 @@ must count one launch a call), after a warm-up:
      there;
   K8 paged_prefill_attention on 4 lanes x a 256-token chunk (a 200-token
      prompt, two later chunks of a 512- and a 700-token prompt, an
-     inactive lane): int8 pages at 32 heads, bf16 at 40.
+     inactive lane): int8 pages at 32 heads, bf16 at 40;
+  K5 / K6 (group "K5") runtime/kv_cache.paged_write as a layer calls it,
+     on K8's lanes and tables, at S = 1 and S = 5 (each lane's last
+     tokens) and S = 256 (the chunk): int8 pages at 32 heads, bf16 at 40,
+     new V a strided view of a packed qkv row. A reading is every kernel
+     the call queues, with the layer's valid mask where the tree's
+     paged_write does not take kv_valid_len (on a tree whose write is a
+     chain of torch ops and kernels, the whole chain), so both trees time
+     the same work; it also gives the kernels traced and the wrapper
+     launches counted a call.
 
 Prints one line a reading and a JSON line with all of them, after the
 card's name and power limit. Needs a CUDA card.
@@ -48,7 +57,11 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def device_ms(torch, build, fn, iters: int, counter: str) -> float:
+def device_ms(torch, build, fn, iters: int, counter: str,
+              per_call: dict = None) -> float:
+    """Device time a call (every kernel it queues). The wrapper must count
+    one launch a call, unless ``per_call`` (a dict) is given: it then gets
+    the launches counted and the kernels traced a call instead."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -65,7 +78,10 @@ def device_ms(torch, build, fn, iters: int, counter: str) -> float:
         if evs:
             break
     launched = build.LAUNCHES.get(counter, 0) - before
-    if not evs or launched != iters:
+    if per_call is not None and evs:
+        per_call.update(launches=launched / iters,
+                        kernels=len(evs) / iters)
+    elif not evs or launched != iters:
         raise RuntimeError(f"{counter}: {len(evs)} device events, "
                            f"{launched} launches for {iters} calls")
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
@@ -244,13 +260,66 @@ def k8_times(torch, build, dev, gen):
     return out
 
 
+def k5_k6_times(torch, build, dev, gen):
+    import inspect
+    from mixq_tensorrt_llm_tpu_torch.runtime import kv_cache as kvc
+    d, b, bs, mb = 128, 4, 128, 6
+    qstart, lens = [0, 256, 512, 0], [200, 512, 700, 0]
+    takes_len = "kv_valid_len" in inspect.signature(
+        kvc.paged_write).parameters
+    out = []
+    for pages, hkv in (("int8", 32), ("bf16", 40)):
+        kp, vp, ks, vs, sfx = _pools(torch, gen, dev, pages, hkv)
+        pools = {"k": kp, "v": vp}
+        if ks is not None:
+            pools.update(k_scale=ks, v_scale=vs)
+        table = (torch.randperm(127, generator=gen, device=dev)[:b * mb]
+                 + 1).int().reshape(b, mb)
+        bpos = torch.full((b, mb), 1 << 30, dtype=torch.int32, device=dev)
+        for i, ln in enumerate([200, 512, 700]):
+            n = -(-ln // bs)
+            bpos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev) * bs
+        bpos[1, :4] = torch.tensor([0, 2, 3, 1], device=dev) * bs
+        table[3] = 0                                   # inactive lane
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for s in (1, 5, 256):
+            first = (torch.tensor(qstart, dtype=torch.int32, device=dev)
+                     if s == 256 else torch.clamp(lens_t - s, min=0))
+            pos = first[:, None] + torch.arange(s, dtype=torch.int32,
+                                                device=dev)
+            qkv = torch.randn((b, s, 3 * hkv * d), generator=gen,
+                              device=dev).bfloat16()
+            nk = qkv[..., hkv * d:2 * hkv * d].reshape(b, s, hkv, d)
+            nk = nk.contiguous()                       # as apply_rope's
+            nv = qkv[..., 2 * hkv * d:].reshape(b, s, hkv, d)
+
+            def write():
+                if takes_len:
+                    kvc.paged_write(pools, table, pos, nk, nv,
+                                    block_pos=bpos, kv_valid_len=lens_t)
+                else:
+                    kvc.paged_write(pools, table, pos, nk, nv,
+                                    valid=pos < lens_t[:, None],
+                                    block_pos=bpos)
+            per_call = {}
+            counter = ("paged_write_chunk" if s == 256
+                       else "paged_write_token") + sfx
+            ms = device_ms(torch, build, write, 200 if s < 256 else 100,
+                           counter, per_call)
+            out.append(dict(kernel="K6" if s == 256 else "K5", pages=pages,
+                            call="kv_cache.paged_write", B=b, S=s, H=hkv,
+                            D=d, BS=bs, ms=ms, **per_call))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="tree whose mixq_tensorrt_llm_tpu_torch to time")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="K1,K2,K7,K9,K11,K8",
-                    help="comma-separated groups to time (K9 includes K10)")
+    ap.add_argument("--kernels", default="K1,K2,K7,K9,K11,K8,K5",
+                    help="comma-separated groups to time (K9 includes K10, "
+                         "K5 the K6 chunk)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -263,11 +332,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"{smi}; tree {root}", flush=True)
-    _build.build(["norm_quant", "mixed_matmul", "paged_attention"])
+    _build.build(["norm_quant", "mixed_matmul", "paged_attention",
+                  "paged_write"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     groups = {"K1": k1_times, "K2": k2_times, "K7": k7_times,
-              "K9": k9_k10_times, "K11": k11_times, "K8": k8_times}
+              "K9": k9_k10_times, "K11": k11_times, "K8": k8_times,
+              "K5": k5_k6_times}
     rows = []
     for name in args.kernels.split(","):
         rows += groups[name](torch, _build, dev, gen)

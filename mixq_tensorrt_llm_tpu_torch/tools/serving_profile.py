@@ -17,10 +17,14 @@ reported: the host is shared and its speed varies), and under
 ``torch.profiler``. It
 prints, for the prefill calls and the decode steps separately: wall time
 (timed run), device busy time (the sum of kernel times, profiled run),
-the device's idle share, and kernel time by group (the port's CUDA
-kernels K1-K8, K12, K13, the cuBLAS GEMMs, everything else) with the top
-kernels by name. The card's name and power limit come first. Needs a CUDA
-card.
+the device's idle share, and kernel time and launches by group (the
+port's CUDA kernels K1-K14, the cuBLAS GEMMs, everything else), each also
+a forward of the model in that phase (a prefill call; a decode step, or in
+a speculative run a draft prefill, draft step or verify, and a round), with
+the top kernels by name; the "other" group (elementwise, reductions,
+copies) is split into the torch ops that launched its kernels, the top
+ones by time and by launches. The card's name and power limit come first.
+Needs a CUDA card.
 
 ``--gamma G`` serves the same requests through ``run_speculative`` with G
 draft tokens a round; the draft is the target's first ``--draft-layers``
@@ -83,7 +87,11 @@ FLOAT_PAGES = {"write_token_kernel": "K5p paged_write_token (float pool)",
                                        "(float pages)",
                "prefill_kernel": "K8 paged_prefill_attention (f32 route)"}
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "gemv", "nvjet", "cublas")
+OTHER = "other (elementwise, reductions, copies)"
 TIMED_RUNS = 5
+# model forwards by phase ("prefill", "decode") in the runs of serve and
+# serve_dense since the last clear
+FORWARDS = defaultdict(int)
 
 
 def llama2_7b_config() -> ModelConfig:
@@ -166,13 +174,46 @@ def serve_dense(params, cfg, prompts, dev):
     GenerationSession (max_seq_len 768), 32 greedy tokens each. The session
     marks its prefill with the "phase::prefill" profiler range itself.
     Returns (GenerationOutput, wall s)."""
+    from ..models import common as mcommon
     from ..runtime.session import GenerationSession
     sess = GenerationSession(params, cfg, max_seq_len=768, device=dev)
+    in_prefill = [False]
+    inner = sess._prefill
+
+    def prefill_flagged(*a, **k):
+        in_prefill[0] = True
+        try:
+            return inner(*a, **k)
+        finally:
+            in_prefill[0] = False
+
+    sess._prefill = prefill_flagged
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = sess.generate(prompts, 32)
+    with _counting_forwards(mcommon, "forward", in_prefill):
+        out = sess.generate(prompts, 32)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+class _counting_forwards:
+    """Counts ``module.<name>`` calls into FORWARDS by phase while open
+    (in_prefill[0] says which), restoring the function on exit."""
+
+    def __init__(self, module, name: str, in_prefill):
+        self.module, self.name, self.in_prefill = module, name, in_prefill
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            FORWARDS["prefill" if self.in_prefill[0] else "decode"] += 1
+            return fn(*a, **k)
+
+        setattr(self.module, self.name, counted)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
 
 
 def _group(name: str) -> str:
@@ -184,27 +225,71 @@ def _group(name: str) -> str:
     low = name.lower()
     if any(m in low for m in GEMM_MARKS):
         return "cuBLAS GEMM"
-    return "other (elementwise, reductions, copies)"
+    return OTHER
 
 
-def _report(title: str, events, wall_s: float) -> None:
-    by_name = defaultdict(float)
+def _report(title: str, events, wall_s: float, steps: dict,
+            other_ops: dict) -> None:
+    """Print a phase: its wall, busy time and idle share; each group's
+    time and launches, also a step for each of ``steps`` (unit -> count);
+    the top kernels; the torch ops behind the "other" group's kernels
+    (``other_ops``: op -> [ms, launches]) by time and by launches."""
+    by_name = defaultdict(lambda: [0.0, 0])
     for e in events:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3      # ms
-    busy = sum(by_name.values())
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3   # ms
+        by_name[e.name][1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
     if not busy:
         print(f"{title}: wall {wall_s * 1e3:.1f} ms, no device time traced")
         return
-    groups = defaultdict(float)
-    for name, ms in by_name.items():
-        groups[_group(name)] += ms
+    groups = defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in by_name.items():
+        groups[_group(name)][0] += ms
+        groups[_group(name)][1] += n
+    per = ", ".join(f"{n} {unit}" for unit, n in steps.items())
     print(f"{title}: wall {wall_s * 1e3:.1f} ms (unprofiled run), device "
           f"busy {busy:.1f} ms (profiled run), idle share "
-          f"{1 - busy / (wall_s * 1e3):.3f}")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {g}: {ms:.1f} ms ({ms / busy:.3f} of busy)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {ms:8.2f} ms  {name[:110]}")
+          f"{1 - busy / (wall_s * 1e3):.3f}; {per}")
+
+    def a_step(n):
+        return "".join(f", {n / k:.1f} a {unit[:-1]}"
+                       for unit, k in steps.items() if k)
+
+    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {g}: {ms:.1f} ms ({ms / busy:.3f} of busy), {n} "
+              f"launches{a_step(n)}")
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:8.2f} ms {n:6d} x  {name[:100]}")
+    by = "torch op"
+    if not other_ops:            # no op links traced: the kernels' names
+        by, other_ops = "kernel", {n: v for n, v in by_name.items()
+                                   if _group(n) == OTHER}
+    if other_ops:
+        for key, label in ((0, "time"), (1, "launches")):
+            print(f"  {OTHER} by {by}, top by {label}:")
+            for op, (ms, n) in sorted(other_ops.items(),
+                                      key=lambda kv: -kv[1][key])[:8]:
+                print(f"    {ms:8.2f} ms {n:6d} x{a_step(n)}  {op[:80]}")
+
+
+def _other_ops(events, ranges):
+    """(prefill, decode) dicts of torch op -> [ms, launches] for the
+    kernels of the "other" group, each kernel charged to the op that
+    launched it (the profiler links them); an op launched inside a prefill
+    range is prefill's."""
+    pre, dec = defaultdict(lambda: [0.0, 0]), defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or \
+                not getattr(e, "kernels", None):
+            continue
+        t = e.time_range.start
+        side = pre if any(r.start <= t <= r.end for r in ranges) else dec
+        for k in e.kernels:
+            if _group(k.name) == OTHER:
+                side[e.name][0] += k.duration / 1e3
+                side[e.name][1] += 1
+    return pre, dec
 
 
 def draft_model(params, cfg, layers: int):
@@ -224,24 +309,28 @@ def serve(params, cfg, prompts, seed, dev, spec=None):
     with a profiler range that closes after the closing synchronize, so
     every kernel the call queued starts inside it and its kernels can be
     told from decode's."""
+    from ..models import common as mcommon
     ex = make_executor(params, cfg, seed, dev)
-    prefill_s = [0.0]
+    prefill_s, in_prefill = [0.0], [False]
     inner = ex._step_prefill
 
     def prefill_ranged():
         torch.cuda.synchronize()
         t = time.perf_counter()
+        in_prefill[0] = True
         with torch.profiler.record_function("phase::prefill"):
             inner()
             torch.cuda.synchronize()
+        in_prefill[0] = False
         prefill_s[0] += time.perf_counter() - t
 
     ex._step_prefill = prefill_ranged
     ids = [ex.submit(p, max_new_tokens=32) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = ex.run() if spec is None else ex.run_speculative(
-        spec[0], spec[1], gamma=spec[2])
+    with _counting_forwards(mcommon, "forward_paged", in_prefill):
+        done = ex.run() if spec is None else ex.run_speculative(
+            spec[0], spec[1], gamma=spec[2])
     torch.cuda.synchronize()
     return done, ids, time.perf_counter() - t0, prefill_s[0], ex
 
@@ -285,8 +374,11 @@ def main() -> int:
         print(f"speculative: gamma {args.gamma}, draft = the first "
               f"{args.draft_layers} layers")
 
+    rounds = [0]
+
     def run_once():
         """(wall s, prefill s, what else to print) of one serve."""
+        FORWARDS.clear()
         if args.dense:
             out, wall = serve_dense(params, cfg, prompts, dev)
             return wall, out.prefill_time_s, (
@@ -294,6 +386,7 @@ def main() -> int:
                 f"{dense_cache_bytes(cfg, len(prompts), 768) / 1e9:.3f} GB")
         _, _, wall, pre_s, ex = serve(params, cfg, prompts, args.seed, dev,
                                       spec)
+        rounds[0] = ex.spec_rounds if spec else 0
         return wall, pre_s, (
             f"; acceptance "
             f"{ex.spec_accepted / max(ex.spec_proposed, 1):.3f} "
@@ -329,9 +422,15 @@ def main() -> int:
     for k in kernels:
         t = k.time_range.start
         (pre if any(r.start <= t <= r.end for r in ranges) else dec).append(k)
-    _report("prefill calls", pre, pre_s)
+    other_pre, other_dec = _other_ops(events, ranges)
+    _report("prefill calls", pre, pre_s, {"forwards": FORWARDS["prefill"]},
+            other_pre)
+    dec_steps = {"forwards": FORWARDS["decode"]}
+    if spec:
+        dec_steps["rounds"] = rounds[0]
     _report("speculative rounds (draft prefill, draft steps, verify)"
-            if spec else "decode steps", dec, wall - pre_s)
+            if spec else "decode steps", dec, wall - pre_s, dec_steps,
+            other_dec)
     return 0
 
 

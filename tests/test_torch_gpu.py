@@ -5,8 +5,13 @@ Whether a card is present is decided inside the fixture, never at import,
 so every pytest-xdist worker collects the same tests.
 
 K5/K6 must be bit-equal to the plain quantize-and-scatter outside the
-trash row 0, K5p/K6p to the plain cast-and-scatter; K7/K8 within 2e-2 of
-the plain f32 attention (bf16 q/out) on int8, bf16 and f32 pages.
+trash row 0, K5p/K6p to the plain cast-and-scatter, and so must
+kv_cache.paged_write, one launch a call that locates its tokens itself
+(S 1, 5, 8, 11, 40, 64, 256; int8, bf16, f32 pools; with and without
+block_pos, a valid mask or kv_valid_len; strided and unaligned rows,
+expanded positions and a strided mask; one traced kernel a call);
+K7/K8 within 2e-2 of the plain f32 attention (bf16 q/out) on int8,
+bf16 and f32 pages.
 K1: int8 codes at most 1 apart and > 99.9% equal (the norm's f32 sum runs
 in another order), scales rtol 1e-5, x_out 1e-2, in both of its kernels
 (registers, shared memory), two launches bit-equal. K2/K3/K4 differ from
@@ -99,6 +104,129 @@ def test_write_kernels_bit_equal(cuda, dtype):
         before.get("paged_write_token", 0) + 1
     assert _build.LAUNCHES["paged_write_chunk"] == \
         before.get("paged_write_chunk", 0) + 1
+
+
+def _layer_write_case(gen, dev, s, pool, with_bpos, layout, pad, h=4,
+                      d=64, b=4):
+    """kv_cache.paged_write's inputs as a layer gives them: 4 lanes of S
+    tokens over 16-token pages (lane 0 from position 0, or 3 before its
+    last; lane 1 on a recycled table, the page of its last token dropped
+    from the window when block_pos is given; lane 2 inactive: table 0;
+    lane 3 with its last tokens padded to PAD_POS if ``pad``, which needs
+    a mask), distinct pages, a valid mask and
+    the lengths it comes from, new K contiguous and new V a strided slice
+    of a packed qkv row ("unaligned": both views 2 bytes off, the kernel's
+    scalar route)."""
+    from mixq_tensorrt_llm_tpu_torch.runtime import kv_cache as kvc
+    np_, bs = 96, BS
+    chunk = pw.chunk_route(s, bs)
+    starts = [0, 2 * bs, 0, bs] if chunk else [bs - 3, 2 * bs + 5, 0, 9]
+    mb = -(-(max(starts) + s) // bs) + 1
+    table = (torch.randperm(np_ - 1, generator=gen, device=dev)[:b * mb]
+             + 1).int().reshape(b, mb)
+    table[2] = 0
+    bpos = (torch.arange(mb, dtype=torch.int32, device=dev) * bs).repeat(
+        b, 1)
+    perm = torch.randperm(mb, generator=gen, device=dev)
+    bpos[1] = bpos[1][perm]
+    table[1] = table[1][perm]
+    if with_bpos:                 # the recycled page that holds tokens
+        last = (starts[1] + s - 1) // bs * bs
+        bpos[1, int((bpos[1] == last).nonzero())] = (mb + 3) * bs
+    bpos[2] = int(PAD_POS)
+    pos = torch.tensor(starts, dtype=torch.int32, device=dev)[:, None] + \
+        torch.arange(s, dtype=torch.int32, device=dev)
+    lens = torch.tensor([starts[0] + max(s - 2, 1), starts[1] + s, 0,
+                         starts[3] + max(s - 3, 1)], dtype=torch.int32,
+                        device=dev)
+    if pad and s > 3:
+        pos[3, -3:] = int(PAD_POS)
+    valid = pos < lens[:, None]
+    width = (8 + 2 * h) * d + (1 if layout == "unaligned" else 0)
+    dtype = torch.float32 if pool == "float32" else torch.bfloat16
+    qkv = (torch.randn((b, s, width), generator=gen, device=dev)
+           * (torch.rand((b, s, 1), generator=gen, device=dev) * 4 + 0.01)
+           ).to(dtype)
+    o = width - 2 * h * d
+    nk = qkv[..., o:o + h * d].reshape(b, s, h, d)
+    if layout != "unaligned":
+        nk = nk.contiguous()
+    nv = qkv[..., o + h * d:].reshape(b, s, h, d)
+    if pool == "int8":
+        pools = _pools(gen, dev, h)
+        pools = {n: torch.cat([t] * 4) for n, t in pools.items()}
+    else:
+        pools = {n: (torch.randn((np_, h, bs, d), generator=gen, device=dev)
+                     * 2).to(getattr(torch, pool)) for n in ("k", "v")}
+    return kvc, pools, table, pos, (bpos if with_bpos else None), valid, \
+        lens, nk, nv
+
+
+def _traced_kernels(fn):
+    """Names of the device activities one call of fn queues, by
+    torch.profiler (a window is traced again, up to six times, where the
+    tracer returns no device activity at all)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(6):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["strided", "unaligned", "expanded"])
+@pytest.mark.parametrize("mask", ["none", "valid", "kv_valid_len"])
+@pytest.mark.parametrize("with_bpos", [False, True])
+@pytest.mark.parametrize("pool", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("s", [1, 5, 8, 11, 40, 64, 256])
+def test_layer_write_one_launch_bit_equal(cuda, s, pool, with_bpos, mask,
+                                          layout):
+    """kv_cache.paged_write on the card is one launch of K5 (S <= 8, and S
+    11 and 40, not multiples of the page: every column) or K6 (S 64 and
+    256), locating each token in the kernel, and leaves pools and scales
+    bit-equal outside the trash row to the plain route (_locate, then the
+    plain scatter or the chunk's drop rule), with and without block_pos, a
+    valid mask or kv_valid_len, from a strided V (and unaligned rows).
+    "expanded": the draft prefill's positions, arange(S) expanded over the
+    lanes (a lane stride of 0), and a valid mask that is a strided view.
+    The call queues one write kernel and no other device work, by the
+    traced names: V and the index tensors are read through their
+    strides, not copied."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    kvc, pools, table, pos, bpos, valid, lens, nk, nv = _layer_write_case(
+        gen, cuda, s, pool, with_bpos, layout,
+        pad=mask != "none" and layout != "expanded")
+    if layout == "expanded":
+        pos = torch.arange(s, dtype=torch.int32, device=cuda)[None].expand(
+            table.shape[0], s)
+        valid = torch.stack([pos < lens[:, None]] * 2, -1)[..., 0]
+        assert pos.stride() == (0, 1) and not valid.is_contiguous()
+    kw = dict(block_pos=bpos,
+              valid=valid if mask == "valid" else None,
+              kv_valid_len=lens if mask == "kv_valid_len" else None)
+    ker = {k: v.clone() for k, v in pools.items()}
+    pln = {k: v.clone() for k, v in pools.items()}
+    name = ("paged_write_chunk" if pw.chunk_route(s, BS)
+            else "paged_write_token") + ("" if pool == "int8" else "_fp")
+    before = dict(_build.LAUNCHES)
+    kvc.paged_write(ker, table, pos, nk, nv, **kw)
+    assert _launched(name, before) == 1
+    assert sum(_build.LAUNCHES.values()) - sum(before.values()) == 1
+    names = _traced_kernels(      # the same write again: the same bits
+        lambda: kvc.paged_write(ker, table, pos, nk, nv, **kw))
+    kname = ("write_chunk_kernel" if pw.chunk_route(s, BS)
+             else "write_token_kernel")
+    assert len(names) == 1 and kname in names[0], names
+    kvc.paged_write_plain(pln, table, pos, nk, nv, **kw)
+    torch.cuda.synchronize()
+    assert _same_outside_trash(ker, pln)
+    assert not _same_outside_trash(ker, pools)
 
 
 @pytest.mark.gpu

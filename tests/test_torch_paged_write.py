@@ -1,9 +1,10 @@
 """Port parity: the plain versions of the paged KV write kernels K5
 (paged_write_token) and K6 (paged_write_chunk), and of K5p / K6p (the same
 writes into unquantized f32 or bf16 pools), the kv_cache write routing
-and the block manager, against the JAX package. The JAX kernels run in
-interpret mode. Pages and scales must be bit-exact everywhere but the
-trash row 0."""
+(with block_pos, recycled tables, PAD_POS tokens, kv_valid_len and a
+strided V) and the block manager, against the JAX package; and the write
+kernels' launch plan. The JAX kernels run in interpret mode. Pages and
+scales must be bit-exact everywhere but the trash row 0."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -93,12 +94,13 @@ def test_chunk_write_bitexact_and_drop_rule():
                               torch.from_numpy(nv[:, :5]))
 
 
-@pytest.mark.parametrize("s,start", [(1, 13), (5, 6), (16, 8), (11, 3)])
+@pytest.mark.parametrize("s,start", [(1, 13), (5, 6), (8, 5), (16, 8),
+                                     (11, 3)])
 @pytest.mark.parametrize("windowed", [False, True])
 def test_paged_write_routing_matches_jax(s, start, windowed):
-    """S = 1 (K5), S <= 8 (chained K5), S % BS == 0 (K6), other (scatter)
-    against the JAX scatter/update path, with block_pos tables and
-    invalid tokens."""
+    """S = 1 and S <= 8 (K5's route, S = 8 its top), S % BS == 0 (K6),
+    other (K5's route; JAX's scatter) against the JAX scatter/update path,
+    with block_pos tables and invalid tokens."""
     pools = _pools(6)
     b, mb = 2, 4
     table = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
@@ -119,6 +121,118 @@ def test_paged_write_routing_matches_jax(s, start, windowed):
                           valid=torch.from_numpy(valid),
                           block_pos=torch.from_numpy(bpos))
     _assert_equal_outside_trash({k: v.numpy() for k, v in got.items()}, want)
+
+
+def _qkv_views(seed, b, s, unaligned):
+    """New K contiguous and new V a strided view of a packed qkv row (as
+    the model's split gives it); ``unaligned`` shifts both views by one
+    element."""
+    rng = np.random.default_rng(seed)
+    pad = 1 if unaligned else 0
+    qkv = torch.from_numpy((rng.standard_normal((b, s, pad + 3 * H * D))
+                            * rng.uniform(1e-3, 10.0, (b, s, 1))
+                            ).astype(np.float32))
+    nk = qkv[..., pad + H * D:pad + 2 * H * D].reshape(b, s, H, D)
+    nv = qkv[..., pad + 2 * H * D:].reshape(b, s, H, D)
+    assert not nv.is_contiguous()
+    return nk.contiguous(), nv
+
+
+@pytest.mark.parametrize("case", ["chunk_recycled", "chunk_pad_pos",
+                                  "token_pad_pos", "token_strided_v",
+                                  "chunk_strided_v_unaligned",
+                                  "token_kv_valid_len",
+                                  "chunk_kv_valid_len"])
+def test_paged_write_layer_cases_match_jax(case):
+    """kv_cache.paged_write as a layer calls it, against JAX's paged_write
+    (use_kernels=False): a chunk on a recycled table (block_pos out of
+    order, a page windowed out), invalid tokens at PAD_POS, V a strided
+    view of a packed qkv row, and kv_valid_len (the port's argument; JAX
+    gets the mask it stands for, as its models/common.py builds it)."""
+    pools = _pools(20)
+    chunk = case.startswith("chunk")
+    b, mb = 2, 5
+    s = 2 * BS if chunk else 5
+    table = np.array([[1, 2, 3, 4, 4], [5, 6, 7, 8, 8]], np.int32)
+    bpos = np.array([[0, 8, 16, 24, int(tkv.PAD_POS)],
+                     [0, 8, 16, 24, int(tkv.PAD_POS)]], np.int32)
+    start = np.array([8, 0] if chunk else [21, 10], np.int32)
+    if case == "chunk_recycled":   # lane 1: sink, then 32 and 16 recycled;
+        bpos[1, 1:4] = [40, 32, 16]  # its page for 8..15 left the window
+    pos = start[:, None] + np.arange(s, dtype=np.int32)[None]
+    lens = start + np.array([s - 3, s], np.int32)
+    if case.endswith("pad_pos"):
+        pos[0, -3:] = tkv.PAD_POS
+    valid = pos < lens[:, None]
+    nk, nv = _qkv_views(21, b, s, case.endswith("unaligned"))
+    if "strided" not in case:
+        nv = nv.contiguous()
+    want = jkv.paged_write(_jax(pools), jnp.asarray(table), jnp.asarray(pos),
+                           jnp.asarray(nk.numpy()),
+                           jnp.asarray(nv.contiguous().numpy()), True,
+                           valid=jnp.asarray(valid),
+                           block_pos=jnp.asarray(bpos), use_kernels=False)
+    kw = (dict(kv_valid_len=torch.from_numpy(lens))
+          if case.endswith("kv_valid_len")
+          else dict(valid=torch.from_numpy(valid)))
+    got = tkv.paged_write(_torch(pools), torch.from_numpy(table),
+                          torch.from_numpy(pos), nk, nv,
+                          block_pos=torch.from_numpy(bpos), **kw)
+    got = {k: v.numpy() for k, v in got.items()}
+    _assert_equal_outside_trash(got, want)
+    assert any((got[n][1:] != pools[n][1:]).any() for n in pools)
+
+
+SMS = 132                      # the H100's SMs
+
+
+@pytest.mark.parametrize("fp", [False, True])
+def test_write_plan_fills_the_card_on_the_smoke_chunk(fp):
+    """K6's plan for the smoke's chunk (4 lanes x 256 tokens, 32 or 40
+    heads x 128, 128-token pages): 16 lanes a row, 16-byte loads, at least
+    one wave of resident blocks, several rows in flight a warp, at most
+    two passes a block, and every row of a slab inside exactly one block's
+    range."""
+    h = 40 if fp else 32
+    plan = tpw.write_plan(True, 4, 256, h, 128, 128, True, SMS)
+    assert (plan.vec, plan.group) == (8, 16)
+    assert plan.grid == 4 * 2 * plan.per_slab
+    assert plan.grid >= SMS * tpw.CHUNK_BLOCKS_PER_SM
+    assert 32 // plan.group * tpw.CHUNK_ROWS >= 4
+    rows = 128 * 2 * h
+    per = -(-rows // plan.per_slab)
+    assert per <= 2 * tpw.CHUNK_THREADS // plan.group * tpw.CHUNK_ROWS
+    assert (plan.per_slab - 1) * per < rows <= plan.per_slab * per
+
+
+@pytest.mark.parametrize("b,s,h,bs,d,aligned,vec,group", [
+    (8, 1, 32, 128, 128, True, 8, 16),     # 7B decode
+    (8, 5, 40, 128, 128, True, 8, 16),     # the verify, 13B heads
+    (2, 3, 4, 8, 32, True, 8, 4),          # a tiny model
+    (2, 3, 4, 8, 36, True, 1, 8),          # head_dim not a multiple of 8
+    (2, 3, 4, 8, 64, False, 1, 8),         # unaligned rows
+    (1, 1, 1, 16, 256, True, 8, 32),       # the widest head
+])
+def test_write_plan_token_route(b, s, h, bs, d, aligned, vec, group):
+    """K5's plan: the lanes of a row cover head_dim at 8 values a lane
+    (16-byte loads only for aligned rows of D % 8 == 0), and the grid's
+    lane groups cover every (token, head, K/V) row (the kernel walks the
+    rows past 16 blocks an SM)."""
+    plan = tpw.write_plan(False, b, s, h, bs, d, aligned, SMS)
+    assert (plan.vec, plan.group, plan.per_slab) == (vec, group, 0)
+    assert 8 * plan.group >= d and (plan.group == 1 or 8 * plan.group < 2 * d)
+    groups = plan.grid * tpw.TOKEN_THREADS // plan.group
+    assert groups >= b * s * 2 * h or plan.grid == 16 * SMS
+
+
+@pytest.mark.parametrize("s,bs,chunk", [(1, 128, False), (8, 8, False),
+                                        (5, 4, False), (16, 8, True),
+                                        (256, 128, True), (11, 8, False),
+                                        (200, 128, False)])
+def test_chunk_route(s, bs, chunk):
+    """K6's route takes S % BS == 0 above 8 tokens, as the JAX package
+    routes its chunk kernel; every other S takes K5's."""
+    assert tpw.chunk_route(s, bs) is chunk
 
 
 def _fp_pools(seed, dtype):
