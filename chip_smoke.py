@@ -38,7 +38,10 @@ exits non-zero:
      outliers) / int8-KV model with random weights serves 8 ragged
      requests (100-700 prompt tokens, 32 greedy tokens each) through the
      Executor (the serving loop of tools/serving_profile.py); K1, K2 and
-     K4-K8 must launch in that run (K3 is not on the path)
+     K4-K8 must launch in that run (K3 is not on the path). In phases 4,
+     4b, 6 and 6b every decode step is a replay of the Executor's
+     captured rung 1 (its first use captures it inside the run), and each
+     replay adds the launches its capture recorded to the counts
   5. cross-device: the same weights at 2 layers, the first prefill chunk's
      last-position logits and one decode step's logits on the card
      (kernels) against the CPU (plain), plus negative controls: faults
@@ -58,6 +61,14 @@ exits non-zero:
      K1 -> K2 and K4's mid regime (the 5-row verify's linears: 40 rows)
      must launch, the device-paced
      rounds must run with one host readback a call
+  4d. decode bursts on the main path: the phase-4 model, through a new
+     Executor, runs warmup(burst=16) (rungs 16, 8, 4, 2 and 1 captured as
+     CUDA graphs), then serves the same 8 requests with run(burst=1) and
+     run(burst=16), each once timed and once under torch.profiler: every
+     request's tokens equal phase 4's, no program made after warmup,
+     every decode call a graph replay, K4 (decode regime), K5 and K7
+     launched and traced in the decode phase; decode wall, idle share and
+     host readbacks a generated token printed beside phase 4's
   6b. split decode on the main path: the phase-4 model serves with
      MIXQ_KV_SPLITS=4; K11 must launch at decode (one launch of K7's
      kernel a step and layer), neither K7 nor K10
@@ -186,6 +197,12 @@ ON_PATH = {
               "rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
               "paged_write_token", "paged_write_chunk",
               "paged_prefill_attention"],
+    # phase 4d: the decode rungs' replays (K4's decode regime, K5, K7);
+    # the prefill chunks run eagerly between them
+    "burst": ["wo_matmul", "wo_matmul.decode", "paged_write_token",
+              "paged_decode_attention", "rmsnorm_quant_split",
+              "mixed_matmul", "paged_write_chunk",
+              "paged_prefill_attention"],
     # phase 4c: GenerationSession over the dense cache: K14 once a layer
     # at the prefill, the mix linears there, the weight-only ones decoding
     "dense": ["flash_causal_attention", "rmsnorm_quant_split",
@@ -194,10 +211,18 @@ ON_PATH = {
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
-            "spec": [], "split": ["paged_decode_attention",
+            "spec": [], "burst": [], "split": ["paged_decode_attention",
                                   "paged_decode_attention_stats"],
             "dense": PAGED}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
+BURST = 16                          # phase 4d
+# phase 4d: the kernels of a decode step, by a mark of the traced name,
+# and their launches a layer
+DECODE_TRACED = {"wo_small_mma_kernel": ("K4", 4),
+                 "write_token_kernel": ("K5", 1),
+                 "decode_split_kernel": ("K7", 1)}
+# serve(): per path, the numbers phase 4d prints phase 4's beside
+SERVE_STATS = {}
 
 
 def fail(msg: str) -> None:
@@ -1578,6 +1603,14 @@ def serve(torch, params, cfg, seed: int, dev, path: str):
                                                   dev, spec)
     launches = dict(_build.LAUNCHES)
     gen_total = sum(len(done[r].generated) for r in ids)
+    SERVE_STATS[path] = dict(wall=wall, decode_s=wall - prefill_s,
+                             readbacks=ex.readbacks, gen=gen_total,
+                             calls=ex.decode_calls,
+                             replays=ex.graph_replays)
+    if spec is None:
+        check(ex.graph_replays == ex.decode_calls > 0,
+              f"{path}: {ex.graph_replays} graph replays for "
+              f"{ex.decode_calls} decode calls")
     check(all(done[r].done and len(done[r].generated) == 32 for r in ids),
           f"{path}: not every request finished with 32 tokens")
     check(all(len(done[r].logprobs) == 32 for r in ids)
@@ -1633,6 +1666,109 @@ def serve(torch, params, cfg, seed: int, dev, path: str):
         check(launches.get(name, 0) == 0,
               f"{name} was launched on the main path {path}")
     return launches, done, ids
+
+
+def decode_run(torch, sp, params, cfg, prompts, seed: int, dev, ex,
+               burst: int) -> dict:
+    """Serve the prompts through the warmed Executor ``ex`` with
+    run(burst=burst), once timed with every launch count at 0 just before
+    and read just after, once under torch.profiler (kernels that start
+    outside the prefill calls' ranges are decode's). Returns the run's
+    numbers."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    marks = (ex.decode_calls, ex.graph_replays, ex.readbacks,
+             ex.decode_steps)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    done, ids, wall, prefill_s, _ = sp.serve(params, cfg, prompts, seed,
+                                             dev, None, burst, ex)
+    launches = dict(_build.LAUNCHES)
+    calls, replays, reads, steps = (a - b for a, b in zip(
+        (ex.decode_calls, ex.graph_replays, ex.readbacks, ex.decode_steps),
+        marks))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        done2, ids2, *_ = sp.serve(params, cfg, prompts, seed, dev, None,
+                                   burst, ex)
+    events = prof.events()
+    ranges = [e.time_range for e in events if e.name == "phase::prefill"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    dec = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("phase::")
+           and not any(r.start <= e.time_range.start <= r.end
+                       for r in ranges)]
+    toks = [done[r].generated for r in ids]
+    check([done2[r].generated for r in ids2] == toks,
+          f"phase 4d: burst {burst}: the profiled run's tokens differ")
+    return dict(toks=toks, logprobs=[done[r].logprobs for r in ids],
+                wall=wall, decode_s=wall - prefill_s, launches=launches,
+                calls=calls, replays=replays, readbacks=reads, steps=steps,
+                gen=sum(len(t) for t in toks),
+                busy_ms=sum(e.time_range.elapsed_us() for e in dec) / 1e3,
+                traced={m: sum(m in e.name for e in dec)
+                        for m in DECODE_TRACED})
+
+
+def serve_burst(torch, params, cfg, seed: int, dev, ref) -> dict:
+    """Phase 4d: a new Executor over the phase-4 model runs
+    warmup(burst=BURST), then serves the 8 requests with run(burst=1) and
+    run(burst=BURST) (``decode_run``). ``ref`` = (finished requests, ids)
+    of phase 4. Returns the launches of the BURST run."""
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    prompts = sp.ragged_prompts(seed, cfg.vocab_size)
+    ex = sp.make_executor(params, cfg, seed, dev)
+    t = time.perf_counter()
+    ex.warmup(burst=BURST)
+    torch.cuda.synchronize()
+    rungs = sorted(k for k, _ in ex._rungs)
+    print(f"phase 4d: warmup(burst={BURST}) {time.perf_counter() - t:.1f} s"
+          f", rungs {rungs} captured", flush=True)
+    check(rungs == [1, 2, 4, 8, BURST], f"phase 4d: rungs {rungs}")
+    want = [ref[0][r].generated for r in ref[1]]
+    p4 = SERVE_STATS["7b"]
+    print(f"phase 4 (a fresh Executor, rung 1 captured in the run): decode "
+          f"wall {p4['decode_s'] * 1e3:.1f} ms, {p4['calls']} decode calls, "
+          f"{p4['replays']} replays, {p4['readbacks']} host readbacks = "
+          f"{p4['readbacks'] / p4['gen']:.4f} a generated token",
+          flush=True)
+    runs = {}
+    for burst in (1, BURST):
+        r = runs[burst] = decode_run(torch, sp, params, cfg, prompts, seed,
+                                     dev, ex, burst)
+        check(r["toks"] == want, f"phase 4d: burst {burst}: tokens differ "
+              "from phase 4's")
+        check(all(math.isfinite(x) for lps in r["logprobs"] for x in lps),
+              f"phase 4d: burst {burst}: a log-probability is not finite")
+        check(r["replays"] == r["calls"] > 0,
+              f"phase 4d: burst {burst}: {r['replays']} replays for "
+              f"{r['calls']} decode calls")
+        expect = {m: n * cfg.num_layers * r["steps"]
+                  for m, (_, n) in DECODE_TRACED.items()}
+        for m, (label, _) in DECODE_TRACED.items():
+            check(0 < r["traced"][m] <= expect[m],
+                  f"phase 4d: burst {burst}: {label} ({m}) traced "
+                  f"{r['traced'][m]} times in the decode phase "
+                  f"(expected {expect[m]})")
+        dec_ms = r["decode_s"] * 1e3
+        print(f"phase 4d burst {burst}: wall {r['wall'] * 1e3:.1f} ms, "
+              f"decode wall {dec_ms:.1f} ms for {r['steps']} steps in "
+              f"{r['calls']} calls ({r['replays']} graph replays), device "
+              f"busy {r['busy_ms']:.1f} ms (profiled run), idle share "
+              f"{1 - r['busy_ms'] / dec_ms:.3f}; {r['readbacks']} host "
+              f"readbacks = {r['readbacks'] / r['gen']:.4f} a generated "
+              f"token; traced in decode "
+              + ", ".join(f"{DECODE_TRACED[m][0]} {n} of {expect[m]}"
+                          for m, n in r["traced"].items()), flush=True)
+    check(ex.compiles_since_warmup == 0,
+          f"phase 4d: {ex.compiles_since_warmup} programs made after warmup")
+    launches = runs[BURST]["launches"]
+    print(f"main path burst launches: {json.dumps(launches)}", flush=True)
+    for name in ON_PATH["burst"]:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the main path burst")
+    return launches
 
 
 def serve_dense(torch, params, cfg, seed: int, dev):
@@ -2124,6 +2260,12 @@ def main() -> int:
                         "7b int8_mix + int8 KV", faults_7b(torch))
     print(f"phases 4-5: {time.perf_counter() - t:.1f} s", flush=True)
 
+    # 4d. decode bursts: warmup, then the rungs' replays
+    t = time.perf_counter()
+    launches["burst"] = serve_burst(torch, params, cfg, args.seed, dev,
+                                    (done["7b"], ids["7b"]))
+    print(f"phase 4d: {time.perf_counter() - t:.1f} s", flush=True)
+
     # 6. speculative serving, 6b. split decode, on the phase-4 model
     t = time.perf_counter()
     for path in ("spec", "split"):
@@ -2171,8 +2313,8 @@ def main() -> int:
     print(f"phases 4b-5b: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 8. kernels line: launches summed over the main paths' runs (phases
-    # 4, 4b, 4c, 6 and 6b; the cross-device runs' beside them: K13
-    # launches there only)
+    # 4, 4b, 4c, 4d (its burst-16 run), 6 and 6b; the cross-device runs'
+    # beside them: K13 launches there only)
     rows = []
     for name, (replaces, src) in KERNELS.items():
         r = results[name]

@@ -10,8 +10,11 @@ is never loaded. ``build()`` starts one nvcc per source, all at once.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0. A wrapper bumps ``LAUNCHES[name]``
 exactly where it launches its kernel, so a run can show which kernels its
-main path went through. ``scratch`` holds the split kernels' shared
-partials and tickets.
+main path went through; a captured CUDA graph adds the counts its
+capture recorded on each replay (``add_launches``). ``scratch`` holds the
+split kernels' shared partials and tickets. Each nvcc build counts as a
+program made, and each library loaded that this process did not build
+as a cache hit (``utils/compile_watch``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping
+
+from ..utils import compile_watch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,6 +43,7 @@ LAUNCHES: Dict[str, int] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_built = set()          # the libraries this process compiled
 _lock = threading.Lock()
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,6 +52,12 @@ LL = ctypes.c_longlong
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Add a captured graph's launch counts (one replay)."""
+    for name, n in counts.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launches() -> None:
@@ -82,6 +94,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        compile_watch.note_program()
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
@@ -93,6 +106,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, paths[n])
+            _built.add(n)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
@@ -102,6 +116,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             path = build([name])[name]
+            if name not in _built:
+                compile_watch.note_cache_hit()
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
 
@@ -134,14 +150,26 @@ def aligned(t):
 # device -> the buffers every split kernel (K2, K4, K12, K13, K7) reuses
 # launch after launch on the device's stream: the tickets (zeros, left
 # zeroed by every launch: the last block of a tile resets its counter) and
-# the partials (4-byte elements: f32 sums, or K2's int32 ones)
+# the partials (4-byte elements: f32 sums, or K2's int32 ones). A buffer
+# that is outgrown is kept, never freed: a captured graph may still hold
+# its pointer.
 _TICKETS: Dict = {}
 _PARTIALS: Dict = {}
+_OUTGROWN: list = []
 
 
 def _grown(cache: dict, dev, n: int, make):
     buf = cache.get(dev)
     if buf is None or buf.numel() < n:
+        import torch
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"scratch: {n} elements asked during a CUDA graph capture "
+                f"(held {0 if buf is None else buf.numel()}); a rung's warm "
+                "pass must grow the buffers before its capture")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = make(max(n, 4096))
         cache[dev] = buf
     return buf
@@ -150,7 +178,8 @@ def _grown(cache: dict, dev, n: int, make):
 def scratch(dev, n_part: int, n_tickets: int):
     """(pointer to at least ``n_part`` 4-byte partials, or None where
     ``n_part`` is 0; pointer to at least ``n_tickets`` zeroed tickets) on
-    ``dev``, shared by every split kernel's launches."""
+    ``dev``, shared by every split kernel's launches. Raises if they would
+    grow while the current stream is capturing a graph."""
     import torch
     part = (_grown(_PARTIALS, dev, n_part,
                    lambda size: torch.empty((size,), dtype=torch.float32,

@@ -7,7 +7,11 @@ batch_params and sample_batched (the Executor's).
 
 Greedy lanes take ``torch.argmax``, which returns the first maximum like
 ``jnp.argmax``. Stochastic draws come from an explicit ``torch.Generator``
-on the logits' device; the bits differ from JAX's for the same seed.
+on the logits' device; the bits differ from JAX's for the same seed. As in
+the JAX package, ``sample_batched`` computes the greedy and the sampled
+token of every lane and picks per lane: it reads nothing back from the
+device, so the Executor's captured CUDA graphs run it as they run the
+model.
 Logits processors are torch callables ``(logits (B, V), history (B, W))
 -> logits``.
 """
@@ -176,9 +180,6 @@ def sample_batched(logits: torch.Tensor, generator: torch.Generator,
         logits = torch.where(hit & (suppress_flag[:, None] != 0),
                              -torch.inf, logits)
     greedy_tok = torch.argmax(logits, dim=-1)
-    if bool(params.greedy.all()):
-        return greedy_tok
-
     scaled = logits / torch.clamp(params.temperature, min=1e-6)[:, None]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
     top_k = params.top_k[:, None]
@@ -194,6 +195,10 @@ def sample_batched(logits: torch.Tensor, generator: torch.Generator,
                           torch.clamp(cutoff_idx, 0, v - 1)[:, None])
     scaled = torch.where((params.top_p[:, None] < 1.0) & (scaled < cutoff),
                          -torch.inf, scaled)
-    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                generator=generator)[:, 0]
+    # torch.multinomial's one-sample draw, written out: argmax of p / q
+    # with q ~ Exp(1) from the same generator gives its tokens bit for bit,
+    # without its validity checks, which read the device
+    probs = torch.softmax(scaled, dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    sampled = torch.argmax(probs / q, dim=-1)
     return torch.where(params.greedy, greedy_tok, sampled)

@@ -12,6 +12,26 @@ On CUDA the prefill chunk is rounded up to a multiple of the block size,
 so every chunk takes the page-aligned chunk-write kernel (K6), and the
 block size must be one the CUDA kernels take (16..256 in steps of 16).
 
+Every decode forward is one call of a decode *rung*: k decode steps (k = 1
+for ``step()``, k >= 2 for ``step_burst``) with the tokens, lengths,
+history and ``min_new_tokens`` countdown carried on the device and one
+host readback at the end (the JAX package's ``decode_fn`` and
+``make_burst_fn(k)``). On the card a rung is a captured CUDA graph, keyed
+by k and the ``MIXQ_KV_SPLITS`` value in force (read while capturing and
+baked in); its first use runs the body once eagerly on a side stream (to
+build kernels, grow the split kernels' scratch and set up cuBLAS; the
+replay rewrites every KV slot that pass wrote), captures it into the one
+graph memory pool all rungs share, and replays it; every later call
+replays it. A failed capture or replay raises: there is no eager retry.
+The host copies every input it changes into one static buffer before
+each replay, and the graphs hold the params' and the KV pools' storage,
+so neither may be replaced while the Executor lives. On the CPU the same
+rungs run eagerly. ``run(burst, mixed_burst)``, ``step_serving`` and
+``warmup`` drive them as the JAX Executor drives its programs;
+``compiles_since_warmup`` counts rungs and kernel builds made after
+warmup (utils/compile_watch). Prefill chunks and the speculative rounds
+run eagerly.
+
 ``run_speculative`` is in-flight speculative decoding with a paged draft
 pool: a draft model proposes gamma tokens per lane, the target verifies
 them in one (gamma+1)-row forward (K9), and the rounds run device-paced
@@ -19,10 +39,9 @@ them in one (gamma+1)-row forward (K9), and the rounds run device-paced
 allows. ``MIXQ_KV_SPLITS`` > 1 sends every decode step's attention through
 the split kernel (K11).
 
-Not ported yet: decode bursts and mixed bursts, the dense-cache draft
-(``paged_draft=False``, which needs the dense forward), beams,
-snapshot/restore, warmup, meshes, LoRA, prefix reuse, bad words and
-logits processors.
+Not ported yet: the dense-cache draft (``paged_draft=False``, which needs
+the dense forward), beams, snapshot/restore, meshes, LoRA, prefix reuse,
+bad words, logits processors, ``max_queue_size`` and iteration stats.
 """
 
 from __future__ import annotations
@@ -38,9 +57,12 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import common as mcommon
 from ..models.common import ModelConfig
+from ..ops import _build
 from ..ops.paged_attention import check_kernel_geometry
+from ..utils import compile_watch
 from .kv_cache import PAD_POS, BlockManager, PagedKVState, init_paged_kv
-from .sampler import SamplingConfig, batch_params, sample_batched
+from .sampler import (SamplingConfig, SamplingParams, batch_params,
+                      sample_batched)
 
 HISTORY_W = 64   # repetition-penalty window (recent tokens per lane)
 
@@ -48,6 +70,68 @@ HISTORY_W = 64   # repetition-penalty window (recent tokens per lane)
 def pow2_ceil(n: int) -> int:
     """Smallest power of two >= n (n <= 1 -> 1)."""
     return 1 << max(n - 1, 0).bit_length()
+
+
+def pow2_floor(n: int) -> int:
+    """Largest power of two <= n (n must be >= 1)."""
+    return 1 << (n.bit_length() - 1)
+
+
+class _DecodeInputs:
+    """Every input the host changes between decode calls, in one int32
+    buffer (the float fields bit-cast) that one copy moves to the device
+    (pinned on the host, so the copy is asynchronous). ``host`` holds numpy
+    views to fill, ``dev`` the tensor views the rungs read; each field
+    starts 16 bytes in. On the CPU the two are one buffer."""
+
+    FLOATS = ("temperature", "top_p", "penalty")
+
+    def __init__(self, b: int, mb: int, device: torch.device):
+        shapes = {"tokens": (b, 1), "lens": (b,), "sup_tok": (b,),
+                  "min_left": (b,), "top_k": (b,), "greedy": (b,),
+                  "temperature": (b,), "top_p": (b,), "penalty": (b,),
+                  "table": (b, mb), "bpos": (b, mb),
+                  "history": (b, HISTORY_W)}
+        spans, n = {}, 0
+        for name, shape in shapes.items():
+            size = int(np.prod(shape))
+            spans[name] = (n, size)
+            n += -(-size // 4) * 4
+        cuda = device.type == "cuda"
+        self.buf_host = torch.zeros((n,), dtype=torch.int32, pin_memory=cuda)
+        self.buf_dev = (torch.zeros((n,), dtype=torch.int32, device=device)
+                        if cuda else self.buf_host)
+        flat = self.buf_host.numpy()
+        self.host, self.dev = {}, {}
+        for name, (o, size) in spans.items():
+            self.host[name] = flat[o:o + size].reshape(shapes[name])
+            self.dev[name] = self.buf_dev[o:o + size].view(shapes[name])
+            if name in self.FLOATS:
+                self.host[name] = self.host[name].view(np.float32)
+                self.dev[name] = self.dev[name].view(torch.float32)
+
+    def upload(self) -> None:
+        if self.buf_dev is not self.buf_host:
+            self.buf_dev.copy_(self.buf_host, non_blocking=True)
+
+    def sampling(self) -> SamplingParams:
+        d = self.dev
+        return SamplingParams(temperature=d["temperature"],
+                              top_k=d["top_k"].long(), top_p=d["top_p"],
+                              greedy=d["greedy"] != 0,
+                              repetition_penalty=d["penalty"])
+
+
+@dataclasses.dataclass
+class _Rung:
+    """A decode program of k steps. On the card: its graph, the graph's
+    output ((B, 2k) int32: the tokens, then the log-probabilities bit-cast)
+    and the kernel launches its capture recorded, which every replay adds
+    to ``ops._build.LAUNCHES``."""
+    k: int
+    graph: Optional[object] = None
+    out: Optional[torch.Tensor] = None
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -123,6 +207,16 @@ class Executor:
         self.preemptions = 0
         self.prefill_chunk = prefill_chunk
         self.prefill_lanes = max(1, min(prefill_lanes, max_batch))
+        self._dec = _DecodeInputs(max_batch, self.max_blocks_per_seq,
+                                  self.device)
+        self._rungs: Dict[Tuple[int, int], _Rung] = {}
+        self._graph_pool = None
+        # decode calls (one rung each), the steps they ran, the graphs
+        # replayed (the card only), the host readbacks of sampled tokens
+        self.decode_calls = self.decode_steps = self.graph_replays = 0
+        self.readbacks = 0
+        self._warm_compile_mark: Optional[int] = None
+        self._warm_cache_mark: Optional[int] = None
 
     # ------------------------------------------------------------------
     def _t(self, a: np.ndarray) -> torch.Tensor:
@@ -249,7 +343,7 @@ class Executor:
                 logits[:, 0], lane_rows,
                 [r.sampling or self.sampling if r is not None else None
                  for r in lane_rows], sup_tok, sup_flag)
-            tok_np, lp_np = tok.cpu().numpy(), lp.cpu().numpy()
+            tok_np, lp_np = self._readback(tok, lp)
         for i, req in enumerate(lanes):
             req.prefill_pos = int(length[i])
             if finishing[i]:
@@ -343,8 +437,127 @@ class Executor:
                     " size the pool larger (max_kv_tokens)")
             self._preempt(self._pick_victim())
 
+    def _decode_body(self, k: int) -> torch.Tensor:
+        """k decode steps from the static inputs (``_DecodeInputs.dev``),
+        which it only reads: the tokens, lengths, history and min_new
+        countdown are carried as new tensors, as the JAX burst's scan
+        carries them. Returns (B, 2k) int32: the tokens, then the
+        log-probabilities bit-cast."""
+        d = self._dec.dev
+        samp = self._dec.sampling()
+        tok, lens, hist, min_left = (d["tokens"], d["lens"], d["history"],
+                                     d["min_left"])
+        toks, lps = [], []
+        for j in range(k):
+            logits, _ = mcommon.forward_paged(
+                self.params, self.cfg, tok, lens[:, None], self.state,
+                d["table"], torch.clamp(lens + 1, min=1),
+                block_pos=d["bpos"], window=self._win_tokens,
+                sink=self._sink_tokens)
+            last = logits[:, 0]
+            t = sample_batched(last, self.generator, samp, history=hist,
+                               suppress_token=d["sup_tok"],
+                               suppress_flag=(min_left > 0).int())
+            toks.append(t.int())
+            lps.append(torch.gather(torch.log_softmax(last, dim=-1), 1,
+                                    t[:, None])[:, 0])
+            if j + 1 < k:
+                tok = toks[-1][:, None]
+                lens = lens + 1
+                hist = torch.cat([hist[:, 1:], tok], dim=1)
+                min_left = torch.clamp(min_left - 1, min=0)
+        return torch.cat([torch.stack(toks, dim=1),
+                          torch.stack(lps, dim=1).view(torch.int32)], dim=1)
+
+    def _rung(self, k: int) -> _Rung:
+        """The k-step decode rung under the MIXQ_KV_SPLITS value in force,
+        made at first use (a program made: compile_watch)."""
+        key = (k, mcommon._kv_splits())
+        rung = self._rungs.get(key)
+        if rung is None:
+            rung = self._capture(k) if self.device.type == "cuda" \
+                else _Rung(k)
+            compile_watch.note_program()
+            self._rungs[key] = rung
+        return rung
+
+    def _capture(self, k: int) -> _Rung:
+        """Warm pass, then capture of the k-step body into the shared
+        graph pool, with the Executor's generator registered so that each
+        replay draws anew. The launches counted while capturing are taken
+        back out of LAUNCHES and kept as the rung's per-replay counts."""
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._decode_body(k)
+        cur.wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        mark = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                out = self._decode_body(k)
+        except Exception as e:
+            raise RuntimeError(f"decode rung k={k}: CUDA graph capture "
+                               f"failed ({e})") from e
+        finally:
+            launches = {n: c - mark.get(n, 0)
+                        for n, c in _build.LAUNCHES.items()
+                        if c != mark.get(n, 0)}
+            _build.LAUNCHES.clear()
+            _build.LAUNCHES.update(mark)
+        return _Rung(k, graph, out, launches)
+
+    def _decode(self, k: int, active) -> Tuple[np.ndarray, np.ndarray]:
+        """One call of the k-step rung over the (slot, request) pairs
+        ``active`` (pages already extended by k): fill and upload the
+        static inputs, run (replay on the card), read back once. Returns
+        (tokens (B, k) int32, log-probabilities (B, k) f32)."""
+        h = self._dec.host
+        b = self.max_batch
+        table, bpos = self._lane_tables(active)
+        h["tokens"][:] = 0
+        h["lens"][:] = 0
+        h["sup_tok"][:] = -1
+        h["min_left"][:] = 0
+        h["table"][:], h["bpos"][:] = table, bpos
+        h["history"][:] = self._history(self.slots)
+        configs: List[SamplingConfig] = [SamplingConfig()] * b
+        for i, req in active:
+            # the incoming token is the last generated one, at position
+            # seq_len - 1 (everything before it is in the cache)
+            h["tokens"][i, 0] = req.generated[-1]
+            h["lens"][i] = len(req.prompt) + len(req.generated) - 1
+            configs[i] = req.sampling or self.sampling
+            if req.eos_token_id is not None:
+                h["sup_tok"][i] = req.eos_token_id
+                h["min_left"][i] = max(0, req.min_new_tokens
+                                       - len(req.generated))
+        for name, attr in (("temperature", "temperature"),
+                           ("top_k", "top_k"), ("top_p", "top_p"),
+                           ("greedy", "is_greedy"),
+                           ("penalty", "repetition_penalty")):
+            h[name][:] = [getattr(c, attr) for c in configs]
+        self._dec.upload()
+        rung = self._rung(k)
+        if rung.graph is None:
+            out = self._decode_body(k)
+        else:
+            rung.graph.replay()
+            _build.add_launches(rung.launches)
+            self.graph_replays += 1
+            out = rung.out
+        self.decode_calls += 1
+        self.decode_steps += k
+        (a,) = self._readback(out)
+        return a[:, :k], a[:, k:].view(np.float32)
+
     def step(self) -> int:
-        """Admit + one prefill chunk + one batched decode step.
+        """Admit + one prefill chunk + one batched decode step (rung 1).
         Returns tokens produced (decode lanes + completed prefills)."""
         self._admit()
         produced_before = sum(len(r.generated) for r in self.slots
@@ -358,50 +571,54 @@ class Executor:
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return produced_prefill
-
-        b = self.max_batch
-        tokens = np.zeros((b, 1), np.int32)
-        lens = np.zeros((b,), np.int32)
-        sup_tok = np.full((b,), -1, np.int32)
-        sup_flag = np.zeros((b,), np.int32)
-        configs: List[Optional[SamplingConfig]] = [None] * b
-        for i, req in active:
-            # the incoming token is the last generated one, at position
-            # seq_len - 1 (everything before it is in the cache)
-            new_pos = len(req.prompt) + len(req.generated) - 1
+        for _, req in active:
             self.bm.extend(req.req_id, 1)
-            tokens[i, 0] = req.generated[-1]
-            lens[i] = new_pos
-            configs[i] = req.sampling or self.sampling
-            if (req.eos_token_id is not None
-                    and len(req.generated) < req.min_new_tokens):
-                sup_tok[i] = req.eos_token_id
-                sup_flag[i] = 1
-        table, bpos = self._lane_tables(active)
-        lens_t = self._t(lens)
-        logits, self.state = mcommon.forward_paged(
-            self.params, self.cfg, self._t(tokens), lens_t[:, None],
-            self.state, self._t(table), torch.clamp(lens_t + 1, min=1),
-            block_pos=self._t(bpos), window=self._win_tokens,
-            sink=self._sink_tokens)
-        tok, lp = self._sample(logits[:, 0], self.slots, configs, sup_tok,
-                               sup_flag)
-        tok_np, lp_np = tok.cpu().numpy(), lp.cpu().numpy()
+        tok_np, lp_np = self._decode(1, active)
         for i, req in active:
-            self._append_token(req, int(tok_np[i]), float(lp_np[i]))
+            self._append_token(req, int(tok_np[i, 0]), float(lp_np[i, 0]))
         return len(active) + produced_prefill
+
+    def step_burst(self, k: int) -> int:
+        """k decode steps in ONE rung call (one host readback). Caller
+        guarantees no queued/prefilling work. Tokens a lane produces after
+        its own eos/max_new are discarded host-side; their page writes
+        land in pre-extended (soon freed) or trash pages. Returns 0 (the
+        caller single-steps) when pages for k tokens cannot be reserved or
+        a recycling window is active (mid-burst block recycling would mask
+        still-visible tokens)."""
+        if self.num_active == 0 or self.bm.window_blocks:
+            return 0
+        try:
+            self._secure_pages(k)   # may preempt under KV pressure
+        except RuntimeError:
+            return 0                # caller single-steps
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        for _, req in active:
+            self.bm.extend(req.req_id, k)    # pages for the whole burst
+        toks_np, lps_np = self._decode(k, active)
+        produced = 0
+        for i, req in active:
+            for j in range(k):
+                if req.done:
+                    break
+                self._append_token(req, int(toks_np[i, j]),
+                                   float(lps_np[i, j]))
+                produced += 1
+        return produced
 
     # ------------------------------------------------------------------
     # in-flight speculative decoding (runtime/scheduler.py:527-926)
     # ------------------------------------------------------------------
     def _readback(self, *ts: torch.Tensor) -> List[np.ndarray]:
         """The int32 / f32 device tensors ``ts`` on the host in ONE copy
-        (the f32 ones bit-cast through int32): a speculative call's only
-        host sync."""
-        self.spec_readbacks += 1
-        flat = torch.cat([
-            (t.float() if t.is_floating_point() else t.int()).reshape(-1)
-            .view(torch.int32) for t in ts]).cpu().numpy()
+        (the f32 ones bit-cast through int32): a call's only host sync."""
+        self.readbacks += 1
+        parts = [(t.float() if t.is_floating_point() else t.int())
+                 .reshape(-1).view(torch.int32) for t in ts]
+        flat = (parts[0] if len(parts) == 1
+                else torch.cat(parts)).cpu().numpy()
         out, o = [], 0
         for t in ts:
             a = flat[o:o + t.numel()].reshape(tuple(t.shape))
@@ -543,6 +760,7 @@ class Executor:
             dp, dcfg, dstate, gamma, rounds, self._t(table), self._t(bpos),
             self._t(tok0), self._t(pos0), self._t(remaining), self._t(done),
             self._t(eos))
+        self.spec_readbacks += 1
         toks_np, cnts_np, lps_np, acc_np, prop_np = self._readback(
             accs, cnts, lps, n_acc, n_prop)
         # a round ran for JAX's while_loop iff some lane committed in it
@@ -636,16 +854,132 @@ class Executor:
                                      rounds)
         return self.finished
 
-    def run(self, burst: int = 1) -> Dict[int, Request]:
-        """Drive until all submitted work is finished (one decode token per
-        step; decode bursts come with a later slice)."""
-        if burst != 1:
-            raise NotImplementedError("decode bursts come with a later "
-                                      "slice; use burst=1")
+    @property
+    def compiles_since_warmup(self) -> Optional[int]:
+        """Programs made since warmup() finished (None before warmup): rungs
+        used for the first time and kernel libraries built. Serving makes
+        none iff this stays 0."""
+        if self._warm_compile_mark is None:
+            return None
+        return compile_watch.compile_count() - self._warm_compile_mark
+
+    @property
+    def cache_loads_since_warmup(self) -> Optional[int]:
+        """Kernel libraries loaded without a build since warmup() finished
+        (None before warmup)."""
+        if self._warm_cache_mark is None:
+            return None
+        return compile_watch.cache_hit_count() - self._warm_cache_mark
+
+    def warmup(self, prompt_len: Optional[int] = None, burst: int = 1
+               ) -> None:
+        """Make the decode rungs and build the kernels before real
+        traffic. Runs one dummy request end to end and discards it; with
+        burst > 1 its budget is sized so that the rung LADDER (burst,
+        burst/2, ..., 2: run()'s tail and mixed bursts) is made too, each
+        rung by a request of budget k+2 (the prefill emits one token and
+        the admission step may decode one more, leaving at least k). Then
+        a pass for every prefill lane count up to prefill_lanes."""
+        if self.has_work:
+            raise RuntimeError("warmup() on an idle executor only")
+        try:
+            budget = burst + 1 if burst <= 1 else 2 * burst
+            n = prompt_len or min(self.prefill_chunk, self.max_seq_len // 2)
+            n = min(n, self.max_seq_len - budget - 2)
+            rid = self.submit([1] * max(n, 1), max_new_tokens=budget)
+            self.run(burst=burst)
+            self.finished.pop(rid, None)
+            k = burst // 2
+            while k >= 2:
+                rid = self.submit([1] * max(n, 1), max_new_tokens=k + 2)
+                self.run(burst=k)
+                self.finished.pop(rid, None)
+                k //= 2
+            if burst > 1:
+                # the choreography above must have made every rung: fail
+                # here rather than mid-serving
+                want = {burst}
+                k = burst // 2
+                while k >= 2:
+                    want.add(k)
+                    k //= 2
+                splits = mcommon._kv_splits()
+                missing = sorted(k for k in want
+                                 if (k, splits) not in self._rungs)
+                if missing:
+                    raise RuntimeError(
+                        f"warmup failed to make burst rungs {missing}")
+            # the lane counts _step_prefill can take: powers of two, and
+            # prefill_lanes itself
+            cs = [c for c in (2, 4, 8, 16, 32, 64)
+                  if c < self.prefill_lanes] + [self.prefill_lanes]
+            for c in cs:
+                if c < 2 or c > self.max_batch:
+                    continue
+                rids = [self.submit([1] * max(n, 1), max_new_tokens=1)
+                        for _ in range(c)]
+                self.run()
+                for r in rids:
+                    self.finished.pop(r, None)
+        finally:
+            self._warm_compile_mark = compile_watch.compile_count()
+            self._warm_cache_mark = compile_watch.cache_hit_count()
+
+    def _burst_k(self, burst: int) -> int:
+        """Burst length for the current decode lanes: full `burst` while
+        every lane has that much budget left, else ONE pow2-CEILING burst
+        for the batch tail (overshoot discarded host-side): a descending
+        ladder would pay a host readback per rung. The ceiling must still
+        fit the lanes' page capacity, else it floors to what does."""
+        lanes = [r for r in self.slots if r is not None]
+        rem = min(r.max_new_tokens - len(r.generated) for r in lanes)
+        if rem >= burst:
+            return burst
+        k = min(pow2_ceil(rem), burst)
+        cap = self.max_seq_len - max(len(r.sequence) for r in lanes)
+        if k > cap:
+            k = pow2_floor(max(rem, 1))
+        return k
+
+    def run(self, burst: int = 1, mixed_burst: int = 1) -> Dict[int, Request]:
+        """Drive until all submitted work is finished.
+
+        burst > 1 decodes in k-step rungs (greedy outputs identical to
+        burst=1; stochastic streams differ by draw order only), sized by
+        _burst_k (full-size until the batch tail, then one pow2-ceiling
+        burst): O(log burst) rungs. mixed_burst > 1 also lets decode lanes
+        ride short bursts behind a prefill chunk while requests are queued
+        or prefilling: one host readback covers a prefill chunk plus
+        mixed_burst decode tokens a lane (continuous-arrival serving;
+        drain-style batch runs are better off with the default 1, since
+        bursting behind admission waves desyncs lane budgets)."""
         while self.has_work:
-            produced = self.step()
+            produced = self.step_serving(burst, mixed_burst)
             if produced == 0 and self.queue and not self.prefilling:
                 raise RuntimeError(
                     "scheduler stalled: queue non-empty but nothing "
                     "admittable (KV pool too small for the next request)")
         return self.finished
+
+    def step_serving(self, burst: int = 1, mixed_burst: int = 8) -> int:
+        """One scheduling iteration, the loop body of run(), for external
+        drivers: burst decode when nothing is queued/prefilling, admit +
+        prefill chunk + mixed burst otherwise, plain step() as the
+        fallback. Returns tokens produced (0 also covers a pure-prefill
+        advance)."""
+        if burst > 1 and self.num_active > 0:
+            if not self.queue and not self.prefilling:
+                k = self._burst_k(burst)
+                produced = self.step_burst(k) if k > 1 else 0
+                if produced:
+                    return produced
+            elif mixed_burst > 1:
+                self._admit()
+                self._step_prefill()
+                # floor to a pow2: a non-pow2 mixed_burst would make its
+                # own (unwarmed) rung
+                k = min(self._burst_k(burst), pow2_floor(mixed_burst))
+                produced = self.step_burst(k) if k > 1 else 0
+                if produced:
+                    return produced
+        return self.step()

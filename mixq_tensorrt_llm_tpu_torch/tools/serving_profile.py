@@ -2,7 +2,7 @@
 
     python -m mixq_tensorrt_llm_tpu_torch.tools.serving_profile \
         [--seed N] [--model 7b|13b] [--algo ALGO] [--kv int8|none] \
-        [--gamma G [--draft-layers N]] [--dense]
+        [--gamma G [--draft-layers N]] [--dense] [--burst K]
 
 Builds a Llama-geometry model with random weights and serves it through
 the ``serve`` loop chip_smoke.py uses. ``--model`` picks the geometry
@@ -10,8 +10,11 @@ the ``serve`` loop chip_smoke.py uses. ``--model`` picks the geometry
 weight quantization (default: int8_mix for 7b, w4a16 for 13b; int8_mix
 and int4_mix take 128 outliers, w4a16_g groups of 128), ``--kv`` the KV
 pool (default: int8 for 7b, none, i.e. bf16 pages, for 13b). The defaults
-are chip_smoke.py's two serving runs. It runs the 8 ragged requests: to
-warm up, timed
+are chip_smoke.py's two serving runs. One Executor serves every run:
+``warmup(burst=K)`` first (the kernels built, the decode rungs captured as
+CUDA graphs), then the 8 ragged requests ``run(burst=K)`` (``--burst``,
+default 1: every decode step a replay of rung 1; K > 1: K-step rungs,
+one host readback a call): to warm up, timed
 (``TIMED_RUNS`` times, each run's walls printed and the median run's
 reported: the host is shared and its speed varies), and under
 ``torch.profiler``. It
@@ -23,8 +26,9 @@ a forward of the model in that phase (a prefill call; a decode step, or in
 a speculative run a draft prefill, draft step or verify, and a round), with
 the top kernels by name; the "other" group (elementwise, reductions,
 copies) is split into the torch ops that launched its kernels, the top
-ones by time and by launches. The card's name and power limit come first.
-Needs a CUDA card.
+ones by time and by launches. Each timed run also prints the decode
+calls, the graph replays and the host readbacks a generated token. The
+card's name and power limit come first. Needs a CUDA card.
 
 ``--gamma G`` serves the same requests through ``run_speculative`` with G
 draft tokens a round; the draft is the target's first ``--draft-layers``
@@ -198,7 +202,9 @@ def serve_dense(params, cfg, prompts, dev):
 
 class _counting_forwards:
     """Counts ``module.<name>`` calls into FORWARDS by phase while open
-    (in_prefill[0] says which), restoring the function on exit."""
+    (in_prefill[0] says which), restoring the function on exit. The calls
+    are eager forwards: a replayed decode rung calls nothing (``serve``
+    counts its steps from the Executor)."""
 
     def __init__(self, module, name: str, in_prefill):
         self.module, self.name, self.in_prefill = module, name, in_prefill
@@ -299,18 +305,21 @@ def draft_model(params, cfg, layers: int):
             dataclasses.replace(cfg, num_layers=layers))
 
 
-def serve(params, cfg, prompts, seed, dev, spec=None):
-    """Serve the prompts once through a fresh Executor, 32 greedy tokens
-    each; ``spec`` = (draft params, draft config, gamma) serves them
-    through run_speculative instead of run.
+def serve(params, cfg, prompts, seed, dev, spec=None, burst: int = 1,
+          ex=None):
+    """Serve the prompts once, 32 greedy tokens each, through ``ex`` (an
+    idle Executor) or a fresh one: ``run(burst=burst)``, or with ``spec`` =
+    (draft params, draft config, gamma) ``run_speculative``.
 
     Returns (finished requests by id, request ids, wall s, prefill s,
     executor). Each prefill call is bracketed by synchronizes and marked
     with a profiler range that closes after the closing synchronize, so
     every kernel the call queued starts inside it and its kernels can be
-    told from decode's."""
+    told from decode's. FORWARDS["decode"] counts the decode steps the
+    rungs ran and the eager forwards of the speculative rounds, not the
+    forwards a rung's first use runs to capture it."""
     from ..models import common as mcommon
-    ex = make_executor(params, cfg, seed, dev)
+    ex = ex or make_executor(params, cfg, seed, dev)
     prefill_s, in_prefill = [0.0], [False]
     inner = ex._step_prefill
 
@@ -325,13 +334,20 @@ def serve(params, cfg, prompts, seed, dev, spec=None):
         prefill_s[0] += time.perf_counter() - t
 
     ex._step_prefill = prefill_ranged
+    rungs, steps = set(ex._rungs), ex.decode_steps
     ids = [ex.submit(p, max_new_tokens=32) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _counting_forwards(mcommon, "forward_paged", in_prefill):
-        done = ex.run() if spec is None else ex.run_speculative(
-            spec[0], spec[1], gamma=spec[2])
-    torch.cuda.synchronize()
+    try:
+        with _counting_forwards(mcommon, "forward_paged", in_prefill):
+            done = ex.run(burst=burst) if spec is None else \
+                ex.run_speculative(spec[0], spec[1], gamma=spec[2])
+        torch.cuda.synchronize()
+    finally:
+        del ex._step_prefill
+    # a rung made here ran its k steps twice eagerly (warm pass, capture)
+    FORWARDS["decode"] += ex.decode_steps - steps - sum(
+        2 * k for k, _ in set(ex._rungs) - rungs)
     return done, ids, time.perf_counter() - t0, prefill_s[0], ex
 
 
@@ -349,9 +365,14 @@ def main() -> int:
     ap.add_argument("--dense", action="store_true",
                     help="serve through GenerationSession over the dense "
                          "KV cache (K14 at prefill)")
+    ap.add_argument("--burst", type=int, default=1,
+                    help="decode K steps a rung call (run(burst=K), after "
+                         "warmup(burst=K))")
     args = ap.parse_args()
     if args.dense and args.gamma:
         ap.error("--dense serves plain decode; --gamma is the Executor's")
+    if args.burst > 1 and (args.dense or args.gamma):
+        ap.error("--burst is the Executor's plain decode")
     from ..device import resolve_device
     from ..models import llama
     dev = resolve_device("cuda")
@@ -375,6 +396,15 @@ def main() -> int:
               f"{args.draft_layers} layers")
 
     rounds = [0]
+    ex = None
+    if not args.dense:
+        ex = make_executor(params, cfg, args.seed, dev)
+        t = time.perf_counter()
+        ex.warmup(burst=args.burst)
+        torch.cuda.synchronize()
+        print(f"warmup(burst={args.burst}): {time.perf_counter() - t:.3f} s "
+              f"(kernels built, rungs "
+              f"{sorted(k for k, _ in ex._rungs)} captured)")
 
     def run_once():
         """(wall s, prefill s, what else to print) of one serve."""
@@ -384,10 +414,17 @@ def main() -> int:
             return wall, out.prefill_time_s, (
                 f"; dense cache "
                 f"{dense_cache_bytes(cfg, len(prompts), 768) / 1e9:.3f} GB")
-        _, _, wall, pre_s, ex = serve(params, cfg, prompts, args.seed, dev,
-                                      spec)
+        counts = (ex.decode_calls, ex.graph_replays, ex.readbacks)
+        done, ids, wall, pre_s, _ = serve(params, cfg, prompts, args.seed,
+                                          dev, spec, args.burst, ex)
+        calls, replays, reads = (a - b for a, b in zip(
+            (ex.decode_calls, ex.graph_replays, ex.readbacks), counts))
+        gen = sum(len(done[r].generated) for r in ids)
         rounds[0] = ex.spec_rounds if spec else 0
-        return wall, pre_s, (
+        extra = (f"; {calls} decode calls, {replays} graph replays, "
+                 f"{reads} host readbacks = {reads / gen:.4f} a generated "
+                 f"token; compiles since warmup {ex.compiles_since_warmup}")
+        return wall, pre_s, extra + (
             f"; acceptance "
             f"{ex.spec_accepted / max(ex.spec_proposed, 1):.3f} "
             f"({ex.spec_accepted} / {ex.spec_proposed} draft tokens, "
@@ -395,7 +432,7 @@ def main() -> int:
 
     if args.dense:
         print("dense: GenerationSession, one static batch, max_seq_len 768")
-    run_once()                                  # warm-up (and build)
+    run_once()                                  # warm-up
     timed = []
     for _ in range(TIMED_RUNS):
         wall, pre_s, extra = run_once()

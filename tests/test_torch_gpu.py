@@ -30,8 +30,15 @@ K splits: within tolerance and bit-equal on a repeated launch; K4 and K13
 on integer inputs (unit or power-of-two scales) equal to the exact
 product bit for bit. Speculative serving, split decode and the dense
 session at a tiny width, by the kernels they launch; a CUDA session
-raises when a kernel library does not load."""
+raises when a kernel library does not load. The Executor's decode rungs
+(captured CUDA graphs): a replay bit-equal to the same steps run
+eagerly, LAUNCHES after n replays n times the capture's counts, no eager
+decode forward after a rung's first use, replays drawing anew from the
+registered generator, scratch refusing to grow while capturing, a failed
+capture raising with no eager retry, and run(burst=8) after warmup giving
+run()'s greedy tokens with no program made after warmup."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -1333,3 +1340,146 @@ def test_cuda_session_raises_when_a_kernel_library_fails(cuda, monkeypatch):
     sess = GenerationSession(params, cfg, max_seq_len=256, device=cuda)
     with pytest.raises(OSError, match="cannot load"):
         sess.generate([[1] * 130], 2)
+
+
+def _prefilled_executor(cuda, k, sampling=None):
+    """A tiny-model Executor on the card whose 3 requests are prefilled,
+    their pages extended by k: (executor, active (slot, request) pairs).
+    The requests are not advanced, so each decode call sees the same
+    inputs."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    ex = Executor(params, cfg, max_batch=4, max_seq_len=256, block_size=16,
+                  prefill_chunk=32, device=cuda)
+    for i, n in enumerate((5, 40, 17)):
+        ex.submit([(7 * i + j) % 500 + 1 for j in range(n)],
+                  max_new_tokens=64, sampling=sampling)
+    while ex.queue or ex.prefilling:
+        ex._admit()
+        ex._step_prefill()
+    active = [(i, r) for i, r in enumerate(ex.slots) if r is not None]
+    for _, r in active:
+        ex.bm.extend(r.req_id, k)
+    return ex, active
+
+
+def _pool_copy(ex):
+    return {n: t.clone() for n, t in ex.state.pools().items()}
+
+
+def _pool_restore(ex, saved):
+    for n, t in ex.state.pools().items():
+        t.copy_(saved[n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_rung_replay_bit_equal_to_eager(cuda, k):
+    """A decode rung's replay gives the tokens, log-probabilities and KV
+    pools of the same k steps run eagerly, bit for bit; after the rung's
+    first use no decode forward runs eagerly, every call is a replay, and
+    LAUNCHES after n replays is n times the capture's counts."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    ex, active = _prefilled_executor(cuda, k)
+    before = _pool_copy(ex)
+    ex._decode(k, active)                       # warm pass, capture, replay
+    rung = ex._rungs[(k, 0)]
+    assert rung.graph is not None and rung.launches
+    assert rung.launches.get("paged_decode_attention", 0) == 2 * k
+    _pool_restore(ex, before)
+    calls = [0]
+    inner = mcommon.forward_paged
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    mcommon.forward_paged = counted
+    try:
+        _build.reset_launches()
+        toks, lps = ex._decode(k, active)       # a replay
+        torch.cuda.synchronize()
+        assert calls[0] == 0
+        assert _build.LAUNCHES == rung.launches
+        replayed = _pool_copy(ex)
+        for n in (2, 3):
+            ex._decode(k, active)
+            assert _build.LAUNCHES == {name: n * c for name, c in
+                                       rung.launches.items()}
+        assert calls[0] == 0
+    finally:
+        mcommon.forward_paged = inner
+    assert ex.graph_replays == ex.decode_calls == 4
+    _pool_restore(ex, before)
+    out = ex._decode_body(k).cpu().numpy()      # the same steps, eagerly
+    torch.cuda.synchronize()
+    assert np.array_equal(toks, out[:, :k])
+    assert np.array_equal(lps.view(np.int32), out[:, k:])
+    for n, t in ex.state.pools().items():
+        assert torch.equal(t, replayed[n]), n
+
+
+@pytest.mark.gpu
+def test_rung_replays_draw_anew(cuda):
+    """The Executor's generator is registered with each graph: replays of
+    a rung on the same inputs draw new stochastic tokens."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.sampler import SamplingConfig
+    ex, active = _prefilled_executor(
+        cuda, 4, SamplingConfig(greedy=False, temperature=1.0))
+    draws = [ex._decode(4, active)[0][:3].copy() for _ in range(3)]
+    assert ex.graph_replays == 3
+    assert not np.array_equal(draws[1], draws[2])
+
+
+@pytest.mark.gpu
+def test_scratch_refuses_to_grow_while_capturing(cuda):
+    """ops/_build.scratch raises where it would grow during a capture (a
+    freed buffer would leave earlier graphs with a dangling pointer)."""
+    _build.scratch(cuda, 4096, 4096)
+    held = _build._PARTIALS[cuda].numel()
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="during a CUDA graph capture"):
+        with torch.cuda.graph(g):
+            _build.scratch(cuda, 4 * held, 1)
+    assert _build._PARTIALS[cuda].numel() == held
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_without_eager_retry(cuda):
+    """A rung whose capture fails raises; the body is not run again
+    eagerly, no rung is kept and no decode call is counted."""
+    ex, active = _prefilled_executor(cuda, 1)
+    inner, calls = ex._decode_body, []
+
+    def failing(k):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("injected capture fault")
+        return inner(k)
+
+    ex._decode_body = failing
+    with pytest.raises(RuntimeError, match="CUDA graph capture failed"):
+        ex._decode(1, active)
+    assert calls == [False, True]
+    assert not ex._rungs and ex.decode_calls == 0
+
+
+@pytest.mark.gpu
+def test_burst_serving_on_card_matches_single_steps(cuda):
+    """run(burst=8) after warmup(burst=8) on the card: the greedy tokens
+    of run(), every decode call a replay, no program made after warmup."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    prompts = [[(3 * i + j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((9, 70, 33))]
+    outs = []
+    for burst in (1, 8):
+        ex = Executor(params, cfg, max_batch=4, max_seq_len=256,
+                      block_size=16, prefill_chunk=32, device=cuda)
+        ex.warmup(burst=burst)
+        ids = [ex.submit(p, max_new_tokens=21) for p in prompts]
+        done = ex.run(burst=burst)
+        outs.append([done[r].generated for r in ids])
+        assert ex.compiles_since_warmup == 0
+        assert ex.graph_replays == ex.decode_calls > 0
+    assert outs[0] == outs[1]
