@@ -85,6 +85,27 @@ exits non-zero:
      step's logits, card against CPU, with faults in K14's call as
      controls; the 2-layer model saved with save_checkpoint and served
      once through LLM on the card
+  4e. beam serving at full width: the phase-4 model serves 16 requests
+     (400-512 random tokens each: one 512-token bucket, ragged, so
+     copy-on-write runs) through a new Executor(max_batch=16, block_size
+     128, max_seq_len 768): warmup_beams(num_beams=4, burst=16,
+     prompt_bucket=512, max_new_tokens=64), then run_beams(burst=16)
+     twice (once timed, once under torch.profiler): every burst a replay
+     of its captured CUDA graph, no program made after warmup, both runs
+     the same sequences of 64 tokens, K10 launched and traced in the burst
+     decode once a layer a step, neither K7 nor K5; the wall, idle share,
+     readbacks a generated token and peak pool blocks printed, and the
+     share of requests whose best sequence equals a burst=1 run's (a
+     reading: bf16 at random weights flips near-ties)
+  4f. beam serving on bf16 pages: the phase-4b model (13B w4a16 / bf16
+     KV) serves 8 requests of 200-256 tokens, 4 beams, 32 new tokens,
+     through a new Executor, warmed and checked as phase 4e (K10 on bf16
+     pages, K12 at the steps)
+  5d. cross-device, 2 layers at full width: four steps of a beam burst's
+     forward (_forward_with_tail: K10 on the pool prefix merged with the
+     dense tail) over prefixes of 5 and 9 tokens, the last step's logits
+     card against CPU; the merge leaving out the tail and K10's l doubled
+     are the controls
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
@@ -208,12 +229,27 @@ ON_PATH = {
     "dense": ["flash_causal_attention", "rmsnorm_quant_split",
               "mixed_matmul", "wo_matmul", "wo_matmul.prefill",
               "wo_matmul.decode"],
+    # phase 4e: run_beams, every burst step K10 on the pool prefix and the
+    # weight-only linears (64 lanes: K4's mid regime); the prefill's K1 ->
+    # K2, K4, K6 and K8
+    "beam": ["paged_decode_attention_stats", "wo_matmul", "wo_matmul.mid",
+             "wo_matmul.prefill", "rmsnorm_quant_split", "mixed_matmul",
+             "paged_write_chunk", "paged_prefill_attention"],
+    # phase 4f: the same on bf16 pages (K10's _fp mode), K12 at the steps
+    "beam_13b": ["paged_decode_attention_stats_fp", "wo_matmul_packed",
+                 "wo_matmul.prefill", "paged_write_chunk_fp",
+                 "paged_prefill_attention_fp"],
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
             "spec": [], "burst": [], "split": ["paged_decode_attention",
                                   "paged_decode_attention_stats"],
-            "dense": PAGED}
+            "dense": PAGED,
+            "beam": ["paged_decode_attention", "paged_write_token",
+                     "paged_decode_attention_split",
+                     "paged_verify_attention"],
+            "beam_13b": ["paged_decode_attention_fp", "paged_write_token_fp",
+                         "rmsnorm_quant_split", "mixed_matmul"]}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 BURST = 16                          # phase 4d
 # phase 4d: the kernels of a decode step, by a mark of the traced name,
@@ -223,6 +259,16 @@ DECODE_TRACED = {"wo_small_mma_kernel": ("K4", 4),
                  "decode_split_kernel": ("K7", 1)}
 # serve(): per path, the numbers phase 4d prints phase 4's beside
 SERVE_STATS = {}
+BEAMS, BEAM_BURST = 4, 16                       # phases 4e, 4f
+# beam path -> (requests, shortest and longest prompt, new tokens, prompt
+# bucket): 4e on the phase-4 model, 4f on phase 4b's
+BEAM_RUNS = {"beam": (16, 400, 512, 64, 512),
+             "beam_13b": (8, 200, 256, 32, 256)}
+# phase 4e: kernels of a burst step by a mark of the traced name, and
+# their launches a layer a step
+BEAM_TRACED = {"stats_rows_kernel": ("K10", 1),
+               "decode_split_kernel": ("K7", 0),
+               "write_token_kernel": ("K5", 0)}
 
 
 def fail(msg: str) -> None:
@@ -2016,6 +2062,206 @@ def cross_device_dense(torch, params, cfg, seed: int, dev):
     return launches
 
 
+def beam_run(torch, ex, prompts, new: int, profile: bool) -> dict:
+    """run_beams(burst=BEAM_BURST) over ``prompts`` (``new`` tokens each)
+    on the warmed Executor ``ex``, every launch count at 0 just before and
+    read just after; with
+    ``profile`` under torch.profiler (device work that starts outside the
+    prefill's ranges is the burst decode's). Returns the run's numbers."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    eng = ex.beam_engine
+    keys = ("bursts", "burst_steps", "graph_replays", "readbacks",
+            "prefill_s")
+    marks = {k: getattr(eng, k) for k in keys}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ids = [ex.submit(p, max_new_tokens=new) for p in prompts]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts) if profile else None
+    t = time.perf_counter()
+    if prof is not None:
+        prof.__enter__()
+    try:
+        done = ex.run_beams(num_beams=BEAMS, burst=BEAM_BURST)
+        torch.cuda.synchronize()
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t
+    r = {k: getattr(eng, k) - marks[k] for k in keys}
+    r.update(wall=wall, launches=dict(_build.LAUNCHES),
+             toks=[done[i].generated for i in ids])
+    r["gen"] = sum(len(g) for g in r["toks"])
+    if prof is not None:
+        events = prof.events()
+        ranges = [e.time_range for e in events
+                  if e.name == "phase::prefill"
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        dec = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("phase::")
+               and not any(q.start <= e.time_range.start <= q.end
+                           for q in ranges)]
+        r["busy_ms"] = sum(e.time_range.elapsed_us() for e in dec) / 1e3
+        r["traced"] = {m: sum(m in e.name for e in dec)
+                       for m in BEAM_TRACED}
+        r["decode_events"] = dec
+    return r
+
+
+def serve_beams(torch, params, cfg, seed: int, dev, path: str) -> dict:
+    """Phases 4e ("beam") and 4f ("beam_13b"): the requests of
+    BEAM_RUNS[path] (random tokens, one prompt bucket, ragged) through a
+    new Executor: warmup_beams, then run_beams(burst=BEAM_BURST) timed and
+    profiled (``beam_run``), then a burst=1 run for the agreement
+    reading. Returns the timed run's launches."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    n_req, lo, hi, new, bucket = BEAM_RUNS[path]
+    phase = "phase 4e" if path == "beam" else "phase 4f"
+    fp = "" if cfg.quant.kv_cache.name == "INT8" else "_fp"
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(1, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(lo, hi + 1, n_req)]
+    ex = Executor(params, cfg, max_batch=n_req, block_size=128,
+                  max_seq_len=768, device=dev)
+    t = time.perf_counter()
+    ex.warmup_beams(num_beams=BEAMS, burst=BEAM_BURST, prompt_bucket=bucket,
+                    max_new_tokens=new)
+    torch.cuda.synchronize()
+    eng = ex.beam_engine
+    print(f"{phase}: warmup_beams(num_beams={BEAMS}, burst={BEAM_BURST}, "
+          f"prompt_bucket={bucket}, max_new_tokens={new}) "
+          f"{time.perf_counter() - t:.1f} s, {len(eng._bursts)} burst graphs "
+          f"captured; pool {eng.state.num_pages // cfg.num_layers} blocks a "
+          f"layer", flush=True)
+    timed = beam_run(torch, ex, prompts, new, False)
+    traced = beam_run(torch, ex, prompts, new, True)
+    check(ex.compiles_since_warmup == 0,
+          f"{phase}: {ex.compiles_since_warmup} programs made after warmup")
+    check(traced["toks"] == timed["toks"],
+          f"{phase}: the two run_beams runs gave different sequences")
+    for name, r in (("timed", timed), ("profiled", traced)):
+        check(r["graph_replays"] == r["bursts"] > 0,
+              f"{phase} ({name}): {r['graph_replays']} graph replays for "
+              f"{r['bursts']} bursts")
+        check(all(len(g) == new and all(0 <= x < cfg.vocab_size for x in g)
+                  for g in r["toks"]),
+              f"{phase} ({name}): not every request got {new} tokens in "
+              "the vocabulary")
+    launches = timed["launches"]
+    k10 = cfg.num_layers * timed["burst_steps"]
+    got = launches.get("paged_decode_attention_stats" + fp, 0)
+    check(got == k10, f"{phase}: K10 launched {got} times for "
+          f"{timed['burst_steps']} burst steps x {cfg.num_layers} layers")
+    expect = {m: n * cfg.num_layers * traced["burst_steps"]
+              for m, (_, n) in BEAM_TRACED.items()}
+    for m, (label, n) in BEAM_TRACED.items():
+        got = traced["traced"][m]
+        check((0 < got <= expect[m]) if n else got == 0,
+              f"{phase}: {label} ({m}) traced {got} times in the burst "
+              f"decode (expected {expect[m]})")
+    dec_ms = (timed["wall"] - timed["prefill_s"]) * 1e3
+    print(f"{phase} run_beams(burst={BEAM_BURST}): {n_req} requests x "
+          f"{BEAMS} beams, prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, {new} generated each; "
+          f"wall {timed['wall'] * 1e3:.1f} ms = prefill "
+          f"{timed['prefill_s'] * 1e3:.1f} ms + decode {dec_ms:.1f} ms for "
+          f"{timed['burst_steps']} steps in {timed['bursts']} bursts "
+          f"({timed['graph_replays']} graph replays); "
+          f"{timed['gen'] / timed['wall']:.1f} generated tok/s; device busy "
+          f"in decode {traced['busy_ms']:.1f} ms (profiled run), idle share "
+          f"{1 - traced['busy_ms'] / dec_ms:.3f}; {timed['readbacks']} host "
+          f"readbacks = {timed['readbacks'] / timed['gen']:.4f} a generated "
+          f"token; peak pool blocks {eng.peak_blocks}; traced in decode "
+          + ", ".join(f"{BEAM_TRACED[m][0]} {n} of {expect[m]}"
+                      for m, n in traced["traced"].items()), flush=True)
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    sp._report(f"{phase} burst decode (the timed run's wall)",
+               traced["decode_events"], dec_ms / 1e3,
+               {"steps": traced["burst_steps"]}, {})
+    print(f"main path {path} launches: {json.dumps(launches)}", flush=True)
+    for name in ON_PATH[path]:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the main path {path}")
+    for name in OFF_PATH[path]:
+        check(launches.get(name, 0) == 0,
+              f"{name} was launched on the main path {path}")
+    t = time.perf_counter()
+    ids = [ex.submit(p, max_new_tokens=new) for p in prompts]
+    done = ex.run_beams(num_beams=BEAMS, burst=1)
+    torch.cuda.synchronize()
+    same = sum(done[i].generated == g for i, g in zip(ids, timed["toks"]))
+    print(f"{phase} run_beams(burst=1) (K5 and K7 every step, eager): "
+          f"wall {(time.perf_counter() - t) * 1e3:.1f} ms; {same} of "
+          f"{n_req} best sequences equal to the burst run's (a reading: "
+          f"the burst's K10 + merge rounds unlike K7)", flush=True)
+    return launches
+
+
+def drop_tail(f):
+    """A beam-burst fault: the merge leaves out the dense tail's part."""
+    return lambda parts: f(list(parts)[:1])
+
+
+def double_l(f):
+    """A K10 fault: its softmax denominator doubled."""
+    def faulty(*a, **k):
+        r = f(*a, **k)
+        return (r[0], r[1], 2 * r[2]) if k.get("stats") else r
+    return faulty
+
+
+def cross_device_beam(torch, params, cfg, seed: int, dev) -> dict:
+    """Phase 5d, 2 layers at full width: 2 lanes whose prompts of 5 and 9
+    tokens are prefilled into the pool, then 4 steps of a beam burst's
+    forward (runtime/beam._forward_with_tail, fixed tokens: tail slots 0
+    to 3), the last step's logits card against CPU; the card must launch
+    K10 and neither K7 nor K5 in the steps. Controls, enforced: the merge
+    leaving out the tail, K10's l doubled. Returns the card run's
+    launches."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.ops import ref
+    from mixq_tensorrt_llm_tpu_torch.runtime import beam
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
+    cfg2, sub, sub_cpu = two_layers(torch, params, cfg)
+    rng = np.random.default_rng(seed + 4)
+    lens, steps = [5, 9], 4
+    tokens = np.zeros((2, 16), np.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    cur = rng.integers(1, cfg.vocab_size, (steps, 2))
+
+    def run(device, p):
+        def t_(a, dtype=torch.int32):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        state = init_paged_kv(cfg2, 3, 128, device=device)
+        table, bpos, plen = t_([[1], [2]]), t_([[0], [0]]), t_(lens)
+        pos = torch.arange(16, dtype=torch.int32, device=device)[None]
+        forward_paged(p, cfg2, t_(tokens), pos.expand(2, 16), state, table,
+                      plen, last_pos=plen - 1)
+        tails = beam._init_tail(cfg2, 2, steps, state.quantized, device, 2)
+        _build.reset_launches()
+        for t in range(steps):
+            logits = beam._forward_with_tail(p, cfg2, t_(cur[t]),
+                                             state.pools(), table, bpos,
+                                             plen, tails, t)
+        return [(logits[:, 0].float().cpu(), dict(_build.LAUNCHES))]
+
+    return compare_devices(
+        torch, "beam burst step", dev, run, sub, sub_cpu,
+        [(f"burst step {steps} (tail slot {steps - 1}) over prefixes of "
+          f"{lens} tokens", ("paged_decode_attention_stats", "wo_matmul"),
+          ("paged_decode_attention", "paged_write_token"))],
+        [("the merge leaving out the tail", True, ref,
+          "merge_attention_stats", drop_tail),
+         ("K10's l doubled", True, pa, "paged_decode_attention", double_l)])
+
+
 def rows_at_qstart(f):
     """A K9 fault: every query row at position qstart (row 0's), so rows
     1.. lose their own key and the draft keys before it."""
@@ -2290,9 +2536,18 @@ def main() -> int:
     for n, c in cross_device_dense(torch, params, cfg, args.seed,
                                    dev).items():
         xdev[n] = xdev.get(n, 0) + c
+    print(f"phases 4c-5c: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 4e. beam serving, 5d. a beam burst step card against CPU
+    t = time.perf_counter()
+    launches["beam"] = serve_beams(torch, params, cfg, args.seed, dev,
+                                   "beam")
+    for n, c in cross_device_beam(torch, params, cfg, args.seed,
+                                  dev).items():
+        xdev[n] = xdev.get(n, 0) + c
+    print(f"phases 4e-5d: {time.perf_counter() - t:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
-    print(f"phases 4c-5c: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
@@ -2304,6 +2559,9 @@ def main() -> int:
           f"{time.perf_counter() - t:.1f} s; weights "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     launches["13b"] = serve(torch, params, cfg, args.seed, dev, "13b")[0]
+    # 4f. beam serving on bf16 pages
+    launches["beam_13b"] = serve_beams(torch, params, cfg, args.seed, dev,
+                                       "beam_13b")
     del params
     torch.cuda.empty_cache()
 
@@ -2313,8 +2571,8 @@ def main() -> int:
     print(f"phases 4b-5b: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 8. kernels line: launches summed over the main paths' runs (phases
-    # 4, 4b, 4c, 4d (its burst-16 run), 6 and 6b; the cross-device runs'
-    # beside them: K13 launches there only)
+    # 4, 4b, 4c, 4d (its burst-16 run), 4e and 4f (their timed runs), 6
+    # and 6b; the cross-device runs' beside them: K13 launches there only)
     rows = []
     for name, (replaces, src) in KERNELS.items():
         r = results[name]

@@ -105,7 +105,8 @@ class LLM:
                         logits_processors: Sequence = (),
                         seed: int = 0) -> GenerationOutput:
         """Token ids in, GenerationOutput out (GenerationSession.generate;
-        num_beams > 1 raises until beams are ported)."""
+        num_beams > 1 runs paged beam search with block sharing across
+        beams)."""
         return self.session.generate(list(prompts), max_new_tokens,
                                      sampling=sampling,
                                      eos_token_id=eos_token_id,

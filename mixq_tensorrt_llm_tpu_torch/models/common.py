@@ -356,12 +356,57 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
                                          kv_valid_len, **kw)
 
 
+def _attention_paged_tail(cfg: ModelConfig, q, new_k, new_v, pools: dict,
+                          tail: dict, tail_idx: int, block_table,
+                          prefix_len, block_pos=None) -> torch.Tensor:
+    """Decode attention of a beam burst (runtime/beam.py; JAX
+    models/common.py:435-551): the paged pool holds each lane's prefix and
+    is only read; the burst's own tokens live in a dense per-lane ``tail``
+    {k, v (B, kmax, Hkv, D) [, k_scale, v_scale (B, kmax, Hkv)]}, which
+    the burst reorders with the beams. The new token's K/V goes into the
+    tail at slot ``tail_idx`` in place (int8 tails: quant.core.quantize_kv,
+    what K5 would write to a page), and attention of q (B, 1, Hq, D) over
+    [pool prefix | tail slots <= tail_idx] is merged exactly from the two
+    parts' softmax stats: the prefix below ``prefix_len`` (B,) through
+    paged_decode_attention(stats=True) (K10 on the card), the tail through
+    ops.ref.attention_stats, both f32 until one final cast. Windows are
+    refused, as in the JAX package."""
+    if cfg.sliding_window:
+        raise NotImplementedError("beam bursts do not support windows")
+    if q.shape[1] != 1:
+        raise ValueError("beam bursts decode one token a step")
+    scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
+    t = int(tail_idx)
+    if "k_scale" in tail:
+        for name, x in (("k", new_k), ("v", new_v)):
+            qx, sx = qcore.quantize_kv(x[:, 0])
+            tail[name][:, t] = qx
+            tail[name + "_scale"][:, t] = sx
+    else:
+        tail["k"][:, t] = new_k[:, 0].to(tail["k"].dtype)
+        tail["v"][:, t] = new_v[:, 0].to(tail["v"].dtype)
+    out_p, m_p, l_p = pattn.paged_decode_attention(
+        q[:, 0], pools["k"], pools["v"], pools.get("k_scale"),
+        pools.get("v_scale"), block_table, prefix_len, scale=scale,
+        block_pos=block_pos, softcap=softcap, stats=True)
+    kmax = tail["k"].shape[1]
+    slot_ok = torch.arange(kmax, device=q.device) <= t
+    out_t, m_t, l_t = ops_ref.attention_stats(
+        q, tail["k"], tail["v"], k_s=tail.get("k_scale"),
+        v_s=tail.get("v_scale"), mask=slot_ok[None, None, None, :],
+        scale=scale, softcap=softcap)
+    return ops_ref.merge_attention_stats(
+        [(out_p[:, None], m_p[..., None], l_p[..., None]),
+         (out_t, m_t, l_t)]).to(q.dtype)
+
+
 def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
                   attend) -> torch.Tensor:
     """One pre-norm Llama block. x (B, S, hidden); ``attend(q, k, v)``
     writes the new k/v (B, S, Hkv, D) into the layer's KV and returns
     attention of q (B, S, Hq, D) over it: ``_attention_with_cache`` (dense
-    cache) or ``_attention_paged`` (paged pool) with the layer's state
+    cache), ``_attention_paged`` (paged pool) or ``_attention_paged_tail``
+    (a beam burst's read-only pool and dense tail) with the layer's state
     bound."""
     b, s, _ = x.shape
 

@@ -174,6 +174,41 @@ class BlockManager:
             if self.ref_counts[b] == 0:
                 self.free.append(b)
 
+    def fork(self, src_seq_id: int, dst_seq_id: int) -> SequenceBlocks:
+        """Share all of a sequence's blocks with a new one (a beam fork);
+        the caller makes a shared block exclusive (``ensure_exclusive``)
+        before writing into it."""
+        src = self.seqs[src_seq_id]
+        for b in src.blocks:
+            self.ref_counts[b] += 1
+        sb = SequenceBlocks(dst_seq_id, list(src.blocks), list(src.bases),
+                            src.length)
+        self.seqs[dst_seq_id] = sb
+        return sb
+
+    def ensure_exclusive(self, seq_id: int, pos: int
+                         ) -> Optional[Tuple[int, int]]:
+        """Copy-on-write: make the block covering absolute position ``pos``
+        owned by ``seq_id`` alone. Returns (source block, fresh block)
+        when the page's contents must be copied on the device, else
+        None."""
+        sb = self.seqs[seq_id]
+        for j in range(len(sb.blocks) - 1, -1, -1):
+            if sb.bases[j] <= pos < sb.bases[j] + self.block_size:
+                break
+        else:
+            raise ValueError(f"position {pos} not covered by seq {seq_id}")
+        blk = sb.blocks[j]
+        if self.ref_counts[blk] <= 1:
+            return None
+        if not self.free:
+            raise RuntimeError("KV pool exhausted during copy-on-write")
+        new = self.free.pop()
+        self.ref_counts[new] += 1
+        self.ref_counts[blk] -= 1
+        sb.blocks[j] = new
+        return (blk, new)
+
     def block_table(self, seq_ids: List[int], max_blocks: int) -> np.ndarray:
         """(len(seq_ids), max_blocks) int32; padding repeats the last real
         block (its block_pos entry is PAD_POS, so it is skipped)."""

@@ -39,9 +39,15 @@ them in one (gamma+1)-row forward (K9), and the rounds run device-paced
 allows. ``MIXQ_KV_SPLITS`` > 1 sends every decode step's attention through
 the split kernel (K11).
 
+``run_beams`` serves the queue with paged beam search (runtime/beam.py)
+in batches of up to max_batch requests, through a BeamEngine the Executor
+keeps: a pool of its own and, on the card, one CUDA graph a burst key,
+each burst a replay; ``warmup_beams`` makes that set beforehand, and
+``compiles_since_warmup`` counts the beam programs and graphs too.
+
 Not ported yet: the dense-cache draft (``paged_draft=False``, which needs
-the dense forward), beams, snapshot/restore, meshes, LoRA, prefix reuse,
-bad words, logits processors, ``max_queue_size`` and iteration stats.
+the dense forward), snapshot/restore, meshes, LoRA, prefix reuse, bad
+words, logits processors, ``max_queue_size`` and iteration stats.
 """
 
 from __future__ import annotations
@@ -77,21 +83,16 @@ def pow2_floor(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-class _DecodeInputs:
-    """Every input the host changes between decode calls, in one int32
-    buffer (the float fields bit-cast) that one copy moves to the device
-    (pinned on the host, so the copy is asynchronous). ``host`` holds numpy
-    views to fill, ``dev`` the tensor views the rungs read; each field
-    starts 16 bytes in. On the CPU the two are one buffer."""
+class StaticInputs:
+    """Every input the host changes between calls of a captured graph, in
+    one int32 buffer (the ``floats`` fields bit-cast) that one copy moves
+    to the device (pinned on the host, so the copy is asynchronous).
+    ``host`` holds numpy views to fill, ``dev`` the tensor views the graph
+    reads; each field starts 16 bytes in. On the CPU the two are one
+    buffer."""
 
-    FLOATS = ("temperature", "top_p", "penalty")
-
-    def __init__(self, b: int, mb: int, device: torch.device):
-        shapes = {"tokens": (b, 1), "lens": (b,), "sup_tok": (b,),
-                  "min_left": (b,), "top_k": (b,), "greedy": (b,),
-                  "temperature": (b,), "top_p": (b,), "penalty": (b,),
-                  "table": (b, mb), "bpos": (b, mb),
-                  "history": (b, HISTORY_W)}
+    def __init__(self, shapes: Dict[str, tuple], device: torch.device,
+                 floats: Sequence[str] = ()):
         spans, n = {}, 0
         for name, shape in shapes.items():
             size = int(np.prod(shape))
@@ -106,7 +107,7 @@ class _DecodeInputs:
         for name, (o, size) in spans.items():
             self.host[name] = flat[o:o + size].reshape(shapes[name])
             self.dev[name] = self.buf_dev[o:o + size].view(shapes[name])
-            if name in self.FLOATS:
+            if name in floats:
                 self.host[name] = self.host[name].view(np.float32)
                 self.dev[name] = self.dev[name].view(torch.float32)
 
@@ -114,12 +115,74 @@ class _DecodeInputs:
         if self.buf_dev is not self.buf_host:
             self.buf_dev.copy_(self.buf_host, non_blocking=True)
 
+
+class _DecodeInputs(StaticInputs):
+    """The decode rungs' static inputs."""
+
+    def __init__(self, b: int, mb: int, device: torch.device):
+        super().__init__(
+            {"tokens": (b, 1), "lens": (b,), "sup_tok": (b,),
+             "min_left": (b,), "top_k": (b,), "greedy": (b,),
+             "temperature": (b,), "top_p": (b,), "penalty": (b,),
+             "table": (b, mb), "bpos": (b, mb), "history": (b, HISTORY_W)},
+            device, ("temperature", "top_p", "penalty"))
+
     def sampling(self) -> SamplingParams:
         d = self.dev
         return SamplingParams(temperature=d["temperature"],
                               top_k=d["top_k"].long(), top_p=d["top_p"],
                               greedy=d["greedy"] != 0,
                               repetition_penalty=d["penalty"])
+
+
+def capture_graph(body, device: torch.device, pool, what: str, warm=None,
+                  generator: Optional[torch.Generator] = None):
+    """Capture ``body()`` as a CUDA graph into the graph memory pool
+    ``pool``. A warm pass (``warm()``, by default ``body()``) runs first,
+    eagerly on a side stream: it builds kernels, grows the split kernels'
+    scratch and sets up cuBLAS, none of which may happen while capturing.
+    ``generator`` is registered with the graph, so each replay draws anew.
+    The launches counted while capturing are taken back out of LAUNCHES
+    and returned as the graph's per-replay counts. Returns (graph, body's
+    output, launches); a failed capture raises."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        (warm or body)()
+    cur.wait_stream(side)
+    mark = dict(_build.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = body()
+    except Exception as e:
+        raise RuntimeError(f"{what}: CUDA graph capture failed ({e})") from e
+    finally:
+        launches = {n: c - mark.get(n, 0)
+                    for n, c in _build.LAUNCHES.items()
+                    if c != mark.get(n, 0)}
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(mark)
+    return graph, out, launches
+
+
+def read_back(*ts: torch.Tensor) -> List[np.ndarray]:
+    """The int / bool / float device tensors ``ts`` on the host in ONE
+    copy (the floats as f32 bit-cast through int32): as numpy arrays of
+    int32, or f32 for the floating ones."""
+    parts = [(t.float() if t.is_floating_point() else t.int())
+             .reshape(-1).view(torch.int32) for t in ts]
+    flat = (parts[0] if len(parts) == 1
+            else torch.cat(parts)).cpu().numpy()
+    out, o = [], 0
+    for t in ts:
+        a = flat[o:o + t.numel()].reshape(tuple(t.shape))
+        o += t.numel()
+        out.append(a.view(np.float32) if t.is_floating_point() else a)
+    return out
 
 
 @dataclasses.dataclass
@@ -217,6 +280,7 @@ class Executor:
         self.readbacks = 0
         self._warm_compile_mark: Optional[int] = None
         self._warm_cache_mark: Optional[int] = None
+        self._beams = None   # runtime.beam.BeamEngine of run_beams
 
     # ------------------------------------------------------------------
     def _t(self, a: np.ndarray) -> torch.Tensor:
@@ -482,34 +546,13 @@ class Executor:
         return rung
 
     def _capture(self, k: int) -> _Rung:
-        """Warm pass, then capture of the k-step body into the shared
-        graph pool, with the Executor's generator registered so that each
-        replay draws anew. The launches counted while capturing are taken
-        back out of LAUNCHES and kept as the rung's per-replay counts."""
-        dev = self.device
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._decode_body(k)
-        cur.wait_stream(side)
+        """The k-step body captured into the shared graph pool, with the
+        Executor's generator registered so that each replay draws anew."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        mark = dict(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        try:
-            with torch.cuda.graph(graph, pool=self._graph_pool):
-                out = self._decode_body(k)
-        except Exception as e:
-            raise RuntimeError(f"decode rung k={k}: CUDA graph capture "
-                               f"failed ({e})") from e
-        finally:
-            launches = {n: c - mark.get(n, 0)
-                        for n, c in _build.LAUNCHES.items()
-                        if c != mark.get(n, 0)}
-            _build.LAUNCHES.clear()
-            _build.LAUNCHES.update(mark)
+        graph, out, launches = capture_graph(
+            lambda: self._decode_body(k), self.device, self._graph_pool,
+            f"decode rung k={k}", generator=self.generator)
         return _Rung(k, graph, out, launches)
 
     def _decode(self, k: int, active) -> Tuple[np.ndarray, np.ndarray]:
@@ -612,19 +655,9 @@ class Executor:
     # in-flight speculative decoding (runtime/scheduler.py:527-926)
     # ------------------------------------------------------------------
     def _readback(self, *ts: torch.Tensor) -> List[np.ndarray]:
-        """The int32 / f32 device tensors ``ts`` on the host in ONE copy
-        (the f32 ones bit-cast through int32): a call's only host sync."""
+        """``read_back(*ts)``, counted: a call's only host sync."""
         self.readbacks += 1
-        parts = [(t.float() if t.is_floating_point() else t.int())
-                 .reshape(-1).view(torch.int32) for t in ts]
-        flat = (parts[0] if len(parts) == 1
-                else torch.cat(parts)).cpu().numpy()
-        out, o = [], 0
-        for t in ts:
-            a = flat[o:o + t.numel()].reshape(tuple(t.shape))
-            o += t.numel()
-            out.append(a.view(np.float32) if t.is_floating_point() else a)
-        return out
+        return read_back(*ts)
 
     def _draft_prefill(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
                        tokens, lens, table, bpos) -> PagedKVState:
@@ -856,9 +889,10 @@ class Executor:
 
     @property
     def compiles_since_warmup(self) -> Optional[int]:
-        """Programs made since warmup() finished (None before warmup): rungs
-        used for the first time and kernel libraries built. Serving makes
-        none iff this stays 0."""
+        """Programs made since warmup() or warmup_beams() finished (None
+        before either): rungs and beam programs (prefill, step, burst; a
+        burst's graph on the card) used for the first time and kernel
+        libraries built. Serving makes none iff this stays 0."""
         if self._warm_compile_mark is None:
             return None
         return compile_watch.compile_count() - self._warm_compile_mark
@@ -924,6 +958,91 @@ class Executor:
         finally:
             self._warm_compile_mark = compile_watch.compile_count()
             self._warm_cache_mark = compile_watch.cache_hit_count()
+
+    @property
+    def beam_engine(self):
+        """The BeamEngine run_beams and warmup_beams serve through (made at
+        first use): its pool, burst programs and graphs, and counters."""
+        if self._beams is None:
+            from .beam import BeamEngine
+            self._beams = BeamEngine(self.params, self.cfg, self.device)
+        return self._beams
+
+    def warmup_beams(self, num_beams: int = 4, burst: int = 16,
+                     prompt_bucket: int = 512, max_new_tokens: int = 64,
+                     eos_token_id: Optional[int] = None) -> None:
+        """Make the beam-serving programs of (max_batch, num_beams, burst,
+        prompt_bucket, max_new_tokens) before real traffic: the prefill,
+        the burst keys that budget produces (full bursts and one pow2
+        ceiling tail) and both copy-on-write variants, by one run with
+        page-aligned prompts and one with an unaligned lane, each a full
+        batch of dummy requests. The unaligned run goes first: its pool is
+        the larger (a copy-on-write page a lane), so the aligned run's
+        graphs are made over the pool that serving keeps. Full batches in
+        the same prompt bucket with the same eos then make no program; a
+        partial final batch is its own geometry. Requests with
+        min_new_tokens or stop sequences change the burst key and are
+        made at first sight."""
+        from .beam import paged_beam_search
+        b = self.max_batch
+        pb = min(prompt_bucket, self.max_seq_len - max_new_tokens)
+        p2 = 8
+        while p2 * 2 <= pb:
+            p2 *= 2
+        pb = min(p2, pb)   # pow2: both variants land in one bucket
+        variants = []
+        if pb > 1:
+            variants.append([pb - 1] + [pb] * (b - 1))
+        variants.append([pb] * b)
+        for plens in variants:
+            paged_beam_search(
+                self.params, self.cfg, [[1] * n for n in plens],
+                max_new_tokens, num_beams=num_beams,
+                eos_token_id=eos_token_id, max_seq_len=self.max_seq_len,
+                block_size=self.block_size, burst=burst,
+                engine=self.beam_engine)
+        self._warm_compile_mark = compile_watch.compile_count()
+        self._warm_cache_mark = compile_watch.cache_hit_count()
+
+    def run_beams(self, num_beams: int = 4, length_penalty: float = 1.0,
+                  burst: int = 16) -> Dict[int, Request]:
+        """Serve every queued request with paged copy-on-write beam search
+        (runtime.beam.paged_beam_search): FIFO batches of up to max_batch,
+        each request's prompt KV written once and shared by its beams; the
+        best hypothesis lands in Request.generated. The beam configuration
+        is uniform: every queued request must share max_new_tokens and
+        eos_token_id. min_new_tokens and stop_sequences apply inside the
+        beam step, per request."""
+        from .beam import paged_beam_search
+        if self.num_active or self.prefilling:
+            raise RuntimeError("run_beams drives queued work only (drain "
+                               "decode work first)")
+        if not self.queue:
+            return self.finished
+        budgets = {r.max_new_tokens for r in self.queue}
+        eoses = {r.eos_token_id for r in self.queue}
+        if len(budgets) != 1 or len(eoses) != 1:
+            raise ValueError(
+                "run_beams needs uniform max_new_tokens and eos across the "
+                f"queue (got budgets {budgets}, eos {eoses})")
+        n, eos = budgets.pop(), eoses.pop()
+        while self.queue:
+            batch = [self.queue.popleft()
+                     for _ in range(min(self.max_batch, len(self.queue)))]
+            res = paged_beam_search(
+                self.params, self.cfg, [r.prompt for r in batch], n,
+                num_beams=num_beams, length_penalty=length_penalty,
+                eos_token_id=eos, max_seq_len=self.max_seq_len,
+                block_size=self.block_size, burst=burst,
+                min_new_tokens=[r.min_new_tokens for r in batch],
+                stop_sequences=[r.stop_sequences for r in batch],
+                engine=self.beam_engine)
+            for r, seq in zip(batch, res.sequences):
+                r.generated = list(seq[len(r.prompt):])
+                r.done = True
+                r.finish_time = time.perf_counter()
+                self.finished[r.req_id] = r
+        return self.finished
 
     def _burst_k(self, burst: int) -> int:
         """Burst length for the current decode lanes: full `burst` while

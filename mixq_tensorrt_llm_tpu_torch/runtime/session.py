@@ -8,8 +8,9 @@ step over the dense cache, which is updated in place. PyTorch runs eagerly,
 so the buckets only bound the padding here (JAX compiles once per bucket).
 
 The session runs on the card unless ``device="cpu"`` is asked for, where
-every kernel takes its plain version. Beam search (``num_beams > 1``) is
-not ported yet.
+every kernel takes its plain version. ``num_beams > 1`` runs paged beam
+search (runtime/beam.py: host-paced steps, block sharing across beams)
+through a BeamEngine the session keeps for its params.
 """
 
 from __future__ import annotations
@@ -75,6 +76,8 @@ class GenerationSession:
         if not buckets or buckets[-1] < max_seq_len:
             buckets = buckets + (max_seq_len,)   # prompts up to the cap fit
         self.prefill_buckets = buckets
+        self._beams = None        # the BeamEngine of generate(num_beams>1)
+        self._beam_procs = None   # (ids, (name, fn) pairs, the callables)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -104,7 +107,7 @@ class GenerationSession:
                  eos_token_id: Optional[int] = None,
                  min_new_tokens: int = 0,
                  stop_sequences: Optional[Sequence[Sequence[int]]] = None,
-                 num_beams: int = 1,
+                 num_beams: int = 1, length_penalty: float = 1.0,
                  bad_words: Optional[Sequence[Sequence[int]]] = None,
                  logits_processors: Sequence = (),
                  return_context_logits: bool = False,
@@ -118,11 +121,17 @@ class GenerationSession:
         -> logits`` run on the raw logits before sampling (history
         right-aligned, -1 padded); return_context_logits returns each
         prompt's (prompt_len, V) logits. Draws come from a
-        ``torch.Generator`` seeded with ``seed``."""
+        ``torch.Generator`` seeded with ``seed``.
+
+        num_beams > 1 switches to deterministic beam search over the paged
+        pool with block sharing across beams (``_generate_beams``); the
+        controls and processors apply inside the beam step, ``sampling``,
+        ``seed`` and ``return_context_logits`` do not."""
         if num_beams > 1:
-            raise NotImplementedError(
-                "beam search (num_beams > 1) is not ported yet: ROADMAP open "
-                "item 1 (runtime/beam.py on the session)")
+            return self._generate_beams(
+                prompts, max_new_tokens, num_beams, length_penalty,
+                eos_token_id, min_new_tokens, stop_sequences, bad_words,
+                logits_processors)
         dev = self.device
         b = len(prompts)
         lens_list = [len(p) for p in prompts]
@@ -243,6 +252,41 @@ class GenerationSession:
                                 prefill_time_s=t1 - t0,
                                 decode_time_s=t2 - t1, logprobs=lps,
                                 context_logits=ctx)
+
+    def _generate_beams(self, prompts, max_new_tokens: int, num_beams: int,
+                        length_penalty: float, eos_token_id, min_new_tokens,
+                        stop_sequences, bad_words,
+                        logits_processors) -> GenerationOutput:
+        """runtime.beam.paged_beam_search over the session's BeamEngine
+        (the pool kept between calls), one step a call. The same processor
+        callables across calls keep the same (name, fn) pairs, so the
+        memoized beam programs are reused."""
+        from .beam import BeamEngine, paged_beam_search
+        if self._beams is None or self._beams.params is not self.params \
+                or self._beams.cfg != self.cfg:
+            self._beams = BeamEngine(self.params, self.cfg, self.device)
+        b = len(prompts)
+        pkey = tuple(id(f) for f in logits_processors)
+        if self._beam_procs is None or self._beam_procs[0] != pkey:
+            self._beam_procs = (pkey, tuple(
+                (f"p{i}", f) for i, f in enumerate(logits_processors)),
+                list(logits_processors))
+        procs = self._beam_procs[1]
+        res = paged_beam_search(
+            self.params, self.cfg, [list(p) for p in prompts],
+            max_new_tokens, num_beams=num_beams,
+            length_penalty=length_penalty, eos_token_id=eos_token_id,
+            max_seq_len=self.max_seq_len,
+            min_new_tokens=[min_new_tokens] * b,
+            bad_words=[bad_words] * b, stop_sequences=[stop_sequences] * b,
+            logits_processors=procs,
+            proc_masks=np.ones((b, len(procs)), bool) if procs else None,
+            engine=self._beams)
+        return GenerationOutput(
+            sequences=res.sequences,
+            num_prompt_tokens=[len(p) for p in prompts],
+            num_generated=[len(s) - len(p)
+                           for s, p in zip(res.sequences, prompts)])
 
     def score_logits(self, tokens: np.ndarray,
                      lens: np.ndarray) -> torch.Tensor:

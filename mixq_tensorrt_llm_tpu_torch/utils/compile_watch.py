@@ -8,6 +8,9 @@ past it. The JAX package counts XLA compilations; the port's programs are
 
 - each decode rung's first use (a captured CUDA graph on the card; on the
   CPU the same bookkeeping, run eagerly), noted by the Executor;
+- each beam program's first use (runtime/beam.py: a prefill or per-step
+  function memoized by key, and each BeamEngine's bursts, one CUDA graph a
+  key on the card);
 - each nvcc build of a kernel library (``ops/_build.build``).
 
 ``cache_hit_count`` counts kernel libraries loaded from ``build/kernels/``

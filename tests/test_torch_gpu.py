@@ -36,7 +36,13 @@ eagerly, LAUNCHES after n replays n times the capture's counts, no eager
 decode forward after a rung's first use, replays drawing anew from the
 registered generator, scratch refusing to grow while capturing, a failed
 capture raising with no eager retry, and run(burst=8) after warmup giving
-run()'s greedy tokens with no program made after warmup."""
+run()'s greedy tokens with no program made after warmup. Beam bursts
+(runtime/beam.py): a burst's replay bit-equal to the same burst run
+eagerly (sequences, scores, pools outside the trash row), each replay
+launching K10 once a layer a step and neither K7 nor K5; the tail
+attention with K10 within 2e-2 of its plain route on int8 and bf16
+pages; run_beams after warmup_beams making no program, every burst a
+replay."""
 
 import numpy as np
 import pytest
@@ -1483,3 +1489,134 @@ def test_burst_serving_on_card_matches_single_steps(cuda):
         assert ex.compiles_since_warmup == 0
         assert ex.graph_replays == ex.decode_calls > 0
     assert outs[0] == outs[1]
+
+
+def _beam_search_on_card(cuda, graphs, prompts, runs=1, **kw):
+    """paged_beam_search on the tiny model, ``runs`` times through one
+    fresh BeamEngine: (the last result, engine, LAUNCHES of the last
+    run)."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.beam import (BeamEngine,
+                                                          paged_beam_search)
+    params, cfg = _tiny_serving_model(cuda)
+    eng = BeamEngine(params, cfg, cuda, graphs=graphs)
+    for _ in range(runs):
+        _build.reset_launches()
+        res = paged_beam_search(params, cfg, prompts, 21, num_beams=3,
+                                max_seq_len=256, block_size=16, engine=eng,
+                                **kw)
+        torch.cuda.synchronize()
+    return res, eng, dict(_build.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_beam_burst_replay_bit_equal_to_eager(cuda):
+    """paged_beam_search(burst=8), its second run through one engine (every
+    burst a replay of the graph the first run captured), gives the
+    sequences, scores and peak blocks of the same bursts run eagerly, and
+    the same pools outside each layer's trash row 0; each replay adds its
+    capture's launches: K10 once a layer a step, no K7 and no K5 (the
+    pool is only read until the burst's flush)."""
+    prompts = [[(5 * i + j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((9, 40, 16))]
+    replayed, g_eng, launches = _beam_search_on_card(cuda, True, prompts,
+                                                     runs=2, burst=8)
+    eager, e_eng, _ = _beam_search_on_card(cuda, False, prompts, burst=8)
+    assert replayed.sequences == eager.sequences
+    assert replayed.scores == eager.scores
+    assert replayed.peak_blocks == eager.peak_blocks
+    assert g_eng.graph_replays == g_eng.bursts == 2 * e_eng.bursts > 0
+    assert e_eng.graph_replays == 0
+    assert launches.get("paged_decode_attention_stats", 0) \
+        == 2 * e_eng.burst_steps
+    assert launches.get("paged_decode_attention", 0) == 0
+    assert launches.get("paged_write_token", 0) == 0
+    nb = g_eng.state.num_pages // 2
+    for name, t in g_eng.state.pools().items():
+        u = e_eng.state.pools()[name]
+        for layer in range(2):
+            rows = slice(layer * nb + 1, (layer + 1) * nb)
+            assert torch.equal(t[rows], u[rows]), (name, layer)
+
+
+@pytest.mark.parametrize("pages", ["int8", "bf16"])
+@pytest.mark.gpu
+def test_tail_attention_k10_matches_plain(cuda, pages):
+    """models.common._attention_paged_tail on the card (K10 on the pool
+    prefix, one launch) within 2e-2 of the same call on the CPU (K10's
+    plain version), tails written alike."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant import (KVCacheQuantAlgo,
+                                                   QuantConfig)
+    kv = KVCacheQuantAlgo.INT8 if pages == "int8" else KVCacheQuantAlgo.NONE
+    cfg = ModelConfig(num_heads=8, num_kv_heads=2, head_dim=D,
+                      quant=QuantConfig(kv_cache=kv))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pools = _pools(gen, cuda, 2) if pages == "int8" else {
+        n: torch.randn((NP_, 2, BS, D), generator=gen, device=cuda,
+                       dtype=torch.bfloat16) for n in ("k", "v")}
+    b, kmax, t = 5, 4, 2
+    tail = {n: torch.zeros((b, kmax) + p.shape[1:2] + p.shape[3:],
+                           dtype=p.dtype, device=cuda)
+            for n, p in pools.items() if n in ("k", "v")}
+    tail["k"][:, :t] = (torch.randn(tail["k"][:, :t].shape, generator=gen,
+                                    device=cuda) * 20).to(tail["k"].dtype)
+    tail["v"][:, :t] = tail["k"][:, :t].flip(-1)
+    if pages == "int8":
+        for n in ("k", "v"):
+            tail[n + "_scale"] = torch.full((b, kmax, 2), 0.01, device=cuda)
+    table = torch.randint(1, NP_, (b, 3), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    bpos = torch.tensor([[0, BS, 2 * BS]] * b, dtype=torch.int32,
+                        device=cuda)
+    bpos[0, 1:] = PAD_POS
+    prefix = torch.tensor([3, BS, BS + 1, 2 * BS + 5, 3 * BS],
+                          dtype=torch.int32, device=cuda)
+    q = torch.randn((b, 1, 8, D), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    nk = torch.randn((b, 1, 2, D), generator=gen, device=cuda,
+                     dtype=torch.bfloat16)
+    nv = torch.randn((b, 1, 2, D), generator=gen, device=cuda,
+                     dtype=torch.bfloat16)
+
+    def run(dev):
+        tl = {n: x.clone().to(dev) for n, x in tail.items()}
+        out = mcommon._attention_paged_tail(
+            cfg, q.to(dev), nk.to(dev), nv.to(dev),
+            {n: x.to(dev) for n, x in pools.items()}, tl, t, table.to(dev),
+            prefix.to(dev), block_pos=bpos.to(dev))
+        return out.float().cpu(), {n: x.cpu() for n, x in tl.items()}
+
+    _build.reset_launches()
+    got, got_tail = run(cuda)
+    torch.cuda.synchronize()
+    name = "paged_decode_attention_stats" + ("" if pages == "int8" else "_fp")
+    assert _build.LAUNCHES == {name: 1}
+    want, want_tail = run(torch.device("cpu"))
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 2e-2, err
+    for n in tail:
+        assert torch.equal(got_tail[n], want_tail[n]), n
+
+
+@pytest.mark.gpu
+def test_run_beams_on_card_after_warmup(cuda):
+    """warmup_beams, then run_beams twice: no program made after warmup,
+    every burst a replay, both runs the same sequences."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    ex = Executor(params, cfg, max_batch=4, max_seq_len=256, block_size=16,
+                  prefill_chunk=32, device=cuda)
+    ex.warmup_beams(num_beams=4, burst=8, prompt_bucket=64,
+                    max_new_tokens=20)
+    outs = []
+    for _ in range(2):
+        ids = [ex.submit([(3 * i + j) % 500 + 1 for j in range(n)],
+                         max_new_tokens=20)
+               for i, n in enumerate((40, 64, 33, 17))]
+        done = ex.run_beams(num_beams=4, burst=8)
+        outs.append([done[r].generated for r in ids])
+    eng = ex.beam_engine
+    assert ex.compiles_since_warmup == 0
+    assert eng.graph_replays == eng.bursts > 0
+    assert outs[0] == outs[1] and all(len(g) == 20 for g in outs[0])

@@ -489,8 +489,11 @@ def test_stochastic_sample_by_seed_and_support(cfg):
 def test_unported_and_device_defaults_raise(models, tmp_path):
     _, _, cfg, tp = models["int8"]
     ts = GenerationSession(tp, cfg, max_seq_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        ts.generate([[1, 2]], 4, num_beams=2)
+    assert ts.generate([[1, 2]], 4, num_beams=2).num_generated == [4]
+    from mixq_tensorrt_llm_tpu_torch.runtime.beam import paged_beam_search
+    with pytest.raises(NotImplementedError, match="item 12"):
+        paged_beam_search(tp, cfg, [[1, 2]], 4, num_beams=2, lora_ids=[1],
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="fp8"):
         fp8 = dataclasses.replace(cfg, quant=dataclasses.replace(
             cfg.quant, kv_cache=KVCacheQuantAlgo.FP8))
