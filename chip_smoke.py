@@ -106,6 +106,29 @@ exits non-zero:
      dense tail) over prefixes of 5 and 9 tokens, the last step's logits
      card against CPU; the merge leaving out the tail and K10's l doubled
      are the controls
+  4g. the serving surface on the phase-4 model: Executor(block_size 128,
+     prefill_chunk 256, max_batch 8, max_seq_len 768, one logits
+     processor) after warmup(burst=16), without and then with
+     enable_block_reuse: one request of 640 tokens, then 7 sharing its
+     first 512 (64-200 more each), 32 greedy tokens each, the second wave
+     profiled: 28 blocks adopted, 3584 fewer prefill tokens, K6 and K8
+     traced in the prefill, every decode call a replay, no program after
+     warmup, on_token's order equal to the tokens; TTFT and token
+     agreement printed. At 2 layers, B's suffix over pages A's prefill
+     wrote against B cold within 5e-2, pages of another prefix caught.
+     Over the 7 prompts again, a free run, then lane 0 banning the
+     two-token word its free run emits at a decode step j >= 2 and lanes
+     1-6 with the processor (it bans even ids and the newest token): lane
+     0 leaves the free run at j, each processor lane at the first token
+     its free run emits that the processor bans, and emits none; only the
+     bad-words bucket's rungs made (one a k).
+     cancel mid-decode returns its blocks; a snapshot after 8 steps
+     restored on a fresh Executor finishes every request. Then
+     InferenceServer(burst=16, warmup=True), reuse off as `cli serve`
+     runs it, on 127.0.0.1: 8 /generate and
+     2 /generate_stream at once (streams equal their final tokens),
+     /health with no program after warmup, and a max_queue_size=2 server
+     answering 503
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
@@ -239,6 +262,12 @@ ON_PATH = {
     "beam_13b": ["paged_decode_attention_stats_fp", "wo_matmul_packed",
                  "wo_matmul.prefill", "paged_write_chunk_fp",
                  "paged_prefill_attention_fp"],
+    # phase 4g: prefix reuse's second wave: chunks after adopted pages
+    # (K1 -> K2, K4, K6, K8) and the decode rungs' replays (K4, K5, K7)
+    "serving": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+                "wo_matmul.decode", "wo_matmul.prefill", "paged_write_token",
+                "paged_write_chunk", "paged_decode_attention",
+                "paged_prefill_attention"],
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
@@ -249,7 +278,10 @@ OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                      "paged_decode_attention_split",
                      "paged_verify_attention"],
             "beam_13b": ["paged_decode_attention_fp", "paged_write_token_fp",
-                         "rmsnorm_quant_split", "mixed_matmul"]}
+                         "rmsnorm_quant_split", "mixed_matmul"],
+            "serving": ["paged_decode_attention_split",
+                        "paged_verify_attention",
+                        "paged_decode_attention_stats"]}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 BURST = 16                          # phase 4d
 # phase 4d: the kernels of a decode step, by a mark of the traced name,
@@ -266,6 +298,10 @@ BEAM_RUNS = {"beam": (16, 400, 512, 64, 512),
              "beam_13b": (8, 200, 256, 32, 256)}
 # phase 4e: kernels of a burst step by a mark of the traced name, and
 # their launches a layer a step
+SHARED, SERVE_NEW = 512, 32          # phase 4g: shared prefix, new tokens
+SERVE_KW = dict(block_size=128, prefill_chunk=256, max_batch=8,
+                max_seq_len=768)
+HTTP_WAIT = 300                      # s, every request and join of 4g
 BEAM_TRACED = {"stats_rows_kernel": ("K10", 1),
                "decode_split_kernel": ("K7", 0),
                "write_token_kernel": ("K5", 0)}
@@ -1768,7 +1804,7 @@ def serve_burst(torch, params, cfg, seed: int, dev, ref) -> dict:
     t = time.perf_counter()
     ex.warmup(burst=BURST)
     torch.cuda.synchronize()
-    rungs = sorted(k for k, _ in ex._rungs)
+    rungs = sorted(k for k, *_ in ex._rungs)
     print(f"phase 4d: warmup(burst={BURST}) {time.perf_counter() - t:.1f} s"
           f", rungs {rungs} captured", flush=True)
     check(rungs == [1, 2, 4, 8, BURST], f"phase 4d: rungs {rungs}")
@@ -2200,6 +2236,520 @@ def serve_beams(torch, params, cfg, seed: int, dev, path: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4g: the Executor's serving surface and the HTTP server over it
+# ---------------------------------------------------------------------------
+
+def odd_fresh(logits, history):
+    """Phase 4g's logits processor: bans every even token id (so a free
+    run meets it within a few tokens) and each lane's newest token (so it
+    reads the history)."""
+    import torch
+    even = torch.arange(logits.shape[1], device=logits.device) % 2 == 0
+    out = logits.masked_fill(even, -1e9)
+    return out.scatter(1, history[:, -1:].clamp(min=0).long(), -1e9)
+
+
+def serving_prompts(seed: int, vocab: int):
+    """Random token prompts: (the first request: the SHARED system-prompt
+    tokens and 128 of its own, the 7 others: the SHARED tokens and 64-200
+    distinct ones each, a prompt with another prefix of the same
+    length)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 14)
+    shared = rng.integers(1, vocab, SHARED).tolist()
+    first = shared + rng.integers(1, vocab, 128).tolist()
+    others = [shared + rng.integers(1, vocab, int(n)).tolist()
+              for n in rng.integers(64, 201, 7)]
+    foreign = rng.integers(1, vocab, SHARED + 128).tolist()
+    return first, others, foreign
+
+
+def serving_executor(params, cfg, seed: int, dev, reuse: bool = True,
+                     **kw):
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    return Executor(params, cfg, enable_block_reuse=reuse, seed=seed,
+                    device=dev, logits_processors={"odd_fresh": odd_fresh},
+                    **dict(SERVE_KW, **kw))
+
+
+def reuse_run(torch, ex, first, others) -> dict:
+    """On the warmed Executor ``ex``: the first request alone, then the 7
+    others together, run(burst=BURST), timed, every launch count at 0 just
+    before the second wave and read just after. Returns the second wave's
+    numbers."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    rid = ex.submit(first, max_new_tokens=SERVE_NEW)
+    first_toks = ex.run(burst=BURST)[rid].generated
+    keys = ("prefill_tokens", "reused_blocks", "decode_calls",
+            "graph_replays")
+    marks = {k: getattr(ex, k) for k in keys}
+    streamed = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    ids = [ex.submit(p, max_new_tokens=SERVE_NEW,
+                     on_token=lambda r, tok: streamed.setdefault(
+                         r.req_id, []).append(tok))
+           for p in others]
+    done = ex.run(burst=BURST)
+    torch.cuda.synchronize()
+    out = {k: getattr(ex, k) - marks[k] for k in keys}
+    reqs = [done[i] for i in ids]
+    out.update(
+        wall=time.perf_counter() - t, launches=dict(_build.LAUNCHES),
+        first=first_toks, toks=[r.generated for r in reqs],
+        ttft=[r.first_token_time - r.submit_time for r in reqs],
+        req_wall=[r.finish_time - r.submit_time for r in reqs],
+        streamed=all(streamed.get(r.req_id) == r.generated for r in reqs))
+    return out
+
+
+def traced_suffix(torch, ex, first, seed: int) -> dict:
+    """Two more requests over the shared prefix (100 new tokens each)
+    through ``ex`` under torch.profiler, each prefill call in a range (its
+    kernels start inside it): the kernels traced in the prefill by marks
+    of K6's and K8's names."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 16)
+    inner = ex._step_prefill
+
+    def ranged():
+        with torch.profiler.record_function("phase::prefill"):
+            inner()
+            torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    reused = ex.reused_blocks
+    ex._step_prefill = ranged
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(2):
+                ex.submit(first[:SHARED] + rng.integers(
+                    1, ex.cfg.vocab_size, 100).tolist(), max_new_tokens=4)
+            ex.run(burst=BURST)
+            torch.cuda.synchronize()
+    finally:
+        del ex._step_prefill
+    events = prof.events()
+    ranges = [e.time_range for e in events if e.name == "phase::prefill"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    pre = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(q.start <= e.time_range.start <= q.end for q in ranges)]
+    traced = {m: sum(m in e.name for e in pre)
+              for m in ("write_chunk_kernel", "prefill_wgmma_kernel")}
+    traced["adopted"] = ex.reused_blocks - reused
+    return traced
+
+
+def adopted_pages_check(torch, params, cfg, seed: int, dev) -> dict:
+    """2 layers at full width: B's last-position logits prefilled cold
+    against B's suffix prefilled over the 4 pages that A's prefill wrote
+    (their shared 512 tokens), within XDEV_TOL of the largest |logit|;
+    the control: the suffix over pages of another 512-token prefix must
+    land outside it. K6 and K8 must launch on the suffix. Returns the
+    launches of the suffix's call."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import (PAD_POS,
+                                                              init_paged_kv)
+    sub = dict(params, layers=params["layers"][:2])
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    bs = SERVE_KW["block_size"]
+    mb = SERVE_KW["max_seq_len"] // bs
+    first, others, foreign = serving_prompts(seed, cfg.vocab_size)
+    b = others[0]
+    state = [init_paged_kv(cfg2, 24, bs, device=dev)]
+
+    def prefill(tokens, blocks, start):
+        """tokens[start:] through forward_paged in the Executor's chunks
+        over the table ``blocks``; the last chunk's last-position
+        logits."""
+        table = torch.tensor([blocks + [blocks[-1]] * (mb - len(blocks))],
+                             dtype=torch.int32, device=dev)
+        bpos = torch.tensor([[i * bs for i in range(len(blocks))]
+                             + [int(PAD_POS)] * (mb - len(blocks))],
+                            dtype=torch.int32, device=dev)
+        pos = start
+        while pos < len(tokens):
+            rem = len(tokens) - pos
+            c = bs if rem <= bs else 2 * bs
+            chunk = tokens[pos:pos + c]
+            tok = torch.tensor([chunk + [0] * (c - len(chunk))],
+                               dtype=torch.int32, device=dev)
+            p = pos + torch.arange(c, dtype=torch.int32, device=dev)[None]
+            n = min(len(tokens), pos + c)
+            logits, state[0] = mcommon.forward_paged(
+                sub, cfg2, tok, p, state[0], table,
+                torch.tensor([n], dtype=torch.int32, device=dev),
+                block_pos=bpos,
+                last_pos=torch.tensor([n - pos - 1], dtype=torch.int32,
+                                      device=dev))
+            pos += c
+        torch.cuda.synchronize()
+        return logits[:, 0].float()
+
+    prefill(first, [1, 2, 3, 4, 5], 0)
+    prefill(foreign, [14, 15, 16, 17, 18], 0)
+    cold = prefill(b, [6, 7, 8, 9, 10, 11], 0)
+    _build.reset_launches()
+    reused = prefill(b, [1, 2, 3, 4, 12, 13], SHARED)
+    launches = dict(_build.LAUNCHES)
+    wrong = prefill(b, [14, 15, 16, 17, 19, 20], SHARED)
+    check(bool(torch.isfinite(reused).all()),
+          "phase 4g: logits over adopted pages not finite")
+    err, bad = _rel(reused, cold), _rel(wrong, cold)
+    print(f"phase 4g adopted pages (2 layers): B's suffix over A's pages "
+          f"against B cold: {err:.3e} (tolerance {XDEV_TOL}); argmax agrees: "
+          f"{bool((reused.argmax(-1) == cold.argmax(-1)).all())}; negative "
+          f"control, pages of another prefix: {bad:.3e}: "
+          f"{'caught' if bad > XDEV_TOL else 'not caught'}; the suffix's "
+          f"launches {json.dumps(launches)}", flush=True)
+    check(err <= XDEV_TOL, f"phase 4g: logits over adopted pages differ from "
+          f"a cold prefill: {err} > {XDEV_TOL}")
+    check(bad > XDEV_TOL, "phase 4g: pages adopted from another prefix "
+          "were not caught")
+    for name in ("paged_write_chunk", "paged_prefill_attention"):
+        check(launches.get(name, 0) > 0,
+              f"phase 4g: {name} was not launched on the adopted suffix")
+    del state[0]
+    return launches
+
+
+def _first_banned(prompt, toks):
+    """The first index i of ``toks`` that ``odd_fresh`` bans (an even id,
+    or the token before it: the prompt's last one for i = 0), or None."""
+    seq = prompt[-1:] + list(toks)
+    return next((i for i in range(len(toks))
+                 if seq[i + 1] % 2 == 0 or seq[i + 1] == seq[i]), None)
+
+
+def controls_run(torch, ex, others) -> None:
+    """On the warmed reuse Executor, over the 7 prompts the reuse run
+    cached (so each run below adopts the same blocks and decodes the same
+    bits up to its first control): a free run, the reference; then lane 0
+    banning the two-token word its reference emits at a decode step j >= 2
+    inside the first burst, and lanes 1-6 with the processor; then the
+    processor alone. Lane 0 equals its reference before j and differs at
+    j; each processor lane equals its reference before the first token
+    the processor bans there and differs at it; no controlled lane emits
+    what it bans (31 decode tokens a lane, all odd). Every
+    decode call is a replay, and the only programs made after warmup are
+    the bad-words bucket's rungs, one per k."""
+    c0, calls0, rep0 = (ex.compiles_since_warmup, ex.decode_calls,
+                        ex.graph_replays)
+    rungs0 = set(ex._rungs)
+    ids = [ex.submit(p, max_new_tokens=SERVE_NEW) for p in others]
+    done = ex.run(burst=BURST)
+    ref = [done[i].generated for i in ids]
+    check(ex.compiles_since_warmup == c0,
+          "phase 4g: the free run made a program after warmup")
+    seq0 = others[0][-1:] + ref[0]
+    pairs = list(zip(seq0, seq0[1:]))          # pairs[j]: (before j, j)
+    j = next((j for j in range(2, BURST) if pairs[j] not in pairs[:j]),
+             None)
+    check(j is not None, "phase 4g: no fresh token pair in lane 0's "
+          "first burst to ban")
+    word = list(pairs[j])
+    ids = [ex.submit(others[0], max_new_tokens=SERVE_NEW,
+                     bad_words=[word])] + [
+        ex.submit(p, max_new_tokens=SERVE_NEW, logits_processor="odd_fresh")
+        for p in others[1:]]
+    done = ex.run(burst=BURST)
+    got = [done[i].generated for i in ids]
+    new = set(ex._rungs) - rungs0
+    made = ex.compiles_since_warmup - c0
+    rid = ex.submit(others[2], max_new_tokens=SERVE_NEW,
+                    logits_processor="odd_fresh")
+    z = ex.run(burst=BURST)[rid].generated
+    calls, replays = ex.decode_calls - calls0, ex.graph_replays - rep0
+    x = others[0][-1:] + got[0]
+    hits = [_first_banned(p, r) for p, r in zip(others[1:], ref[1:])]
+    diff = [next((i for i, (a, b) in enumerate(zip(g, r)) if a != b), None)
+            for g, r in zip(got, ref)]
+    print(f"phase 4g controls: lane 0 bans {word}, its reference's tokens "
+          f"{j - 1} and {j} (decode steps): first difference from the "
+          f"reference at {diff[0]}; the processor lanes' first banned "
+          f"tokens in their reference at {hits}, first differences "
+          f"{diff[1:]}; {replays} graph replays for {calls} decode calls; "
+          f"rungs made after warmup {sorted(new, key=str)} ({made} "
+          f"programs)", flush=True)
+    check(all(len(g) == SERVE_NEW for g in got + [z]),
+          "phase 4g controls: a request did not get its tokens")
+    check(got[0][:j] == ref[0][:j] and got[0][j] != ref[0][j],
+          f"phase 4g: the banned lane does not leave its reference at {j}")
+    check(tuple(word) not in zip(x, x[1:]),
+          "phase 4g: a banned word was emitted")
+    for p, g, r, at in zip(others[1:], got[1:], ref[1:], hits):
+        check(at is not None and g[:at] == r[:at] and g[at] != r[at],
+              f"phase 4g: a processor lane does not leave its reference "
+              f"at the first token banned there ({at})")
+        check(_first_banned(p, g) is None,
+              "phase 4g: a processor lane emitted a token it bans")
+    check(_first_banned(others[2], z) is None,
+          "phase 4g: the processor-only lane emitted a token it bans")
+    check(replays == calls > 0, f"phase 4g controls: {replays} replays for "
+          f"{calls} decode calls")
+    check(new and all(key[2] == (1, 2) for key in new)
+          and len({key[0] for key in new}) == len(new) == made,
+          f"phase 4g controls: programs made after warmup {made}, rungs "
+          f"{sorted(new, key=str)}: not one bad-words rung a k")
+    check(ex.compiles_since_warmup - c0 == made,
+          "phase 4g: the processor alone made a program after warmup")
+
+
+def surface_run(torch, params, cfg, seed: int, dev, ex, others) -> None:
+    """cancel mid-decode (every block the request took back, free or
+    cached), then 4 requests snapshotted after 8 steps: the uninterrupted
+    run on ``ex``, the snapshot (through JSON) restored on a fresh
+    Executor that finishes every request to its length."""
+    import numpy as np
+    free0, cache0 = ex.bm.num_free, ex.bm.prefix_cache_size
+    rng = np.random.default_rng(seed + 15)
+    rid = ex.submit(rng.integers(1, cfg.vocab_size, 300).tolist(),
+                    max_new_tokens=64)
+    while not ex.finished.get(rid) and not any(
+            r is not None and r.req_id == rid and len(r.generated) >= 4
+            for r in ex.slots):
+        ex.step()
+    req = next(r for r in ex.slots if r is not None and r.req_id == rid)
+    check(ex.cancel(rid) and ex.finished[rid].done and not ex.has_work,
+          "phase 4g: cancel mid-decode failed")
+    cached = ex.bm.prefix_cache_size - cache0
+    print(f"phase 4g cancel mid-decode after {len(req.generated)} tokens: "
+          f"free blocks {free0} before, {ex.bm.num_free} after, {cached} "
+          f"newly cached", flush=True)
+    check(ex.bm.num_free == free0 - cached,
+          f"phase 4g: cancel left {ex.bm.num_free} free blocks, not "
+          f"{free0} - {cached}")
+    jobs = others[3:7]
+    ids = [ex.submit(p, max_new_tokens=SERVE_NEW) for p in jobs]
+    for _ in range(8):
+        ex.step()
+    snap = json.loads(json.dumps(ex.snapshot()))
+    gen = sum(len(d["generated"]) for d in snap["pending"])
+    done = ex.run(burst=BURST)
+    want = [done[i].generated for i in ids]
+    fresh = serving_executor(params, cfg, seed, dev)
+    fresh.restore(snap)
+    got = fresh.run(burst=BURST)
+    check(all(got[i].done and len(got[i].generated) == SERVE_NEW
+              and got[i].prompt == p for i, p in zip(ids, jobs)),
+          "phase 4g: the restored run did not finish every request")
+    same = sum(a == b for i, w in zip(ids, want)
+               for a, b in zip(got[i].generated, w))
+    print(f"phase 4g snapshot after 8 steps ({len(snap['pending'])} pending, "
+          f"{gen} tokens generated), restored on a fresh Executor: every "
+          f"request finished with {SERVE_NEW} tokens; {same} of "
+          f"{SERVE_NEW * len(ids)} equal to the uninterrupted run's (a "
+          f"reading: the replayed prefill runs other shapes in bf16)",
+          flush=True)
+    del fresh
+
+
+class SmokeLLM:
+    """What the server takes of an LLM: make_executor and tokenizer. Its
+    Executors leave prefix reuse off, as `cli serve` runs them."""
+    tokenizer = None
+
+    def __init__(self, params, cfg, seed: int, dev):
+        self.params, self.cfg, self.seed, self.dev = params, cfg, seed, dev
+
+    def make_executor(self, **kw):
+        from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+        return Executor(self.params, self.cfg,
+                        max_seq_len=SERVE_KW["max_seq_len"], seed=self.seed,
+                        device=self.dev, **kw)
+
+
+def _http(url: str, path: str, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=HTTP_WAIT) as r:
+        text = r.read().decode()
+    if path == "/generate_stream":
+        return [json.loads(line) for line in text.splitlines() if line]
+    return json.loads(text)
+
+
+def serve_http(torch, params, cfg, seed: int, dev, exec_wall) -> None:
+    """InferenceServer(burst=BURST, warmup=True) over the phase-4 model on
+    127.0.0.1, port 0: 8 concurrent /generate and 2 /generate_stream; then
+    /health; then a max_queue_size=2 server (its stepper stopped, two
+    requests queued) answering 503."""
+    import threading
+    import urllib.error
+    from http.server import ThreadingHTTPServer
+    from mixq_tensorrt_llm_tpu_torch.serve import (InferenceServer,
+                                                   make_handler)
+    first, others, _ = serving_prompts(seed, cfg.vocab_size)
+    llm = SmokeLLM(params, cfg, seed, dev)
+    geo = dict(max_batch=SERVE_KW["max_batch"],
+               block_size=SERVE_KW["block_size"],
+               prefill_chunk=SERVE_KW["prefill_chunk"])
+    t = time.perf_counter()
+    srv = InferenceServer(llm, burst=BURST, warmup=True, **geo)
+    print(f"phase 4g server: warmup(burst={BURST}) "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out, errors = {}, []
+    jobs = [("/generate", p) for p in [first] + others] + \
+        [("/generate_stream", p) for p in others[:2]]
+
+    def go(i, path, prompt):
+        try:
+            out[i] = _http(url, path, {"prompt": prompt, "eos": False,
+                                       "max_new_tokens": SERVE_NEW})
+        except Exception as e:   # reported below
+            errors.append(f"{path}: {e!r}")
+
+    try:
+        t = time.perf_counter()
+        threads = [threading.Thread(target=go, args=(i, path, p))
+                   for i, (path, p) in enumerate(jobs)]
+        for x in threads:
+            x.start()
+        for x in threads:
+            x.join(timeout=HTTP_WAIT)
+        wall = time.perf_counter() - t
+        health = _http(url, "/health")
+    finally:
+        httpd.shutdown()
+        srv.shutdown()
+        th.join(timeout=HTTP_WAIT)
+    check(not errors and len(out) == len(jobs),
+          f"phase 4g server: {len(out)} of {len(jobs)} answered; {errors}")
+    gens = [out[i] for i, (path, _) in enumerate(jobs) if path == "/generate"]
+    streams = [out[i] for i, (path, _) in enumerate(jobs)
+               if path != "/generate"]
+    check(all(len(g["tokens"]) == SERVE_NEW for g in gens),
+          "phase 4g server: a /generate answer lacks its tokens")
+    check(all([x["token"] for x in s if "token" in x] == s[-1]["tokens"]
+              and len(s[-1]["tokens"]) == SERVE_NEW for s in streams),
+          "phase 4g server: a stream's lines differ from its final tokens")
+    check(health["status"] == "ok" and health["compiles_since_warmup"] == 0,
+          f"phase 4g server: /health {health}")
+    totals = [g["stats"]["total_s"] for g in gens]
+    print(f"phase 4g server: {len(gens)} /generate and {len(streams)} "
+          f"/generate_stream answered in {wall:.3f} s, streams equal their "
+          f"final tokens; wall a request {sum(totals) / len(totals):.3f} s "
+          f"(server, ttft {sum(g['stats']['ttft_s'] for g in gens) / len(gens):.3f} s)"
+          f" against {exec_wall:.3f} s (the Executor's 7 requests without "
+          f"reuse); /health compiles_since_warmup "
+          f"{health['compiles_since_warmup']}, kv {json.dumps(health['kv'])}",
+          flush=True)
+    full = InferenceServer(llm, max_queue_size=2, **geo)
+    full.shutdown()
+    for p in others[:2]:
+        full.executor.submit(p, max_new_tokens=SERVE_NEW)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(full))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    code = None
+    try:
+        _http(f"http://127.0.0.1:{httpd.server_address[1]}", "/generate",
+              {"prompt": first, "max_new_tokens": 4})
+    except urllib.error.HTTPError as e:
+        code = e.code
+    finally:
+        httpd.shutdown()
+        th.join(timeout=HTTP_WAIT)
+    print(f"phase 4g server with max_queue_size=2 and 2 queued: HTTP {code}",
+          flush=True)
+    check(code == 503, f"phase 4g: a full queue answered {code}, not 503")
+    del srv, full
+
+
+def serve_serving(torch, params, cfg, seed: int, dev):
+    """Phase 4g: the 8 requests (7 sharing the first one's 512-token
+    prefix) through a warmed Executor without reuse, then through one with
+    it (``reuse_run``); the adopted pages card against a cold prefill at 2
+    layers (``adopted_pages_check``); per-request controls
+    (``controls_run``); cancel and snapshot/restore (``surface_run``);
+    the HTTP server (``serve_http``). Returns (the launches of the reuse
+    run's second wave, those of the 2-layer suffix)."""
+    first, others, _ = serving_prompts(seed, cfg.vocab_size)
+    runs = {}
+    for reuse in (False, True):
+        ex = serving_executor(params, cfg, seed, dev, reuse)
+        t = time.perf_counter()
+        ex.warmup(burst=BURST)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t
+        runs[reuse] = r = reuse_run(torch, ex, first, others)
+        r.update(warmup=w, compiles=ex.compiles_since_warmup)
+        if not reuse:
+            del ex
+            torch.cuda.empty_cache()
+    cold, warm = runs[False], runs[True]
+    for name, r in (("cold", cold), ("reuse", warm)):
+        check(all(len(g) == SERVE_NEW for g in r["toks"] + [r["first"]]),
+              f"phase 4g ({name}): not every request got {SERVE_NEW} tokens")
+        check(r["graph_replays"] == r["decode_calls"] > 0,
+              f"phase 4g ({name}): {r['graph_replays']} replays for "
+              f"{r['decode_calls']} decode calls")
+        check(r["compiles"] == 0, f"phase 4g ({name}): {r['compiles']} "
+              "programs made after warmup")
+        check(r["streamed"], f"phase 4g ({name}): on_token's tokens differ "
+              "from generated")
+    saved = cold["prefill_tokens"] - warm["prefill_tokens"]
+    same = sum(a == b for g, w in zip(warm["toks"], cold["toks"])
+               for a, b in zip(g, w))
+    ttft = {n: sum(r["ttft"]) / len(r["ttft"]) for n, r in
+            (("cold", cold), ("reuse", warm))}
+    print(f"phase 4g reuse: warmup {warm['warmup']:.1f} s; the first request "
+          f"({len(first)} tokens) then 7 sharing its first {SHARED} "
+          f"({min(map(len, others))}-{max(map(len, others))} tokens): "
+          f"{warm['reused_blocks']} blocks adopted, prefill tokens "
+          f"{cold['prefill_tokens']} cold -> {warm['prefill_tokens']} "
+          f"(saved {saved}); mean TTFT of the 7 {ttft['cold'] * 1e3:.1f} -> "
+          f"{ttft['reuse'] * 1e3:.1f} ms, wall {cold['wall'] * 1e3:.1f} -> "
+          f"{warm['wall'] * 1e3:.1f} ms; {same} of "
+          f"{SERVE_NEW * len(others)} tokens equal to the cold run's (a "
+          f"reading: the suffix prefill runs K2 at other row counts)",
+          flush=True)
+    traced = traced_suffix(torch, ex, first, seed)
+    print(f"phase 4g traced: 2 more requests over the shared prefix "
+          f"({traced['adopted']} blocks adopted), traced in their prefill: "
+          f"K6 {traced['write_chunk_kernel']}, K8 "
+          f"{traced['prefill_wgmma_kernel']}", flush=True)
+    check(warm["reused_blocks"] == 7 * SHARED // SERVE_KW["block_size"],
+          f"phase 4g: {warm['reused_blocks']} blocks adopted, not "
+          f"{7 * SHARED // SERVE_KW['block_size']}")
+    check(saved == 7 * SHARED, f"phase 4g: prefill tokens fell by {saved}, "
+          f"not {7 * SHARED}")
+    check(traced["adopted"] == 2 * SHARED // SERVE_KW["block_size"]
+          and traced["write_chunk_kernel"] > 0
+          and traced["prefill_wgmma_kernel"] > 0,
+          f"phase 4g: K6 or K8 not traced in a prefill after adopted pages "
+          f"({traced})")
+    launches = warm["launches"]
+    print(f"main path serving launches: {json.dumps(launches)}", flush=True)
+    for name in ON_PATH["serving"]:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the main path serving")
+    for name in OFF_PATH["serving"]:
+        check(launches.get(name, 0) == 0,
+              f"{name} was launched on the main path serving")
+    adopted = adopted_pages_check(torch, params, cfg, seed, dev)
+    controls_run(torch, ex, others)
+    surface_run(torch, params, cfg, seed, dev, ex, others)
+    exec_wall = sum(cold["req_wall"]) / len(cold["req_wall"])
+    del ex
+    torch.cuda.empty_cache()
+    serve_http(torch, params, cfg, seed, dev, exec_wall)
+    torch.cuda.empty_cache()
+    return launches, adopted
+
+
 def drop_tail(f):
     """A beam-burst fault: the merge leaves out the dense tail's part."""
     return lambda parts: f(list(parts)[:1])
@@ -2546,6 +3096,15 @@ def main() -> int:
                                   dev).items():
         xdev[n] = xdev.get(n, 0) + c
     print(f"phases 4e-5d: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 4g. the serving surface: prefix reuse, controls, cancel, snapshot,
+    # and the HTTP server
+    t = time.perf_counter()
+    launches["serving"], adopted = serve_serving(torch, params, cfg,
+                                                 args.seed, dev)
+    for n, c in adopted.items():
+        xdev[n] = xdev.get(n, 0) + c
+    print(f"phase 4g: {time.perf_counter() - t:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
 
@@ -2571,8 +3130,9 @@ def main() -> int:
     print(f"phases 4b-5b: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 8. kernels line: launches summed over the main paths' runs (phases
-    # 4, 4b, 4c, 4d (its burst-16 run), 4e and 4f (their timed runs), 6
-    # and 6b; the cross-device runs' beside them: K13 launches there only)
+    # 4, 4b, 4c, 4d (its burst-16 run), 4e and 4f (their timed runs), 4g
+    # (the reuse run's second wave), 6 and 6b; the cross-device runs'
+    # beside them (with 4g's 2-layer suffix): K13 launches there only)
     rows = []
     for name, (replaces, src) in KERNELS.items():
         r = results[name]

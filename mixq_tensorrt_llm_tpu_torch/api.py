@@ -58,7 +58,7 @@ class LLM:
             raise NotImplementedError(
                 f"{self.model} is not a checkpoint directory of this "
                 "package; quantizing a Hugging Face model on load "
-                "(convert/hf.py) is not ported yet: ROADMAP queue 1, item 11")
+                "(convert/hf.py) is not ported yet (ROADMAP queue 1)")
         from .convert.checkpoint import load_checkpoint
         self.params, self.cfg = load_checkpoint(self.model,
                                                 device=self.device)
@@ -124,8 +124,8 @@ class LLM:
                              seed: int = 0):
         raise NotImplementedError(
             "batched speculative decoding over the session "
-            "(runtime/speculative.py) is not ported yet: ROADMAP queue 1, "
-            "item 14; the Executor's run_speculative is (make_executor)")
+            "(runtime/speculative.py) is not ported yet (ROADMAP queue 1); "
+            "the Executor's run_speculative is (make_executor)")
 
     def make_executor(self, max_batch: int = 8, block_size: int = 64,
                       prefill_chunk: int = 256,

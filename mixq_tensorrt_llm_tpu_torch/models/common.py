@@ -187,8 +187,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
             v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev))
     if kv != KVCacheQuantAlgo.NONE:
         raise NotImplementedError(
-            f"{kv.value} KV cache: comes with the fp8 slice (ROADMAP queue "
-            "1, item 10)")
+            f"{kv.value} KV cache: comes with the fp8 slice "
+            "(quant/core.py quantize_weight_fp8; ROADMAP queue 1)")
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=dev))
 
@@ -496,14 +496,15 @@ def _last(x: torch.Tensor, last_pos) -> torch.Tensor:
 
 
 # forward's options of the JAX package that the port does not honour yet,
-# with the ROADMAP item that brings each
+# with the module whose port brings each (ROADMAP queue 1)
 _UNPORTED_FORWARD = {
-    "collect_stats": "queue 1, item 11 (convert/calibrate.py)",
-    "outlier_state": "queue 1, item 12 (quant/dynamic.py)",
-    "lora_ids": "queue 1, item 14 (convert/lora.py)",
-    "attn_mask": "queue 1, item 14 (runtime/medusa.py tree verification)",
-    "return_hidden": "queue 1, item 14 (runtime/medusa.py heads)",
-    "rope_pos": "queue 1, item 14 (tree and beam verification)",
+    "collect_stats": "convert/calibrate.py",
+    "outlier_state": "quant/dynamic.py",
+    "lora_ids": "convert/lora.py",
+    "attn_mask": "runtime/medusa.py (tree verification)",
+    "return_hidden": "runtime/medusa.py (heads)",
+    "rope_pos": "runtime/medusa.py and runtime/redrafter.py (tree and "
+                "beam verification)",
 }
 
 
@@ -528,8 +529,9 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  return_hidden=return_hidden, rope_pos=rope_pos)
     for name, val in given.items():
         if val is not None and val is not False:
-            raise NotImplementedError(f"forward({name}=...) is not ported "
-                                      f"yet: ROADMAP {_UNPORTED_FORWARD[name]}")
+            raise NotImplementedError(
+                f"forward({name}=...) is not ported yet: it comes with "
+                f"{_UNPORTED_FORWARD[name]} (ROADMAP queue 1)")
     x = _embed(params, cfg, tokens)
     sin, cos = _positional_arrays(cfg, write_pos)
     for li, lp in enumerate(params["layers"]):

@@ -75,8 +75,8 @@ _CTRL_FIELDS = ("min_lanes", "bw", "stops", "stop_len", "proc_masks")
 def _refuse_lora(lora_ids) -> None:
     if lora_ids is not None and any(lora_ids):
         raise NotImplementedError(
-            "beams over runtime LoRA adapters are not ported yet: ROADMAP "
-            "queue 1, item 12 (convert/lora.py)")
+            "beams over runtime LoRA adapters are not ported yet: they come "
+            "with convert/lora.py (ROADMAP queue 1)")
 
 
 @dataclasses.dataclass

@@ -9,7 +9,10 @@ tables; each table entry also carries an absolute base position
 recycles a page in place (its stale tail slots land in the causal future).
 
 The block manager is host-side Python, the same logic as the JAX
-package's (block 0 is the reserved trash block).
+package's (block 0 is the reserved trash block), with its prefix cache
+(``enable_block_reuse``): full prompt blocks are registered under chain
+keys that commit to the whole prefix, and a later request adopts the
+cached blocks its prompt starts with.
 """
 
 from __future__ import annotations
@@ -88,8 +91,11 @@ class SequenceBlocks:
 
 class BlockManager:
     """Host-side free list + per-sequence block accounting, with ref counts
-    (prefix sharing), StreamingLLM sink/window recycling and rewind.
-    Block 0 is reserved as the trash block for masked writes."""
+    (prefix sharing, beam forks), the prefix cache, StreamingLLM
+    sink/window recycling and rewind. Block 0 is reserved as the trash
+    block for masked writes (``num_trash``)."""
+
+    num_trash = 1   # blocks of the pool no sequence can hold
 
     def __init__(self, num_blocks: int, block_size: int,
                  sink_blocks: int = 0, window_blocks: Optional[int] = None):
@@ -100,17 +106,104 @@ class BlockManager:
         self.seqs: Dict[int, SequenceBlocks] = {}
         self.sink_blocks = sink_blocks
         self.window_blocks = window_blocks   # max non-sink blocks per seq
+        # chain key -> block. A registered block holds one ref count owned
+        # by the cache; insertion order is the eviction order (a dict, so
+        # eviction matches the JAX package's)
+        self.prefix_cache: Dict[tuple, int] = {}
+        self._prefix_of_block: Dict[int, tuple] = {}
 
     def blocks_needed(self, num_tokens: int) -> int:
         return -(-num_tokens // self.block_size)
 
+    def _evictable(self) -> int:
+        """Cached blocks that only the cache holds (ref count 1): the ones
+        eviction can return to the free list."""
+        return sum(1 for b in self._prefix_of_block
+                   if self.ref_counts[b] == 1)
+
     def can_allocate(self, num_tokens: int) -> bool:
-        return len(self.free) >= self.blocks_needed(num_tokens)
+        return (len(self.free) + self._evictable()
+                >= self.blocks_needed(num_tokens))
 
     def _take_free(self) -> int:
+        """Pop a free block, evicting the oldest cached prefix block when
+        the free list is empty."""
+        if not self.free:
+            self._reclaim(1)
         if not self.free:
             raise RuntimeError("KV pool exhausted")
         return self.free.pop()
+
+    def _reclaim(self, n: int) -> None:
+        """Evict up to n blocks that only the cache holds, oldest first;
+        a cached block a live sequence shares stays (evicting it would
+        free nothing)."""
+        for key in list(self.prefix_cache):
+            if n <= 0:
+                break
+            b = self.prefix_cache[key]
+            if self.ref_counts[b] != 1:
+                continue
+            del self.prefix_cache[key]
+            self._prefix_of_block.pop(b, None)
+            self.ref_counts[b] = 0
+            self.free.append(b)
+            n -= 1
+
+    @property
+    def prefix_cache_size(self) -> int:
+        return len(self.prefix_cache)
+
+    def _keys_for(self, tokens: List[int]) -> List[tuple]:
+        """The chain key of each FULL block of ``tokens``: block i's key
+        commits to the whole prefix, so equal keys mean equal KV."""
+        keys, prev = [], ()
+        bs = self.block_size
+        for i in range(len(tokens) // bs):
+            prev = (prev, tuple(tokens[i * bs:(i + 1) * bs]))
+            keys.append(prev)
+        return keys
+
+    def add_sequence_cached(self, seq_id: int, tokens: List[int]
+                            ) -> Tuple[SequenceBlocks, int]:
+        """add_sequence that adopts the cached blocks ``tokens`` starts
+        with; returns (blocks, cached token count). Adopted blocks are
+        shared read-only: writes land past them. At least one token stays
+        uncached, so the prefill yields the last position's logits."""
+        if seq_id in self.seqs:
+            raise ValueError(f"sequence {seq_id} already active")
+        adopted: List[int] = []
+        for key in self._keys_for(tokens[:len(tokens) - 1]):
+            b = self.prefix_cache.get(key)
+            if b is None:
+                break
+            adopted.append(b)
+        need = self.blocks_needed(max(len(tokens), 1)) - len(adopted)
+        if len(self.free) + self._evictable() < need:
+            raise RuntimeError("KV pool exhausted")
+        for b in adopted:
+            self.ref_counts[b] += 1
+        blocks = adopted + [self._take_free() for _ in range(need)]
+        for b in blocks[len(adopted):]:
+            self.ref_counts[b] += 1
+        sb = SequenceBlocks(seq_id, blocks,
+                            [i * self.block_size for i in range(len(blocks))],
+                            len(tokens))
+        self.seqs[seq_id] = sb
+        return sb, len(adopted) * self.block_size
+
+    def register_prefix(self, seq_id: int, tokens: List[int],
+                        upto: int) -> None:
+        """Cache the sequence's full blocks covering tokens[:upto]; call
+        once their KV is written."""
+        sb = self.seqs[seq_id]
+        for i, key in enumerate(self._keys_for(list(tokens)[:upto])):
+            b = sb.blocks[i]
+            if key in self.prefix_cache or b in self._prefix_of_block:
+                continue
+            self.prefix_cache[key] = b
+            self._prefix_of_block[b] = key
+            self.ref_counts[b] += 1
 
     def add_sequence(self, seq_id: int, num_tokens: int) -> SequenceBlocks:
         if seq_id in self.seqs:

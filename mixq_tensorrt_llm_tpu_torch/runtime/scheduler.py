@@ -45,9 +45,21 @@ keeps: a pool of its own and, on the card, one CUDA graph a burst key,
 each burst a replay; ``warmup_beams`` makes that set beforehand, and
 ``compiles_since_warmup`` counts the beam programs and graphs too.
 
+The serving surface: per-request bad words and named logits processors
+(torch callables ``(logits (B, V), history (B, W)) -> logits``, the set
+fixed per Executor) in the prefill sample and inside every rung (a lane's
+bad words go into a static buffer of their (N, L) bucket, N and L
+powers of two, and each bucket is its own rung key: a bad-words-free
+batch replays the same graphs as before), prefix reuse (``enable_block_reuse``: a request adopts the
+cached full blocks its prompt starts with and prefills after them),
+``cancel``, ``max_queue_size`` (``QueueFullError``), ``on_token``
+streaming, ``IterationStats`` and ``get_kv_cache_stats``, and
+``snapshot`` / ``restore`` (JSON, key for key the JAX Executor's, so a
+snapshot of either package restores in the other).
+
 Not ported yet: the dense-cache draft (``paged_draft=False``, which needs
-the dense forward), snapshot/restore, meshes, LoRA, prefix reuse, bad
-words, logits processors, ``max_queue_size`` and iteration stats.
+the dense forward), meshes and dp lane groups (parallel/), LoRA
+(convert/lora.py) and the dynamic outlier state (quant/dynamic.py).
 """
 
 from __future__ import annotations
@@ -67,7 +79,7 @@ from ..ops import _build
 from ..ops.paged_attention import check_kernel_geometry
 from ..utils import compile_watch
 from .kv_cache import PAD_POS, BlockManager, PagedKVState, init_paged_kv
-from .sampler import (SamplingConfig, SamplingParams, batch_params,
+from .sampler import (BW_PAD, SamplingConfig, SamplingParams, batch_params,
                       sample_batched)
 
 HISTORY_W = 64   # repetition-penalty window (recent tokens per lane)
@@ -81,6 +93,33 @@ def pow2_ceil(n: int) -> int:
 def pow2_floor(n: int) -> int:
     """Largest power of two <= n (n must be >= 1)."""
     return 1 << (n.bit_length() - 1)
+
+
+class QueueFullError(RuntimeError):
+    """submit() backpressure: the queue holds max_queue_size requests."""
+
+
+@dataclasses.dataclass
+class IterationStats:
+    """One scheduling iteration's telemetry (``get_latest_iteration_stats``).
+    kv_total_blocks counts the pool's blocks, kv_trash_blocks those no
+    sequence can hold (the block manager's ``num_trash``)."""
+    iter_id: int
+    timestamp: float
+    step_time_s: float
+    num_active: int
+    num_queued: int
+    num_prefilling: int
+    tokens_produced: int
+    kv_free_blocks: int
+    kv_total_blocks: int
+    kv_trash_blocks: int
+
+    @property
+    def kv_cache_usage(self) -> float:
+        """The held share of the blocks a sequence can hold."""
+        usable = max(self.kv_total_blocks - self.kv_trash_blocks, 1)
+        return 1.0 - self.kv_free_blocks / usable
 
 
 class StaticInputs:
@@ -117,15 +156,20 @@ class StaticInputs:
 
 
 class _DecodeInputs(StaticInputs):
-    """The decode rungs' static inputs."""
+    """The decode rungs' static inputs; with ``procs`` logits processors
+    registered, their (procs, B) lane masks too."""
 
-    def __init__(self, b: int, mb: int, device: torch.device):
-        super().__init__(
-            {"tokens": (b, 1), "lens": (b,), "sup_tok": (b,),
-             "min_left": (b,), "top_k": (b,), "greedy": (b,),
-             "temperature": (b,), "top_p": (b,), "penalty": (b,),
-             "table": (b, mb), "bpos": (b, mb), "history": (b, HISTORY_W)},
-            device, ("temperature", "top_p", "penalty"))
+    def __init__(self, b: int, mb: int, device: torch.device,
+                 procs: int = 0):
+        shapes = {"tokens": (b, 1), "lens": (b,), "sup_tok": (b,),
+                  "min_left": (b,), "top_k": (b,), "greedy": (b,),
+                  "temperature": (b,), "top_p": (b,), "penalty": (b,),
+                  "table": (b, mb), "bpos": (b, mb),
+                  "history": (b, HISTORY_W)}
+        if procs:
+            shapes["proc_masks"] = (procs, b)
+        super().__init__(shapes, device, ("temperature", "top_p",
+                                          "penalty"))
 
     def sampling(self) -> SamplingParams:
         d = self.dev
@@ -204,8 +248,11 @@ class Request:
     max_new_tokens: int
     eos_token_id: Optional[int] = None
     sampling: Optional[SamplingConfig] = None   # None = executor default
+    lora_id: int = 0                            # 0 = base model
     min_new_tokens: int = 0
     priority: float = 0.5                       # 0..1, higher admits first
+    bad_words: Optional[List[List[int]]] = None  # banned token sequences
+    logits_processor: Optional[str] = None       # name registered on Executor
     stop_sequences: Optional[List[List[int]]] = None
     generated: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
@@ -213,9 +260,11 @@ class Request:
     submit_time: float = dataclasses.field(default_factory=time.perf_counter)
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    on_token: Optional[object] = None   # streaming callback(req, token)
     prefill_pos: int = 0                # tokens already prefilled
-    # preemption: (orig_prompt_len, prior_generated, prior_logprobs,
-    # orig_max, orig_min) riding the request until _finish unstitches it
+    # preemption or restore: (orig_prompt_len, prior_generated,
+    # prior_logprobs, orig_max, orig_min) riding the request until _finish
+    # unstitches it; prior_generated counts as output for stop sequences
     resume: Optional[tuple] = None
 
     @property
@@ -232,6 +281,8 @@ class Executor:
                  prefill_chunk: int = 256, prefill_lanes: int = 4,
                  sampling: SamplingConfig = SamplingConfig(),
                  sink_blocks: int = 0, window_blocks: Optional[int] = None,
+                 logits_processors: Optional[Dict[str, object]] = None,
+                 enable_block_reuse: bool = False, max_queue_size: int = 0,
                  max_kv_tokens: int = 0, seed: int = 0,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -259,6 +310,15 @@ class Executor:
         self._win_tokens = (window_blocks * block_size) if window_blocks \
             else 0
         self._sink_tokens = sink_blocks * block_size
+        if enable_block_reuse and window_blocks:
+            raise ValueError("block reuse with windows is unsupported")
+        self.block_reuse = enable_block_reuse
+        self.max_queue_size = max_queue_size   # 0 = unbounded
+        # named logits processors, the set fixed per Executor (the rungs
+        # capture it); a request selects one by name, applied to its lane
+        self._proc_names = tuple(sorted(logits_processors or ()))
+        self._proc_fns = tuple((logits_processors or {})[n]
+                               for n in self._proc_names)
         self.sampling = sampling
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -271,13 +331,21 @@ class Executor:
         self.prefill_chunk = prefill_chunk
         self.prefill_lanes = max(1, min(prefill_lanes, max_batch))
         self._dec = _DecodeInputs(max_batch, self.max_blocks_per_seq,
-                                  self.device)
-        self._rungs: Dict[Tuple[int, int], _Rung] = {}
+                                  self.device, len(self._proc_names))
+        # rungs by (k, MIXQ_KV_SPLITS, bad-words bucket (N, L) or None);
+        # each bucket's static (B, N, L) buffer
+        self._rungs: Dict[tuple, _Rung] = {}
+        self._bw_inputs: Dict[Tuple[int, int], StaticInputs] = {}
         self._graph_pool = None
         # decode calls (one rung each), the steps they ran, the graphs
         # replayed (the card only), the host readbacks of sampled tokens
         self.decode_calls = self.decode_steps = self.graph_replays = 0
         self.readbacks = 0
+        # prompt tokens run through prefill, and blocks adopted from the
+        # prefix cache at admission
+        self.prefill_tokens = self.reused_blocks = 0
+        self.iteration_stats: deque = deque(maxlen=1000)
+        self._iter_id = 0
         self._warm_compile_mark: Optional[int] = None
         self._warm_cache_mark: Optional[int] = None
         self._beams = None   # runtime.beam.BeamEngine of run_beams
@@ -286,14 +354,29 @@ class Executor:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _apply_procs(self, logits: torch.Tensor, history: torch.Tensor,
+                     masks: torch.Tensor) -> torch.Tensor:
+        """Each registered processor on the lanes of its mask row."""
+        for pi, f in enumerate(self._proc_fns):
+            logits = torch.where(masks[pi][:, None], f(logits, history),
+                                 logits)
+        return logits
+
     def _sample(self, logits: torch.Tensor, reqs, configs, sup_tok,
                 sup_flag):
-        """Sample one token per lane; returns (tokens, logprobs) tensors."""
+        """Sample one token per lane after the lanes' processors and bad
+        words; returns (tokens, logprobs) tensors."""
         samp = batch_params(configs, device=self.device)
-        tok = sample_batched(logits, self.generator, samp,
-                             history=self._t(self._history(reqs)),
+        hist = self._t(self._history(reqs))
+        masks = self._proc_masks(reqs)
+        if masks is not None:
+            logits = self._apply_procs(logits, hist, self._t(masks))
+        bw = self._bad_words(reqs)
+        tok = sample_batched(logits, self.generator, samp, history=hist,
                              suppress_token=self._t(sup_tok),
-                             suppress_flag=self._t(sup_flag))
+                             suppress_flag=self._t(sup_flag),
+                             bad_words=None if bw is None
+                             else self._t(bw).long())
         lp = torch.gather(torch.log_softmax(logits, dim=-1), 1,
                           tok[:, None])[:, 0]
         return tok, lp
@@ -301,25 +384,154 @@ class Executor:
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
                eos_token_id: Optional[int] = None,
                sampling: Optional[SamplingConfig] = None,
-               min_new_tokens: int = 0,
+               min_new_tokens: int = 0, lora_id: int = 0,
+               bad_words: Optional[Sequence[Sequence[int]]] = None,
+               logits_processor: Optional[str] = None,
                stop_sequences: Optional[Sequence[Sequence[int]]] = None,
-               priority: float = 0.5) -> int:
+               priority: float = 0.5, on_token=None) -> int:
         """Queue a request; returns its id. ``sampling`` overrides the
         executor default for this request; stop_sequences are token-id
-        suffixes that end it (kept in the output)."""
+        suffixes that end it (kept in the output); bad_words are token-id
+        sequences it may never emit; logits_processor names a processor
+        registered at construction, applied to its lane only;
+        on_token(request, token) is called for every generated token.
+        Raises QueueFullError when max_queue_size requests are queued."""
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
                 f"> max_seq_len ({self.max_seq_len})")
+        if self.max_queue_size and len(self.queue) >= self.max_queue_size:
+            raise QueueFullError(
+                f"queue full ({self.max_queue_size}); retry later")
+        # the id is taken before the checks below, as in the JAX package
         rid = self._next_id
         self._next_id += 1
+        if lora_id:
+            raise NotImplementedError(
+                "lora_id: runtime LoRA adapters are not ported yet: they "
+                "come with convert/lora.py (ROADMAP queue 1)")
+        if logits_processor is not None and \
+                logits_processor not in self._proc_names:
+            raise ValueError(f"unknown logits_processor {logits_processor!r};"
+                             f" registered: {list(self._proc_names)}")
+        if bad_words:
+            longest = max(len(w) for w in bad_words)
+            if longest - 1 > HISTORY_W:
+                raise ValueError(f"bad word of {longest} tokens exceeds the "
+                                 f"{HISTORY_W}-token match window")
         self.queue.append(Request(
             rid, list(prompt), max_new_tokens, eos_token_id,
             sampling=sampling, min_new_tokens=min_new_tokens,
             priority=priority,
+            bad_words=[list(w) for w in bad_words] if bad_words else None,
+            logits_processor=logits_processor,
             stop_sequences=[list(w) for w in stop_sequences]
-            if stop_sequences else None))
+            if stop_sequences else None,
+            on_token=on_token))
         return rid
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a queued or in-flight request; it is finished with the
+        tokens it has and its blocks go back to the pool. Returns whether
+        anything was cancelled (finished requests cannot be)."""
+        for req in self.queue:
+            if req.req_id == req_id:
+                self.queue.remove(req)
+                self._close(req)
+                return True
+        for req in self.prefilling:
+            if req.req_id == req_id:
+                self.prefilling.remove(req)
+                self.bm.free_sequence(req_id)
+                self._close(req)
+                return True
+        for req in self.slots:
+            if req is not None and req.req_id == req_id:
+                self._finish(req)
+                return True
+        return False
+
+    def _close(self, req: Request) -> None:
+        req.done = True
+        req.finish_time = time.perf_counter()
+        self.finished[req.req_id] = req
+
+    # ------------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Every request's state as JSON-serializable data, for restarting
+        a crashed server (the JAX Executor's format, key for key). The
+        device KV is not saved: restore() replays each pending request's
+        committed tokens through prefill. on_token callbacks are
+        dropped."""
+        def ser(r: Request) -> dict:
+            # a restored or preempted request carries its original shape
+            # in ``resume``: serialize that, so snapshots of snapshots
+            # stay stable
+            if r.resume is not None:
+                plen, old_gen, old_lp, omax, omin = r.resume
+            else:
+                plen, old_gen, old_lp, omax, omin = (
+                    len(r.prompt), [], [], r.max_new_tokens,
+                    r.min_new_tokens)
+            return {
+                "req_id": r.req_id, "prompt": list(r.prompt[:plen]),
+                "generated": list(old_gen) + list(r.generated),
+                "logprobs": list(old_lp) + list(r.logprobs),
+                "max_new_tokens": omax, "min_new_tokens": omin,
+                "eos_token_id": r.eos_token_id,
+                "sampling": dataclasses.asdict(r.sampling)
+                if r.sampling is not None else None,
+                "lora_id": r.lora_id, "priority": r.priority,
+                "bad_words": r.bad_words,
+                "logits_processor": r.logits_processor,
+                "stop_sequences": r.stop_sequences,
+                "done": r.done,
+            }
+        pending = ([ser(r) for r in self.queue]
+                   + [ser(r) for r in self.prefilling]
+                   + [ser(r) for r in self.slots if r is not None])
+        return {"pending": pending,
+                "finished": [ser(r) for r in self.finished.values()],
+                "next_id": self._next_id}
+
+    def restore(self, snap: dict) -> None:
+        """Take a snapshot's work onto this fresh Executor (the same model
+        and processors): finished results reappear in ``finished``; each
+        pending request's committed tokens join its prompt and replay
+        through prefill, so greedy requests finish as the uninterrupted
+        run would (stochastic ones draw anew)."""
+        if self.has_work or self.finished:
+            raise RuntimeError("restore() needs a fresh executor")
+
+        def req(d, gen):
+            n = len(gen)
+            return Request(
+                d["req_id"], list(d["prompt"]) + gen,
+                d["max_new_tokens"] - n, d["eos_token_id"],
+                SamplingConfig(**d["sampling"]) if d["sampling"] else None,
+                d["lora_id"], max(0, d["min_new_tokens"] - n),
+                d["priority"], d["bad_words"], d["logits_processor"],
+                d["stop_sequences"])
+
+        for d in snap["finished"]:
+            r = req(d, [])
+            r.generated = list(d["generated"])
+            r.logprobs = list(d["logprobs"])
+            r.done = True
+            self.finished[r.req_id] = r
+        for d in snap["pending"]:
+            gen = list(d["generated"])
+            if len(d["prompt"]) + d["max_new_tokens"] > self.max_seq_len:
+                raise ValueError(
+                    f"snapshot request {d['req_id']} needs "
+                    f"{len(d['prompt']) + d['max_new_tokens']} tokens > "
+                    f"max_seq_len {self.max_seq_len}")
+            r = req(d, gen)
+            if gen:
+                r.resume = (len(d["prompt"]), gen, list(d["logprobs"]),
+                            d["max_new_tokens"], d["min_new_tokens"])
+            self.queue.append(r)
+        self._next_id = max(snap["next_id"], self._next_id)
 
     @property
     def num_active(self) -> int:
@@ -335,14 +547,21 @@ class Executor:
     def _admit(self) -> None:
         """Move queued requests into the prefilling set (pages reserved),
         priority first, then FIFO; the head waits for pages rather than
-        being skipped."""
+        being skipped. With block reuse a request adopts the cached blocks
+        its prompt starts with and its prefill starts after them."""
         while (self.queue and self._free_slots() > 0
                and len(self.prefilling) < self.prefill_lanes):
             req = max(self.queue, key=lambda r: (r.priority, -r.req_id))
             if not self.bm.can_allocate(len(req.prompt) + 1):
                 break
             self.queue.remove(req)
-            self.bm.add_sequence(req.req_id, len(req.prompt))
+            if self.block_reuse:
+                _, cached = self.bm.add_sequence_cached(req.req_id,
+                                                        req.prompt)
+                req.prefill_pos = cached
+                self.reused_blocks += cached // self.block_size
+            else:
+                self.bm.add_sequence(req.req_id, len(req.prompt))
             self.prefilling.append(req)
 
     def _history(self, reqs: Sequence[Optional[Request]]) -> np.ndarray:
@@ -353,6 +572,40 @@ class Executor:
                 continue
             tail = req.sequence[-HISTORY_W:]
             out[i, HISTORY_W - len(tail):] = tail
+        return out
+
+    def _bad_words(self, reqs: Sequence[Optional[Request]]
+                   ) -> Optional[np.ndarray]:
+        """(len(reqs), N, L) int32 packed per-lane bad words (right-aligned,
+        BW_PAD padded), or None when no lane has any. N and L (the longest
+        word, at least 2) round up to powers of two, L at most the match
+        window, so the buckets, and the decode rungs each one makes, stay
+        few. A left pad matches any history token, so padding a word
+        changes nothing it bans."""
+        words = [r.bad_words for r in reqs if r is not None and r.bad_words]
+        if not words:
+            return None
+        n = pow2_ceil(max(len(w) for w in words))
+        lmax = min(pow2_ceil(max(2, max(len(t) for w in words for t in w))),
+                   HISTORY_W + 1)
+        out = np.full((len(reqs), n, lmax), BW_PAD, np.int32)
+        for i, r in enumerate(reqs):
+            if r is None or not r.bad_words:
+                continue
+            for j, t in enumerate(r.bad_words):
+                out[i, j, lmax - len(t):] = t
+        return out
+
+    def _proc_masks(self, reqs: Sequence[Optional[Request]]
+                    ) -> Optional[np.ndarray]:
+        """(processors, len(reqs)) bool lane masks, or None when no
+        processor is registered."""
+        if not self._proc_names:
+            return None
+        out = np.zeros((len(self._proc_names), len(reqs)), bool)
+        for i, r in enumerate(reqs):
+            if r is not None and r.logits_processor is not None:
+                out[self._proc_names.index(r.logits_processor), i] = True
         return out
 
     def _step_prefill(self) -> None:
@@ -398,6 +651,7 @@ class Executor:
             self._t(table), length_t, block_pos=self._t(bpos),
             window=self._win_tokens, sink=self._sink_tokens,
             last_pos=torch.clamp(length_t - start_t - 1, 0, chunk - 1))
+        self.prefill_tokens += int((length - start)[:len(lanes)].sum())
         finishing = [int(length[i]) >= len(req.prompt)
                      for i, req in enumerate(lanes)]
         tok_np = lp_np = None
@@ -410,6 +664,11 @@ class Executor:
             tok_np, lp_np = self._readback(tok, lp)
         for i, req in enumerate(lanes):
             req.prefill_pos = int(length[i])
+            if self.block_reuse:
+                # the chunk's KV is written: its full prompt blocks are
+                # now adoptable
+                self.bm.register_prefix(req.req_id, req.prompt,
+                                        upto=req.prefill_pos)
             if finishing[i]:
                 self.prefilling.remove(req)
                 self.slots[self.slots.index(None)] = req
@@ -421,6 +680,8 @@ class Executor:
         req.generated.append(tok)
         if logprob is not None:
             req.logprobs.append(logprob)
+        if req.on_token is not None:
+            req.on_token(req, tok)
         hit_eos = (req.eos_token_id is not None and tok == req.eos_token_id
                    and len(req.generated) > req.min_new_tokens)
         hit_stop = False
@@ -437,8 +698,9 @@ class Executor:
         req.done = True
         req.finish_time = time.perf_counter()
         if req.resume is not None:
-            # preempted request: re-split the replayed prompt and stitch
-            # the earlier output back so callers see ONE generation
+            # preempted or restored request: re-split the replayed prompt
+            # and stitch the earlier output back so callers see ONE
+            # generation
             plen, old_gen, old_lp, omax, omin = req.resume
             req.prompt = req.prompt[:plen]
             req.generated = old_gen + req.generated
@@ -480,7 +742,11 @@ class Executor:
     def _secure_pages(self, k: int) -> None:
         """Preempt lowest-priority actives until every decode lane can
         extend by k tokens (a lane crossing a page boundary needs a fresh
-        block). Windowed managers recycle in place and never run dry."""
+        block). Cached blocks that only the prefix cache holds count as
+        free: ``bm.extend`` evicts them on demand. (The JAX package counts
+        the free list alone, so a reuse pool full of cached blocks
+        preempts, or raises for a lone request, where one eviction would
+        do.) Windowed managers recycle in place and never run dry."""
         if self.bm.window_blocks:
             return
         bs = self.block_size
@@ -492,23 +758,29 @@ class Executor:
             for r in lanes:
                 ln = max(len(r.sequence) - 1, 1)
                 need += (ln + k + bs - 1) // bs - (ln + bs - 1) // bs
-            if need <= self.bm.num_free:
+            avail = self.bm.num_free + self.bm._evictable()
+            if need <= avail:
                 return
             if len(lanes) == 1:
                 raise RuntimeError(
                     "KV pool exhausted: the single active request cannot "
-                    f"extend by {k} tokens (free {self.bm.num_free} blocks);"
-                    " size the pool larger (max_kv_tokens)")
+                    f"extend by {k} tokens ({avail} free or evictable "
+                    "blocks); size the pool larger (max_kv_tokens)")
             self._preempt(self._pick_victim())
 
-    def _decode_body(self, k: int) -> torch.Tensor:
-        """k decode steps from the static inputs (``_DecodeInputs.dev``),
+    def _decode_body(self, k: int, bw_key: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
+        """k decode steps from the static inputs (``_DecodeInputs.dev``
+        and, with a bad-words bucket ``bw_key``, that bucket's buffer),
         which it only reads: the tokens, lengths, history and min_new
         countdown are carried as new tensors, as the JAX burst's scan
         carries them. Returns (B, 2k) int32: the tokens, then the
         log-probabilities bit-cast."""
         d = self._dec.dev
         samp = self._dec.sampling()
+        masks = d["proc_masks"] != 0 if self._proc_names else None
+        bw = (self._bw_inputs[bw_key].dev["bw"].long()
+              if bw_key is not None else None)
         tok, lens, hist, min_left = (d["tokens"], d["lens"], d["history"],
                                      d["min_left"])
         toks, lps = [], []
@@ -519,9 +791,12 @@ class Executor:
                 block_pos=d["bpos"], window=self._win_tokens,
                 sink=self._sink_tokens)
             last = logits[:, 0]
+            if masks is not None:
+                last = self._apply_procs(last, hist, masks)
             t = sample_batched(last, self.generator, samp, history=hist,
                                suppress_token=d["sup_tok"],
-                               suppress_flag=(min_left > 0).int())
+                               suppress_flag=(min_left > 0).int(),
+                               bad_words=bw)
             toks.append(t.int())
             lps.append(torch.gather(torch.log_softmax(last, dim=-1), 1,
                                     t[:, None])[:, 0])
@@ -533,26 +808,29 @@ class Executor:
         return torch.cat([torch.stack(toks, dim=1),
                           torch.stack(lps, dim=1).view(torch.int32)], dim=1)
 
-    def _rung(self, k: int) -> _Rung:
-        """The k-step decode rung under the MIXQ_KV_SPLITS value in force,
-        made at first use (a program made: compile_watch)."""
-        key = (k, mcommon._kv_splits())
+    def _rung(self, k: int, bw_key: Optional[Tuple[int, int]] = None
+              ) -> _Rung:
+        """The k-step decode rung of bad-words bucket ``bw_key`` under the
+        MIXQ_KV_SPLITS value in force, made at first use (a program made:
+        compile_watch)."""
+        key = (k, mcommon._kv_splits(), bw_key)
         rung = self._rungs.get(key)
         if rung is None:
-            rung = self._capture(k) if self.device.type == "cuda" \
+            rung = self._capture(k, bw_key) if self.device.type == "cuda" \
                 else _Rung(k)
             compile_watch.note_program()
             self._rungs[key] = rung
         return rung
 
-    def _capture(self, k: int) -> _Rung:
+    def _capture(self, k: int, bw_key: Optional[Tuple[int, int]]) -> _Rung:
         """The k-step body captured into the shared graph pool, with the
         Executor's generator registered so that each replay draws anew."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph, out, launches = capture_graph(
-            lambda: self._decode_body(k), self.device, self._graph_pool,
-            f"decode rung k={k}", generator=self.generator)
+            lambda: self._decode_body(k, bw_key), self.device,
+            self._graph_pool, f"decode rung k={k}, bad words {bw_key}",
+            generator=self.generator)
         return _Rung(k, graph, out, launches)
 
     def _decode(self, k: int, active) -> Tuple[np.ndarray, np.ndarray]:
@@ -585,10 +863,21 @@ class Executor:
                            ("greedy", "is_greedy"),
                            ("penalty", "repetition_penalty")):
             h[name][:] = [getattr(c, attr) for c in configs]
+        if self._proc_names:
+            h["proc_masks"][:] = self._proc_masks(self.slots)
         self._dec.upload()
-        rung = self._rung(k)
+        bw = self._bad_words(self.slots)
+        bw_key = None if bw is None else (bw.shape[1], bw.shape[2])
+        if bw_key is not None:
+            inp = self._bw_inputs.get(bw_key)
+            if inp is None:
+                inp = self._bw_inputs[bw_key] = StaticInputs(
+                    {"bw": (b,) + bw_key}, self.device)
+            inp.host["bw"][:] = bw
+            inp.upload()
+        rung = self._rung(k, bw_key)
         if rung.graph is None:
-            out = self._decode_body(k)
+            out = self._decode_body(k, bw_key)
         else:
             rung.graph.replay()
             _build.add_launches(rung.launches)
@@ -599,9 +888,45 @@ class Executor:
         (a,) = self._readback(out)
         return a[:, :k], a[:, k:].view(np.float32)
 
+    def _record_stats(self, t0: float, produced: int) -> None:
+        self._iter_id += 1
+        self.iteration_stats.append(IterationStats(
+            iter_id=self._iter_id, timestamp=time.time(),
+            step_time_s=time.perf_counter() - t0,
+            num_active=self.num_active, num_queued=len(self.queue),
+            num_prefilling=len(self.prefilling),
+            tokens_produced=produced,
+            kv_free_blocks=self.bm.num_free,
+            kv_total_blocks=self.bm.num_blocks,
+            kv_trash_blocks=self.bm.num_trash))
+
+    def get_latest_iteration_stats(self, n: int = 1) -> List[IterationStats]:
+        """The last n IterationStats (one per step, step_burst or
+        step_serving call)."""
+        return list(self.iteration_stats)[-n:]
+
+    def get_kv_cache_stats(self) -> dict:
+        """Pool accounting: the blocks a sequence can hold (the trash
+        block left out), free, used and held by the prefix cache, and
+        tokens a block."""
+        total = self.bm.num_blocks - self.bm.num_trash
+        free = self.bm.num_free
+        cached = self.bm.prefix_cache_size if self.block_reuse else 0
+        return {"max_num_blocks": total,
+                "free_num_blocks": free,
+                "used_num_blocks": total - free - cached,
+                "cached_num_blocks": cached,
+                "tokens_per_block": self.block_size}
+
     def step(self) -> int:
         """Admit + one prefill chunk + one batched decode step (rung 1).
         Returns tokens produced (decode lanes + completed prefills)."""
+        t0 = time.perf_counter()
+        produced = self._step()
+        self._record_stats(t0, produced)
+        return produced
+
+    def _step(self) -> int:
         self._admit()
         produced_before = sum(len(r.generated) for r in self.slots
                               if r is not None)
@@ -629,6 +954,12 @@ class Executor:
         caller single-steps) when pages for k tokens cannot be reserved or
         a recycling window is active (mid-burst block recycling would mask
         still-visible tokens)."""
+        t0 = time.perf_counter()
+        produced = self._step_burst(k)
+        self._record_stats(t0, produced)
+        return produced
+
+    def _step_burst(self, k: int) -> int:
         if self.num_active == 0 or self.bm.window_blocks:
             return 0
         try:
@@ -850,8 +1181,10 @@ class Executor:
             if r is not None:
                 assert (r.sampling or self.sampling).is_greedy, \
                     "speculative decoding is greedy-only"
-                assert r.min_new_tokens == 0, \
-                    "min_new_tokens unsupported in spec mode"
+                assert not r.bad_words and r.logits_processor is None \
+                    and r.min_new_tokens == 0, \
+                    "per-request logits controls (bad_words/processors/" \
+                    "min_new_tokens) unsupported in spec mode"
 
         # prefill the draft with every lane's committed tokens EXCEPT the
         # newest (the round feeds it, as the target's rounds do)
@@ -916,6 +1249,8 @@ class Executor:
         a pass for every prefill lane count up to prefill_lanes."""
         if self.has_work:
             raise RuntimeError("warmup() on an idle executor only")
+        # warmup's own requests must not meet the client backpressure
+        mqs, self.max_queue_size = self.max_queue_size, 0
         try:
             budget = burst + 1 if burst <= 1 else 2 * burst
             n = prompt_len or min(self.prefill_chunk, self.max_seq_len // 2)
@@ -939,7 +1274,7 @@ class Executor:
                     k //= 2
                 splits = mcommon._kv_splits()
                 missing = sorted(k for k in want
-                                 if (k, splits) not in self._rungs)
+                                 if (k, splits, None) not in self._rungs)
                 if missing:
                     raise RuntimeError(
                         f"warmup failed to make burst rungs {missing}")
@@ -956,6 +1291,7 @@ class Executor:
                 for r in rids:
                     self.finished.pop(r, None)
         finally:
+            self.max_queue_size = mqs
             self._warm_compile_mark = compile_watch.compile_count()
             self._warm_cache_mark = compile_watch.cache_hit_count()
 
@@ -1011,8 +1347,8 @@ class Executor:
         each request's prompt KV written once and shared by its beams; the
         best hypothesis lands in Request.generated. The beam configuration
         is uniform: every queued request must share max_new_tokens and
-        eos_token_id. min_new_tokens and stop_sequences apply inside the
-        beam step, per request."""
+        eos_token_id. min_new_tokens, bad_words, stop_sequences and named
+        logits processors apply inside the beam step, per request."""
         from .beam import paged_beam_search
         if self.num_active or self.prefilling:
             raise RuntimeError("run_beams drives queued work only (drain "
@@ -1026,17 +1362,27 @@ class Executor:
                 "run_beams needs uniform max_new_tokens and eos across the "
                 f"queue (got budgets {budgets}, eos {eoses})")
         n, eos = budgets.pop(), eoses.pop()
+        procs = tuple(zip(self._proc_names, self._proc_fns))
         while self.queue:
             batch = [self.queue.popleft()
                      for _ in range(min(self.max_batch, len(self.queue)))]
+            pm = None
+            if procs and any(r.logits_processor for r in batch):
+                pm = np.zeros((len(batch), len(procs)), bool)
+                for i, r in enumerate(batch):
+                    if r.logits_processor is not None:
+                        pm[i, self._proc_names.index(
+                            r.logits_processor)] = True
             res = paged_beam_search(
                 self.params, self.cfg, [r.prompt for r in batch], n,
                 num_beams=num_beams, length_penalty=length_penalty,
                 eos_token_id=eos, max_seq_len=self.max_seq_len,
                 block_size=self.block_size, burst=burst,
                 min_new_tokens=[r.min_new_tokens for r in batch],
+                bad_words=[r.bad_words for r in batch],
                 stop_sequences=[r.stop_sequences for r in batch],
-                engine=self.beam_engine)
+                logits_processors=procs if pm is not None else (),
+                proc_masks=pm, engine=self.beam_engine)
             for r, seq in zip(batch, res.sequences):
                 r.generated = list(seq[len(r.prompt):])
                 r.done = True
@@ -1085,11 +1431,17 @@ class Executor:
         drivers: burst decode when nothing is queued/prefilling, admit +
         prefill chunk + mixed burst otherwise, plain step() as the
         fallback. Returns tokens produced (0 also covers a pure-prefill
-        advance)."""
+        advance); records one IterationStats."""
+        t0 = time.perf_counter()
+        produced = self._step_serving(burst, mixed_burst)
+        self._record_stats(t0, produced)
+        return produced
+
+    def _step_serving(self, burst: int, mixed_burst: int) -> int:
         if burst > 1 and self.num_active > 0:
             if not self.queue and not self.prefilling:
                 k = self._burst_k(burst)
-                produced = self.step_burst(k) if k > 1 else 0
+                produced = self._step_burst(k) if k > 1 else 0
                 if produced:
                     return produced
             elif mixed_burst > 1:
@@ -1098,7 +1450,7 @@ class Executor:
                 # floor to a pow2: a non-pow2 mixed_burst would make its
                 # own (unwarmed) rung
                 k = min(self._burst_k(burst), pow2_floor(mixed_burst))
-                produced = self.step_burst(k) if k > 1 else 0
+                produced = self._step_burst(k) if k > 1 else 0
                 if produced:
                     return produced
-        return self.step()
+        return self._step()

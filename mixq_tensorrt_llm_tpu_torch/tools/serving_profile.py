@@ -347,7 +347,7 @@ def serve(params, cfg, prompts, seed, dev, spec=None, burst: int = 1,
         del ex._step_prefill
     # a rung made here ran its k steps twice eagerly (warm pass, capture)
     FORWARDS["decode"] += ex.decode_steps - steps - sum(
-        2 * k for k, _ in set(ex._rungs) - rungs)
+        2 * k for k, *_ in set(ex._rungs) - rungs)
     return done, ids, time.perf_counter() - t0, prefill_s[0], ex
 
 
@@ -404,7 +404,7 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"warmup(burst={args.burst}): {time.perf_counter() - t:.3f} s "
               f"(kernels built, rungs "
-              f"{sorted(k for k, _ in ex._rungs)} captured)")
+              f"{sorted(k for k, *_ in ex._rungs)} captured)")
 
     def run_once():
         """(wall s, prefill s, what else to print) of one serve."""

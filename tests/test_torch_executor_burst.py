@@ -129,7 +129,7 @@ def test_burst_tokens_match_jax(model, case):
                for lp, g in zip(lps, got))
     burst = run_kw["burst"]
     assert tex.decode_steps > tex.decode_calls   # bursts ran
-    assert {k for k, _ in tex._rungs} <= {1} | {
+    assert {k for k, *_ in tex._rungs} <= {1} | {
         1 << i for i in range(1, burst.bit_length())}
     if case == "burst4":
         single, _, _ = _serve(_port(model, kw), requests)
@@ -187,7 +187,7 @@ def test_warmup_leaves_no_residue(model):
     ex.warmup(burst=2)
     assert not ex.finished and ex.num_active == 0 and not ex.has_work
     assert ex.bm.num_free == ex.bm.num_blocks - 1
-    assert {k for k, _ in ex._rungs} == {1, 2}
+    assert {k for k, *_ in ex._rungs} == {1, 2}
     requests = [([1, 2, 3], 5, {})]
     got, _, _ = _serve(ex, requests)
     cold, _, _ = _serve(_port(model, SMALL), requests)

@@ -42,7 +42,12 @@ eagerly (sequences, scores, pools outside the trash row), each replay
 launching K10 once a layer a step and neither K7 nor K5; the tail
 attention with K10 within 2e-2 of its plain route on int8 and bf16
 pages; run_beams after warmup_beams making no program, every burst a
-replay."""
+replay. The serving surface: a rung whose lanes carry bad words and a
+logits processor, a replay bit-equal to its eager body; a processor that
+reads the device failing its capture with no eager retry; a prefill
+after adopted pages (prefix reuse) through K6, bit-equal to the plain
+write, and K8, within 2e-2 of its plain version, with a cold run's
+tokens."""
 
 import numpy as np
 import pytest
@@ -1389,7 +1394,7 @@ def test_rung_replay_bit_equal_to_eager(cuda, k):
     ex, active = _prefilled_executor(cuda, k)
     before = _pool_copy(ex)
     ex._decode(k, active)                       # warm pass, capture, replay
-    rung = ex._rungs[(k, 0)]
+    rung = ex._rungs[(k, 0, None)]
     assert rung.graph is not None and rung.launches
     assert rung.launches.get("paged_decode_attention", 0) == 2 * k
     _pool_restore(ex, before)
@@ -1457,11 +1462,11 @@ def test_failed_capture_raises_without_eager_retry(cuda):
     ex, active = _prefilled_executor(cuda, 1)
     inner, calls = ex._decode_body, []
 
-    def failing(k):
+    def failing(k, *bw_key):
         calls.append(torch.cuda.is_current_stream_capturing())
         if calls[-1]:
             raise RuntimeError("injected capture fault")
-        return inner(k)
+        return inner(k, *bw_key)
 
     ex._decode_body = failing
     with pytest.raises(RuntimeError, match="CUDA graph capture failed"):
@@ -1620,3 +1625,132 @@ def test_run_beams_on_card_after_warmup(cuda):
     assert ex.compiles_since_warmup == 0
     assert eng.graph_replays == eng.bursts > 0
     assert outs[0] == outs[1] and all(len(g) == 20 for g in outs[0])
+
+
+def _no_repeat(logits, history):
+    """A logits processor: bans each lane's newest token."""
+    return logits.scatter(1, history[:, -1:].clamp(min=0).long(), -1e9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_rung_with_controls_replay_bit_equal_to_eager(cuda, k):
+    """Lanes with bad words and a processor: the rung of their bucket is
+    a captured graph whose replay gives the tokens, log-probabilities and
+    pools of the same steps run eagerly, bit for bit; the bad-words-free
+    rung of the same k is not used, and the banned tokens never come."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    ex = Executor(params, cfg, max_batch=4, max_seq_len=256, block_size=16,
+                  prefill_chunk=32, device=cuda,
+                  logits_processors={"no_repeat": _no_repeat})
+    controls = [dict(bad_words=[[7], [9, 11]]),
+                dict(logits_processor="no_repeat"), {}]
+    for i, (n, kw) in enumerate(zip((5, 40, 17), controls)):
+        ex.submit([(7 * i + j) % 500 + 1 for j in range(n)],
+                  max_new_tokens=64, **kw)
+    while ex.queue or ex.prefilling:
+        ex._admit()
+        ex._step_prefill()
+    active = [(i, r) for i, r in enumerate(ex.slots) if r is not None]
+    for _, r in active:
+        ex.bm.extend(r.req_id, k)
+    before = _pool_copy(ex)
+    ex._decode(k, active)                       # warm pass, capture, replay
+    key = (k, 0, (2, 2))
+    assert list(ex._rungs) == [key] and ex._rungs[key].graph is not None
+    _pool_restore(ex, before)
+    toks, lps = ex._decode(k, active)           # a replay
+    torch.cuda.synchronize()
+    replayed = _pool_copy(ex)
+    assert ex.graph_replays == ex.decode_calls == 2
+    _pool_restore(ex, before)
+    out = ex._decode_body(k, (2, 2)).cpu().numpy()
+    torch.cuda.synchronize()
+    assert np.array_equal(toks, out[:, :k])
+    assert np.array_equal(lps.view(np.int32), out[:, k:])
+    for n, t in ex.state.pools().items():
+        assert torch.equal(t, replayed[n]), n
+    slot = {r.req_id: i for i, r in active}
+    assert 7 not in toks[slot[0]]
+
+
+@pytest.mark.gpu
+def test_processor_reading_the_device_fails_capture(cuda):
+    """A processor that reads a device value on the host cannot be
+    captured: the rung raises, with no eager retry."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+
+    def host_read(logits, history):
+        return logits - float(logits.max())
+
+    ex = Executor(params, cfg, max_batch=2, max_seq_len=128, block_size=16,
+                  prefill_chunk=32, device=cuda,
+                  logits_processors={"host_read": host_read})
+    ex.submit([1, 2, 3], max_new_tokens=4, logits_processor="host_read")
+    with pytest.raises(RuntimeError, match="CUDA graph capture failed"):
+        ex.run()
+    assert not ex._rungs and ex.decode_calls == 0
+
+
+@pytest.mark.gpu
+def test_prefill_after_adopted_pages_k6_k8(cuda, monkeypatch):
+    """Prefix reuse on the card: a request adopting another's cached
+    pages prefills from a page-aligned start past them through K6 and K8.
+    K6's pools are bit-equal to the plain write's outside the trash row,
+    K8 over the adopted pages is within 2e-2 of its plain version (the
+    tolerance of every K8 test: bf16 output, sums in another order), and
+    the tokens equal a cold Executor's."""
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pattn
+    from mixq_tensorrt_llm_tpu_torch.runtime import kv_cache as pkv
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    shared = [(5 * j) % 500 + 1 for j in range(48)]
+    prompts = [shared + [3] * 20, shared + [(11 * j) % 500 + 1
+                                            for j in range(37)]]
+    seen = {"write": 0, "attn": []}
+    real_write, real_attn = pkv.paged_write, pattn.paged_prefill_attention
+
+    def write(pools, table, pos, nk, nv, **kw):
+        if nk.shape[1] > 8 and int(pos[:, 0].max()) > 0:
+            want = {n: t.clone() for n, t in pools.items()}
+            pkv.paged_write_plain(want, table, pos, nk, nv, **kw)
+            real_write(pools, table, pos, nk, nv, **kw)
+            torch.cuda.synchronize()
+            for n in pools:
+                assert torch.equal(pools[n][1:], want[n][1:]), n
+            seen["write"] += 1
+            return pools
+        return real_write(pools, table, pos, nk, nv, **kw)
+
+    def attn(q, kp, vp, ks, vs, table, q_start, lens, **kw):
+        out = real_attn(q, kp, vp, ks, vs, table, q_start, lens, **kw)
+        if int(q_start.max()) > 0:
+            c = q.shape[1]
+            q_pos = q_start[:, None] + torch.arange(c, device=q.device)
+            want = pattn.paged_attention_plain(
+                q, kp, vp, ks, vs, table, q_pos, lens, kw["scale"],
+                kw["block_pos"], kw["window"], kw["sink"], kw["softcap"])
+            rows = q_pos < lens[:, None]
+            err = (out.float() - want.float())[rows].abs().max()
+            assert float(err) <= 2e-2, err
+            seen["attn"] += q_start.tolist()
+        return out
+
+    monkeypatch.setattr(pkv, "paged_write", write)
+    monkeypatch.setattr(pattn, "paged_prefill_attention", attn)
+    kw = dict(max_batch=2, max_seq_len=256, block_size=16, prefill_chunk=32,
+              device=cuda)
+    outs = []
+    for reuse in (True, False):
+        ex = Executor(params, cfg, enable_block_reuse=reuse, **kw)
+        got = []
+        for p in prompts:
+            rid = ex.submit(p, max_new_tokens=6)
+            got.append(ex.run()[rid].generated)
+        outs.append(got)
+        if reuse:
+            assert ex.reused_blocks == 3          # 48 shared tokens
+            assert seen["write"] > 0 and 48 in seen["attn"]
+    assert outs[0] == outs[1]
