@@ -129,6 +129,30 @@ exits non-zero:
      2 /generate_stream at once (streams equal their final tokens),
      /health with no program after warmup, and a max_queue_size=2 server
      answering 503
+  4h. the quantization pipeline at Llama-2-7B: an HF-format F16 directory
+     (the public Llama-2-7b-hf config, 32 layers, random N(0, 0.02)
+     weights from --seed in shards with an index, written by the port's
+     own writer into a temporary directory the phase deletes; 128 planted
+     outlier channels a layer, drawn from 128..4095, where both RMSNorm
+     weights are 20) goes through quantize_hf_model on the card (4 x 512
+     calibration tokens, int8_mix / int8 KV): the calibrated fp_ind of
+     qkv and gate_up equal the planted set in every layer, K14 launched
+     and traced in the calibration; LLM over the directory twice (the
+     second loads and writes nothing; its checkpoint equals step 1's);
+     perplexity over 32 blocks x 512 at batch 8 on the float model, the
+     int8_mix model (fresh K/V: K1, K2, K4 prefill, K14 launched and
+     traced; and through the int8 cache) and an uncalibrated control
+     (requantize with all-ones scales), whose error against the float
+     model must be at least 3x the calibrated model's in every layer's
+     own update and in the logits at the first 2 layers, and above it at
+     4, 8, 16 and 32 (random weights: the logits' errors compound with
+     depth towards saturation); at 2 layers, the card's act_scales
+     quantized on the CPU bit-equal to the card's int8 tensors, and the
+     card's calibration against the CPU's in bf16 and an f32 CPU witness
+     (relative RMS within 2e-2, the largest channel difference within the
+     bf16 run's own spread from f32, o_proj's picks equal where they are
+     unambiguous; the largest difference located). It needs 28 GB of free
+     disk and fails without them
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
@@ -268,6 +292,11 @@ ON_PATH = {
                 "wo_matmul.decode", "wo_matmul.prefill", "paged_write_token",
                 "paged_write_chunk", "paged_decode_attention",
                 "paged_prefill_attention"],
+    # phase 4h: the int8_mix perplexity forward (8 x 512 rows: K1 -> K2,
+    # K4's prefill regime for down_proj, K14); its calibration's K14 is
+    # checked apart
+    "hf": ["flash_causal_attention", "rmsnorm_quant_split", "mixed_matmul",
+           "wo_matmul", "wo_matmul.prefill"],
 }
 OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                               "wo_matmul_packed_grouped"],
@@ -281,7 +310,8 @@ OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
                          "rmsnorm_quant_split", "mixed_matmul"],
             "serving": ["paged_decode_attention_split",
                         "paged_verify_attention",
-                        "paged_decode_attention_stats"]}
+                        "paged_decode_attention_stats"],
+            "hf": PAGED}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 BURST = 16                          # phase 4d
 # phase 4d: the kernels of a decode step, by a mark of the traced name,
@@ -2750,6 +2780,638 @@ def serve_serving(torch, params, cfg, seed: int, dev):
     return launches, adopted
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the quantization pipeline at Llama-2-7B (HF directory ->
+# calibrated act_scales -> checkpoint -> LLM -> perplexity)
+# ---------------------------------------------------------------------------
+
+HF_OUTLIERS = 128              # planted channels a layer, from 128..4095
+CALIB_BATCHES, CALIB_ROWS, CALIB_LEN = 4, 1, 512
+PPL_BLOCKS, PPL_LEN, PPL_BATCH = 32, 512, 8     # the reference's headline
+HF_DISK_BYTES = 28e9           # the F16 directory and two checkpoints
+ERR_RATIO = 3.0                # control's error / calibrated's, least
+# depths of the logits-error reading; ERR_RATIO is enforced at the first
+# and at every layer's own update (layer_errors). At random N(0, 0.02)
+# weights with the planted gain every error compounds with depth until
+# both models' logits are far from the float model's, so the logits' ratio
+# shrinks with depth: past the first the check is that the control stays
+# the worse
+ERR_DEPTHS = (2, 4, 8, 16, 32)
+QUANT_XDEV_LAYERS = 2
+# the card's act_scales distance from an f32 calibration, over the CPU bf16
+# run's, most (a module's largest channel difference over its largest value)
+XDEV_F32_RATIO = 2.0
+# kernels of the pipeline's forwards, by a mark of their traced names
+CALIB_TRACED = {"flash_causal_kernel": "K14"}
+PPL_TRACED = {"norm_quant": "K1", "mixed_wgmma_kernel": "K2",
+              "wo_wgmma_kernel": "K4", "flash_causal_kernel": "K14"}
+
+
+def traced_names(torch, fn) -> set:
+    """The names of the device kernels one call of ``fn`` runs, under
+    torch.profiler (traced again, up to 3 times, when a window comes back
+    without device activity, as in device_ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    names = set()
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    return names
+
+
+class StepWalls:
+    """Wraps module functions so that each call's wall (to a synchronize)
+    is recorded under its label, in call order."""
+
+    def __init__(self, torch):
+        self.torch, self.walls, self._undo = torch, {}, []
+
+    def wrap(self, module, name: str, label: str = "") -> None:
+        real = getattr(module, name)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.walls.setdefault(label or name, []).append(
+                time.perf_counter() - t)
+            return out
+        setattr(module, name, timed)
+        self._undo.append((module, name, real))
+
+    def restore(self) -> None:
+        for module, name, real in reversed(self._undo):
+            setattr(module, name, real)
+        self._undo.clear()
+
+
+def _check_traced(names: set, marks: dict, where: str) -> None:
+    for mark, k in marks.items():
+        check(any(mark in n for n in names),
+              f"phase 4h: {k} ({mark}) not traced in {where}: "
+              f"{sorted(names)}")
+
+
+def _rel_rms(got, want) -> float:
+    d = (got.double() - want.double())
+    return float(d.pow(2).mean().sqrt() / want.double().pow(2).mean().sqrt())
+
+
+def _two_layer_view(hf_dir: str, path: str) -> str:
+    """The HF directory at its first QUANT_XDEV_LAYERS layers: the same
+    shard files (links), a config.json with fewer layers."""
+    os.makedirs(path)
+    for f in os.listdir(hf_dir):
+        if f != "config.json":
+            os.symlink(os.path.join(hf_dir, f), os.path.join(path, f))
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["num_hidden_layers"] = QUANT_XDEV_LAYERS
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+# decoder_layer's stats, in the order it reads them, and each one's key
+# in an act_scales artifact
+STAT_KEYS = {"qkv_proj": "self_attn.q_proj", "o_proj": "self_attn.o_proj",
+             "gate_up_proj": "mlp.gate_proj", "down_proj": "mlp.down_proj"}
+
+
+def captured_calibration(torch, params, cfg, batches):
+    """calibrate_act_scales over ``batches``, recording what each forward
+    reads: every linear's input {(layer, module): [(tokens, in) f32 a
+    batch]} and each layer's attention q, k {layer: [((B, S, H, D) f32,
+    ...) a batch]}, on the CPU."""
+    from mixq_tensorrt_llm_tpu_torch.convert import calibrate as calib
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as oa
+    ins, qks = [], []
+    real_abs, real_attn = mc._absmax_in, oa.causal_self_attention
+
+    def absmax(x):
+        ins.append(x.detach().float().reshape(-1, x.shape[-1]).cpu())
+        return real_abs(x)
+
+    def attention(q, k, v, *a, **kw):
+        qks.append((q.detach().float().cpu(), k.detach().float().cpu()))
+        return real_attn(q, k, v, *a, **kw)
+
+    mc._absmax_in, oa.causal_self_attention = absmax, attention
+    try:
+        scales = calib.calibrate_act_scales(params, cfg, batches)
+    finally:
+        mc._absmax_in, oa.causal_self_attention = real_abs, real_attn
+    n, nb = cfg.num_layers, len(batches)
+    acts = {(i, m): [ins[(b * n + i) * len(STAT_KEYS) + j] for b in range(nb)]
+            for i in range(n) for j, m in enumerate(STAT_KEYS)}
+    return scales, acts, {i: [qks[b * n + i] for b in range(nb)]
+                          for i in range(n)}
+
+
+def locate_difference(torch, runs: dict, layer: int, mod: str, ch: int,
+                 cfg) -> str:
+    """Where each run's largest |value| of input channel ``ch`` of
+    ``mod`` at ``layer`` lies (batch, token), every run's value at the
+    token of the largest, and, for o_proj (its input is the attention
+    output, channel ``ch`` in head ch // head_dim), that head's attention
+    row at the token in every run: its two heaviest keys, their logit gap
+    and their softmax weights. ``runs``: {name: (acts, qks)} of
+    captured_calibration, one row a batch."""
+    at = {}
+    for name, (acts, _) in runs.items():
+        col = torch.stack([a[:, ch].abs() for a in acts[(layer, mod)]])
+        b, t = divmod(int(col.argmax()), col.shape[1])
+        at[name] = (b, t, float(col[b, t]))
+    out = ["largest |x| " + ", ".join(f"{n} {v:.5g} at ({b}, {t})"
+                                      for n, (b, t, v) in at.items())]
+    b, t, _ = max(at.values(), key=lambda x: x[2])
+    out.append(f"at ({b}, {t}) " + ", ".join(
+        f"{n} {float(acts[(layer, mod)][b][t, ch]):.5g}"
+        for n, (acts, _) in runs.items()))
+    if mod == "o_proj":
+        h = ch // cfg.head_dim
+        hk = h * cfg.num_kv_heads // cfg.num_heads
+        for name, (_, qks) in runs.items():
+            q, k = qks[layer][b]
+            logit = (k[0, :t + 1, hk].double() @ q[0, t, h].double()
+                     ) * cfg.attention_scale
+            top = torch.topk(logit, 2)
+            w = torch.softmax(logit, 0)[top.indices]
+            out.append(f"{name}: head {h} keys {top.indices.tolist()} "
+                       f"logits {top.values[0]:.4f} / {top.values[1]:.4f} "
+                       f"(gap {float(top.values[0] - top.values[1]):.4f}) "
+                       f"weights {w[0]:.4f} / {w[1]:.4f}")
+        # the first two runs' q and k there: how far apart, against a bf16
+        # step (2^-8 of a value)
+        (q0, k0), (q1, k1) = (qks[layer][b] for _, qks in
+                              list(runs.values())[:2])
+        keys = top.indices
+        for what, x0, x1 in (("q at the token", q0[0, t, h], q1[0, t, h]),
+                             ("k of the two keys", k0[0, keys, hk],
+                              k1[0, keys, hk])):
+            rel = float((x0 - x1).abs().max() / x0.abs().max())
+            out.append(f"{what} differs between "
+                       f"{' and '.join(list(runs)[:2])} in "
+                       f"{int((x0 != x1).sum())} of {x0.numel()} values, by "
+                       f"{rel:.2e} of its largest at most")
+    return "; ".join(out)
+
+
+def quant_cross_device(torch, hf_dir, tmp, card_flat, card_scales, quant,
+                       calib_batches, dev) -> None:
+    """Phase 4h at QUANT_XDEV_LAYERS layers of the same directory, the card
+    against the CPU: the card's act_scales quantized on the CPU give
+    bit-equal int8 weights, fp_ind, fp_weight (and embeddings, norms, head),
+    scale_col within 1e-6 relative. Then the same batches calibrate three
+    times, their inputs recorded: on the card (bf16, as the pipeline), on
+    the CPU in bf16 and on the CPU in f32 (the witness: hidden states, q,
+    k and attention in f32; linear inputs rounded to bf16 as everywhere).
+    For each module, readings of the largest channel difference over the
+    largest value: card - CPU bf16 (printed beside a 2e-2 target), card
+    - f32 and CPU bf16 - f32. Held: card - CPU bf16 within 2e-2 relative
+    RMS and, at its largest channel, within the CPU bf16 run's own
+    distance from f32; the card within XDEV_F32_RATIO x that distance of
+    f32. The largest card - CPU difference is located
+    (locate_difference). The CPU's bf16 calibration picks the card's
+    outliers for qkv and gate_up; o_proj's picks differ only at channels
+    whose top-k membership the bf16 spread makes ambiguous."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.convert import checkpoint as ckpt
+    from mixq_tensorrt_llm_tpu_torch.convert import hf
+    from mixq_tensorrt_llm_tpu_torch.models import registry
+    from mixq_tensorrt_llm_tpu_torch.quant import QuantConfig
+    from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
+    two = _two_layer_view(hf_dir, os.path.join(tmp, "hf2"))
+    n, k_out = QUANT_XDEV_LAYERS, quant.num_outliers
+    scales = {k: v for k, v in card_scales.items()
+              if int(k.split(".")[2]) < n}
+    t = time.perf_counter()
+    hf.quantize_hf_model(two, os.path.join(tmp, "cpu2"), quant,
+                         act_scales=scales, device="cpu")
+    wall_q = time.perf_counter() - t
+    cpu = ckpt.read_safetensors(os.path.join(tmp, "cpu2",
+                                             "model.safetensors"))
+    check(sorted(cpu) == sorted(card_flat),
+          "phase 4h cross-device: the CPU checkpoint has other tensors")
+    worst_col = 0.0
+    for name, want in cpu.items():
+        got = card_flat[name]
+        if name.startswith("layers."):
+            got = got[:n]
+        if name.endswith("scale_col"):
+            rel = float(((got - want).abs() / want.abs()).max())
+            worst_col = max(worst_col, rel)
+            check(rel <= 1e-6, f"phase 4h cross-device: {name} {rel:.3e} "
+                  "relative from the CPU's")
+        else:
+            check(torch.equal(got, want), f"phase 4h cross-device: {name} "
+                  "differs from the CPU's")
+    print(f"phase 4h cross-device ({n} layers of the same directory): "
+          f"quantized on the CPU from the card's act_scales in {wall_q:.1f} "
+          f"s: int8 qweight, fp_ind, fp_weight, embeddings, norms and head "
+          f"bit-equal, scale_col within {worst_col:.3e} relative (limit "
+          f"1e-6)", flush=True)
+
+    cfg = dataclasses.replace(registry.config_from_hf(hf.load_hf_config(two)),
+                              quant=QuantConfig())
+    sd = hf.load_hf_state_dict(two)
+    runs, got, walls = {}, {}, {}
+    for name, device, dtype in (("card", dev, cfg.dtype),
+                                ("cpu", torch.device("cpu"), cfg.dtype),
+                                ("f32", torch.device("cpu"), torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = registry.params_from_hf(c, sd, device=device)
+        t = time.perf_counter()
+        got[name], *runs[name] = captured_calibration(torch, params, c,
+                                                      calib_batches)
+        walls[name] = time.perf_counter() - t
+        del params
+    check(all(torch.equal(got["card"][k], v) for k, v in scales.items()),
+          "phase 4h cross-device: the card's 2-layer calibration is not the "
+          "pipeline's bit for bit")
+
+    def rel_max(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    rows = {}
+    for i in range(n):
+        for mod, ref_key in STAT_KEYS.items():
+            key = f"model.layers.{i}.{ref_key}"
+            card, cpu_, f32 = (got[r][key] for r in ("card", "cpu", "f32"))
+            rows[(i, mod)] = dict(
+                xdev=rel_max(card, cpu_), rms=_rel_rms(card, cpu_),
+                card_f32=rel_max(card, f32), cpu_f32=rel_max(cpu_, f32),
+                ch=int((card - cpu_).abs().argmax()))
+    print(f"phase 4h act_scales, {len(calib_batches)} x "
+          f"{calib_batches[0].shape[1]} tokens (walls: card "
+          f"{walls['card']:.1f} s, CPU bf16 {walls['cpu']:.1f} s, CPU f32 "
+          f"{walls['f32']:.1f} s); a module's max |a - b| / max |b| for "
+          f"card - CPU bf16 [relative RMS], card - f32, CPU bf16 - f32: "
+          + "; ".join(f"{i}.{m} {r['xdev']:.3e} [{r['rms']:.2e}] "
+                      f"{r['card_f32']:.3e} {r['cpu_f32']:.3e}"
+                      for (i, m), r in rows.items()), flush=True)
+    worst = max(rows, key=lambda key: rows[key]["xdev"])
+    print(f"phase 4h act_scales: the largest card - CPU difference, "
+          f"{rows[worst]['xdev']:.3e} (target 2e-2), is layer "
+          f"{worst[0]}'s {worst[1]} input channel {rows[worst]['ch']}: "
+          + locate_difference(torch, runs, *worst, rows[worst]['ch'], cfg),
+          flush=True)
+    for (i, mod), r in rows.items():
+        where = f"phase 4h cross-device: act_scales of layer {i}'s {mod}"
+        check(r["rms"] <= 2e-2, f"{where}: {r['rms']} relative RMS from "
+              "the CPU's, above 2e-2")
+        check(r["xdev"] <= r["cpu_f32"], f"{where}: the card's largest "
+              f"channel difference from the CPU's bf16 run, {r['xdev']}, "
+              f"is above that run's own from f32, {r['cpu_f32']}")
+        check(r["card_f32"] <= XDEV_F32_RATIO * r["cpu_f32"], f"{where}: "
+              f"the card is {r['card_f32']} from f32, above "
+              f"{XDEV_F32_RATIO} x the CPU bf16 run's {r['cpu_f32']}")
+
+    picks = []
+    for i in range(n):
+        for mod in ("qkv_proj", "gate_up_proj"):
+            check(torch.equal(qcore.select_outliers(
+                got["cpu"][f"model.layers.{i}.{STAT_KEYS[mod]}"], k_out),
+                card_flat[f"layers.{mod}.fp_ind"][i]),
+                f"phase 4h cross-device: the CPU calibration picks other "
+                f"outliers for layer {i}'s {mod}")
+        key = f"model.layers.{i}.self_attn.o_proj"
+        v = {r: got[r][key] for r in ("card", "cpu", "f32")}
+        sel = {r: set(qcore.select_outliers(x, k_out).tolist())
+               for r, x in v.items()}
+        kth = {r: float(torch.sort(x, descending=True).values[k_out - 1])
+               for r, x in v.items()}
+        # a channel is ambiguous where its distance from the CPU's k-th
+        # value is within what two bf16 runs can move both: twice its own
+        # and the k-th value's distance from f32 in the CPU bf16 run
+        spread = (v["cpu"] - v["f32"]).abs() + abs(kth["cpu"] - kth["f32"])
+        ambiguous = (v["cpu"] - kth["cpu"]).abs() <= 2 * spread
+        sure = [c for c in sel["card"] ^ sel["cpu"] if not ambiguous[c]]
+        check(not sure, f"phase 4h cross-device: layer {i}'s o_proj picks "
+              f"differ at channels {sure}, outside their bf16 band")
+        picks.append(f"layer {i}: {int(ambiguous.sum())} ambiguous "
+                     f"channels; picked by one of card / CPU bf16 "
+                     f"{len(sel['card'] ^ sel['cpu'])}, of CPU bf16 / f32 "
+                     f"{len(sel['cpu'] ^ sel['f32'])}, of card / f32 "
+                     f"{len(sel['card'] ^ sel['f32'])}")
+    print(f"phase 4h cross-device: the CPU's bf16 calibration picks the "
+          f"card's outliers for qkv and gate_up; o_proj's {k_out} picks "
+          f"differ only at ambiguous channels (within twice the CPU bf16 "
+          f"run's distance from f32, the channel's and the k-th value's, "
+          f"of the k-th value): " + "; ".join(picks), flush=True)
+
+
+def layer_errors(torch, float_params, cfg_f, models, tokens) -> list:
+    """Each layer's residual update (its output less its input), given the
+    float model's input to that layer, for each of ``models`` ([(params,
+    cfg)]) against the float layer's: [(relative RMS a model, ...) a
+    layer]. Errors do not compound across layers here, as they do in the
+    logits."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as oa
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+    sin, cos = mc._positional_arrays(cfg_f, pos.expand(b, s))
+
+    def layer(cfg, lp, x):
+        def attend(q, k, v):        # full_prefill's attention, no cache
+            return oa.causal_self_attention(q, k, v, scale=cfg.attention_scale,
+                                            window=cfg.sliding_window)
+        return mc.decoder_layer(cfg, lp, x, sin, cos, attend)
+
+    x = mc._embed(float_params, cfg_f, tokens)
+    out = []
+    for i, lp in enumerate(float_params["layers"]):
+        y = layer(cfg_f, lp, x)
+        want = y.float() - x.float()
+        out.append(tuple(
+            _rel_rms(layer(c, p["layers"][i], x).float() - x.float(), want)
+            for p, c in models))
+        x = y
+    return out
+
+
+def quantize_pipeline(torch, seed: int, dev, config=None) -> dict:
+    """Phase 4h: an F16 HF Llama-2-7B directory (random N(0, 0.02) weights
+    from ``seed``, 128 planted outlier channels a layer) through the
+    port's pipeline on the card: calibrate, quantize and save
+    (quantize_hf_model), LLM over the directory twice (the second loads
+    from its cache and writes nothing), perplexity over 32 blocks of 512
+    tokens at batch 8 on the float model, the calibrated int8_mix model
+    (fresh K/V and through the int8 cache) and an uncalibrated control
+    (requantize, all-ones act_scales), the logits error of both quantized
+    models against the float one, and each layer's own error
+    (layer_errors). Returns the launches of the calibration and of the
+    int8_mix perplexity run."""
+    import dataclasses
+    import resource
+    import shutil
+    import tempfile
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch import api
+    from mixq_tensorrt_llm_tpu_torch.convert import calibrate as calib
+    from mixq_tensorrt_llm_tpu_torch.convert import checkpoint as ckpt
+    from mixq_tensorrt_llm_tpu_torch.convert import hf
+    from mixq_tensorrt_llm_tpu_torch.convert.from_float import requantize
+    from mixq_tensorrt_llm_tpu_torch.eval import ppl
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import registry
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.quant import (KVCacheQuantAlgo,
+                                                   QuantAlgo, QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.tools import random_hf
+    config = config or random_hf.LLAMA2_7B_HF
+    layers = config["num_hidden_layers"]
+    quant = QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=HF_OUTLIERS,
+                        kv_cache=KVCacheQuantAlgo.INT8)
+    rng = np.random.default_rng(seed + 4)
+    vocab = config["vocab_size"]
+    calib_batches = [rng.integers(1, vocab, (CALIB_ROWS, CALIB_LEN)).astype(
+        np.int32) for _ in range(CALIB_BATCHES)]
+    stream = rng.integers(1, vocab, PPL_BLOCKS * PPL_LEN).tolist()
+    walls, launches, traced = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="mixq-phase4h-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= HF_DISK_BYTES, f"phase 4h: {free / 1e9:.1f} GB free "
+              f"under {tmp}; the phase needs {HF_DISK_BYTES / 1e9:.0f} GB "
+              "(an F16 Llama-2-7B directory and two int8_mix checkpoints)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hf_dir = os.path.join(tmp, "hf")
+        t = time.perf_counter()
+        planted = random_hf.write_random_llama(hf_dir, config, seed=seed,
+                                               device=dev,
+                                               outliers=HF_OUTLIERS)
+        walls["write"] = time.perf_counter() - t
+        files = sorted(os.listdir(hf_dir))
+        size = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in files)
+        print(f"phase 4h: wrote an HF Llama-2-7B directory ({layers} "
+              f"layers, F16, {sum(f.endswith('.safetensors') for f in files)}"
+              f" shards with model.safetensors.index.json, {size / 1e9:.2f} "
+              f"GB; {free / 1e9:.1f} GB were free) in {walls['write']:.1f} s",
+              flush=True)
+
+        # 1. calibrate, quantize and save on the card
+        ck1 = os.path.join(tmp, "ckpt")
+        real_cal = calib.calibrate_act_scales
+
+        def calibrate(params, cfg, batches, **kw):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = real_cal(params, cfg, batches, **kw)
+            torch.cuda.synchronize()
+            walls["calibrate"] = time.perf_counter() - t0
+            launches["calibrate"] = dict(_build.LAUNCHES)
+            traced["calibrate"] = traced_names(
+                torch, lambda: real_cal(params, cfg, batches[:1]))
+            return out
+
+        steps = StepWalls(torch)
+        steps.wrap(registry, "params_from_hf")
+        steps.wrap(hf, "save_checkpoint")
+        calib.calibrate_act_scales = calibrate
+        try:
+            t = time.perf_counter()
+            hf.quantize_hf_model(hf_dir, ck1, quant,
+                                 calib_batches=calib_batches, device=dev)
+            walls["quantize_hf_model"] = time.perf_counter() - t
+        finally:
+            calib.calibrate_act_scales = real_cal
+            steps.restore()
+        (build_float, build_q), (save,) = (steps.walls["params_from_hf"],
+                                           steps.walls["save_checkpoint"])
+        print(f"phase 4h quantize_hf_model: {walls['quantize_hf_model']:.1f}"
+              f" s = float model from the files {build_float:.1f} s + "
+              f"calibrate ({CALIB_BATCHES} x {CALIB_ROWS} x {CALIB_LEN} "
+              f"tokens) {walls['calibrate']:.2f} s + quantize from the files "
+              f"{build_q:.1f} s + save {save:.1f} s (+ a traced calibration "
+              f"batch); calibration launches "
+              f"{json.dumps(launches['calibrate'])}", flush=True)
+        _check_traced(traced["calibrate"], CALIB_TRACED, "the calibration")
+        check(launches["calibrate"].get("flash_causal_attention", 0)
+              == CALIB_BATCHES * layers, "phase 4h: K14 did not launch "
+              "once a layer a calibration batch")
+        flat = ckpt.read_safetensors(os.path.join(ck1, "model.safetensors"))
+        for mod in ("qkv_proj", "gate_up_proj"):
+            fp = flat[f"layers.{mod}.fp_ind"].long()
+            bad = [i for i in range(layers)
+                   if not torch.equal(fp[i], planted[i])]
+            check(not bad, f"phase 4h: calibrated {mod} fp_ind is not the "
+                  f"planted set at layers {bad}")
+        card_scales = calib.load_act_scales(os.path.join(ck1,
+                                                         "act_scales.npz"))
+        print(f"phase 4h: calibrated fp_ind of qkv_proj and gate_up_proj "
+              f"equal the planted channels in all {layers} layers (none "
+              f"below {HF_OUTLIERS}: all-ones scales pick 0.."
+              f"{HF_OUTLIERS - 1})",
+              flush=True)
+
+        # 2. LLM over the HF directory, twice: the second only loads
+        kw = dict(quant="int8_mix", kv_cache_quant="int8",
+                  act_scales_path=os.path.join(ck1, "act_scales.npz"),
+                  cache_dir=os.path.join(tmp, "cache"), max_seq_len=PPL_LEN,
+                  device=dev)
+        t = time.perf_counter()
+        llm = api.LLM(hf_dir, **kw)
+        torch.cuda.synchronize()
+        walls["llm_quantize"] = time.perf_counter() - t
+        ck2 = llm._ckpt_dir
+        stamps = {f: os.stat(os.path.join(ck2, f)).st_mtime_ns
+                  for f in os.listdir(ck2)}
+        del llm
+        torch.cuda.empty_cache()
+        real_q, calls = hf.quantize_hf_model, []
+
+        def quantize(*a, **k):
+            calls.append(a)
+            return real_q(*a, **k)
+
+        hf.quantize_hf_model = quantize
+        try:
+            t = time.perf_counter()
+            llm = api.LLM(hf_dir, **kw)
+            torch.cuda.synchronize()
+            walls["load"] = time.perf_counter() - t
+        finally:
+            hf.quantize_hf_model = real_q
+        check(llm._ckpt_dir == ck2 and not calls and stamps == {
+            f: os.stat(os.path.join(ck2, f)).st_mtime_ns
+            for f in os.listdir(ck2)}, "phase 4h: the second LLM over the "
+              "directory quantized or wrote its cache again")
+        other = ckpt.read_safetensors(os.path.join(ck2, "model.safetensors"))
+        diff = sorted(set(flat) ^ set(other)) + [
+            n for n in flat if n in other and not torch.equal(flat[n],
+                                                              other[n])]
+        check(not diff, f"phase 4h: the LLM's checkpoint differs from "
+              f"quantize_hf_model's: {diff[:5]}")
+        print(f"phase 4h LLM(hf_dir, quant=int8_mix, kv_cache_quant=int8, "
+              f"act_scales_path=...): first {walls['llm_quantize']:.1f} s "
+              f"(quantize, save, load), second {walls['load']:.1f} s (load "
+              f"only: no quantize_hf_model call, every file's mtime "
+              f"unchanged); its checkpoint equals step 1's tensor for tensor "
+              f"({len(flat)} tensors)", flush=True)
+        del other
+
+        # the float model and the uncalibrated control (all-ones scales)
+        cfg_q = llm.cfg
+        cfg_f = dataclasses.replace(cfg_q, quant=QuantConfig())
+        t = time.perf_counter()
+        float_params = registry.params_from_hf(
+            cfg_f, hf.load_hf_state_dict(hf_dir), device=dev)
+        control, _ = requantize(float_params, cfg_f, quant)
+        torch.cuda.synchronize()
+        walls["float_and_control"] = time.perf_counter() - t
+
+        # 3. perplexity: 32 blocks x 512 tokens at batch 8
+        runs = [("float", float_params, cfg_f, True),
+                ("int8_mix", llm.params, cfg_q, True),
+                ("int8_mix through the int8 KV cache", llm.params, cfg_q,
+                 False),
+                ("uncalibrated control", control, cfg_q, True)]
+        ppls = {}
+        for name, params, cfg, full in runs:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            res = ppl.evaluate_ppl(params, cfg, stream, seq_len=PPL_LEN,
+                                   batch_size=PPL_BATCH, full_prefill=full)
+            seen = dict(_build.LAUNCHES)
+            if name == "int8_mix":
+                launches["ppl"] = seen
+            ppls[name] = res
+            check(math.isfinite(res.ppl) and res.blocks == PPL_BLOCKS,
+                  f"phase 4h: {name} ppl {res.ppl} over {res.blocks} blocks")
+            print(f"phase 4h ppl, {name}: {res.ppl:.2f} over {res.blocks} "
+                  f"blocks x {PPL_LEN} (batch {PPL_BATCH}); wall "
+                  f"{res.elapsed_s:.3f} s, {res.blocks_per_s:.2f} blocks/s, "
+                  f"{res.tokens_per_s:.1f} tokens/s; launches "
+                  f"{json.dumps(seen)}", flush=True)
+        blocks = torch.tensor(stream, device=dev).view(PPL_BLOCKS, PPL_LEN)
+        traced["ppl"] = traced_names(torch, lambda: ppl.block_nll(
+            llm.params, cfg_q, blocks[:PPL_BATCH]))
+        _check_traced(traced["ppl"], PPL_TRACED, "the int8_mix ppl forward")
+        for name in ON_PATH["hf"]:
+            check(launches["ppl"].get(name, 0) > 0,
+                  f"phase 4h: {name} was not launched in the int8_mix ppl "
+                  "run")
+        for name in OFF_PATH["hf"]:
+            check(launches["ppl"].get(name, 0) == 0,
+                  f"phase 4h: {name} was launched in the int8_mix ppl run")
+
+        # the logits error of both quantized models on one batch, the
+        # models cut to their first n layers
+        def logits(params, cfg, n):
+            b, s = PPL_BATCH, PPL_LEN
+            cfg = dataclasses.replace(cfg, num_layers=n)
+            out, _ = mc.forward(
+                dict(params, layers=params["layers"][:n]), cfg, blocks[:b],
+                torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+                    b, s), mc.init_kv_cache(cfg, b, s, device=dev),
+                torch.full((b,), s, dtype=torch.int32, device=dev),
+                full_prefill=True)
+            return out
+
+        errs = {}
+        for n in (d for d in ERR_DEPTHS if d <= layers):
+            want = logits(float_params, cfg_f, n)
+            errs[n] = (_rel_rms(logits(llm.params, cfg_q, n), want),
+                       _rel_rms(logits(control, cfg_q, n), want))
+            del want
+        print(f"phase 4h logits against the float model ({PPL_BATCH} x "
+              f"{PPL_LEN}), relative RMS error at the first n layers, "
+              f"calibrated int8_mix / uncalibrated control: " + "; ".join(
+                  f"n = {n}: {q:.4e} / {c:.4e} ({c / q:.2f}x)"
+                  for n, (q, c) in errs.items()), flush=True)
+        first = min(errs)
+        err_q, err_c = errs[first]
+        check(err_c >= ERR_RATIO * err_q, f"phase 4h: at {first} layers the "
+              f"uncalibrated control's logits error {err_c} is not "
+              f"{ERR_RATIO}x the calibrated model's {err_q}")
+        check(all(c > q for q, c in errs.values()), "phase 4h: the "
+              "uncalibrated control is not the worse at every depth")
+        per_layer = layer_errors(torch, float_params, cfg_f,
+                                 [(llm.params, cfg_q), (control, cfg_q)],
+                                 blocks[:PPL_BATCH])
+        ratios = [c / q for q, c in per_layer]
+        print(f"phase 4h each layer's update against the float layer's, "
+              f"given the float model's input ({PPL_BATCH} x {PPL_LEN}), "
+              f"relative RMS, calibrated / control (ratio), layers 0.."
+              f"{len(per_layer) - 1}: " + "; ".join(
+                  f"{q:.3e} / {c:.3e} ({c / q:.2f}x)" for q, c in per_layer)
+              + f"; ratio least {min(ratios):.2f}x at layer "
+              f"{ratios.index(min(ratios))}", flush=True)
+        check(min(ratios) >= ERR_RATIO, f"phase 4h: at layer "
+              f"{ratios.index(min(ratios))} the uncalibrated control's "
+              f"update error is {min(ratios)}x the calibrated model's, not "
+              f"{ERR_RATIO}x")
+        del float_params, control, llm
+        torch.cuda.empty_cache()
+
+        quant_cross_device(torch, hf_dir, tmp, flat, card_scales, quant,
+                           calib_batches, dev)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        print(f"phase 4h walls: write {walls['write']:.1f} s, calibrate "
+              f"{walls['calibrate']:.2f} s, quantize and save "
+              f"{build_q + save:.1f} s, LLM load {walls['load']:.1f} s, ppl "
+              f"(int8_mix) {ppls['int8_mix'].elapsed_s:.3f} s; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"host max RSS {rss:.2f} GiB", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = dict(launches["calibrate"])
+    for n, c in launches["ppl"].items():
+        total[n] = total.get(n, 0) + c
+    return total
+
+
 def drop_tail(f):
     """A beam-burst fault: the merge leaves out the dense tail's part."""
     return lambda parts: f(list(parts)[:1])
@@ -3108,6 +3770,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # 4h. the quantization pipeline: HF directory -> calibrated act_scales
+    # -> checkpoint -> LLM -> perplexity
+    t = time.perf_counter()
+    launches["hf"] = quantize_pipeline(torch, args.seed, dev)
+    print(f"phase 4h: {time.perf_counter() - t:.1f} s", flush=True)
+
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
     t = time.perf_counter()
@@ -3131,7 +3799,8 @@ def main() -> int:
 
     # 8. kernels line: launches summed over the main paths' runs (phases
     # 4, 4b, 4c, 4d (its burst-16 run), 4e and 4f (their timed runs), 4g
-    # (the reuse run's second wave), 6 and 6b; the cross-device runs'
+    # (the reuse run's second wave), 4h (its calibration and int8_mix
+    # perplexity runs), 6 and 6b; the cross-device runs'
     # beside them (with 4g's 2-layer suffix): K13 launches there only)
     rows = []
     for name, (replaces, src) in KERNELS.items():

@@ -1,22 +1,28 @@
-"""High-level LLM API over a checkpoint directory. Counterpart of api.py.
+"""High-level LLM API: load or quantize, then generate or evaluate.
+Counterpart of api.py.
 
-    llm = LLM("/path/to/checkpoint")            # runs on the CUDA card
+    llm = LLM("/path/to/hf-dir", quant="int8_mix")     # on the CUDA card
     out = llm.generate_tokens([[1, 2, 3]], max_new_tokens=32)
 
-The directory is in the checkpoint format both packages write
-(``convert/checkpoint.py``: config.json + model.safetensors). Quantizing a
-Hugging Face directory on load, speculative decoding, Medusa, ReDrafter
-and perplexity evaluation are not ported yet.
+``model`` is a checkpoint directory in the format both packages write
+(``convert/checkpoint.py``: config.json + model.safetensors), or a Hugging
+Face directory (Llama lineage), quantized on first use into a cache
+directory keyed by its path and QuantConfig (``_ensure_quantized``; the
+default base is ``~/.cache/mixq_tpu_torch``) and loaded from there after.
+Speculative decoding over the session, Medusa and ReDrafter are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 from typing import List, Optional, Sequence, Union
 
 from .device import DeviceLike, resolve_device
+from .quant.config import KVCacheQuantAlgo, QuantAlgo, QuantConfig
 from .runtime.sampler import SamplingConfig
 from .runtime.session import GenerationOutput, GenerationSession
 
@@ -42,31 +48,59 @@ def _try_tokenizer(path: str):
 
 @dataclasses.dataclass
 class LLM:
-    """llm = LLM("/path/to/checkpoint"); llm.generate(...)"""
+    """llm = LLM("/path/to/hf-or-ckpt", quant="int8_mix"); llm.generate(...)
 
-    model: str                     # a checkpoint directory
+    quant / kv_cache_quant / act_scales_path apply to a Hugging Face
+    directory only (a checkpoint carries its own QuantConfig); no quant
+    keeps the float model."""
+
+    model: str
+    quant: Union[str, QuantConfig, None] = None
+    kv_cache_quant: str = "none"
     max_seq_len: int = 2048
+    act_scales_path: Optional[str] = None
+    cache_dir: Optional[str] = None
     tokenizer: Optional[object] = None
     device: DeviceLike = "cuda"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if not _is_our_checkpoint(self.model):
-            # the JAX package quantizes a Hugging Face directory here
-            # (_ensure_quantized), with its quant / kv_cache_quant /
-            # act_scales_path / cache_dir fields
-            raise NotImplementedError(
-                f"{self.model} is not a checkpoint directory of this "
-                "package; quantizing a Hugging Face model on load "
-                "(convert/hf.py) is not ported yet (ROADMAP queue 1)")
+        if isinstance(self.quant, str):
+            self.quant = QuantConfig(
+                algo=QuantAlgo(self.quant),
+                kv_cache=KVCacheQuantAlgo(self.kv_cache_quant))
         from .convert.checkpoint import load_checkpoint
-        self.params, self.cfg = load_checkpoint(self.model,
-                                                device=self.device)
+        if _is_our_checkpoint(self.model):
+            ckpt_dir = self.model
+        else:
+            ckpt_dir = self._ensure_quantized(self.model)
+        self.params, self.cfg = load_checkpoint(ckpt_dir, device=self.device)
+        self._ckpt_dir = ckpt_dir
         if self.tokenizer is None:
-            self.tokenizer = _try_tokenizer(self.model)
+            self.tokenizer = (_try_tokenizer(self.model)
+                              or _try_tokenizer(ckpt_dir))
         self.session = GenerationSession(self.params, self.cfg,
                                          max_seq_len=self.max_seq_len,
                                          device=self.device)
+
+    def _ensure_quantized(self, hf_dir: str) -> str:
+        """The cache directory of ``hf_dir`` under this QuantConfig (the JAX
+        package's key: sha1 of the absolute path and ``quant.to_json()``),
+        quantized on this LLM's device when it holds no checkpoint yet."""
+        from .convert.hf import quantize_hf_model
+
+        quant = self.quant or QuantConfig()
+        key = hashlib.sha1(
+            f"{os.path.abspath(hf_dir)}|{quant.to_json()}".encode()
+        ).hexdigest()[:12]
+        base = self.cache_dir or os.path.join(
+            os.path.expanduser("~"), ".cache", "mixq_tpu_torch")
+        out = os.path.join(base, key)
+        if not os.path.exists(os.path.join(out, "model.safetensors")):
+            quantize_hf_model(hf_dir, out, quant,
+                              act_scales_path=self.act_scales_path,
+                              device=self.device)
+        return out
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Union[str, Sequence[str]],
@@ -126,6 +160,14 @@ class LLM:
             "batched speculative decoding over the session "
             "(runtime/speculative.py) is not ported yet (ROADMAP queue 1); "
             "the Executor's run_speculative is (make_executor)")
+
+    def evaluate_ppl(self, token_stream: Sequence[int], seq_len: int = 512,
+                     batch_size: int = 8, max_blocks: Optional[int] = None):
+        """Block perplexity of this model (eval/ppl.py, full_prefill)."""
+        from .eval.ppl import evaluate_ppl
+        return evaluate_ppl(self.params, self.cfg, token_stream,
+                            seq_len=seq_len, batch_size=batch_size,
+                            max_blocks=max_blocks)
 
     def make_executor(self, max_batch: int = 8, block_size: int = 64,
                       prefill_chunk: int = 256,

@@ -18,7 +18,7 @@ import json
 import mmap
 import os
 import struct
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -64,29 +64,35 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
+                      metadata: Optional[Dict[str, str]] = None) -> None:
     """Write {name: tensor} in the safetensors layout (widest dtypes first,
-    the header padded to 8 bytes, so every tensor starts aligned)."""
+    the header padded to 8 bytes, so every tensor starts aligned), one
+    tensor at a time: no copy of the whole set is made. ``metadata`` goes
+    under ``__metadata__`` (Hugging Face writes {"format": "pt"})."""
     items = sorted(tensors.items(),
                    key=lambda kv: (-kv[1].element_size(), kv[0]))
-    header, blobs, off = {}, [], 0
+    header: Dict = {"__metadata__": dict(metadata)} if metadata else {}
+    off = 0
     for name, t in items:
-        t = t.detach().to("cpu").contiguous()
         if t.dtype not in _ST_NAMES:
             raise NotImplementedError(f"{name}: dtype {t.dtype} is not "
                                       "written here")
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        n = t.numel() * t.element_size()
         header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [off, off + len(raw)]}
-        blobs.append(raw)
-        off += len(raw)
+                        "data_offsets": [off, off + n]}
+        off += n
     hb = json.dumps(header, separators=(",", ":")).encode()
     hb += b" " * (-len(hb) % 8)
-    with open(path, "wb") as f:
+    # written beside and renamed: a file under ``path`` is always whole
+    partial = path + ".partial"
+    with open(partial, "wb") as f:
         f.write(struct.pack("<Q", len(hb)))
         f.write(hb)
-        for raw in blobs:
-            f.write(raw)
+        for _, t in items:
+            t = t.detach().to("cpu").contiguous()
+            f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+    os.replace(partial, path)
 
 
 def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:

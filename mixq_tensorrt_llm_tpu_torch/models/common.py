@@ -400,14 +400,25 @@ def _attention_paged_tail(cfg: ModelConfig, q, new_k, new_v, pools: dict,
          (out_t, m_t, l_t)]).to(q.dtype)
 
 
+def _absmax_in(x: torch.Tensor) -> torch.Tensor:
+    """Per-input-channel absmax over all leading dims (f32)."""
+    return x.float().abs().reshape(-1, x.shape[-1]).amax(dim=0)
+
+
 def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
-                  attend) -> torch.Tensor:
+                  attend, stats: Optional[dict] = None) -> torch.Tensor:
     """One pre-norm Llama block. x (B, S, hidden); ``attend(q, k, v)``
     writes the new k/v (B, S, Hkv, D) into the layer's KV and returns
     attention of q (B, S, Hq, D) over it: ``_attention_with_cache`` (dense
     cache), ``_attention_paged`` (paged pool) or ``_attention_paged_tail``
     (a beam burst's read-only pool and dense tail) with the layer's state
-    bound."""
+    bound.
+
+    ``stats``, a dict, receives each linear's per-input-channel activation
+    absmax (the act_scales calibration signal) from the activations the JAX
+    package reads: the normed inputs of qkv and gate_up (the norm then runs
+    apart from the linear, as in JAX), the attention output for o_proj, the
+    gated activation for down_proj."""
     b, s, _ = x.shape
 
     # decode regime (S <= 4): mix linears run weight-only on the full
@@ -420,23 +431,32 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
                     else QuantAlgo.W4A16)
         return a
 
-    qkv = dispatch.norm_linear(lp["qkv_proj"], x, algo("qkv_proj"),
-                               lp["input_norm"]["w"], eps=cfg.rms_norm_eps)
+    def proj_in(mod, norm_key, x_res):
+        if stats is None:
+            return dispatch.norm_linear(lp[mod], x_res, algo(mod),
+                                        lp[norm_key]["w"],
+                                        eps=cfg.rms_norm_eps)
+        h = block_norm(cfg, x_res, lp[norm_key])
+        stats[mod] = _absmax_in(h)
+        return dispatch.linear(lp[mod], h, algo(mod))
+
+    qkv = proj_in("qkv_proj", "input_norm", x)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size],
                           dim=-1)
     q = apply_rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), sin, cos)
     k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), sin, cos)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    attn = attend(q, k, v)
-    attn = dispatch.linear(lp["o_proj"], attn.reshape(b, s, cfg.q_size),
-                           algo("o_proj"))
+    attn_in = attend(q, k, v).reshape(b, s, cfg.q_size)
+    if stats is not None:
+        stats["o_proj"] = _absmax_in(attn_in)
+    attn = dispatch.linear(lp["o_proj"], attn_in, algo("o_proj"))
     x = x + attn.to(x.dtype)
 
-    up_out = dispatch.norm_linear(lp["gate_up_proj"], x,
-                                  algo("gate_up_proj"), lp["post_norm"]["w"],
-                                  eps=cfg.rms_norm_eps)
+    up_out = proj_in("gate_up_proj", "post_norm", x)
     gate, up = torch.chunk(up_out, 2, dim=-1)
     h = (_act(cfg.hidden_act, gate) * up.float()).to(x.dtype)
+    if stats is not None:
+        stats["down_proj"] = _absmax_in(h)
     h = dispatch.linear(lp["down_proj"], h, algo("down_proj"))
     return x + h.to(x.dtype)
 
@@ -498,7 +518,6 @@ def _last(x: torch.Tensor, last_pos) -> torch.Tensor:
 # forward's options of the JAX package that the port does not honour yet,
 # with the module whose port brings each (ROADMAP queue 1)
 _UNPORTED_FORWARD = {
-    "collect_stats": "convert/calibrate.py",
     "outlier_state": "quant/dynamic.py",
     "lora_ids": "convert/lora.py",
     "attn_mask": "runtime/medusa.py (tree verification)",
@@ -522,9 +541,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     empty before this call, so attention runs over the fresh K/V (K14 on
     the card for MHA); last_pos: optional (B,) index, the head then runs on
     that one position per lane and returns (B, 1, V) logits (a port-only
-    option: JAX's session gathers after its head).
-    Returns (logits f32, cache)."""
-    given = dict(collect_stats=collect_stats, outlier_state=outlier_state,
+    option: JAX's session gathers after its head); collect_stats: also
+    return each linear's per-input-channel activation absmax,
+    ``stats[module]`` (L, in) f32 (``decoder_layer``).
+    Returns (logits f32, cache[, stats])."""
+    given = dict(outlier_state=outlier_state,
                  lora_ids=lora_ids, attn_mask=attn_mask,
                  return_hidden=return_hidden, rope_pos=rope_pos)
     for name, val in given.items():
@@ -534,6 +555,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 f"{_UNPORTED_FORWARD[name]} (ROADMAP queue 1)")
     x = _embed(params, cfg, tokens)
     sin, cos = _positional_arrays(cfg, write_pos)
+    layer_stats = []
     for li, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache.k[li], "v": cache.v[li]}
         if cache.quantized:
@@ -542,5 +564,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         attend = partial(_attention_with_cache, cfg, layer_cache=layer_cache,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
                          full_prefill=full_prefill)
-        x = decoder_layer(cfg, lp, x, sin, cos, attend)
-    return _head(params, cfg, _last(x, last_pos)).float(), cache
+        st = {} if collect_stats else None
+        x = decoder_layer(cfg, lp, x, sin, cos, attend, stats=st)
+        layer_stats.append(st)
+    logits = _head(params, cfg, _last(x, last_pos)).float()
+    if collect_stats:
+        return logits, cache, {m: torch.stack([st[m] for st in layer_stats])
+                               for m in layer_stats[0]}
+    return logits, cache

@@ -1,10 +1,13 @@
-"""Llama-family params: quantization routing and random init.
-Counterpart of mixq_tensorrt_llm_tpu/models/llama.py.
+"""Llama-family params: Hugging Face weight mapping, quantization routing
+and random init. Counterpart of mixq_tensorrt_llm_tpu/models/llama.py.
 
 q/k/v and gate/up are fused into single (in, out) weights; quantization
 follows the QuantConfig routing (qkv/gate_up/o mix, down weight-only,
 lm_head excluded); int4 weights are packed two a byte when in_features is
-even, as in the JAX package.
+even, as in the JAX package. ``params_from_hf`` takes the state dict as
+stored (file dtype, (out, in), memory-mapped) and brings one layer at a
+time to the target device, upcast to f32 there, so scales are computed in
+f32 as the JAX package computes them and no whole-model f32 copy exists.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import dispatch
+from ..quant.config import QuantConfig
 from .common import ModelConfig
 
 LINEAR_MODULES = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
@@ -103,3 +107,123 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"w": rnd(h, cfg.vocab_size).to(cfg.dtype)}
     return params
+
+
+def _t(w: torch.Tensor, device: torch.device,
+       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """HF (out, in) -> the (in, out) kernel layout on ``device``, contiguous
+    in ``dtype`` (moved in the file's dtype, converted there)."""
+    return w.to(device).t().to(dtype, memory_format=torch.contiguous_format)
+
+
+def _vec(w: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return w.to(device).float()
+
+
+def hf_layer_weights(hf: Mapping[str, torch.Tensor], i: int,
+                     prefix: str = "model", device: DeviceLike = "cuda"
+                     ) -> Dict[str, torch.Tensor]:
+    """One decoder layer's float weights from an HF state dict, as f32
+    (in, out) tensors on ``device`` keyed by the port's module names: q/k/v
+    and gate/up fused; Qwen2's q/k/v biases as ``qkv_bias``."""
+    dev = resolve_device(device)
+    p = f"{prefix}.layers.{i}."
+    if p + "block_sparse_moe.gate.weight" in hf:
+        raise NotImplementedError(
+            "Mixtral expert layers are not ported yet: they come with "
+            "models/moe.py")
+    out = {
+        "qkv_proj": torch.cat([_t(hf[p + f"self_attn.{n}_proj.weight"], dev)
+                               for n in "qkv"], dim=1),
+        "o_proj": _t(hf[p + "self_attn.o_proj.weight"], dev),
+        "gate_up_proj": torch.cat([_t(hf[p + "mlp.gate_proj.weight"], dev),
+                                   _t(hf[p + "mlp.up_proj.weight"], dev)],
+                                  dim=1),
+        "down_proj": _t(hf[p + "mlp.down_proj.weight"], dev),
+        "input_norm": _vec(hf[p + "input_layernorm.weight"], dev),
+        "post_norm": _vec(hf[p + "post_attention_layernorm.weight"], dev),
+    }
+    if p + "self_attn.q_proj.bias" in hf:
+        out["qkv_bias"] = torch.cat(
+            [_vec(hf[p + f"self_attn.{n}_proj.bias"], dev) for n in "qkv"])
+    return out
+
+
+def params_from_hf(cfg: ModelConfig, hf: Mapping[str, torch.Tensor],
+                   act_scales: Optional[Mapping] = None,
+                   prefix: str = "model", device: DeviceLike = "cuda") -> Dict:
+    """HF state dict -> quantized params on ``device``, one layer at a
+    time: a layer's f32 weights exist only while it is quantized."""
+    dev = resolve_device(device)
+    layers = []
+    for i in range(cfg.num_layers):
+        fl = hf_layer_weights(hf, i, prefix, dev)
+        layers.append(_quantize_layer(cfg, fl, act_scales, i))
+        del fl
+    params: Dict = {
+        "embed": {"w": hf[f"{prefix}.embed_tokens.weight"].to(dev).to(
+            cfg.dtype)},
+        "layers": layers,
+        "final_norm": {"w": _vec(hf[f"{prefix}.norm.weight"], dev)},
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"w": _t(hf["lm_head.weight"], dev, cfg.dtype)}
+    return params
+
+
+def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()
+                   ) -> ModelConfig:
+    """An HF Llama / Mistral / Qwen2 config (``AutoConfig`` or
+    ``convert.hf.load_hf_config``) -> ModelConfig, read as the JAX package
+    reads it."""
+    mt = hf_config.model_type.lower()
+    if "mixtral" in mt or (getattr(hf_config, "num_local_experts", 0) or 0):
+        raise NotImplementedError(
+            f"model_type {mt!r} (experts) is not ported yet: it comes with "
+            "models/moe.py")
+    arch = "qwen2" if "qwen2" in mt else "llama"
+    head_dim = getattr(hf_config, "head_dim", None) or (
+        hf_config.hidden_size // hf_config.num_attention_heads)
+    return ModelConfig(
+        arch=arch,
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        intermediate_size=hf_config.intermediate_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        num_kv_heads=getattr(hf_config, "num_key_value_heads",
+                             hf_config.num_attention_heads),
+        head_dim=head_dim,
+        rope_theta=getattr(hf_config, "rope_theta", 10000.0),
+        rms_norm_eps=hf_config.rms_norm_eps,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        qkv_bias=(arch == "qwen2"),
+        sliding_window=getattr(hf_config, "sliding_window", None) or 0,
+        tie_word_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+        quant=quant,
+        **_rope_scaling_axes(hf_config),
+    )
+
+
+def _rope_scaling_axes(hf_config) -> dict:
+    """HF rope_scaling -> ModelConfig axes: Llama-3.1's "llama3"
+    wavelength-banded scaling and plain "linear" interpolation. "yarn" is
+    handed on as its type, which ModelConfig refuses (not ported)."""
+    rs = getattr(hf_config, "rope_scaling", None)
+    if not rs:
+        return {}
+    kind = rs.get("rope_type", rs.get("type", "none"))
+    if kind == "default":
+        return {}
+    if kind not in ("llama3", "linear", "yarn"):
+        raise NotImplementedError(f"rope_scaling type {kind!r} unsupported "
+                                  "(llama3, linear, and yarn are)")
+    out = {"rope_scaling_type": kind,
+           "rope_scaling_factor": float(rs.get("factor", 1.0))}
+    if kind == "llama3":
+        out.update(
+            rope_low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
+            rope_high_freq_factor=float(rs.get("high_freq_factor", 4.0)),
+            rope_original_max_pos=int(
+                rs.get("original_max_position_embeddings", 8192)))
+    return out

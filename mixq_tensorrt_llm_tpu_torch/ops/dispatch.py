@@ -50,8 +50,8 @@ PACKED_M_MAX = 128
 _GROUP_ALIGN = 128          # K13 group sizes, as the JAX kernel asks
 
 _LATER = {
-    QuantAlgo.FP8: "the fp8 slice",
-    QuantAlgo.INT8_LR: "a later slice",
+    QuantAlgo.FP8: "the fp8 slice (quant/core.py quantize_weight_fp8)",
+    QuantAlgo.INT8_LR: "a later slice (quant/core.py make_lr_artifact)",
 }
 
 

@@ -145,10 +145,11 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 def select_outliers(act_scale: torch.Tensor, k: int) -> torch.Tensor:
     """Top-k input channels by calibrated activation absmax, as sorted
-    ascending int32 indices. Ties may order differently than JAX's
-    ``top_k``; calibrated scales are distinct in practice."""
-    idx = torch.topk(act_scale.float(), k).indices
-    return torch.sort(idx).values.to(torch.int32)
+    ascending int32 indices. Equal scales go lower index first, as
+    ``jax.lax.top_k`` takes them (a stable descending sort), so all-ones
+    scales (no calibration) pick channels 0..k-1 on every device."""
+    order = torch.sort(act_scale.float(), descending=True, stable=True)
+    return torch.sort(order.indices[:k]).values.to(torch.int32)
 
 
 def split_outlier_weight(w: torch.Tensor, fp_ind: torch.Tensor,

@@ -49,6 +49,8 @@ after adopted pages (prefix reuse) through K6, bit-equal to the plain
 write, and K8, within 2e-2 of its plain version, with a cold run's
 tokens."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1754,3 +1756,237 @@ def test_prefill_after_adopted_pages_k6_k8(cuda, monkeypatch):
             assert ex.reused_blocks == 3          # 48 shared tokens
             assert seen["write"] > 0 and 48 in seen["attn"]
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# The quantization pipeline on the card (convert/, eval/ppl.py)
+# ---------------------------------------------------------------------------
+
+HF_TINY = dict(model_type="llama", hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=4, vocab_size=512,
+               max_position_embeddings=512, rms_norm_eps=1e-5,
+               torch_dtype="float16")
+
+
+@pytest.fixture
+def hf_tiny(tmp_path):
+    """A 2-layer HF Llama directory (4 MHA heads of 64, f16) with 8 planted
+    outlier channels a layer, written on the CPU."""
+    from mixq_tensorrt_llm_tpu_torch.tools.random_hf import \
+        write_random_llama
+    d = str(tmp_path / "hf")
+    planted = write_random_llama(d, HF_TINY, seed=15, device="cpu",
+                                 layers_per_shard=1, outliers=8)
+    return d, planted
+
+
+def _rel_rms(got, want) -> float:
+    d = got.double() - want.double()
+    return float(d.pow(2).mean().sqrt() / want.double().pow(2).mean().sqrt())
+
+
+def _calib_batches(n=2, b=2, s=128):
+    rng = np.random.default_rng(15)
+    return [rng.integers(1, 512, (b, s)).astype(np.int32) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 128])
+@pytest.mark.parametrize("n", [64, 4096, 11008])
+def test_select_outliers_ties_on_card(cuda, n, k):
+    """jax.lax.top_k's tie order on the card: all-ones scales pick 0..k-1,
+    planted ties the same channels as on the CPU."""
+    k = min(k, n)
+    ones = torch.ones(n)
+    assert torch.equal(qcore.select_outliers(ones.to(cuda), k).cpu(),
+                       torch.arange(k, dtype=torch.int32))
+    gen = torch.Generator().manual_seed(n + k)
+    act = torch.randint(1, 4, (n,), generator=gen).float()
+    act[torch.randperm(n, generator=gen)[:k // 2]] = 7.0
+    assert torch.equal(qcore.select_outliers(act.to(cuda), k).cpu(),
+                       qcore.select_outliers(act, k))
+
+
+def _rel_max(got, want) -> float:
+    """The largest channel difference over the largest value."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# bf16 stats and act_scales, card against CPU at a channel (over the
+# module's largest value); the card's distance from an f32 calibration
+# over the CPU bf16 run's
+STATS_MAX, F32_RATIO = 1e-2, 2.0
+LOGITS_RMS = 5e-2        # the ppl forward's logits, card against CPU
+
+
+@pytest.mark.gpu
+def test_collect_stats_on_card(cuda, hf_tiny):
+    """forward(collect_stats=True) of the float model on the card (K14 at
+    the 128-token prefill) against the CPU's bf16 forward and an f32 CPU
+    forward (the witness), for each module and layer: card - CPU within
+    2e-2 relative RMS and STATS_MAX of the largest value at every
+    channel, and the card no further from f32 than F32_RATIO x the CPU
+    bf16 forward is. Largest readings (H100): card - CPU 7.2e-3 (layer
+    1's gate_up input), card - f32 over CPU bf16 - f32 1.62 (there)."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.convert import hf
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import registry
+    d, _ = hf_tiny
+    cfg = registry.config_from_hf(hf.load_hf_config(d))
+    sd = hf.load_hf_state_dict(d)
+    tokens = torch.from_numpy(_calib_batches(1)[0])
+    b, s = tokens.shape
+    stats = {}
+    for name, dev, dtype in (("cpu", torch.device("cpu"), cfg.dtype),
+                             ("f32", torch.device("cpu"), torch.float32),
+                             ("card", cuda, cfg.dtype)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = registry.params_from_hf(c, sd, device=dev)
+        _build.reset_launches()
+        _, _, stats[name] = mc.forward(
+            params, c, tokens.to(dev),
+            torch.arange(s, device=dev)[None].expand(b, s),
+            mc.init_kv_cache(c, b, s, device=dev),
+            torch.full((b,), s, device=dev), collect_stats=True,
+            full_prefill=True)
+    assert _build.LAUNCHES.get("flash_causal_attention", 0) == 2
+    for mod, want in stats["cpu"].items():
+        got, f32 = stats["card"][mod].cpu(), stats["f32"][mod]
+        assert got.shape == want.shape == (2, want.shape[1])
+        for i in range(2):
+            reading = (_rel_rms(got[i], want[i]), _rel_max(got[i], want[i]),
+                       _rel_max(got[i], f32[i]), _rel_max(want[i], f32[i]))
+            print(f"stats {mod}[{i}]: card - CPU {reading[1]:.3e} (relative"
+                  f" RMS {reading[0]:.3e}), card - f32 {reading[2]:.3e}, "
+                  f"CPU - f32 {reading[3]:.3e}")
+            assert reading[0] <= 2e-2, (mod, i, reading)
+            assert reading[1] <= STATS_MAX, (mod, i, reading)
+            assert reading[2] <= F32_RATIO * reading[3], (mod, i, reading)
+
+
+@pytest.mark.gpu
+def test_quantize_hf_model_card_vs_cpu(cuda, hf_tiny, tmp_path):
+    """Calibrated on the card: the planted channels found; the same
+    act_scales quantized on the CPU give bit-equal int8 weights, fp_ind and
+    fp_weight, scale_col within 1e-6; a CPU calibration (bf16 forwards)
+    picks the same outliers, its act_scales within 2e-2 relative RMS and
+    STATS_MAX at every channel of the card's, the card no further from an
+    f32 CPU calibration than F32_RATIO x the CPU bf16 one. Largest
+    readings (H100): card - CPU 7.0e-3 (layer 1's gate_up input), card -
+    f32 over CPU bf16 - f32 1.0."""
+    from mixq_tensorrt_llm_tpu_torch.convert import calibrate, hf
+    from mixq_tensorrt_llm_tpu_torch.convert.checkpoint import \
+        read_safetensors
+    from mixq_tensorrt_llm_tpu_torch.quant import (KVCacheQuantAlgo,
+                                                   QuantAlgo, QuantConfig)
+    d, planted = hf_tiny
+    quant = QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=8,
+                        kv_cache=KVCacheQuantAlgo.INT8)
+    hf.quantize_hf_model(d, str(tmp_path / "card"), quant,
+                         calib_batches=_calib_batches(), device=cuda)
+    scales = str(tmp_path / "card" / "act_scales.npz")
+    hf.quantize_hf_model(d, str(tmp_path / "cpu"), quant,
+                         act_scales_path=scales, device="cpu")
+    hf.quantize_hf_model(d, str(tmp_path / "cpu_cal"), quant,
+                         calib_batches=_calib_batches(), device="cpu")
+    hf.quantize_hf_model(d, str(tmp_path / "f32_cal"), quant,
+                         calib_batches=_calib_batches(), device="cpu",
+                         dtype=torch.float32)
+    card = read_safetensors(str(tmp_path / "card" / "model.safetensors"))
+    cpu = read_safetensors(str(tmp_path / "cpu" / "model.safetensors"))
+    assert sorted(card) == sorted(cpu)
+    for name, t in card.items():
+        if name.endswith("scale_col"):
+            torch.testing.assert_close(t, cpu[name], rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(t, cpu[name]), name
+    for i in range(2):
+        for mod in ("qkv_proj", "gate_up_proj"):
+            assert torch.equal(card[f"layers.{mod}.fp_ind"][i].long(),
+                               planted[i])
+    want = calibrate.load_act_scales(str(tmp_path / "cpu_cal" /
+                                         "act_scales.npz"))
+    got = calibrate.load_act_scales(scales)
+    f32 = calibrate.load_act_scales(str(tmp_path / "f32_cal" /
+                                        "act_scales.npz"))
+    for key, w in want.items():
+        reading = (_rel_rms(got[key], w), _rel_max(got[key], w),
+                   _rel_max(got[key], f32[key]), _rel_max(w, f32[key]))
+        print(f"act_scales {key}: card - CPU {reading[1]:.3e} (relative "
+              f"RMS {reading[0]:.3e}), card - f32 {reading[2]:.3e}, CPU - "
+              f"f32 {reading[3]:.3e}")
+        assert reading[0] <= 2e-2, (key, reading)
+        assert reading[1] <= STATS_MAX, (key, reading)
+        assert reading[2] <= F32_RATIO * reading[3], (key, reading)
+    cpu_cal = read_safetensors(str(tmp_path / "cpu_cal" /
+                                   "model.safetensors"))
+    for mod in ("qkv_proj", "gate_up_proj"):
+        assert torch.equal(cpu_cal[f"layers.{mod}.fp_ind"],
+                           card[f"layers.{mod}.fp_ind"])
+
+
+@pytest.mark.gpu
+def test_evaluate_ppl_card_vs_cpu(cuda, hf_tiny, tmp_path, monkeypatch):
+    """LLM over the HF directory (int8_mix, int8 KV) on the card: block
+    perplexity through K1 -> K2, K4 (prefill regime) and K14, total NLL
+    within 1e-4 relative of the CPU's over the same checkpoint (reading
+    1.9e-5, H100); the ppl forward's logits within LOGITS_RMS relative
+    RMS of the CPU's (reading 1.03e-2), which K2 without its outlier side
+    GEMM must exceed (reading 1.28); with full_prefill False no K14; a
+    second LLM loads and writes nothing."""
+    from mixq_tensorrt_llm_tpu_torch.api import LLM
+    from mixq_tensorrt_llm_tpu_torch.eval.ppl import evaluate_ppl
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    d, _ = hf_tiny
+    kw = dict(quant="int8_mix", kv_cache_quant="int8",
+              cache_dir=str(tmp_path / "cache"), max_seq_len=256)
+    llm = LLM(d, device=cuda, **kw)
+    weights = os.path.join(llm._ckpt_dir, "model.safetensors")
+    stamp = os.stat(weights).st_mtime_ns
+    stream = np.random.default_rng(16).integers(1, 512, 3 * 128 + 5)
+    _build.reset_launches()
+    got = evaluate_ppl(llm.params, llm.cfg, stream, seq_len=128,
+                       batch_size=2)
+    seen = dict(_build.LAUNCHES)
+    for name in ("rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+                 "wo_matmul.prefill", "flash_causal_attention"):
+        assert seen.get(name, 0) > 0, (name, seen)
+    assert seen["flash_causal_attention"] == 2 * 2      # 2 batches x 2
+    cpu = LLM(llm._ckpt_dir, device="cpu", max_seq_len=256)
+    want = evaluate_ppl(cpu.params, cpu.cfg, stream, seq_len=128,
+                        batch_size=2)
+    assert got.blocks == want.blocks == 3
+    assert abs(got.total_nll - want.total_nll) <= 1e-4 * want.total_nll
+    blocks = torch.tensor(stream[:2 * 128]).view(2, 128)
+
+    def logits(params, cfg, dev):
+        t = blocks.to(dev)
+        b, s = t.shape
+        out, _ = mc.forward(
+            params, cfg, t, torch.arange(s, dtype=torch.int32, device=dev)[
+                None].expand(b, s), mc.init_kv_cache(cfg, b, s, device=dev),
+            torch.full((b,), s, dtype=torch.int32, device=dev),
+            full_prefill=True)
+        return out.cpu()
+
+    base = logits(cpu.params, cpu.cfg, torch.device("cpu"))
+    sound = _rel_rms(logits(llm.params, llm.cfg, cuda), base)
+    real = mm.mixed_matmul
+    monkeypatch.setattr(mm, "mixed_matmul", lambda q, sr, xo, qw, sc, fw, **k:
+                        real(q, sr, xo, qw, sc, torch.zeros_like(fw), **k))
+    control = _rel_rms(logits(llm.params, llm.cfg, cuda), base)
+    monkeypatch.setattr(mm, "mixed_matmul", real)
+    print(f"ppl logits card - CPU: {sound:.3e} relative RMS, without K2's "
+          f"side GEMM {control:.3e}; total NLL "
+          f"{abs(got.total_nll - want.total_nll) / want.total_nll:.3e}")
+    assert sound <= LOGITS_RMS < control, (sound, control)
+    _build.reset_launches()
+    cached = evaluate_ppl(llm.params, llm.cfg, stream, seq_len=128,
+                          batch_size=2, full_prefill=False)
+    assert _build.LAUNCHES.get("flash_causal_attention", 0) == 0
+    assert np.isfinite(cached.ppl)
+    again = LLM(d, device=cuda, **kw)
+    assert again._ckpt_dir == llm._ckpt_dir
+    assert os.stat(weights).st_mtime_ns == stamp

@@ -73,6 +73,26 @@ def test_select_outliers_and_split():
         tcore.outlier_mask(ti, 96).numpy(), _np(jcore.outlier_mask(ji, 96)))
 
 
+@pytest.mark.parametrize("k", [8, 128])
+@pytest.mark.parametrize("n", [64, 4096, 11008])
+@pytest.mark.parametrize("scales", ["ones", "planted_ties"])
+def test_select_outliers_ties_match_jax(scales, n, k):
+    """Equal scales go lower index first, as jax.lax.top_k takes them:
+    all-ones scales (no calibration) pick channels 0..k-1; planted ties
+    straddling the k-th place keep the lower indices."""
+    k = min(k, n)
+    act = np.ones(n, np.float32)
+    if scales == "planted_ties":
+        rng = np.random.default_rng(n + k)
+        act = rng.integers(1, 4, n).astype(np.float32)   # many ties
+        act[rng.choice(n, k // 2, replace=False)] = 7.0
+    want = _np(jcore.select_outliers(jnp.asarray(act), k))
+    got = tcore.select_outliers(torch.from_numpy(act), k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if scales == "ones":
+        np.testing.assert_array_equal(got.numpy(), np.arange(k))
+
+
 def test_extract_outliers_and_zero():
     x = _rand(5, (7, 64))
     ind = np.array([1, 5, 9, 63], np.int32)

@@ -9,16 +9,19 @@ that apply). `cli serve` passes its flags to LLM and run_server, and
 the CLI's unported subcommands exit naming their module.
 Every network wait and thread join is bounded."""
 
+import functools
 import json
 import threading
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
+from unittest import mock
 
 import pytest
 import torch
 
 from mixq_tensorrt_llm_tpu_torch import cli
+from mixq_tensorrt_llm_tpu_torch.convert import hf
 from mixq_tensorrt_llm_tpu_torch.models import llama
 from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
 from mixq_tensorrt_llm_tpu_torch.quant.config import QuantAlgo, QuantConfig
@@ -289,13 +292,29 @@ def test_stepper_failure_answers_500(model):
     assert srv.health()["status"] == "failed"
 
 
-@pytest.mark.parametrize("cmd,module", [("quantize", "convert/hf.py"),
-                                        ("eval-ppl", "eval/ppl.py"),
-                                        ("eval-mmlu", "eval/mmlu.py")])
-def test_cli_unported_subcommands_name_their_module(cmd, module):
-    with pytest.raises(SystemExit) as e:
-        cli.main([cmd, "--model_dir", "x"])
-    assert module in str(e.value.code)
+@pytest.mark.parametrize("argv,module", [
+    (["summarize", "--model", "m", "--data_file", "d", "--enc_dec"],
+     "models/t5.py"),
+    (["quantize", "--model_dir", "m", "--output_dir", "o", "--lora_dir",
+      "a"], "convert/lora.py"),
+    (["quantize", "--qformat", "fp8"], "quantize_weight_fp8"),
+])
+def test_cli_unported_subcommands_name_their_module(argv, module, tmp_path):
+    """Every subcommand is ported; what still raises names its module."""
+    from mixq_tensorrt_llm_tpu_torch.tools.random_hf import \
+        write_random_llama
+    if "--qformat" in argv:
+        write_random_llama(str(tmp_path), dict(
+            model_type="llama", hidden_size=64, intermediate_size=128,
+            num_hidden_layers=1, num_attention_heads=4, vocab_size=64,
+            max_position_embeddings=64, rms_norm_eps=1e-5), device="cpu")
+        argv = argv + ["--model_dir", str(tmp_path), "--output_dir",
+                       str(tmp_path / "o")]
+    with pytest.raises((SystemExit, NotImplementedError)) as e:
+        with mock.patch.object(hf, "quantize_hf_model", functools.partial(
+                hf.quantize_hf_model, device="cpu")):
+            cli.main(argv)
+    assert module in str(e.value)
 
 
 def test_cli_serve_builds_the_server(monkeypatch):
@@ -313,7 +332,7 @@ def test_cli_serve_builds_the_server(monkeypatch):
     cli.main(["serve", "--model", "ckpt", "--port", "0", "--max_batch",
               "4", "--max_seq_len", "512", "--max_queue_size", "3",
               "--warmup", "--burst", "16", "--snapshot_path", "s.json"])
-    assert seen["llm"] == ("ckpt", dict(max_seq_len=512))
+    assert seen["llm"] == ("ckpt", dict(quant=None, max_seq_len=512))
     assert seen["server"] == ("llm", dict(
         host="127.0.0.1", port=0, max_batch=4, block_size=64,
         prefill_chunk=256, snapshot_path="s.json", max_queue_size=3,

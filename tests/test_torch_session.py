@@ -501,13 +501,13 @@ def test_unported_and_device_defaults_raise(models, tmp_path):
     cache = tcommon.init_kv_cache(cfg, 1, 16, device="cpu")
     tok = torch.ones((1, 2), dtype=torch.long)
     pos = torch.arange(2)[None]
-    for opt in ("collect_stats", "return_hidden", "rope_pos", "lora_ids"):
+    for opt in ("return_hidden", "rope_pos", "lora_ids"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcommon.forward(tp, cfg, tok, pos, cache, torch.tensor([2]),
-                            **{opt: pos if opt != "collect_stats" and
-                               opt != "return_hidden" else True})
-    with pytest.raises(NotImplementedError, match="convert/hf.py"):
-        LLM(str(tmp_path), device="cpu")
+                            **{opt: pos if opt != "return_hidden" else True})
+    # neither a checkpoint nor a Hugging Face directory
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        LLM(str(tmp_path), device="cpu", cache_dir=str(tmp_path / "c"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GenerationSession(tp, cfg)
