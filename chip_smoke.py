@@ -153,6 +153,26 @@ exits non-zero:
      bf16 run's own spread from f32, o_proj's picks equal where they are
      unambiguous; the largest difference located). It needs 28 GB of free
      disk and fails without them
+  4i. runtime-adaptive outliers, fp8 and int8_lr at Llama-2-7B width,
+     each through a new Executor warmed at burst 16 serving the 8
+     requests at burst 16 (walls, tokens/s, decode idle share, peak
+     memory; every decode call a replay, no program after warmup):
+     int8_mix with dynamic outliers (cap 256), 32 layers, 32 channels a
+     layer planted outside the static sets (both RMSNorm weights 8):
+     after serving every layer's qkv and gate_up selections hold them,
+     K1 / K2 ran at ko 256, 2 layers card vs CPU (logits; chan_max per
+     channel against an f32 CPU witness; selections; a decode step
+     leaves the state as it is), a quiet control (no
+     planted channel: the static sets, logits equal to the static
+     path's) and each layer's update against a float model (static
+     error above dynamic); fp8 weights and e4m3 pools, 32 layers: no
+     paged kernel, the gather route counted, 2 layers card vs CPU, the
+     casts card vs CPU byte for byte; int8_lr, 32 layers (one SVD a
+     shape timed, a reading): K1 at ko 0 and K2 at ko 32 in prefill
+     and in the decode replays, K4 for down_proj, 2 layers card vs CPU,
+     and its logits error below plain W8A8's at 2 layers. Phase 3 also
+     holds K1 over a 256-wide fp_ind with 100 entries -1 and an empty
+     one, and K2 at ko 256 and 32, at 8 and 1024 rows
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
@@ -297,21 +317,45 @@ ON_PATH = {
     # checked apart
     "hf": ["flash_causal_attention", "rmsnorm_quant_split", "mixed_matmul",
            "wo_matmul", "wo_matmul.prefill"],
+    # phase 4i: dynamic outliers (prefill's mix linears K1 -> K2 at ko
+    # 256, decode weight-only), int8_lr (K1 at ko 0 -> K2 at ko 32 in
+    # prefill and decode, K4 for down_proj), both on int8 pools; fp8
+    # launches none of the port's kernels (cuBLAS after the e4m3
+    # dequantization; e4m3 pools take the gather route)
+    "dyn": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+            "wo_matmul.decode", "wo_matmul.prefill", "paged_write_token",
+            "paged_write_chunk", "paged_decode_attention",
+            "paged_prefill_attention"],
+    "fp8": [],
+    "lr": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+           "wo_matmul.decode", "wo_matmul.prefill", "paged_write_token",
+           "paged_write_chunk", "paged_decode_attention",
+           "paged_prefill_attention"],
 }
-OFF_PATH = {"7b": [], "13b": ["rmsnorm_quant_split", "mixed_matmul",
-                              "wo_matmul_packed_grouped"],
-            "spec": [], "burst": [], "split": ["paged_decode_attention",
-                                  "paged_decode_attention_stats"],
-            "dense": PAGED,
+# every int8 or bf16 pool stays off the e4m3 pools' gather route
+NO_GATHER = ["paged_gather"]
+OFF_PATH = {"7b": NO_GATHER,
+            "13b": ["rmsnorm_quant_split", "mixed_matmul",
+                    "wo_matmul_packed_grouped"] + NO_GATHER,
+            "spec": NO_GATHER, "burst": NO_GATHER,
+            "split": ["paged_decode_attention",
+                      "paged_decode_attention_stats"] + NO_GATHER,
+            "dense": PAGED + NO_GATHER,
             "beam": ["paged_decode_attention", "paged_write_token",
                      "paged_decode_attention_split",
-                     "paged_verify_attention"],
+                     "paged_verify_attention"] + NO_GATHER,
             "beam_13b": ["paged_decode_attention_fp", "paged_write_token_fp",
-                         "rmsnorm_quant_split", "mixed_matmul"],
+                         "rmsnorm_quant_split", "mixed_matmul"] + NO_GATHER,
             "serving": ["paged_decode_attention_split",
                         "paged_verify_attention",
-                        "paged_decode_attention_stats"],
-            "hf": PAGED}
+                        "paged_decode_attention_stats"] + NO_GATHER,
+            "hf": PAGED + NO_GATHER,
+            "dyn": ["paged_decode_attention_split",
+                    "paged_verify_attention"] + NO_GATHER,
+            "fp8": PAGED + ["rmsnorm_quant_split", "mixed_matmul",
+                            "wo_matmul", "flash_causal_attention"],
+            "lr": ["paged_decode_attention_split",
+                   "paged_verify_attention"] + NO_GATHER}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
 BURST = 16                          # phase 4d
 # phase 4d: the kernels of a decode step, by a mark of the traced name,
@@ -1781,15 +1825,19 @@ def serve(torch, params, cfg, seed: int, dev, path: str):
 
 
 def decode_run(torch, sp, params, cfg, prompts, seed: int, dev, ex,
-               burst: int) -> dict:
+               burst: int, marks=None, same_tokens: bool = True) -> dict:
     """Serve the prompts through the warmed Executor ``ex`` with
     run(burst=burst), once timed with every launch count at 0 just before
     and read just after, once under torch.profiler (kernels that start
-    outside the prefill calls' ranges are decode's). Returns the run's
-    numbers."""
+    outside the prefill calls' ranges are decode's; ``marks``, by default
+    DECODE_TRACED, are counted there). The profiled run must give the
+    timed run's tokens unless ``same_tokens`` is False (a dynamic outlier
+    state moves between the runs). Returns the run's numbers, with the
+    names of the kernels traced in the prefill calls."""
+    marks = DECODE_TRACED if marks is None else marks
     from mixq_tensorrt_llm_tpu_torch.ops import _build
-    marks = (ex.decode_calls, ex.graph_replays, ex.readbacks,
-             ex.decode_steps)
+    counters = (ex.decode_calls, ex.graph_replays, ex.readbacks,
+                ex.decode_steps)
     torch.cuda.synchronize()
     _build.reset_launches()
     done, ids, wall, prefill_s, _ = sp.serve(params, cfg, prompts, seed,
@@ -1797,7 +1845,7 @@ def decode_run(torch, sp, params, cfg, prompts, seed: int, dev, ex,
     launches = dict(_build.LAUNCHES)
     calls, replays, reads, steps = (a - b for a, b in zip(
         (ex.decode_calls, ex.graph_replays, ex.readbacks, ex.decode_steps),
-        marks))
+        counters))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1812,15 +1860,35 @@ def decode_run(torch, sp, params, cfg, prompts, seed: int, dev, ex,
            and not any(r.start <= e.time_range.start <= r.end
                        for r in ranges)]
     toks = [done[r].generated for r in ids]
-    check([done2[r].generated for r in ids2] == toks,
-          f"phase 4d: burst {burst}: the profiled run's tokens differ")
+    check(not same_tokens or [done2[r].generated for r in ids2] == toks,
+          f"burst {burst}: the profiled run's tokens differ")
+    pre = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(r.start <= e.time_range.start <= r.end for r in ranges)]
     return dict(toks=toks, logprobs=[done[r].logprobs for r in ids],
-                wall=wall, decode_s=wall - prefill_s, launches=launches,
-                calls=calls, replays=replays, readbacks=reads, steps=steps,
+                wall=wall, decode_s=wall - prefill_s, prefill_s=prefill_s,
+                launches=launches, calls=calls, replays=replays,
+                readbacks=reads, steps=steps,
                 gen=sum(len(t) for t in toks),
                 busy_ms=sum(e.time_range.elapsed_us() for e in dec) / 1e3,
-                traced={m: sum(m in e.name for e in dec)
-                        for m in DECODE_TRACED})
+                traced={m: sum(m in e.name for e in dec) for m in marks},
+                prefill_names={e.name for e in pre},
+                prefill_busy_ms=busy_union_ms(pre),
+                prefill_profiled_ms=sum(r.elapsed_us() for r in ranges)
+                / 1e3)
+
+
+def busy_union_ms(events) -> float:
+    """The device's busy time over ``events``: the union of their time
+    ranges, so device work that overlaps (a library call's kernels on
+    streams of its own) counts once."""
+    total, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
 
 
 def serve_burst(torch, params, cfg, seed: int, dev, ref) -> dict:
@@ -1876,6 +1944,7 @@ def serve_burst(torch, params, cfg, seed: int, dev, ref) -> dict:
     check(ex.compiles_since_warmup == 0,
           f"phase 4d: {ex.compiles_since_warmup} programs made after warmup")
     launches = runs[BURST]["launches"]
+    SERVE_STATS["burst"] = runs[BURST]
     print(f"main path burst launches: {json.dumps(launches)}", flush=True)
     for name in ON_PATH["burst"]:
         check(launches.get(name, 0) > 0,
@@ -3111,20 +3180,27 @@ def quant_cross_device(torch, hf_dir, tmp, card_flat, card_scales, quant,
 def layer_errors(torch, float_params, cfg_f, models, tokens) -> list:
     """Each layer's residual update (its output less its input), given the
     float model's input to that layer, for each of ``models`` ([(params,
-    cfg)]) against the float layer's: [(relative RMS a model, ...) a
-    layer]. Errors do not compound across layers here, as they do in the
-    logits."""
+    cfg)], or (params, cfg, dynamic outlier state), whose layers then take
+    the adaptive path and update the state) against the float layer's:
+    [(relative RMS a model, ...) a layer]. Errors do not compound across
+    layers here, as they do in the logits."""
     from mixq_tensorrt_llm_tpu_torch.models import common as mc
     from mixq_tensorrt_llm_tpu_torch.ops import attention as oa
     b, s = tokens.shape
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
     sin, cos = mc._positional_arrays(cfg_f, pos.expand(b, s))
 
-    def layer(cfg, lp, x):
+    def layer(cfg, lp, x, ostate=(), i=None):
         def attend(q, k, v):        # full_prefill's attention, no cache
             return oa.causal_self_attention(q, k, v, scale=cfg.attention_scale,
                                             window=cfg.sliding_window)
-        return mc.decoder_layer(cfg, lp, x, sin, cos, attend)
+        st = None
+        if ostate:
+            st = {m: v[i] for m, v in ostate[0].items()}
+        out = mc.decoder_layer(cfg, lp, x, sin, cos, attend, ostate=st)
+        for m, v in (st or {}).items():
+            ostate[0][m][i] = v
+        return out
 
     x = mc._embed(float_params, cfg_f, tokens)
     out = []
@@ -3132,8 +3208,8 @@ def layer_errors(torch, float_params, cfg_f, models, tokens) -> list:
         y = layer(cfg_f, lp, x)
         want = y.float() - x.float()
         out.append(tuple(
-            _rel_rms(layer(c, p["layers"][i], x).float() - x.float(), want)
-            for p, c in models))
+            _rel_rms(layer(m[1], m[0]["layers"][i], x, m[2:], i).float()
+                     - x.float(), want) for m in models))
         x = y
     return out
 
@@ -3644,6 +3720,684 @@ def cross_device_13b(torch, seed: int, dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: runtime-adaptive outliers, fp8 and int8_lr at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+DYN_PLANTED, DYN_GAIN = 32, 8.0    # planted channels a layer, their norms
+WITNESS_BATCH, WITNESS_LEN = 4, 512
+BF16_REL = 2.0 ** -7               # one bf16 step of a value
+LR_LAYERS = 32                     # the int8_lr model's depth
+# phase 4i: kernels each run must show in its traced decode, by mark
+FORMAT_TRACED = {
+    "dyn": {"wo_small_mma_kernel": "K4", "write_token_kernel": "K5",
+            "decode_split_kernel": "K7"},
+    "fp8": {},
+    "lr": {"norm_quant": "K1", "mixed_wgmma_kernel": "K2",
+           "wo_small_mma_kernel": "K4", "write_token_kernel": "K5",
+           "decode_split_kernel": "K7"}}
+
+
+def format_config(algo: str, kv: str, layers: int = 32,
+                  dynamic: bool = False):
+    """The phase-4 geometry (Llama-2-7B, 128 outliers, cap 256) with
+    ``algo`` weights, ``kv`` pools, ``layers`` layers."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = sp.model_config("7b", algo, kv)
+    return dataclasses.replace(cfg, num_layers=layers, quant=dataclasses.replace(
+        cfg.quant, dynamic_outliers=dynamic, max_outliers=256))
+
+
+def plant_channels(torch, params, statics, gen, dev) -> list:
+    """In every layer, DYN_PLANTED channels outside ``statics[layer]``
+    (its static qkv and gate_up sets), both RMSNorm weights DYN_GAIN
+    there. Returns the planted channels a layer."""
+    out = []
+    for lp, static in zip(params["layers"], statics):
+        h = lp["input_norm"]["w"].shape[0]
+        free = torch.ones((h,), dtype=torch.bool, device=dev)
+        free[torch.tensor(sorted(static), device=dev)] = False
+        free = free.nonzero()[:, 0]
+        pick = free[torch.randperm(free.numel(), generator=gen,
+                                   device=dev)[:DYN_PLANTED]]
+        for norm in ("input_norm", "post_norm"):
+            lp[norm]["w"][pick] = DYN_GAIN
+        out.append(set(pick.tolist()))
+    return out
+
+
+def static_sets(params) -> list:
+    return [set(lp["qkv_proj"]["fp_ind"].tolist())
+            | set(lp["gate_up_proj"]["fp_ind"].tolist())
+            for lp in params["layers"]]
+
+
+def selections(ostate, cfg) -> dict:
+    """{module: [the selected channels a layer]} of a dynamic state."""
+    from mixq_tensorrt_llm_tpu_torch.quant import dynamic as qdyn
+    out = {}
+    for m, v in ostate.items():
+        cap = min(cfg.quant.max_outliers, v.shape[1])
+        base = min(cfg.quant.num_outliers, cap)
+        out[m] = [{c for c in qdyn.dynamic_fp_ind(
+            v[i], cap, cfg.quant.outlier_sigma, base).tolist() if c >= 0}
+            for i in range(v.shape[0])]
+    return out
+
+
+class KoRecorder:
+    """Records the outlier widths K1 and K2 are launched with (the
+    x_outliers width of each K2 call, the fp_ind width of each K1 call)
+    while installed."""
+
+    def __init__(self):
+        from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
+        from mixq_tensorrt_llm_tpu_torch.ops import norm_quant as nq
+        self.k1, self.k2 = set(), set()
+        self._undo = []
+        for mod, name, rec, arg in ((nq, "_launch", self.k1, 2),
+                                    (mm, "mixed_matmul", self.k2, 2)):
+            real = getattr(mod, name)
+
+            def wrapped(*a, _real=real, _rec=rec, _arg=arg, **kw):
+                if a[0].is_cuda:
+                    _rec.add(int(a[_arg].shape[-1]))
+                return _real(*a, **kw)
+            setattr(mod, name, wrapped)
+            self._undo.append((mod, name, real))
+
+    def restore(self):
+        for mod, name, real in self._undo:
+            setattr(mod, name, real)
+
+
+def format_serve(torch, params, cfg, seed: int, dev, path: str) -> dict:
+    """One of phase 4i's serving runs: a new Executor (the smoke's usual
+    one) warmed at burst BURST, then the 8 requests with run(burst=BURST)
+    timed and profiled (``decode_run``), every launch count at 0 just
+    before. Checks: 32 finite tokens a request, every decode call a graph
+    replay, no program after warmup, the run's kernels (ON_PATH /
+    OFF_PATH[path]) and decode marks (FORMAT_TRACED[path]). Returns the
+    run's numbers."""
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    prompts = sp.ragged_prompts(seed, cfg.vocab_size)
+    rec = KoRecorder()
+    ex = sp.make_executor(params, cfg, seed, dev)
+    t = time.perf_counter()
+    ex.warmup(burst=BURST)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        r = decode_run(torch, sp, params, cfg, prompts, seed, dev, ex, BURST,
+                       marks=FORMAT_TRACED[path], same_tokens=path != "dyn")
+    finally:
+        rec.restore()
+    r.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             warm_s=warm_s, k1_ko=sorted(rec.k1), k2_ko=sorted(rec.k2),
+             rung_launches={name: c for g in ex._rungs.values()
+                            for name, c in g.launches.items()},
+             ex=ex)
+    launches = r["launches"]
+    check(all(len(t) == 32 for t in r["toks"]),
+          f"phase 4i {path}: not every request got 32 tokens")
+    check(all(math.isfinite(x) for lps in r["logprobs"] for x in lps),
+          f"phase 4i {path}: a log-probability is not finite")
+    check(r["replays"] == r["calls"] > 0, f"phase 4i {path}: "
+          f"{r['replays']} graph replays for {r['calls']} decode calls")
+    check(ex.compiles_since_warmup == 0, f"phase 4i {path}: "
+          f"{ex.compiles_since_warmup} programs made after warmup")
+    for name in ON_PATH[path]:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the main path {path}")
+    for name in OFF_PATH[path]:
+        check(launches.get(name, 0) == 0,
+              f"{name} was launched on the main path {path}")
+    for m, label in FORMAT_TRACED[path].items():
+        check(r["traced"][m] > 0, f"phase 4i {path}: {label} ({m}) not "
+              "traced in the decode phase")
+    dec_ms, pre_ms = r["decode_s"] * 1e3, r["prefill_s"] * 1e3
+    prof_ms = r["prefill_profiled_ms"]
+    print(f"phase 4i {path}: warmup(burst={BURST}) {warm_s:.1f} s; 8 "
+          f"requests, 32 generated each: wall {r['wall'] * 1e3:.1f} ms = "
+          f"prefill {pre_ms:.1f} (profiled run {prof_ms:.1f}: device busy "
+          f"{r['prefill_busy_ms']:.1f}, idle share "
+          f"{1 - r['prefill_busy_ms'] / prof_ms:.3f}) + decode "
+          f"{dec_ms:.1f} ms "
+          f"({r['steps']} steps in {r['calls']} calls, {r['replays']} graph "
+          f"replays); {r['gen'] / r['wall']:.1f} generated tok/s; decode "
+          f"device busy {r['busy_ms']:.1f} ms (profiled run), idle share "
+          f"{1 - r['busy_ms'] / dec_ms:.3f}; peak memory "
+          f"{r['peak_gib']:.2f} GiB; K1 launched at ko {r['k1_ko']}, K2 at "
+          f"ko {r['k2_ko']}; traced in decode {json.dumps(r['traced'])}",
+          flush=True)
+    print(f"main path {path} launches: {json.dumps(launches)}; the decode "
+          f"rungs' launches a replay: {json.dumps(r['rung_launches'])}",
+          flush=True)
+    return r
+
+
+def _chan_rel(a, b) -> float:
+    """The largest per-channel relative difference |a - b| / |b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
+
+
+def xdev_states(torch, card: dict, cpu: dict, f32: dict, cfg) -> None:
+    """The dynamic state card against CPU after the same prefill, channel
+    by channel, beside an f32 CPU witness (the same weights, hidden
+    states and attention in f32). In every module the card's chan_max
+    lies within XDEV_F32_RATIO x the CPU bf16 run's own largest
+    per-channel distance from f32, and so does its gap from the CPU bf16
+    run's; layer 0's qkv input is the same embeddings normed on both
+    devices, so there that gap is held to one bf16 step (2^-7) in every
+    channel instead. A channel selected on one device only must lie
+    within the module's card - CPU limit of sigma or of the cap's
+    boundary value."""
+    sel_card, sel_cpu = selections(card, cfg), selections(cpu, cfg)
+    sigma = cfg.quant.outlier_sigma
+    rows, diffs = [], 0
+    for m in cpu:
+        cap = min(cfg.quant.max_outliers, cpu[m].shape[1])
+        for i in range(cpu[m].shape[0]):
+            a, b, w = card[m][i], cpu[m][i], f32[m][i]
+            xdev, cpu_f32 = _chan_rel(a, b), _chan_rel(b, w)
+            card_f32 = _chan_rel(a, w)
+            same_input = i == 0 and m == "qkv_proj"
+            tol = BF16_REL if same_input else XDEV_F32_RATIO * cpu_f32
+            rows.append(f"{i}.{m} {xdev:.3e} {card_f32:.3e} {cpu_f32:.3e}")
+            where = f"phase 4i dyn: layer {i} {m} chan_max"
+            check(xdev <= tol, f"{where} card vs CPU {xdev} > {tol}")
+            check(card_f32 <= XDEV_F32_RATIO * cpu_f32, f"{where}: the card "
+                  f"is {card_f32} from f32, above {XDEV_F32_RATIO} x the "
+                  f"CPU bf16 run's {cpu_f32}")
+            odd = sel_card[m][i] ^ sel_cpu[m][i]
+            b = b.float().cpu()
+            edge = float(b.sort(descending=True).values[cap - 1])
+            for c in odd:
+                v = float(b[c])
+                near = min(abs(v - sigma) / sigma,
+                           abs(v - edge) / max(edge, 1e-6))
+                check(near <= tol, f"phase 4i dyn: layer {i} {m}: channel "
+                      f"{c} (chan_max {v}) selected on one device only, "
+                      f"{near:.3e} from a boundary")
+            diffs += len(odd)
+    print(f"phase 4i dyn cross-device state: a module's largest per-channel "
+          f"relative chan_max difference, card - CPU bf16, card - f32, CPU "
+          f"bf16 - f32 (limits: the first two within {XDEV_F32_RATIO} x the "
+          f"third; layer 0's qkv card - CPU within {BF16_REL:.3e} instead): "
+          + "; ".join(rows) + f"; {diffs} channels selected on one device "
+          "only, each at a boundary", flush=True)
+
+
+def f32_copy(torch, params):
+    """The CPU params with every bf16 tensor in f32 (the same values)."""
+    def up(t):
+        return t.float() if t.dtype == torch.bfloat16 else t
+    return {k: ([{m: {n: up(t) for n, t in p.items()}
+                  for m, p in layer.items()} for layer in v]
+                if k == "layers" else {n: up(t) for n, t in v.items()})
+            for k, v in params.items()}
+
+
+def cross_device_dyn(torch, params, cfg, seed: int, dev) -> dict:
+    """2 layers, card against CPU, as phase 5 does (one 200-token prompt
+    in a 256-token chunk, then a decode step) with the dynamic state
+    threaded: logits within XDEV_TOL; the decode step leaves the state as
+    it is; the states after the prefill (``xdev_states``), beside the same
+    run on the CPU in f32."""
+    import dataclasses
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models.common import forward_paged
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.quant import dynamic as qdyn
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
+    cfg2, sub, sub_cpu = two_layers(torch, params, cfg)
+    rng = np.random.default_rng(seed + 1)
+    c, n = 256, 200
+    tokens = np.zeros((1, c), np.int32)
+    tokens[0, :n] = rng.integers(1, cfg.vocab_size, n)
+    nxt = int(rng.integers(1, cfg.vocab_size))
+    states = []             # the CPU run's, the card's, the f32 run's
+
+    def run(device, p, cfg2=cfg2):
+        state = init_paged_kv(cfg2, 4, 128, device=device)
+        ost = qdyn.init_model_state(p, cfg2)
+        t = torch.from_numpy(tokens).to(device)
+        pos = torch.arange(c, dtype=torch.int32, device=device)[None]
+        table = torch.tensor([[1, 2]], dtype=torch.int32, device=device)
+        length = torch.tensor([n], dtype=torch.int32, device=device)
+        _build.reset_launches()
+        pre, _, ost = forward_paged(p, cfg2, t, pos, state, table, length,
+                                    last_pos=length - 1, outlier_state=ost)
+        states.append(ost)
+        out = [(pre[0, 0].float().cpu(), dict(_build.LAUNCHES))]
+        _build.reset_launches()
+        t = torch.tensor([[nxt]], dtype=torch.int32, device=device)
+        dec, _, ost2 = forward_paged(p, cfg2, t, length[:, None], state,
+                                     table, length + 1, outlier_state=ost)
+        check(all(torch.equal(ost2[m], ost[m]) for m in ost),
+              "phase 4i dyn: a decode step changed the state")
+        return out + [(dec[0, 0].float().cpu(), dict(_build.LAUNCHES))]
+
+    total = compare_devices(
+        torch, "dyn int8_mix + dynamic outliers", dev, run, sub, sub_cpu,
+        [(f"prefill ({n} tokens)", ["rmsnorm_quant_split", "mixed_matmul"],
+          ()), ("decode step", ["wo_matmul"], ["mixed_matmul"])])
+    t = time.perf_counter()
+    run(torch.device("cpu"), f32_copy(torch, sub_cpu),
+        dataclasses.replace(cfg2, dtype=torch.float32))
+    print(f"phase 4i dyn: the f32 CPU witness run in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    xdev_states(torch, states[1], states[0], states[-1], cfg2)
+    return total
+
+
+def quiet_control(torch, seed: int, dev, gen) -> None:
+    """2 layers at full width with no planted channel, one 200-token
+    prompt through the dense forward (fresh K/V): after it the selection
+    is each layer's static set, and the logits equal the static path's
+    where that computes the same function, within one bf16 step more than
+    GEMM_TOL: the static model with the dynamic path's outlier rows
+    (dequantized int8 rows as its fp_weight) and its norm apart from the
+    linear (``collect_stats``, as the adaptive path takes it). The static
+    serving path (the norm fused into K1, bf16 rows) is a reading."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
+    from mixq_tensorrt_llm_tpu_torch.quant import dynamic as qdyn
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = format_config("int8_mix", "int8", layers=2, dynamic=True)
+    params = llama.init_random_params(
+        cfg, seed=seed + 7, device=dev,
+        act_scales=sp.distinct_act_scales(cfg, gen, dev))
+    n = 200
+    rng = np.random.default_rng(seed + 2)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, n))).to(
+        dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+
+    def prefill(p, **kw):
+        cache = mc.init_kv_cache(cfg, 1, n, device=dev)
+        return mc.forward(p, cfg, tokens, pos, cache, lens,
+                          full_prefill=True, **kw)
+
+    dyn, _, ost, _ = prefill(params, collect_stats=True,
+                             outlier_state=qdyn.init_model_state(params,
+                                                                 cfg))
+    for m, per in selections(ost, cfg).items():
+        for i, got in enumerate(per):
+            check(got == set(params["layers"][i][m]["fp_ind"].tolist()),
+                  f"phase 4i quiet control: layer {i} {m} selects "
+                  f"{len(got)} channels, not its static set")
+    deq = dict(params, layers=[
+        {m: (dict(p, fp_weight=qcore.dequantize_weight(
+            p["qweight"][p["fp_ind"].long()], p["scale_col"]))
+             if "fp_ind" in p else p) for m, p in lp.items()}
+        for lp in params["layers"]])
+    same = prefill(deq, collect_stats=True)[0]
+    served = prefill(params)[0]
+    rel, rel_served = _rel(dyn, same), _rel(dyn, served)
+    tol = gemm_tol(torch.bfloat16)
+    print(f"phase 4i quiet control (2 layers, no planted channel, {n} "
+          f"tokens): every selection is its static set; logits against the "
+          f"static path over the same rows, norm apart {rel:.3e} (limit "
+          f"{tol:.3e}); against the static serving path (norm in K1, bf16 "
+          f"rows) {rel_served:.3e} (a reading)", flush=True)
+    check(rel <= tol, f"phase 4i quiet control: {rel} > {tol}")
+
+
+def dyn_witness(torch, seed: int, dev, gen) -> None:
+    """The accuracy witness at 2 layers: a float (bf16) model with the
+    planted channels, requantized to int8_mix (its static sets from
+    distinct act_scales, the planted channels outside them); each layer's
+    residual update given the float model's input (``layer_errors``),
+    static and dynamic against the float layer's. The static path's error
+    must exceed the dynamic path's in both layers."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.convert.from_float import requantize
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
+    from mixq_tensorrt_llm_tpu_torch.quant import dynamic as qdyn
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    qcfg = format_config("int8_mix", "int8", layers=2)
+    cfg_f = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, algo=type(qcfg.quant.algo)("none")))
+    acts = sp.distinct_act_scales(qcfg, gen, dev)
+    fl = llama.init_random_params(cfg_f, seed=seed + 11, device=dev)
+    k = qcfg.quant.num_outliers
+    statics = [set(qcore.select_outliers(
+        acts[f"model.layers.{i}.self_attn.q_proj"], k).tolist())
+        | set(qcore.select_outliers(
+            acts[f"model.layers.{i}.mlp.gate_proj"], k).tolist())
+        for i in range(2)]
+    plant_channels(torch, fl, statics, gen, dev)
+    qp, cfg_s = requantize(fl, cfg_f, qcfg.quant, acts)
+    cfg_d = dataclasses.replace(cfg_s, quant=dataclasses.replace(
+        cfg_s.quant, dynamic_outliers=True))
+    tokens = torch.randint(1, cfg_f.vocab_size, (WITNESS_BATCH, WITNESS_LEN),
+                           generator=gen, device=dev)
+    errs = layer_errors(torch, fl, cfg_f,
+                        [(qp, cfg_s), (qp, cfg_d,
+                                       qdyn.init_model_state(qp, cfg_d))],
+                        tokens)
+    print(f"phase 4i dyn accuracy witness ({WITNESS_BATCH} x {WITNESS_LEN} "
+          f"tokens): each layer's update against the float layer's, "
+          f"relative RMS, static / dynamic (ratio): "
+          + "; ".join(f"layer {i}: {s:.4e} / {d:.4e} ({s / d:.2f}x)"
+                      for i, (s, d) in enumerate(errs)), flush=True)
+    for i, (s, d) in enumerate(errs):
+        check(s > d, f"phase 4i dyn witness: layer {i}: static {s} not above "
+              f"dynamic {d}")
+
+
+def serve_dynamic(torch, seed: int, dev, gen) -> dict:
+    """Phase 4i, dynamic outliers: the 32-layer int8_mix / int8-KV model
+    (128 static outliers from distinct act_scales, cap 256) with
+    DYN_PLANTED channels planted a layer, served (``format_serve``); after
+    the run every layer's qkv and gate_up selections hold their planted
+    channels and K1 / K2 ran at ko 256; the cross-device check, the quiet
+    control and the accuracy witness. Returns the run's launches."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = format_config("int8_mix", "int8", dynamic=True)
+    t = time.perf_counter()
+    params = llama.init_random_params(
+        cfg, seed=seed, device=dev,
+        act_scales=sp.distinct_act_scales(cfg, gen, dev))
+    planted = plant_channels(torch, params, static_sets(params), gen, dev)
+    torch.cuda.synchronize()
+    print(f"phase 4i dyn: {cfg.num_layers} layers at Llama-2-7B width, "
+          f"int8_mix (128 static outliers, cap {cfg.quant.max_outliers}, "
+          f"sigma {cfg.quant.outlier_sigma}) / int8 KV, {DYN_PLANTED} "
+          f"channels a layer planted (norm weights {DYN_GAIN}); random "
+          f"weights in {time.perf_counter() - t:.1f} s", flush=True)
+    r = format_serve(torch, params, cfg, seed, dev, "dyn")
+    ex = r.pop("ex")
+    sel = selections(ex.ostate, cfg)
+    for m in ("qkv_proj", "gate_up_proj"):
+        missing = [i for i, got in enumerate(sel[m]) if not planted[i] <= got]
+        check(not missing, f"phase 4i dyn: {m} misses planted channels in "
+              f"layers {missing}")
+    sizes = {m: (min(len(x) for x in v), max(len(x) for x in v))
+             for m, v in sel.items()}
+    print(f"phase 4i dyn: after serving, every layer's qkv and gate_up "
+          f"selections hold their {DYN_PLANTED} planted channels; selected "
+          f"channels a layer (least, most): {json.dumps(sizes)}", flush=True)
+    check(r["k1_ko"] == [256] and r["k2_ko"] == [256],
+          f"phase 4i dyn: K1 at ko {r['k1_ko']}, K2 at ko {r['k2_ko']}, "
+          "not 256")
+    for mark in ("norm_quant", "mixed_wgmma_kernel"):
+        check(any(mark in n for n in r["prefill_names"]),
+              f"phase 4i dyn: {mark} not traced in the prefill calls")
+    del ex
+    launches = r["launches"]
+    xdev = cross_device_dyn(torch, params, cfg, seed, dev)
+    del params
+    torch.cuda.empty_cache()
+    quiet_control(torch, seed, dev, gen)
+    dyn_witness(torch, seed, dev, gen)
+    torch.cuda.empty_cache()
+    return launches, xdev
+
+
+def fp8_casts(torch, gen, dev) -> None:
+    """The e4m3 casts card against CPU, byte for byte: a 4096 x 4096
+    weight (with 448 after scaling, subnormals, a zero column and row, a
+    floored scale) and an (8, 32, 128) K/V block."""
+    from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
+    w = torch.randn((4096, 4096), generator=gen, device=dev) * 0.02
+    w[:, 1] = 2.0 ** -torch.arange(4096, device=dev).clamp(max=120).float()
+    w[:, 2] = 0.0
+    w[:, 3] *= 1e-12
+    w[7] = 0.0
+    kv = torch.randn((8, 32, 128), generator=gen, device=dev) * 3
+    kv[0, 0] = 0.0
+    for label, got, want in (
+            ("weight 4096 x 4096", qcore.quantize_weight_fp8(w),
+             qcore.quantize_weight_fp8(w.cpu())),
+            ("K/V (8, 32, 128)", qcore.quantize_kv(kv, dtype=qcore.FP8),
+             qcore.quantize_kv(kv.cpu(), dtype=qcore.FP8))):
+        same = torch.equal(got[0].view(torch.uint8).cpu(),
+                           want[0].view(torch.uint8))
+        same_s = torch.equal(got[1].cpu(), want[1])
+        print(f"phase 4i fp8 cast, {label}: card bytes equal the CPU's "
+              f"{same}, scales equal {same_s}", flush=True)
+        check(same and same_s, f"phase 4i fp8: the {label} cast differs "
+              "card vs CPU")
+
+
+def serve_fp8(torch, seed: int, dev, gen) -> tuple:
+    """Phase 4i, fp8: the 32-layer model with e4m3 weights (dequantized to
+    bf16, then cuBLAS) and e4m3 pools (the JAX package's route: cast and
+    scatter, gather and masked attention, never K5-K8), served
+    (``format_serve``); the gather route counted every layer of every
+    prefill call and decode step; 2 layers card against CPU; the casts.
+    Returns (the run's launches, the cross-device launches)."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    cfg = format_config("fp8", "fp8")
+    t = time.perf_counter()
+    params = llama.init_random_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 4i fp8: {cfg.num_layers} layers at Llama-2-7B width, fp8 "
+          f"weights / fp8 KV, random weights in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    r = format_serve(torch, params, cfg, seed, dev, "fp8")
+    r.pop("ex")
+    gathers = r["launches"].get("paged_gather", 0)
+    check(gathers >= cfg.num_layers * r["steps"],
+          f"phase 4i fp8: the gather route counted {gathers} times for "
+          f"{r['steps']} decode steps of {cfg.num_layers} layers")
+    base = SERVE_STATS.get("burst")
+    if base:
+        print(f"phase 4i fp8 decode against int8_mix's (phase 4d, burst "
+              f"{BURST}): {r['decode_s'] * 1e3:.1f} ms vs "
+              f"{base['decode_s'] * 1e3:.1f} ms for {r['steps']} / "
+              f"{base['steps']} steps (the fp8 linears write a bf16 copy of "
+              f"each weight a call)", flush=True)
+    xdev = cross_device(torch, params, cfg, seed, dev, "fp8 + fp8 KV",
+                        must_launch=((), ()))
+    check(xdev.get("paged_gather", 0) > 0, "phase 4i fp8: the cross-device "
+          "run did not take the gather route")
+    del params
+    torch.cuda.empty_cache()
+    fp8_casts(torch, gen, dev)
+    return r["launches"], xdev
+
+
+def lr_svd_walls(torch, gen, dev) -> None:
+    """Prints one make_lr_artifact wall (int8 weight + rank-32 SVD of the
+    residual) at qkv's, o_proj's and gate_up's shape: a reading."""
+    from mixq_tensorrt_llm_tpu_torch.quant import core as qcore
+    walls = {}
+    for label, shape in (("qkv", (4096, 12288)), ("o_proj", (4096, 4096)),
+                         ("gate_up", (4096, 22016))):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        qcore.make_lr_artifact(w)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t
+    print(f"phase 4i lr: make_lr_artifact (int8 weight + rank-32 SVD of the "
+          f"residual, f32) walls "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; {sum(walls.values()):.2f} s a layer", flush=True)
+
+
+def lr_witness(torch, seed: int, dev, gen) -> None:
+    """int8_lr against plain W8A8 at 2 layers (the JAX package's
+    test_lr_linear_closer_than_w8a8 on the card): a float (bf16) model
+    requantized to int8_lr, and the same params with the correction cut
+    to rank 0 (K2 at ko 0: W8A8); logits over the same tokens against the
+    float model's, relative RMS: int8_lr's must be below W8A8's. Each
+    layer's update (``layer_errors``) is a reading."""
+    import dataclasses
+    from mixq_tensorrt_llm_tpu_torch.convert.from_float import requantize
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    qcfg = format_config("int8_lr", "int8", layers=2)
+    cfg_f = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, algo=type(qcfg.quant.algo)("none")))
+    fl = llama.init_random_params(cfg_f, seed=seed + 13, device=dev)
+    lr, cfg_lr = requantize(fl, cfg_f, qcfg.quant)
+    w8a8 = dict(lr, layers=[
+        {m: (dict(p, lr_u=p["lr_u"][:, :0].contiguous(),
+                  lr_v=p["lr_v"][:0].contiguous()) if "lr_u" in p else p)
+         for m, p in lp.items()} for lp in lr["layers"]])
+    tokens = torch.randint(1, cfg_f.vocab_size, (WITNESS_BATCH, WITNESS_LEN),
+                           generator=gen, device=dev)
+    pos = torch.arange(WITNESS_LEN, dtype=torch.int32, device=dev)[None]
+    pos = pos.expand(WITNESS_BATCH, -1)
+    lens = torch.full((WITNESS_BATCH,), WITNESS_LEN, dtype=torch.int32,
+                      device=dev)
+
+    def logits(p, c):
+        cache = mc.init_kv_cache(c, WITNESS_BATCH, WITNESS_LEN, device=dev)
+        return mc.forward(p, c, tokens, pos, cache, lens,
+                          full_prefill=True)[0]
+
+    want = logits(fl, cfg_f)
+    e_lr = _rel_rms(logits(lr, cfg_lr), want)
+    e_8 = _rel_rms(logits(w8a8, cfg_lr), want)
+    errs = layer_errors(torch, fl, cfg_f, [(lr, cfg_lr), (w8a8, cfg_lr)],
+                        tokens)
+    print(f"phase 4i lr accuracy witness ({WITNESS_BATCH} x {WITNESS_LEN} "
+          f"tokens, 2 layers): logits against the float model, relative "
+          f"RMS, int8_lr {e_lr:.5e} / W8A8 {e_8:.5e} (ratio "
+          f"{e_lr / e_8:.4f}); each layer's update, int8_lr / W8A8: "
+          + "; ".join(f"layer {i}: {a:.4e} / {b:.4e}"
+                      for i, (a, b) in enumerate(errs)), flush=True)
+    check(e_lr < e_8, f"phase 4i lr: int8_lr's logits error {e_lr} is not "
+          f"below W8A8's {e_8}")
+
+
+def serve_lr(torch, seed: int, dev, gen) -> tuple:
+    """Phase 4i, int8_lr: the model at LR_LAYERS layers, int8_lr weights /
+    int8 KV, served (``format_serve``): K1 at ko 0 and
+    K2 at ko 32 in prefill and in the decode replays (int8_lr is not a
+    mix algo: no weight-only route at S <= 4), K4 for down_proj; 2 layers
+    card against CPU; the witness against W8A8. Returns (the run's
+    launches, the cross-device launches)."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    lr_svd_walls(torch, gen, dev)
+    cfg = format_config("int8_lr", "int8", layers=LR_LAYERS)
+    t = time.perf_counter()
+    params = llama.init_random_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 4i lr: {LR_LAYERS} layers at Llama-2-7B width, int8_lr "
+          f"(rank 32) / int8 KV; quantize wall (random weights, SVDs "
+          f"included) {time.perf_counter() - t:.1f} s", flush=True)
+    r = format_serve(torch, params, cfg, seed, dev, "lr")
+    r.pop("ex")
+    check(r["k1_ko"] == [0] and r["k2_ko"] == [32],
+          f"phase 4i lr: K1 at ko {r['k1_ko']}, K2 at ko {r['k2_ko']}, not "
+          "0 and 32")
+    for name in ("rmsnorm_quant_split", "mixed_matmul", "wo_matmul"):
+        check(r["rung_launches"].get(name, 0) > 0,
+              f"phase 4i lr: {name} not launched in the decode replays")
+    for mark in ("norm_quant", "mixed_wgmma_kernel"):
+        check(any(mark in n for n in r["prefill_names"]),
+              f"phase 4i lr: {mark} not traced in the prefill calls")
+    xdev = cross_device(torch, params, cfg, seed, dev, "int8_lr + int8 KV",
+                        must_launch=(("rmsnorm_quant_split", "mixed_matmul",
+                                      "wo_matmul"),
+                                     ("rmsnorm_quant_split", "mixed_matmul",
+                                      "wo_matmul")))
+    del params
+    torch.cuda.empty_cache()
+    lr_witness(torch, seed, dev, gen)
+    return r["launches"], xdev
+
+
+def check_outlier_widths(torch, gen, dev, results):
+    """Phase 3, the slice's K1 and K2 widths at Llama-2-7B: K1 without the
+    norm over a 256-wide fp_ind with 100 entries of -1 (the dynamic
+    padding: gathers 0, zeroes nothing) and over an empty one (int8_lr),
+    at 1024 and 8 rows; K2 at ko 256 and 32 (qkv's N), at 8 and 1024
+    rows. Each against its plain version, two launches bit-equal, timed;
+    rows of the kernels line's ``shapes``."""
+    from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
+    from mixq_tensorrt_llm_tpu_torch.ops import norm_quant as nq
+    h, n = 4096, 12288
+    bf = torch.bfloat16
+    x = (torch.randn((1024, h), generator=gen, device=dev) * 2).to(bf)
+    padded = torch.randperm(h, generator=gen, device=dev)[:256].int()
+    padded[156:] = -1
+    empty = torch.empty((0,), dtype=torch.int32, device=dev)
+    for ind, label in ((padded, "256 wide, 100 of them -1"),
+                       (empty, "empty")):
+        for rows in (1024, 8):
+            xk = x[:rows].contiguous()
+            kfn = (lambda: nq.quant_split(xk, ind))
+            got, again, want = kfn(), kfn(), nq.quant_split_plain(xk, ind)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K1 fp_ind {label} M={rows}: two launches differ")
+            diff = (got[0].int() - want[0].int()).abs()
+            dmax, same = int(diff.max()), float((diff == 0).float().mean())
+            srel = float(((got[1] - want[1]).abs() / want[1]).max())
+            oerr = float((got[2].float() - want[2].float()).abs().max()) \
+                if ind.numel() else 0.0
+            check(dmax <= 1 and same > 0.999 and srel <= 1e-5
+                  and oerr <= 1e-2, f"K1 fp_ind {label} M={rows} differs "
+                  f"from plain: codes {dmax} apart, {same} equal, scale "
+                  f"{srel}, x_out {oerr}")
+            if ind.numel():
+                check(bool((got[2][:, 156:] == 0).all()),
+                      f"K1 fp_ind {label}: a -1 entry gathered non-zero")
+            ms, pms, wms = measure(torch, kfn,
+                                   lambda: nq.quant_split_plain(xk, ind),
+                                   "norm_quant", "rmsnorm_quant_split", 100,
+                                   10)
+            ko = ind.numel()
+            bnd = bound(rows * h * 2 + ko * 4 + rows * h + rows * 4
+                        + rows * ko * 2)
+            print(f"K1 quant_split M={rows} K={h}, fp_ind {label}: codes at "
+                  f"most {dmax} apart, {same:.6f} equal, scale rel "
+                  f"{srel:.2e}, x_out {oerr:.2e}, repeat bit-equal; device "
+                  f"{ms:.5f} ms (plain {pms:.5f}; wrapper {wms:.5f}; bound "
+                  f"{bnd[0]:.5f})", flush=True)
+            results["rmsnorm_quant_split"]["shapes"].append(dict(
+                M=rows, K=h, ko=ko, pad=100 if ko else 0, ms=ms,
+                plain_ms=pms, wrapper_ms=wms, bound_ms=bnd[0],
+                bound_by=bnd[1]))
+    qw = torch.randint(-127, 128, (h, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
+    for ko, ind in ((256, padded), (32, empty)):
+        fpw = (torch.randn((ko, n), generator=gen, device=dev) * 0.02).to(bf)
+        for rows in (8, 1024):
+            q_x, srow, xo = nq.quant_split(x[:rows].contiguous(), ind)
+            if ko == 32:            # int8_lr: x_outliers = bf16(x @ u)
+                xo = (torch.randn((rows, ko), generator=gen, device=dev)
+                      * 0.1).to(bf)
+            args = (q_x, srow, xo, qw, scol, fpw)
+            k2 = (lambda: mm.mixed_matmul(*args),
+                  lambda: mm.mixed_matmul_plain(*args))
+            out, again, want = k2[0](), k2[0](), k2[1]()
+            torch.cuda.synchronize()
+            err = gemm_err(out, want)
+            check(err <= gemm_tol(bf), f"K2 ko={ko} M={rows}: rel err {err}")
+            check(torch.equal(out, again), f"K2 ko={ko} M={rows}: two "
+                  "launches differ")
+            ms, pms, wms = measure(torch, *k2, "mixed_wgmma_kernel",
+                                   "mixed_matmul", 20, 5)
+            nbytes = (rows * h + rows * 4 + rows * ko * 2 + h * n + n * 4
+                      + ko * n * 2 + rows * n * 2)
+            bnd = bound(nbytes, 2.0 * rows * n * ko, 2.0 * rows * n * h)
+            print(f"K2 mixed_matmul qkv M={rows} ko={ko}: max rel err "
+                  f"{err:.2e}, repeat bit-equal; device {ms:.5f} ms (plain "
+                  f"{pms:.5f}; wrapper {wms:.5f}; bound {bnd[0]:.5f}, by "
+                  f"{bnd[1]})", flush=True)
+            results["mixed_matmul"]["shapes"].append(dict(
+                label=f"qkv ko {ko}", M=rows, K=h, N=n, ko=ko, ms=ms,
+                plain_ms=pms, bound_ms=bnd[0], bound_by=bnd[1],
+                max_abs_err=err))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3693,6 +4447,7 @@ def main() -> int:
     check_attention(torch, gen, dev, results)
     check_decode_modes(torch, gen, dev, results)
     check_linears(torch, gen, dev, results)
+    check_outlier_widths(torch, gen, dev, results)
     check_writes(torch, gen, dev, results, fp=True)
     check_attention(torch, gen, dev, results, fp=True)
     check_packed(torch, gen, dev, results)
@@ -3775,6 +4530,15 @@ def main() -> int:
     t = time.perf_counter()
     launches["hf"] = quantize_pipeline(torch, args.seed, dev)
     print(f"phase 4h: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 4i. dynamic outliers, fp8 and int8_lr at Llama-2-7B width
+    t = time.perf_counter()
+    for path, run in (("dyn", serve_dynamic), ("fp8", serve_fp8),
+                      ("lr", serve_lr)):
+        launches[path], seen = run(torch, args.seed, dev, gen)
+        for n, c in seen.items():
+            xdev[n] = xdev.get(n, 0) + c
+    print(f"phase 4i: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()

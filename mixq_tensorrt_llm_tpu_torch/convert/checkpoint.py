@@ -2,7 +2,8 @@
 format (counterpart of convert/checkpoint.py).
 
 Tensors keep their real dtypes (int8, int32, bf16, f32) under the JAX
-package's flattened names, layers stacked on axis 0
+package's flattened names (an e4m3 tensor as its U8 bytes, its name
+marked ``@e4m3``, as the JAX package writes it), layers stacked on axis 0
 (``layers.qkv_proj.qweight`` is (L, in, out)). The safetensors format is
 read and written here without the safetensors package: an 8-byte
 little-endian header length, a JSON header of ``{name: {"dtype", "shape",
@@ -24,6 +25,7 @@ import torch
 
 from ..device import DeviceLike
 from ..models.common import ModelConfig
+from ..quant import core as qcore
 from ..quant.config import QuantAlgo
 from .from_jax import params_from_numpy
 
@@ -150,11 +152,11 @@ def load_checkpoint(path: str, device: DeviceLike = "cuda"
     module's) -> (port params on ``device``, ModelConfig)."""
     with open(os.path.join(path, CONFIG_NAME)) as f:
         cfg = ModelConfig.from_dict(json.load(f))
-    flat = read_safetensors(os.path.join(path, WEIGHTS_NAME))
-    fp8 = sorted(k for k in flat if k.endswith(FP8_SUFFIX))
-    if fp8:
-        raise NotImplementedError(
-            f"fp8 tensors ({', '.join(fp8[:3])}) come with the fp8 slice")
+    flat = {}
+    for k, v in read_safetensors(os.path.join(path, WEIGHTS_NAME)).items():
+        if k.endswith(FP8_SUFFIX):
+            k, v = k[:-len(FP8_SUFFIX)], v.view(qcore.FP8)
+        flat[k] = v
     params = _unflatten(flat)
     _validate(params, cfg)
     return params_from_numpy(params, cfg, device=device), cfg
@@ -166,14 +168,18 @@ def save_checkpoint(path: str, params: Dict, cfg: ModelConfig) -> None:
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, CONFIG_NAME), "w") as f:
         json.dump(cfg.to_dict(), f, indent=2)
+    def name_of(key: str, t: torch.Tensor) -> str:
+        return key + FP8_SUFFIX if t.dtype == qcore.FP8 else key
+
     flat = {}
     for name, sub in params.items():
         if name == "layers":
             for mod, leaves in sub[0].items():
-                for leaf in leaves:
-                    flat[f"layers.{mod}.{leaf}"] = torch.stack(
-                        [layer[mod][leaf].detach().cpu() for layer in sub])
+                for leaf, t in leaves.items():
+                    flat[name_of(f"layers.{mod}.{leaf}", t)] = torch.stack(
+                        [qcore.raw(layer[mod][leaf].detach().cpu())
+                         for layer in sub])
         else:
             for leaf, t in sub.items():
-                flat[f"{name}.{leaf}"] = t
+                flat[name_of(f"{name}.{leaf}", t)] = qcore.raw(t)
     write_safetensors(os.path.join(path, WEIGHTS_NAME), flat)

@@ -6,7 +6,8 @@ stacked on axis 0 — checks every leaf's dtype and shape against the
 params schema the config implies, and returns the port's params: the same
 dicts, with ``layers`` a list of per-layer dicts of torch tensors on
 ``device``. bfloat16 leaves arrive as ml_dtypes arrays and are converted
-exactly through float32. Leaves may also be torch tensors of the schema's
+exactly through float32, float8_e4m3fn leaves (ml_dtypes) through their
+bytes. Leaves may also be torch tensors of the schema's
 dtypes, as ``convert.checkpoint.load_checkpoint`` reads them.
 """
 
@@ -20,11 +21,12 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.common import ModelConfig
 from ..models.llama import LINEAR_MODULES
+from ..quant import core as qcore
 from ..quant.config import QuantAlgo
 
 _NP_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
              torch.int8: "int8", torch.int32: "int32",
-             torch.float16: "float16"}
+             torch.float16: "float16", qcore.FP8: "float8_e4m3fn"}
 
 
 def _linear_schema(algo: QuantAlgo, n_in: int, n_out: int, k: int,
@@ -34,6 +36,15 @@ def _linear_schema(algo: QuantAlgo, n_in: int, n_out: int, k: int,
     byte as ``qweight_packed`` (in/2, out) instead of ``qweight``."""
     if algo == QuantAlgo.NONE:
         s = {"w": (torch.bfloat16, (n_in, n_out))}
+    elif algo.is_fp8:
+        s = {"qweight": (qcore.FP8, (n_in, n_out)),
+             "scale_col": (torch.float32, (n_out,))}
+    elif algo.is_lr:
+        r = min(qcore.LR_RANK, n_in, n_out)
+        s = {"qweight": (torch.int8, (n_in, n_out)),
+             "scale_col": (torch.float32, (n_out,)),
+             "lr_u": (torch.bfloat16, (n_in, r)),
+             "lr_v": (torch.bfloat16, (r, n_out))}
     elif algo in (QuantAlgo.W8A16, QuantAlgo.W4A16, QuantAlgo.W4A16_G) \
             or algo.is_mix:
         s = {"qweight": (torch.int8, (n_in, n_out))}
@@ -47,7 +58,7 @@ def _linear_schema(algo: QuantAlgo, n_in: int, n_out: int, k: int,
             s["fp_ind"] = (torch.int32, (min(k, n_in),))
             s["fp_weight"] = (torch.bfloat16, (min(k, n_in), n_out))
     else:
-        raise NotImplementedError(f"quant algo {algo.value!r} is not ported")
+        raise ValueError(f"unknown quant algo {algo}")
     if bias:
         s["b"] = (torch.bfloat16, (n_out,))
     return s
@@ -97,6 +108,9 @@ def _convert(arr, dtype: torch.dtype, shape: tuple, where: str,
     if dtype == torch.bfloat16:
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
+    if dtype == qcore.FP8:          # the bytes, reinterpreted
+        return torch.from_numpy(np.array(arr).view(np.uint8)).view(
+            qcore.FP8).to(device)
     return torch.from_numpy(np.array(arr)).to(device)
 
 

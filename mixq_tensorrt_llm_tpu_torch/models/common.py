@@ -25,10 +25,10 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..quant import core as qcore
+from ..quant import dynamic as qdyn
 from ..quant.config import KVCacheQuantAlgo, QuantAlgo, QuantConfig
 from ..ops import attention as ops_attn
 from ..ops import dispatch
-from ..ops import paged_attention as pattn
 from ..ops import ref as ops_ref
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -50,6 +50,9 @@ _UNPORTED_AXES = {
     "rope_freq_factors": (),
 }
 _PORTED_ARCHS = ("llama", "mistral", "qwen2")
+# where the other architectures and their config axes come from
+_LATER_MODULES = ("models/families.py, models/moe.py, models/mamba.py or "
+                  "models/recurrentgemma.py")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +89,21 @@ class ModelConfig:
         if self.arch not in _PORTED_ARCHS:
             raise NotImplementedError(
                 f"arch {self.arch!r} is not ported yet (the port serves the "
-                f"Llama lineage: {', '.join(_PORTED_ARCHS)})")
+                f"Llama lineage: {', '.join(_PORTED_ARCHS)}): it comes with "
+                f"{_LATER_MODULES}")
         if self.rope_scaling_type not in ("none", "linear", "llama3"):
             raise NotImplementedError(
-                f"rope_scaling_type {self.rope_scaling_type!r} is not ported")
-        if self.quant.dynamic_outliers:
-            raise NotImplementedError("runtime-adaptive outliers are not "
-                                      "ported yet")
+                f"rope_scaling_type {self.rope_scaling_type!r} is not ported "
+                "yet: it comes with the rest of models/common.py "
+                "rope_sin_cos (yarn, longrope)")
+        if self.quant.dynamic_outliers and \
+                self.quant.algo == QuantAlgo.INT4_MIX:
+            # the adaptive path gathers rows of the int8 qweight, which an
+            # int4_mix checkpoint packs two a byte (the JAX package fails
+            # there with a KeyError)
+            raise ValueError("dynamic_outliers with int4_mix is unsupported:"
+                             " the adaptive path gathers rows of an unpacked "
+                             "qweight")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
 
@@ -134,7 +145,8 @@ class ModelConfig:
             v = d.pop(k, off)
             if (tuple(v) if isinstance(v, list) else v) != off:
                 raise NotImplementedError(
-                    f"ModelConfig axis {k}={v!r} is not ported yet")
+                    f"ModelConfig axis {k}={v!r} is not ported yet: it "
+                    f"comes with {_LATER_MODULES}")
         if d.get("top_k_experts") is not None:
             d.pop("top_k_experts")
         for k in ("rope_beta_fast", "rope_beta_slow", "rope_attention_factor",
@@ -149,7 +161,8 @@ class ModelConfig:
         unknown = set(d) - known
         if unknown:
             raise NotImplementedError(
-                f"ModelConfig fields not ported yet: {sorted(unknown)}")
+                f"ModelConfig fields not ported yet: {sorted(unknown)}: "
+                f"they come with {_LATER_MODULES}")
         return cls(**d)
 
 
@@ -161,8 +174,9 @@ class KVCache(NamedTuple):
     """Dense KV cache, layers stacked on the leading axis, updated in place.
 
     bf16 mode: k/v (L, B, Smax, Hkv, D) in the model dtype, no scales.
-    int8 mode: k/v int8 of that shape; k_scale/v_scale (L, B, Smax, Hkv) f32
-    (per token and head, quant/core.quantize_kv)."""
+    int8 / fp8 mode: k/v int8 or float8_e4m3fn of that shape; k_scale /
+    v_scale (L, B, Smax, Hkv) f32 (per token and head,
+    quant/core.quantize_kv)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -174,21 +188,24 @@ class KVCache(NamedTuple):
         return self.k_scale is not None
 
 
+def kv_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """The quantized KV dtype (int8 or float8_e4m3fn), None for KV in the
+    model dtype."""
+    return {KVCacheQuantAlgo.INT8: torch.int8,
+            KVCacheQuantAlgo.FP8: qcore.FP8}.get(cfg.quant.kv_cache)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device: DeviceLike = "cuda") -> KVCache:
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    kv = cfg.quant.kv_cache
-    if kv == KVCacheQuantAlgo.INT8:
+    qdt = kv_dtype(cfg)
+    if qdt is not None:
         return KVCache(
-            k=torch.zeros(shape, dtype=torch.int8, device=dev),
-            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k=torch.zeros(shape, dtype=qdt, device=dev),
+            v=torch.zeros(shape, dtype=qdt, device=dev),
             k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev),
             v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev))
-    if kv != KVCacheQuantAlgo.NONE:
-        raise NotImplementedError(
-            f"{kv.value} KV cache: comes with the fp8 slice "
-            "(quant/core.py quantize_weight_fp8; ROADMAP queue 1)")
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=dev))
 
@@ -270,8 +287,8 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
     through ``ops.attention.causal_self_attention`` (K14 for MHA), as JAX
     does, not over the quantized cache. Otherwise the masked einsum over
     the whole cache (causal in absolute positions, below kv_valid_len, the
-    window), straight over int8 with its scales in int8 mode: plain torch,
-    as JAX leaves it to XLA."""
+    window), straight over int8 or e4m3 with its scales in the quantized
+    modes: plain torch, as JAX leaves it to XLA."""
     b = q.shape[0]
     window = cfg.sliding_window
     scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
@@ -280,10 +297,10 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
     ck, cv = layer_cache["k"], layer_cache["v"]
     quantized = "k_scale" in layer_cache
     if quantized:
-        qk, sk = qcore.quantize_kv(new_k)
-        qv, sv = qcore.quantize_kv(new_v)
-        ck[bidx, wp] = qk
-        cv[bidx, wp] = qv
+        qk, sk = qcore.quantize_kv(new_k, dtype=ck.dtype)
+        qv, sv = qcore.quantize_kv(new_v, dtype=cv.dtype)
+        qcore.raw(ck)[bidx, wp] = qcore.raw(qk)
+        qcore.raw(cv)[bidx, wp] = qcore.raw(qv)
         layer_cache["k_scale"][bidx, wp] = sk
         layer_cache["v_scale"][bidx, wp] = sv
     else:
@@ -323,37 +340,20 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
     given kv_valid_len (positions at or past it go to the trash): on the
     card one launch of K5 or K6.
 
-    S == 1 -> K7 (paged_decode_attention), or K11
-    (paged_decode_attention_split) when MIXQ_KV_SPLITS > 1; 1 < S <= 8 ->
-    K9 (paged_verify_attention: speculative verify rows, short draft
-    prefills) from write_pos[:, 0]; longer chunks -> K8
-    (paged_prefill_attention). A CUDA tensor launches the kernel; on the
-    CPU each route takes its plain version (the split route runs the split
-    and merge math)."""
+    Attention is kv_cache.paged_attention: on int8 and bf16 pools K7 (or
+    K11 when MIXQ_KV_SPLITS > 1) at S == 1, K9 up to 8 rows, K8 above; an
+    e4m3 pool is written and read on the JAX package's route (the e4m3
+    cast and a scatter; the gather route and masked torch attention), no
+    K5-K11 launch."""
     from ..runtime import kv_cache as pkv
 
-    window = window or cfg.sliding_window
-    scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
     pkv.paged_write(pools, block_table, write_pos, new_k, new_v,
                     block_pos=block_pos, kv_valid_len=kv_valid_len)
-    s = q.shape[1]
-    args = (pools["k"], pools["v"], pools.get("k_scale"),
-            pools.get("v_scale"), block_table)
-    kw = dict(scale=scale, block_pos=block_pos, window=window, sink=sink,
-              softcap=softcap)
-    if s == 1:
-        splits = _kv_splits()
-        if splits > 1:
-            return pattn.paged_decode_attention_split(
-                q[:, 0], *args, kv_valid_len, kv_splits=splits,
-                **kw)[:, None]
-        return pattn.paged_decode_attention(q[:, 0], *args, kv_valid_len,
-                                            **kw)[:, None]
-    if s <= pattn.MAX_VERIFY_ROWS:
-        return pattn.paged_verify_attention(q, *args, kv_valid_len,
-                                            write_pos[:, 0], **kw)
-    return pattn.paged_prefill_attention(q, *args, write_pos[:, 0],
-                                         kv_valid_len, **kw)
+    return pkv.paged_attention(
+        q, pools, block_table, write_pos, kv_valid_len,
+        scale=cfg.attention_scale, block_pos=block_pos,
+        window=window or cfg.sliding_window, sink=sink,
+        softcap=cfg.attn_logit_softcap, kv_splits=_kv_splits())
 
 
 def _attention_paged_tail(cfg: ModelConfig, q, new_k, new_v, pools: dict,
@@ -368,27 +368,30 @@ def _attention_paged_tail(cfg: ModelConfig, q, new_k, new_v, pools: dict,
     what K5 would write to a page), and attention of q (B, 1, Hq, D) over
     [pool prefix | tail slots <= tail_idx] is merged exactly from the two
     parts' softmax stats: the prefix below ``prefix_len`` (B,) through
-    paged_decode_attention(stats=True) (K10 on the card), the tail through
-    ops.ref.attention_stats, both f32 until one final cast. Windows are
-    refused, as in the JAX package."""
+    kv_cache.paged_attention(stats=True) (K10 on the card; e4m3 pages take
+    the gather route and ops.ref.attention_stats, as in the JAX package),
+    the tail through ops.ref.attention_stats, both f32 until one final
+    cast. Windows are refused, as in the JAX package."""
     if cfg.sliding_window:
         raise NotImplementedError("beam bursts do not support windows")
     if q.shape[1] != 1:
         raise ValueError("beam bursts decode one token a step")
+    from ..runtime import kv_cache as pkv
+
     scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
     t = int(tail_idx)
     if "k_scale" in tail:
         for name, x in (("k", new_k), ("v", new_v)):
-            qx, sx = qcore.quantize_kv(x[:, 0])
-            tail[name][:, t] = qx
+            qx, sx = qcore.quantize_kv(x[:, 0], dtype=tail[name].dtype)
+            qcore.raw(tail[name])[:, t] = qcore.raw(qx)
             tail[name + "_scale"][:, t] = sx
     else:
         tail["k"][:, t] = new_k[:, 0].to(tail["k"].dtype)
         tail["v"][:, t] = new_v[:, 0].to(tail["v"].dtype)
-    out_p, m_p, l_p = pattn.paged_decode_attention(
-        q[:, 0], pools["k"], pools["v"], pools.get("k_scale"),
-        pools.get("v_scale"), block_table, prefix_len, scale=scale,
-        block_pos=block_pos, softcap=softcap, stats=True)
+    prefix = pkv.paged_attention(q, pools, block_table,
+                                 prefix_len[:, None] - 1, prefix_len,
+                                 scale=scale, block_pos=block_pos,
+                                 softcap=softcap, stats=True)
     kmax = tail["k"].shape[1]
     slot_ok = torch.arange(kmax, device=q.device) <= t
     out_t, m_t, l_t = ops_ref.attention_stats(
@@ -396,8 +399,7 @@ def _attention_paged_tail(cfg: ModelConfig, q, new_k, new_v, pools: dict,
         v_s=tail.get("v_scale"), mask=slot_ok[None, None, None, :],
         scale=scale, softcap=softcap)
     return ops_ref.merge_attention_stats(
-        [(out_p[:, None], m_p[..., None], l_p[..., None]),
-         (out_t, m_t, l_t)]).to(q.dtype)
+        [prefix, (out_t, m_t, l_t)]).to(q.dtype)
 
 
 def _absmax_in(x: torch.Tensor) -> torch.Tensor:
@@ -406,7 +408,8 @@ def _absmax_in(x: torch.Tensor) -> torch.Tensor:
 
 
 def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
-                  attend, stats: Optional[dict] = None) -> torch.Tensor:
+                  attend, stats: Optional[dict] = None,
+                  ostate: Optional[dict] = None) -> torch.Tensor:
     """One pre-norm Llama block. x (B, S, hidden); ``attend(q, k, v)``
     writes the new k/v (B, S, Hkv, D) into the layer's KV and returns
     attention of q (B, S, Hq, D) over it: ``_attention_with_cache`` (dense
@@ -418,7 +421,14 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     absmax (the act_scales calibration signal) from the activations the JAX
     package reads: the normed inputs of qkv and gate_up (the norm then runs
     apart from the linear, as in JAX), the attention output for o_proj, the
-    gated activation for down_proj."""
+    gated activation for down_proj.
+
+    ``ostate``, a dict {module: chan_max (in,)} of this layer's dynamic
+    outlier state (quant/dynamic.py), sends each module it holds through
+    the adaptive mixed linear when that module's algo at this S is a mix
+    algo (prefill chunks; decode steps, weight-only at S <= 4, pass the
+    state through), and receives the updated state in place. The norm
+    then runs apart from the linear, as in the JAX package."""
     b, s, _ = x.shape
 
     # decode regime (S <= 4): mix linears run weight-only on the full
@@ -431,14 +441,31 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
                     else QuantAlgo.W4A16)
         return a
 
+    def adaptive(mod):
+        return ostate is not None and mod in ostate and algo(mod).is_mix
+
+    def linear(mod, h):
+        if not adaptive(mod):
+            return dispatch.linear(lp[mod], h, algo(mod))
+        p = lp[mod]
+        cap = min(cfg.quant.max_outliers, h.shape[-1])
+        out, st = qdyn.adaptive_mix_linear(
+            h, p["qweight"], p["scale_col"],
+            qdyn.DynamicOutlierState(ostate[mod]), cap=cap,
+            sigma=cfg.quant.outlier_sigma,
+            base_k=min(cfg.quant.num_outliers, cap), out_dtype=h.dtype)
+        ostate[mod] = st.chan_max
+        return dispatch._maybe_bias(out, p)
+
     def proj_in(mod, norm_key, x_res):
-        if stats is None:
+        if stats is None and not adaptive(mod):
             return dispatch.norm_linear(lp[mod], x_res, algo(mod),
                                         lp[norm_key]["w"],
                                         eps=cfg.rms_norm_eps)
         h = block_norm(cfg, x_res, lp[norm_key])
-        stats[mod] = _absmax_in(h)
-        return dispatch.linear(lp[mod], h, algo(mod))
+        if stats is not None:
+            stats[mod] = _absmax_in(h)
+        return linear(mod, h)
 
     qkv = proj_in("qkv_proj", "input_norm", x)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size],
@@ -449,7 +476,7 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     attn_in = attend(q, k, v).reshape(b, s, cfg.q_size)
     if stats is not None:
         stats["o_proj"] = _absmax_in(attn_in)
-    attn = dispatch.linear(lp["o_proj"], attn_in, algo("o_proj"))
+    attn = linear("o_proj", attn_in)
     x = x + attn.to(x.dtype)
 
     up_out = proj_in("gate_up_proj", "post_norm", x)
@@ -479,10 +506,23 @@ def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return dispatch.linear(lm_head, x, cfg.module_algo("lm_head")).float()
 
 
+def _layer_ostate(outlier_state, li: int) -> Optional[dict]:
+    """Layer li's slice of a model-level dynamic outlier state."""
+    if not outlier_state:
+        return None
+    return {m: v[li] for m, v in outlier_state.items()}
+
+
+def _stack_ostate(per_layer) -> dict:
+    return {m: torch.stack([st[m] for st in per_layer])
+            for m in per_layer[0]}
+
+
 def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                   write_pos: torch.Tensor, paged_state, block_table,
                   kv_valid_len: torch.Tensor, block_pos=None,
-                  window: int = 0, sink: int = 0, last_pos=None):
+                  window: int = 0, sink: int = 0, last_pos=None,
+                  outlier_state: Optional[dict] = None):
     """Decoder forward over the paged pool (continuous-batching path).
 
     tokens/write_pos (B, S); paged_state: runtime.kv_cache.PagedKVState,
@@ -491,20 +531,28 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions; kv_valid_len (B,) KV length after this call's writes;
     window/sink: StreamingLLM window in tokens (0 = model default);
     last_pos: optional (B,) chunk-relative index — the head then runs on
-    that one position per lane and returns (B, 1, V) logits.
-    Returns (logits f32, paged_state)."""
+    that one position per lane and returns (B, 1, V) logits;
+    outlier_state: quant.dynamic.init_model_state's dict, threaded through
+    the layers' adaptive mix linears (``decoder_layer``).
+    Returns (logits f32, paged_state[, new outlier_state])."""
     x = _embed(params, cfg, tokens)
     sin, cos = _positional_arrays(cfg, write_pos)
     num_layers = len(params["layers"])
     nb = paged_state.k.shape[0] // num_layers
     pools = paged_state.pools()
+    new_ostate = []
     for li, lp in enumerate(params["layers"]):
         attend = partial(_attention_paged, cfg, pools=pools,
                          block_table=block_table + li * nb,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
                          block_pos=block_pos, window=window, sink=sink)
-        x = decoder_layer(cfg, lp, x, sin, cos, attend)
-    return _head(params, cfg, _last(x, last_pos)).float(), paged_state
+        ost = _layer_ostate(outlier_state, li)
+        x = decoder_layer(cfg, lp, x, sin, cos, attend, ostate=ost)
+        new_ostate.append(ost)
+    logits = _head(params, cfg, _last(x, last_pos)).float()
+    if outlier_state:
+        return logits, paged_state, _stack_ostate(new_ostate)
+    return logits, paged_state
 
 
 def _last(x: torch.Tensor, last_pos) -> torch.Tensor:
@@ -518,7 +566,6 @@ def _last(x: torch.Tensor, last_pos) -> torch.Tensor:
 # forward's options of the JAX package that the port does not honour yet,
 # with the module whose port brings each (ROADMAP queue 1)
 _UNPORTED_FORWARD = {
-    "outlier_state": "quant/dynamic.py",
     "lora_ids": "convert/lora.py",
     "attn_mask": "runtime/medusa.py (tree verification)",
     "return_hidden": "runtime/medusa.py (heads)",
@@ -543,10 +590,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     that one position per lane and returns (B, 1, V) logits (a port-only
     option: JAX's session gathers after its head); collect_stats: also
     return each linear's per-input-channel activation absmax,
-    ``stats[module]`` (L, in) f32 (``decoder_layer``).
-    Returns (logits f32, cache[, stats])."""
-    given = dict(outlier_state=outlier_state,
-                 lora_ids=lora_ids, attn_mask=attn_mask,
+    ``stats[module]`` (L, in) f32 (``decoder_layer``); outlier_state:
+    quant.dynamic.init_model_state's dict, threaded through the layers'
+    adaptive mix linears.
+    Returns (logits f32, cache[, new outlier_state][, stats])."""
+    given = dict(lora_ids=lora_ids, attn_mask=attn_mask,
                  return_hidden=return_hidden, rope_pos=rope_pos)
     for name, val in given.items():
         if val is not None and val is not False:
@@ -555,7 +603,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 f"{_UNPORTED_FORWARD[name]} (ROADMAP queue 1)")
     x = _embed(params, cfg, tokens)
     sin, cos = _positional_arrays(cfg, write_pos)
-    layer_stats = []
+    layer_stats, new_ostate = [], []
     for li, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache.k[li], "v": cache.v[li]}
         if cache.quantized:
@@ -565,10 +613,15 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
                          full_prefill=full_prefill)
         st = {} if collect_stats else None
-        x = decoder_layer(cfg, lp, x, sin, cos, attend, stats=st)
+        ost = _layer_ostate(outlier_state, li)
+        x = decoder_layer(cfg, lp, x, sin, cos, attend, stats=st,
+                          ostate=ost)
         layer_stats.append(st)
-    logits = _head(params, cfg, _last(x, last_pos)).float()
+        new_ostate.append(ost)
+    out = (_head(params, cfg, _last(x, last_pos)).float(), cache)
+    if outlier_state:
+        out += (_stack_ostate(new_ostate),)
     if collect_stats:
-        return logits, cache, {m: torch.stack([st[m] for st in layer_stats])
-                               for m in layer_stats[0]}
-    return logits, cache
+        out += ({m: torch.stack([st[m] for st in layer_stats])
+                 for m in layer_stats[0]},)
+    return out

@@ -79,5 +79,8 @@ def params_from_hf(cfg, hf_state, act_scales=None,
                    device: DeviceLike = "cuda"):
     """HF state dict -> quantized params on ``device`` (Llama lineage)."""
     if cfg.arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"arch {cfg.arch!r} is not ported yet")
+        kind = SUPPORTED_ARCHS.get(cfg.arch, "families")
+        raise NotImplementedError(
+            f"arch {cfg.arch!r} is not ported yet: it comes with "
+            f"{_LATER.get(cfg.arch, _LATER.get(kind))}")
     return llama.params_from_hf(cfg, hf_state, act_scales, device=device)

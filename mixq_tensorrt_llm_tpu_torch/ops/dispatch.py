@@ -17,6 +17,16 @@ CPU.
     group_size % 128 == 0:
   W4A16_G otherwise:               unpack_int4 -> ref.wo_matmul_grouped
                                    (plain: JAX leaves it to XLA)
+  FP8:                             the e4m3 weight dequantized to bf16,
+                                   then one bf16 product with an f32
+                                   result (ref.bf16_matmul_f32), as the
+                                   JAX package leaves it to XLA
+  INT8_LR:                         K1 quant_split with no outliers (the
+                                   whole row quantized), a bf16 x @ u
+                                   (library: XLA's in the JAX package),
+                                   then K2 with x_outliers = bf16(x @ u)
+                                   and fp_weight = v: the rank-r
+                                   correction is K2's side GEMM
   NONE:                            one bf16 product with an f32 result
                                    (ref.bf16_matmul_f32), as the JAX
                                    package leaves it to XLA
@@ -29,6 +39,9 @@ Param schemas (weights in (in, out) layout), unchanged from the JAX package:
   INT8_MIX:  {"qweight", "scale_col", "fp_ind": int32 (k,),
               "fp_weight": bf16 (k, out)} [+ "b"]
   INT4_MIX:  the same with int4 values, or "qweight_packed"
+  FP8:       {"qweight": float8_e4m3fn (in, out), "scale_col"} [+ "b"]
+  INT8_LR:   {"qweight", "scale_col", "lr_u": bf16 (in, r),
+              "lr_v": bf16 (r, out)} [+ "b"]
 """
 
 from __future__ import annotations
@@ -48,17 +61,6 @@ from . import wo_matmul as wm
 # ops/dispatch.py _packed_kernel_ok, whose limit is 128 by default)
 PACKED_M_MAX = 128
 _GROUP_ALIGN = 128          # K13 group sizes, as the JAX kernel asks
-
-_LATER = {
-    QuantAlgo.FP8: "the fp8 slice (quant/core.py quantize_weight_fp8)",
-    QuantAlgo.INT8_LR: "a later slice (quant/core.py make_lr_artifact)",
-}
-
-
-def _not_ported(algo: QuantAlgo) -> NotImplementedError:
-    return NotImplementedError(
-        f"quant algo {algo.value!r} is not ported yet; it comes with "
-        f"{_LATER.get(algo, 'a later slice')}")
 
 
 def _maybe_bias(out: torch.Tensor, params: dict) -> torch.Tensor:
@@ -121,9 +123,28 @@ def linear(params: dict, x: torch.Tensor, algo: QuantAlgo) -> torch.Tensor:
         out = mm.mix_linear(x2, _unpacked_qweight(params),
                             params["scale_col"], params["fp_ind"],
                             params["fp_weight"], out_dtype=x.dtype)
+    elif algo.is_fp8:
+        w = qcore.dequantize_weight(params["qweight"], params["scale_col"])
+        out = ref.bf16_matmul_f32(x2, w).to(x.dtype)
+    elif algo.is_lr:
+        out = lr_linear(x2, params, out_dtype=x.dtype)
     else:
-        raise _not_ported(algo)
+        raise ValueError(f"unknown algo {algo}")
     return _maybe_bias(out, params).reshape(*lead, -1)
+
+
+def lr_linear(x: torch.Tensor, params: dict,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """int8_lr, x (M, K): K1 without the norm over an empty fp_ind (the
+    whole row quantized), x @ u in bf16 with an f32 result, then K2 with
+    the rank-r correction as its side GEMM. On the CPU the same route
+    takes the kernels' plain versions (``ref.lr_linear``'s function)."""
+    empty = torch.empty((0,), dtype=torch.int32, device=x.device)
+    q_x, scale_row, _ = nq.quant_split(x, empty)
+    xu = ref.bf16_matmul_f32(x, params["lr_u"]).to(torch.bfloat16)
+    return mm.mixed_matmul(q_x, scale_row, xu, params["qweight"],
+                           params["scale_col"], params["lr_v"],
+                           out_dtype=out_dtype)
 
 
 def quantize_linear_params(w: torch.Tensor, algo: QuantAlgo,
@@ -150,6 +171,13 @@ def quantize_linear_params(w: torch.Tensor, algo: QuantAlgo,
     elif algo == QuantAlgo.W8A16:
         q, s = qcore.quantize_weight_int8(w)
         out["qweight"], out["scale_col"] = q, s.float()
+    elif algo == QuantAlgo.FP8:
+        q, s = qcore.quantize_weight_fp8(w)
+        out["qweight"], out["scale_col"] = q, s.float()
+    elif algo == QuantAlgo.INT8_LR:
+        q, s, u, v = qcore.make_lr_artifact(w)
+        out["qweight"], out["scale_col"] = q, s
+        out["lr_u"], out["lr_v"] = u, v
     elif algo == QuantAlgo.W4A16:
         q, s = qcore.quantize_weight_int4(w)
         int4(q)
@@ -170,7 +198,7 @@ def quantize_linear_params(w: torch.Tensor, algo: QuantAlgo,
         out["scale_col"] = art.scale_col
         out["fp_ind"], out["fp_weight"] = art.fp_ind, art.fp_weight
     else:
-        raise _not_ported(algo)
+        raise ValueError(f"unknown algo {algo}")
     if bias is not None:
         out["b"] = bias.to(torch.bfloat16)
     return out

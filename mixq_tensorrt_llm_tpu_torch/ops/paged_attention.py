@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..quant import core as qcore
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -233,14 +234,14 @@ def gather_pages(pages: torch.Tensor, scales: Optional[torch.Tensor],
     """(NP, H, BS, D) pool -> (B, MB*BS, H, D) view of each lane's pages,
     dequantized when ``scales`` is given."""
     tb = block_table.long()
-    x = pages[tb]                                   # (B, MB, H, BS, D)
+    x = qcore.raw(pages)[tb].view(pages.dtype)      # (B, MB, H, BS, D)
     b, mb, h, bs, d = x.shape
     if scales is not None:
         x = x.float() * scales[tb][..., None]
     return x.to(dtype).permute(0, 1, 3, 2, 4).reshape(b, mb * bs, h, d)
 
 
-def _keep_mask(block_table, block_pos, bs: int, q_pos, lens, window: int,
+def keep_mask(block_table, block_pos, bs: int, q_pos, lens, window: int,
                sink: int) -> torch.Tensor:
     """(B, 1, S, MB*BS) keep mask of queries at q_pos (B, S) over the
     lane's pages: causal, below lens, optional window + sinks."""
@@ -265,7 +266,7 @@ def paged_attention_plain(q: torch.Tensor, k_pages, v_pages, k_scale,
                           ) -> torch.Tensor:
     """q (B, S, Hq, D) at absolute positions q_pos (B, S) -> (B, S, Hq, D)
     in q's dtype, computed in f32 over the gathered, dequantized pages."""
-    keep = _keep_mask(block_table, block_pos, k_pages.shape[2], q_pos, lens,
+    keep = keep_mask(block_table, block_pos, k_pages.shape[2], q_pos, lens,
                       window, sink)
     k = gather_pages(k_pages, k_scale, block_table, torch.float32)
     v = gather_pages(v_pages, v_scale, block_table, torch.float32)
@@ -454,7 +455,7 @@ def paged_decode_attention_stats_plain(q: torch.Tensor, k_pages, v_pages,
     """K10's plain version: ``ref.attention_stats`` over the lane's
     gathered pages, the int8 K scale on the logits and the V scale on the
     probabilities as the kernel applies them -> (out, m, l) f32."""
-    keep = _keep_mask(block_table, block_pos, k_pages.shape[2],
+    keep = keep_mask(block_table, block_pos, k_pages.shape[2],
                       (lens - 1)[:, None], lens, window, sink)
     k = gather_pages(k_pages, None, block_table, torch.float32)
     v = gather_pages(v_pages, None, block_table, torch.float32)

@@ -49,13 +49,13 @@ MAX_HEAD_DIM = 256
 def paged_write_token_plain(pools: dict, pg: torch.Tensor, off: torch.Tensor,
                             new_k: torch.Tensor, new_v: torch.Tensor) -> dict:
     """pools[...][pg[i], :, off[i]] = row i of new_k/new_v (N, H, D),
-    quantized for int8 pools."""
+    quantized for int8 and e4m3 pools."""
     pg, off = pg.long(), off.long()
     if "k_scale" in pools:
-        qk, sk = qcore.quantize_kv(new_k)
-        qv, sv = qcore.quantize_kv(new_v)
-        pools["k"][pg, :, off] = qk
-        pools["v"][pg, :, off] = qv
+        qk, sk = qcore.quantize_kv(new_k, dtype=pools["k"].dtype)
+        qv, sv = qcore.quantize_kv(new_v, dtype=pools["v"].dtype)
+        qcore.raw(pools["k"])[pg, :, off] = qcore.raw(qk)
+        qcore.raw(pools["v"])[pg, :, off] = qcore.raw(qv)
         pools["k_scale"][pg, :, off] = sk
         pools["v_scale"][pg, :, off] = sv
     else:

@@ -81,6 +81,21 @@ def mix_linear(x: torch.Tensor, qweight: torch.Tensor,
                         fp_weight, silu=silu, out_dtype=out_dtype)
 
 
+def lr_linear(x: torch.Tensor, qweight: torch.Tensor,
+              scale_col: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """W8A8 plus a rank-r correction (int8_lr), x (m, in):
+        (q(x) @ qweight) * s_row * s_col + bf16(x @ u) @ v
+    x @ u is a bf16 product with an f32 result, rounded to bf16; the
+    correction is then ``mixed_matmul``'s side GEMM with x_outliers =
+    bf16(x @ u) and fp_weight = v, so this is mixed_matmul over the whole
+    quantized x (nothing zeroed)."""
+    q_x, scale_row = qcore.quantize_activations(x)
+    xu = bf16_matmul_f32(x, u).to(torch.bfloat16)
+    return mixed_matmul(q_x, scale_row, xu, qweight, scale_col, v,
+                        out_dtype=out_dtype)
+
+
 def bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with both operands rounded to bf16, result in f32.
 

@@ -1,4 +1,4 @@
-"""The MixQ quantization recipe on torch tensors (int8 part).
+"""The MixQ quantization recipe on torch tensors.
 
 Counterpart of mixq_tensorrt_llm_tpu/quant/core.py, bit-exact with it:
 
@@ -7,7 +7,10 @@ Counterpart of mixq_tensorrt_llm_tpu/quant/core.py, bit-exact with it:
     saturating rule), int4 per group of rows ``absmax/7`` in [-7, 7]
   * activations: per-token symmetric int8, ``scale_row = absmax/127``,
     computed after the outlier channels have been zeroed
-  * KV: per-(token, head) symmetric int8 over head_dim
+  * KV: per-(token, head) symmetric int8 over head_dim, or float8_e4m3fn
+    (``absmax/448``, the cast rounding to nearest even)
+  * fp8 weights: per-output-channel float8_e4m3fn, ``scale_col = absmax/448``
+  * int8_lr: int8 weights plus a rank-r SVD of the quantization residual
   * outlier channels: top-k input channels by calibrated activation absmax
 
 Rounding order, kept from the JAX package: the scale is absmax divided by
@@ -21,7 +24,6 @@ version agree bit for bit.
 
 Packed int4 (``pack_int4``) is the JAX package's K-half layout: byte k of
 a column holds row k in its low nibble and row k + in/2 in its high one.
-The fp8 part of the JAX module is not ported yet.
 
 Weight layout: (in_features, out_features), y = x @ w.
 """
@@ -36,7 +38,9 @@ INT8_MAX = 127.0
 INT4_DIV = 10.0            # the reference's per-channel int4 divisor
 INT4_LO, INT4_HI = -8, 7
 INT4_G_MAX = 7.0           # per-group int4: absmax / 7 over [-7, 7]
+FP8_MAX = 448.0            # float8_e4m3fn's largest finite value
 SCALE_FLOOR = 1e-8
+FP8 = torch.float8_e4m3fn
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -159,11 +163,13 @@ def split_outlier_weight(w: torch.Tensor, fp_ind: torch.Tensor,
 
 
 def outlier_mask(fp_ind: torch.Tensor, in_features: int) -> torch.Tensor:
-    """Boolean (in,) mask, True at outlier channels."""
-    mask = torch.zeros((in_features,), dtype=torch.bool,
+    """Boolean (in,) mask, True at outlier channels; a negative index (the
+    dynamic path's padding) marks nothing."""
+    ind = fp_ind.long()
+    mask = torch.zeros((in_features + 1,), dtype=torch.bool,
                        device=fp_ind.device)
-    mask[fp_ind.long()] = True
-    return mask
+    mask[torch.where(ind >= 0, ind, in_features)] = True
+    return mask[:in_features]
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +189,14 @@ def quantize_activations(x: torch.Tensor
 
 def extract_outliers_and_zero(x: torch.Tensor, fp_ind: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x_outliers (..., k), x with the outlier channels zeroed)."""
-    x_out = torch.index_select(x, -1, fp_ind.long())
+    """Returns (x_outliers (..., k), x with the outlier channels zeroed).
+    A negative index gathers 0 and zeroes nothing, as K1 does
+    (csrc/norm_quant.cu) and as the JAX package's one-hot selector does
+    for the dynamic path's -1 padding."""
+    ind = fp_ind.long()
+    x_out = torch.index_select(x, -1, ind.clamp(min=0))
+    x_out = torch.where(ind >= 0, x_out, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
     keep = (~outlier_mask(fp_ind, x.shape[-1])).to(x.dtype)
     return x_out, x * keep
 
@@ -193,14 +205,38 @@ def extract_outliers_and_zero(x: torch.Tensor, fp_ind: torch.Tensor
 # KV-cache quantization
 # ---------------------------------------------------------------------------
 
-def quantize_kv(kv: torch.Tensor, axis: int = -1
+def quantize_kv(kv: torch.Tensor, axis: int = -1, dtype=torch.int8
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 KV with per-(token, head) scales over ``axis``.
+    """Symmetric KV with per-(token, head) scales over ``axis``: int8
+    (absmax/127, rounded, clipped) or float8_e4m3fn (absmax/448, cast).
 
-    Returns (q int8 same shape, scale f32 with ``axis`` removed)."""
+    Returns (q of ``dtype``, same shape; scale f32 with ``axis``
+    removed)."""
     kvf = kv.float()
+    if dtype == FP8:
+        scale = _absmax_scale(kvf, dim=axis, keepdim=True, div=FP8_MAX)
+        return (kvf / scale).to(FP8), scale.squeeze(axis)
+    if dtype != torch.int8:
+        raise ValueError(f"quantize_kv: dtype {dtype} (int8 or "
+                         "float8_e4m3fn)")
     scale = _absmax_scale(kvf, dim=axis, keepdim=True)
     return _round_clip_int8(kvf / scale), scale.squeeze(axis)
+
+
+def raw(t: torch.Tensor) -> torch.Tensor:
+    """``t`` for indexing and index assignment: an e4m3 tensor as its
+    uint8 bytes (a view), any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def quantize_weight_fp8(w: torch.Tensor) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Per-out-channel float8_e4m3fn weights: scale_col = absmax / 448,
+    qweight = w / scale cast to e4m3 (round to nearest even; |w / scale|
+    <= 448, so nothing saturates). w (in, out)."""
+    wf = w.float()
+    scale = _absmax_scale(wf, dim=0, keepdim=False, div=FP8_MAX)
+    return (wf / scale[None, :]).to(FP8), scale
 
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
@@ -235,3 +271,22 @@ def make_mix_artifact(w: torch.Tensor, act_scale: torch.Tensor,
     qweight, scale = (quantize_weight_int8(w) if bits == 8
                       else quantize_weight_int4(w))
     return MixQLinearArtifact(qweight, scale.float(), fp_ind, fp_weight)
+
+
+LR_RANK = 32
+
+
+def make_lr_artifact(w: torch.Tensor, rank: int = LR_RANK):
+    """W8A8 plus a low-rank correction (int8_lr): the residual
+    R = W - deq(Q) of the int8 weight is approximated by its rank-r SVD.
+    Returns (qweight int8 (in, out), scale_col f32 (out,), u bf16 (in, r)
+    = U_r * S_r, v bf16 (r, out) = Vt_r), r = min(rank, in, out). The SVD
+    runs in f32 on w's device; singular vectors are defined up to sign,
+    so only u @ v is comparable across devices and packages."""
+    qweight, scale = quantize_weight_int8(w)
+    resid = w.float() - qweight.float() * scale[None, :]
+    r = int(min(rank, *w.shape))
+    u_f, s_f, vt_f = torch.linalg.svd(resid, full_matrices=False)
+    u = (u_f[:, :r] * s_f[:r][None, :]).to(torch.bfloat16)
+    v = vt_f[:r].to(torch.bfloat16)
+    return qweight, scale.float(), u, v

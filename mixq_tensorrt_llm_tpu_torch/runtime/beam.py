@@ -52,6 +52,7 @@ from ..models import common as mcommon
 from ..models.common import KVCache, ModelConfig
 from ..ops import _build
 from ..ops.paged_attention import check_kernel_geometry
+from ..quant import core as qcore
 from ..utils import compile_watch
 from . import kv_cache as pkv
 from .sampler import BW_PAD, ban_bad_words
@@ -289,12 +290,14 @@ def _beam_select(raw, b: int, k: int, scores, fin, hist,
 
 def _tile_cache(cache: KVCache, k: int) -> KVCache:
     """Each batch row of the dense cache repeated k times (axis 1)."""
-    return KVCache(*(None if x is None else x.repeat_interleave(k, dim=1)
+    return KVCache(*(None if x is None else
+                     qcore.raw(x).repeat_interleave(k, dim=1).view(x.dtype)
                      for x in cache))
 
 
 def _reorder_cache(cache: KVCache, rows: torch.Tensor) -> KVCache:
-    return KVCache(*(None if x is None else x.index_select(1, rows)
+    return KVCache(*(None if x is None else
+                     qcore.raw(x).index_select(1, rows).view(x.dtype)
                      for x in cache))
 
 
@@ -439,6 +442,7 @@ def _copy_pages(pools: dict, src: torch.Tensor, dst: torch.Tensor) -> None:
     lane's source and another's destination is read first. Padding copies
     the trash row onto itself."""
     for p in pools.values():
+        p = qcore.raw(p)
         rows = p[src]
         p[dst] = rows
 
@@ -512,13 +516,15 @@ def _init_tail(cfg: ModelConfig, n_lanes: int, kmax: int, quantized: bool,
                device, nl: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Dense burst tails for every layer, stacked on a leading layer axis:
     k / v (L, N, kmax, Hkv, D) in the pool's dtype (+ k_scale / v_scale
-    (L, N, kmax, Hkv) f32 for int8 pools). The burst's new KV stays here
-    until the burst's flush, so the pool is only read during the steps."""
+    (L, N, kmax, Hkv) f32 for int8 and e4m3 pools). The burst's new KV
+    stays here until the burst's flush, so the pool is only read during
+    the steps."""
     shape = (nl or cfg.num_layers, n_lanes, kmax, cfg.num_kv_heads,
              cfg.head_dim)
     if quantized:
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+        qdt = mcommon.kv_dtype(cfg)
+        return {"k": torch.zeros(shape, dtype=qdt, device=device),
+                "v": torch.zeros(shape, dtype=qdt, device=device),
                 "k_scale": torch.ones(shape[:-1], dtype=torch.float32,
                                       device=device),
                 "v_scale": torch.ones(shape[:-1], dtype=torch.float32,
@@ -554,7 +560,7 @@ def _flush_tail(pools: dict, tails: dict, rows: torch.Tensor,
     in-page slots (the same on every layer)."""
     offs = offs.long()[None].expand(rows.shape)
     for name, tail in tails.items():
-        pools[name][rows, :, offs] = tail
+        qcore.raw(pools[name])[rows, :, offs] = qcore.raw(tail)
 
 
 @dataclasses.dataclass
@@ -666,6 +672,7 @@ class BeamEngine:
             table = table[rows]
             lane_ids = lane_ids[rows]
             for a in tails.values():
+                a = qcore.raw(a)
                 a[:, :, :t + 1] = a[:, rows, :t + 1]
             cur = token.reshape(n)
             steps.append((parent, token, scores, fin))

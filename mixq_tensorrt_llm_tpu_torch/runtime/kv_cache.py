@@ -2,8 +2,8 @@
 the paged write/gather. Counterpart of runtime/kv_cache.py.
 
 The pool is FLAT over layers: (L * num_blocks, Hkv, block_size, D) with
-(L * num_blocks, Hkv, block_size) f32 scales for int8 KV; layer l's block
-b is page row l * num_blocks + b. Sequences address it through int32 block
+(L * num_blocks, Hkv, block_size) f32 scales for int8 or e4m3 KV; layer
+l's block b is page row l * num_blocks + b. Sequences address it through int32 block
 tables; each table entry also carries an absolute base position
 (``block_pos``), so attention masks stay right when a sliding window
 recycles a page in place (its stale tail slots land in the causal future).
@@ -24,10 +24,12 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, kv_dtype
+from ..ops import _build
 from ..ops import paged_attention as pattn
 from ..ops import paged_write as pwrite
-from ..quant.config import KVCacheQuantAlgo
+from ..ops import ref as ops_ref
+from ..quant import core as qcore
 
 # base position of a padded block_pos entry: beyond any real position, so
 # kernels and masks treat the slot as causally unreachable
@@ -35,7 +37,8 @@ PAD_POS = np.int32(pattn.PAD_POS)
 
 
 class PagedKVState(NamedTuple):
-    """Device-side pool, flat over layers; int8 mode carries scales."""
+    """Device-side pool, flat over layers; the int8 and e4m3 modes carry
+    scales."""
 
     k: torch.Tensor                        # (L*NB, Hkv, BS, D)
     v: torch.Tensor
@@ -67,16 +70,14 @@ def init_paged_kv(cfg: ModelConfig, num_blocks: int, block_size: int = 64,
     dev = resolve_device(device)
     shape = (cfg.num_layers * num_blocks, cfg.num_kv_heads, block_size,
              cfg.head_dim)
-    if cfg.quant.kv_cache == KVCacheQuantAlgo.INT8:
+    qdt = kv_dtype(cfg)
+    if qdt is not None:
         sshape = shape[:-1]
         return PagedKVState(
-            k=torch.zeros(shape, dtype=torch.int8, device=dev),
-            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k=torch.zeros(shape, dtype=qdt, device=dev),
+            v=torch.zeros(shape, dtype=qdt, device=dev),
             k_scale=torch.ones(sshape, dtype=torch.float32, device=dev),
             v_scale=torch.ones(sshape, dtype=torch.float32, device=dev))
-    if cfg.quant.kv_cache != KVCacheQuantAlgo.NONE:
-        raise NotImplementedError(f"KV cache {cfg.quant.kv_cache.value!r} "
-                                  "comes with the fp8 slice")
     return PagedKVState(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                         v=torch.zeros(shape, dtype=cfg.dtype, device=dev))
 
@@ -371,7 +372,17 @@ def paged_write(pools: dict, block_table: torch.Tensor,
     the kernel locates each token itself): S % BS == 0 above 8 tokens ->
     K6 (the executor's page-aligned chunks, with the JAX kernel's drop
     rule); anything else -> K5, every column in the launch. Unquantized
-    pools take K5p / K6p. On the CPU: paged_write_plain."""
+    pools take K5p / K6p. On the CPU: paged_write_plain. An e4m3 pool
+    takes the JAX package's route on every device (its write kernels
+    quantize to int8 only): quantize_kv's e4m3 cast and a scatter of every
+    token, the invalid ones into the trash block."""
+    if pools["k"].dtype == qcore.FP8:
+        blk, off = _located(pools, block_table, write_pos, valid, block_pos,
+                            kv_valid_len)
+        b, s, h, d = new_k.shape
+        return pwrite.paged_write_token_plain(
+            pools, blk.reshape(-1), off.reshape(-1), new_k.reshape(-1, h, d),
+            new_v.reshape(-1, h, d))
     if new_k.is_cuda:
         return pwrite.paged_write_located(pools, block_table, write_pos,
                                           new_k, new_v, valid=valid,
@@ -380,6 +391,16 @@ def paged_write(pools: dict, block_table: torch.Tensor,
     return paged_write_plain(pools, block_table, write_pos, new_k, new_v,
                              valid=valid, block_pos=block_pos,
                              kv_valid_len=kv_valid_len)
+
+
+def _located(pools: dict, block_table, write_pos, valid, block_pos,
+             kv_valid_len):
+    """``_locate`` with ``kv_valid_len`` folded into ``valid``."""
+    if kv_valid_len is not None:
+        below = write_pos < kv_valid_len[:, None]
+        valid = below if valid is None else valid & below
+    return _locate(block_table, write_pos, pools["k"].shape[2], block_pos,
+                   valid)
 
 
 def paged_write_plain(pools: dict, block_table: torch.Tensor,
@@ -392,13 +413,10 @@ def paged_write_plain(pools: dict, block_table: torch.Tensor,
     then the chunk's drop rule on K6's route or a scatter of every token
     (the JAX package's token kernel, its columns and its scatter agree
     outside the trash row)."""
-    if kv_valid_len is not None:
-        below = write_pos < kv_valid_len[:, None]
-        valid = below if valid is None else valid & below
-    bs = pools["k"].shape[2]
+    blk, off = _located(pools, block_table, write_pos, valid, block_pos,
+                        kv_valid_len)
     b, s, h, d = new_k.shape
-    blk, off = _locate(block_table, write_pos, bs, block_pos, valid)
-    if pwrite.chunk_route(s, bs):
+    if pwrite.chunk_route(s, pools["k"].shape[2]):
         return pwrite.paged_write_chunk_plain(pools, blk, off, new_k, new_v)
     return pwrite.paged_write_token_plain(
         pools, blk.reshape(-1), off.reshape(-1), new_k.reshape(-1, h, d),
@@ -408,8 +426,62 @@ def paged_write_plain(pools: dict, block_table: torch.Tensor,
 def paged_gather(pools: dict, block_table: torch.Tensor, dtype
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialize (B, MB*BS, H, D) K/V views of each lane's pages,
-    dequantized to ``dtype`` for int8 pools."""
+    dequantized to ``dtype`` for quantized pools. The route of e4m3 pools
+    only: each call on the card counts one ``paged_gather`` in
+    ops._build.LAUNCHES (a route count, not a kernel; a captured graph's
+    replay adds it too), so a run can show that int8 and bf16 pools never
+    take it."""
+    if pools["k"].is_cuda:
+        _build.count_launch("paged_gather")
     return (pattn.gather_pages(pools["k"], pools.get("k_scale"),
                                block_table, dtype),
             pattn.gather_pages(pools["v"], pools.get("v_scale"),
                                block_table, dtype))
+
+
+def paged_attention(q: torch.Tensor, pools: dict, block_table: torch.Tensor,
+                    q_pos: torch.Tensor, lens: torch.Tensor, scale: float,
+                    block_pos: Optional[torch.Tensor] = None, window: int = 0,
+                    sink: int = 0, softcap: float = 0.0, kv_splits: int = 0,
+                    stats: bool = False):
+    """Attention of q (B, S, Hq, D) at absolute positions q_pos (B, S) over
+    each lane's pages below lens (B,), in q's dtype.
+
+    int8 and bf16 pools: S == 1 -> K7 (paged_decode_attention), or K11
+    (paged_decode_attention_split) when kv_splits > 1; 1 < S <= 8 -> K9
+    (paged_verify_attention) from q_pos[:, 0]; longer chunks -> K8
+    (paged_prefill_attention). ``stats`` (S == 1) returns (out (B, 1, Hq,
+    D) f32, m, l (B, Hq, 1)) through K10, for an exact merge with keys
+    held elsewhere. A CUDA tensor launches the kernel; on the CPU each
+    route takes its plain version.
+
+    e4m3 pools take the JAX package's route on every device, since it
+    never hands fp8 pages to its paged kernels (models/common.py:502,
+    :627): ``paged_gather``, then masked ops.ref.attention (or
+    attention_stats). No K7-K11 launch."""
+    if pools["k"].dtype == qcore.FP8:
+        k_all, v_all = paged_gather(pools, block_table, q.dtype)
+        keep = pattn.keep_mask(block_table, block_pos, pools["k"].shape[2],
+                               q_pos, lens, window, sink)
+        attend = ops_ref.attention_stats if stats else ops_ref.attention
+        return attend(q, k_all, v_all, mask=keep, scale=scale,
+                      softcap=softcap)
+    args = (pools["k"], pools["v"], pools.get("k_scale"),
+            pools.get("v_scale"), block_table)
+    kw = dict(scale=scale, block_pos=block_pos, window=window, sink=sink,
+              softcap=softcap)
+    s = q.shape[1]
+    if stats:
+        out, m, l = pattn.paged_decode_attention(q[:, 0], *args, lens,
+                                                 stats=True, **kw)
+        return out[:, None], m[..., None], l[..., None]
+    if s == 1:
+        if kv_splits > 1:
+            return pattn.paged_decode_attention_split(
+                q[:, 0], *args, lens, kv_splits=kv_splits, **kw)[:, None]
+        return pattn.paged_decode_attention(q[:, 0], *args, lens,
+                                            **kw)[:, None]
+    if s <= pattn.MAX_VERIFY_ROWS:
+        return pattn.paged_verify_attention(q, *args, lens, q_pos[:, 0],
+                                            **kw)
+    return pattn.paged_prefill_attention(q, *args, q_pos[:, 0], lens, **kw)

@@ -57,9 +57,16 @@ streaming, ``IterationStats`` and ``get_kv_cache_stats``, and
 ``snapshot`` / ``restore`` (JSON, key for key the JAX Executor's, so a
 snapshot of either package restores in the other).
 
-Not ported yet: the dense-cache draft (``paged_draft=False``, which needs
-the dense forward), meshes and dp lane groups (parallel/), LoRA
-(convert/lora.py) and the dynamic outlier state (quant/dynamic.py).
+Runtime-adaptive outliers (``cfg.quant.dynamic_outliers`` on a mix
+algo): ``ostate`` (quant/dynamic.init_model_state) is seeded at
+construction, threaded through every prefill call and replaced by its
+result, as the JAX Executor does; decode rungs never touch it (decode is
+weight-only), nor do snapshots, stats or beams. ``warmup``'s own requests
+are prefills too, so they move the state, as in JAX.
+
+Not ported yet: the dense-cache draft (``paged_draft=False``; JAX
+runtime/scheduler.py:766-790 and runtime/speculative.py), meshes and dp
+lane groups (parallel/) and LoRA (convert/lora.py).
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import common as mcommon
 from ..models.common import ModelConfig
 from ..ops import _build
+from ..quant import dynamic as qdyn
 from ..ops.paged_attention import check_kernel_geometry
 from ..utils import compile_watch
 from .kv_cache import PAD_POS, BlockManager, PagedKVState, init_paged_kv
@@ -320,6 +328,11 @@ class Executor:
         self._proc_fns = tuple((logits_processors or {})[n]
                                for n in self._proc_names)
         self.sampling = sampling
+        # the dynamic outlier state: every prefill call reads and replaces
+        # it; decode (weight-only) passes it by
+        self.ostate = None
+        if cfg.quant.dynamic_outliers and cfg.quant.algo.is_mix:
+            self.ostate = qdyn.init_model_state(params, cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.queue: deque[Request] = deque()
@@ -646,11 +659,15 @@ class Executor:
         start_t, length_t = self._t(start), self._t(length)
         pos = start_t[:, None] + torch.arange(chunk, dtype=torch.int32,
                                               device=self.device)[None, :]
-        logits, self.state = mcommon.forward_paged(
+        res = mcommon.forward_paged(
             self.params, self.cfg, self._t(tokens), pos, self.state,
             self._t(table), length_t, block_pos=self._t(bpos),
             window=self._win_tokens, sink=self._sink_tokens,
-            last_pos=torch.clamp(length_t - start_t - 1, 0, chunk - 1))
+            last_pos=torch.clamp(length_t - start_t - 1, 0, chunk - 1),
+            outlier_state=self.ostate)
+        logits, self.state = res[:2]
+        if self.ostate is not None:
+            self.ostate = res[2]
         self.prefill_tokens += int((length - start)[:len(lanes)].sum())
         finishing = [int(length[i]) >= len(req.prompt)
                      for i, req in enumerate(lanes)]
@@ -1165,8 +1182,12 @@ class Executor:
         ``spec_readbacks`` (host syncs)."""
         if not paged_draft:
             raise NotImplementedError(
-                "paged_draft=False needs the dense forward and KVCache, "
-                "which come with the dense-forward slice of the port")
+                "paged_draft=False is not ported yet: it comes with the "
+                "dense-cache draft loop (JAX runtime/scheduler.py:766-790 "
+                "and runtime/speculative.py)")
+        if self.ostate is not None:
+            raise ValueError("speculative decoding with dynamic outliers "
+                             "is unsupported (as in the JAX Executor)")
         assert gamma >= 1 and gamma + 1 < self.block_size, \
             "gamma+1 must stay below the page size (unaligned chunk rows)"
         assert not self.bm.window_blocks, \

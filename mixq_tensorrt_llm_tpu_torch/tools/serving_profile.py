@@ -9,7 +9,8 @@ the ``serve`` loop chip_smoke.py uses. ``--model`` picks the geometry
 (7b: Llama-2-7B, 32 layers; 13b: Llama-2-13B, 40 layers), ``--algo`` the
 weight quantization (default: int8_mix for 7b, w4a16 for 13b; int8_mix
 and int4_mix take 128 outliers, w4a16_g groups of 128), ``--kv`` the KV
-pool (default: int8 for 7b, none, i.e. bf16 pages, for 13b). The defaults
+pool (default: int8 for 7b, none, i.e. bf16 pages, for 13b; fp8: e4m3
+pages, written and attended by the gather route, no paged kernel). The defaults
 are chip_smoke.py's two serving runs. One Executor serves every run:
 ``warmup(burst=K)`` first (the kernels built, the decode rungs captured as
 CUDA graphs), then the 8 ragged requests ``run(burst=K)`` (``--burst``,
@@ -166,9 +167,10 @@ def make_executor(params, cfg, seed: int, device):
 
 def dense_cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     """Bytes of the dense KV cache GenerationSession allocates: K and V
-    values, and their f32 per-(token, head) scales in int8 mode."""
+    values, and their f32 per-(token, head) scales in the int8 and fp8
+    modes."""
     n = cfg.num_layers * batch * max_len * cfg.num_kv_heads
-    if cfg.quant.kv_cache == KVCacheQuantAlgo.INT8:
+    if cfg.quant.kv_cache != KVCacheQuantAlgo.NONE:
         return 2 * n * (cfg.head_dim + 4)
     return 2 * n * cfg.head_dim * cfg.dtype.itemsize
 
@@ -356,8 +358,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--model", choices=("7b", "13b"), default="7b")
     ap.add_argument("--algo", choices=("int8_mix", "w8a16", "w4a16",
-                                       "w4a16_g", "int4_mix", "none"))
-    ap.add_argument("--kv", choices=("int8", "none"))
+                                       "w4a16_g", "int4_mix", "fp8",
+                                       "int8_lr", "none"))
+    ap.add_argument("--kv", choices=("int8", "fp8", "none"))
     ap.add_argument("--gamma", type=int, default=0,
                     help="serve speculatively with this many draft tokens "
                          "a round (0: plain decode)")

@@ -2,7 +2,8 @@
 JAX package loads into the port (without the safetensors package) to the
 same tensors params_from_numpy gives for the same tree, and one saved by
 the port loads into the JAX package bit for bit. Missing tensors raise
-with their names; fp8 tensors raise NotImplementedError (fp8 slice)."""
+with their names; fp8 tensors (the JAX package's ``@e4m3`` U8 bytes) load
+as float8_e4m3fn, byte for byte."""
 
 import json
 import os
@@ -146,11 +147,19 @@ def test_missing_tensor_raises_with_its_name(model, tmp_path):
 
 
 def test_fp8_tensors_are_the_fp8_slice(tmp_path):
+    """An fp8 checkpoint of the JAX package loads: its @e4m3 tensors as
+    float8_e4m3fn with the same bytes, the rest as params_from_numpy."""
     jcfg = _jcfg(algo=JAlgo.FP8)
     jp = jllama.init_random_params(jcfg, jax.random.PRNGKey(4))
     jckpt.save_checkpoint(str(tmp_path), jp, jcfg)
-    with pytest.raises(NotImplementedError, match="fp8 tensors"):
-        load_checkpoint(str(tmp_path), device="cpu")
+    got, cfg = load_checkpoint(str(tmp_path), device="cpu")
+    assert cfg == ModelConfig.from_dict(jcfg.to_dict())
+    for i, layer in enumerate(got["layers"]):
+        q = layer["qkv_proj"]["qweight"]
+        assert q.dtype == torch.float8_e4m3fn
+        np.testing.assert_array_equal(
+            q.view(torch.uint8).numpy(),
+            np.asarray(jp["layers"]["qkv_proj"]["qweight"][i]).view(np.uint8))
 
 
 def test_safetensors_roundtrip_of_every_dtype(tmp_path):

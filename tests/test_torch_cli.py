@@ -147,6 +147,42 @@ def test_cli_pipeline(model_dir, corpus, on_cpu, capsys):
     assert acc["average"] in (0.0, 0.25, 0.5, 0.75, 1.0)
 
 
+@pytest.mark.parametrize("qformat", ["fp8", "int8_lr"])
+def test_cli_fp8_and_int8_lr_formats(model_dir, on_cpu, capsys, qformat):
+    """quantize --qformat fp8 | int8_lr --kv_cache_dtype fp8, then
+    generate: the checkpoint equals the JAX CLI's (fp8 weights byte for
+    byte, int8 weights and scales exactly, the low-rank factors as u @ v
+    within 1e-3 relative RMS), and it serves over an e4m3 KV cache."""
+    args = ["quantize", "--model_dir", model_dir, "--qformat", qformat,
+            "--kv_cache_dtype", "fp8"]
+    cli.main(args + ["--output_dir", str(on_cpu / "t")])
+    jcli.main(args + ["--output_dir", str(on_cpu / "j")])
+    capsys.readouterr()
+    got = read_safetensors(str(on_cpu / "t" / "model.safetensors"))
+    want = read_safetensors(str(on_cpu / "j" / "model.safetensors"))
+    assert set(got) == set(want)
+    with open(on_cpu / "t" / "config.json") as f:
+        assert json.load(f)["quant"]["kv_cache"] == "fp8"
+    for k in sorted(got):
+        if "lr_u" in k or "lr_v" in k:
+            continue
+        np.testing.assert_array_equal(got[k].float().numpy(),
+                                      want[k].float().numpy(), err_msg=k)
+    if qformat == "fp8":
+        assert "layers.qkv_proj.qweight@e4m3" in got
+    else:
+        for mod in ("qkv_proj", "o_proj", "gate_up_proj"):
+            uv = [(t[f"layers.{mod}.lr_u"].float()
+                   @ t[f"layers.{mod}.lr_v"].float()) for t in (got, want)]
+            assert float(((uv[0] - uv[1]) ** 2).mean().sqrt()
+                         / (uv[1] ** 2).mean().sqrt()) <= 1e-3
+    cli.main(["generate", "--model", str(on_cpu / "t"), "--prompt",
+              "w1 w2 w3", "--prompt", "w9", "--max_new_tokens", "4",
+              "--max_seq_len", "64"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert sum(line.startswith("--- prompt") for line in out) == 2
+
+
 def test_cli_quantizes_an_hf_dir_on_load(model_dir, corpus, on_cpu, capsys):
     """--model an HF directory with --quant: LLM quantizes it into its
     cache under HOME (no act_scales: outliers fall back to ones), then

@@ -47,7 +47,14 @@ logits processor, a replay bit-equal to its eager body; a processor that
 reads the device failing its capture with no eager retry; a prefill
 after adopted pages (prefix reuse) through K6, bit-equal to the plain
 write, and K8, within 2e-2 of its plain version, with a cold run's
-tokens."""
+tokens. Dynamic outliers, fp8 and int8_lr: K1 (no norm) at an empty,
+32- and 256-wide fp_ind (100 entries -1) and K2 at those ko against
+their plain versions; the adaptive linear card against CPU (selection
+and state equal, output within K2's tolerance); the e4m3 casts card
+against CPU byte for byte; an fp8 Executor's decode as graph replays
+with no paged kernel and the gather route counted, none on int8 pools;
+GenerationSession over an e4m3 dense cache; int8_lr's K1 -> K2 route in
+prefill and in the decode replays, traced."""
 
 import os
 
@@ -1990,3 +1997,227 @@ def test_evaluate_ppl_card_vs_cpu(cuda, hf_tiny, tmp_path, monkeypatch):
     again = LLM(d, device=cuda, **kw)
     assert again._ckpt_dir == llm._ckpt_dir
     assert os.stat(weights).st_mtime_ns == stamp
+
+
+# ---------------------------------------------------------------------------
+# Runtime-adaptive outliers, fp8 and int8_lr on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_format_model(cuda, algo, kv, dynamic=False, num_kv_heads=2):
+    """_tiny_serving_model's geometry (hidden 256, 4 heads of 64) in
+    another format: fp8 / int8_lr weights, fp8 / int8 KV, or int8_mix
+    with dynamic outliers (cap 64) and both RMSNorm weights of layer 0 at
+    8 on four channels outside its static sets."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant import (KVCacheQuantAlgo,
+                                                   QuantAlgo, QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=num_kv_heads,
+                      head_dim=64,
+                      quant=QuantConfig(algo=QuantAlgo(algo), num_outliers=8,
+                                        max_outliers=64,
+                                        dynamic_outliers=dynamic,
+                                        kv_cache=KVCacheQuantAlgo(kv)))
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    params = llama.init_random_params(
+        cfg, seed=16, device=cuda,
+        act_scales=sp.distinct_act_scales(cfg, gen, cuda))
+    if dynamic:
+        static = set(params["layers"][0]["qkv_proj"]["fp_ind"].tolist()) | \
+            set(params["layers"][0]["gate_up_proj"]["fp_ind"].tolist())
+        planted = [c for c in range(256) if c not in static][:4]
+        for norm in ("input_norm", "post_norm"):
+            params["layers"][0][norm]["w"][planted] = 8.0
+        return params, cfg, planted
+    return params, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("ko,pad", [(0, 0), (32, 0), (256, 100)])
+def test_k1_k2_at_dynamic_and_lr_widths(cuda, m, ko, pad):
+    """K1 (no norm) over an empty fp_ind, 32 entries and 256 with 100 of
+    them -1 (the dynamic padding: gathers 0, zeroes nothing), then K2 at
+    that ko: K1's and K2's tolerances against their plain versions, one
+    launch each a call."""
+    gen = torch.Generator(device=cuda).manual_seed(ko + m)
+    k, n = 4096, 1024
+    x = (torch.randn((m, k), generator=gen, device=cuda) * 3).to(
+        torch.bfloat16)
+    ind = torch.randperm(k, generator=gen, device=cuda)[:ko].int()
+    ind[ko - pad:] = -1
+    qw = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scol = torch.rand((n,), generator=gen, device=cuda) * 1e-2
+    fpw = (torch.randn((ko, n), generator=gen, device=cuda) * 0.05).to(
+        torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    got = nq.quant_split(x, ind)
+    want = nq.quant_split_plain(x, ind)
+    out = mm.mixed_matmul(*got[:3], qw, scol, fpw)
+    plain = mm.mixed_matmul_plain(*got[:3], qw, scol, fpw)
+    torch.cuda.synchronize()
+    assert _launched("rmsnorm_quant_split", before) == 1
+    assert _launched("mixed_matmul", before) == 1
+    diff = (got[0].int() - want[0].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) > 0.999
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    assert got[2].shape == (m, ko)
+    torch.testing.assert_close(got[2].float(), want[2].float(), rtol=1e-2,
+                               atol=1e-2)
+    if pad:
+        assert bool((got[2][:, ko - pad:] == 0).all())
+    assert _close(out, plain, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_adaptive_linear_on_card_matches_cpu(cuda):
+    """quant/dynamic.adaptive_mix_linear at cap 256 on the card (K1 with
+    -1 padding, then K2) against the same call on the CPU: the selection
+    and the state equal, the output within K2's tolerance."""
+    from mixq_tensorrt_llm_tpu_torch.quant import dynamic as qdyn
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    k, n = 1024, 768
+    x = torch.randn((2, 48, k), generator=gen, device=cuda)
+    x[..., [5, 77, 901]] *= 12.0
+    x = x.to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.02
+    qw, scol = qcore.quantize_weight_int8(w)
+    state = torch.zeros((k,), device=cuda)
+    state[torch.randperm(k, generator=gen, device=cuda)[:128]] = 12.0
+    before = dict(_build.LAUNCHES)
+    out, st = qdyn.adaptive_mix_linear(x, qw, scol,
+                                       qdyn.DynamicOutlierState(state),
+                                       cap=256, sigma=6.0, base_k=128)
+    torch.cuda.synchronize()
+    assert _launched("rmsnorm_quant_split", before) == 1
+    assert _launched("mixed_matmul", before) == 1
+    cpu = qdyn.adaptive_mix_linear(
+        x.cpu(), qw.cpu(), scol.cpu(), qdyn.DynamicOutlierState(state.cpu()),
+        cap=256, sigma=6.0, base_k=128)
+    assert torch.equal(st.chan_max.cpu(), cpu[1].chan_max)
+    sel = qdyn.dynamic_fp_ind(st.chan_max, 256, 6.0, 128)
+    assert sel.tolist() == qdyn.dynamic_fp_ind(cpu[1].chan_max, 256, 6.0,
+                                               128).tolist()
+    assert {5, 77, 901} <= set(sel.tolist()) and -1 in sel.tolist()
+    assert _close(out.cpu(), cpu[0], torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_fp8_casts_card_bit_equal_to_cpu(cuda):
+    """The e4m3 weight and KV casts give the CPU's bytes on the card
+    (values next to 448, subnormals, the scale floor, zero rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    w = torch.randn((4096, 4096), generator=gen, device=cuda) * 0.02
+    w[:, 0] = torch.linspace(-1, 1, 4096, device=cuda)
+    w[:, 1] = 2.0 ** -torch.arange(4096, device=cuda).clamp(max=120).float()
+    w[:, 2] = 0.0
+    w[:, 3] *= 1e-12
+    w[7] = 0.0
+    kv = torch.randn((8, 32, 128), generator=gen, device=cuda) * 3
+    kv[0, 0] = 0.0
+    kv[1, 1] *= 1e-12
+    for got, want in ((qcore.quantize_weight_fp8(w),
+                       qcore.quantize_weight_fp8(w.cpu())),
+                      (qcore.quantize_kv(kv, dtype=qcore.FP8),
+                       qcore.quantize_kv(kv.cpu(), dtype=qcore.FP8))):
+        assert torch.equal(got[0].view(torch.uint8).cpu(),
+                           want[0].view(torch.uint8))
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_fp8_executor_decode_replays_without_paged_kernels(cuda):
+    """fp8 weights and e4m3 pools on the card: after warmup(burst=4) every
+    decode call is a graph replay and no program is made; no K5-K11
+    launch (JAX never hands e4m3 pages to its paged kernels), the gather
+    route counted in prefill and in the replays. The same model on int8
+    pools never takes the gather route."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    prompts = [[(5 * i + j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((9, 70, 33))]
+    for kv in ("fp8", "int8"):
+        params, cfg = _tiny_format_model(cuda, "fp8", kv)
+        ex = Executor(params, cfg, max_batch=4, max_seq_len=256,
+                      block_size=16, prefill_chunk=32, device=cuda)
+        ex.warmup(burst=4)
+        ids = [ex.submit(p, max_new_tokens=12) for p in prompts]
+        _build.reset_launches()
+        steps = ex.decode_steps
+        done = ex.run(burst=4)
+        torch.cuda.synchronize()
+        assert all(len(done[r].generated) == 12 for r in ids)
+        assert ex.compiles_since_warmup == 0
+        assert ex.graph_replays == ex.decode_calls > 0
+        gathers = _build.LAUNCHES.get("paged_gather", 0)
+        if kv == "fp8":
+            assert ex.state.k.dtype == qcore.FP8
+            assert not any(n.startswith("paged_") and n != "paged_gather"
+                           for n in _build.LAUNCHES), dict(_build.LAUNCHES)
+            assert gathers >= cfg.num_layers * (ex.decode_steps - steps) > 0
+        else:
+            assert gathers == 0
+            assert _build.LAUNCHES.get("paged_decode_attention", 0) > 0
+
+
+@pytest.mark.gpu
+def test_session_over_fp8_dense_cache(cuda):
+    """GenerationSession over an e4m3 dense cache: K14 once a layer at the
+    prefill, no paged kernel, 8 tokens a prompt, finite logits."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    params, cfg = _tiny_format_model(cuda, "fp8", "fp8", num_kv_heads=4)
+    prompts = [[(5 * i + j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((100, 128))]
+    sess = GenerationSession(params, cfg, max_seq_len=256, device=cuda)
+    _build.reset_launches()
+    out = sess.generate(prompts, 8, return_context_logits=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("flash_causal_attention", 0) == cfg.num_layers
+    assert not any(n.startswith("paged_") for n in _build.LAUNCHES)
+    assert out.num_generated == [8, 8]
+    assert all(bool(torch.isfinite(c).all()) for c in out.context_logits)
+
+
+@pytest.mark.gpu
+def test_int8_lr_route_on_card(cuda):
+    """int8_lr on the card: every lr linear is K1 (no outliers) -> K2 with
+    the rank-32 correction as its side GEMM, in prefill and in the decode
+    replays (int8_lr takes no weight-only route), K4 for down_proj; one
+    linear within K2's tolerance of the CPU's; the traced prefill shows
+    K1's and K2's kernels."""
+    from mixq_tensorrt_llm_tpu_torch.ops import dispatch
+    from mixq_tensorrt_llm_tpu_torch.quant import QuantAlgo
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_format_model(cuda, "int8_lr", "int8")
+    lp = params["layers"][0]["qkv_proj"]
+    assert lp["lr_u"].shape == (256, 32) and lp["lr_v"].shape[0] == 32
+    x = torch.randn((40, 256), device=cuda).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    got = dispatch.linear(lp, x, QuantAlgo.INT8_LR)
+    torch.cuda.synchronize()
+    assert _launched("rmsnorm_quant_split", before) == 1
+    assert _launched("mixed_matmul", before) == 1
+    want = dispatch.linear({k: v.cpu() for k, v in lp.items()}, x.cpu(),
+                           QuantAlgo.INT8_LR)
+    assert _close(got.cpu(), want, torch.bfloat16)
+    ex = Executor(params, cfg, max_batch=4, max_seq_len=256, block_size=16,
+                  prefill_chunk=32, device=cuda)
+    ex.submit(list(range(1, 40)), max_new_tokens=1)
+    names = _traced_kernels(ex.run)
+    assert any("norm_quant" in n for n in names)
+    assert any("mixed_wgmma_kernel" in n for n in names)
+    ids = [ex.submit(list(range(1, n)), max_new_tokens=6) for n in (20, 50)]
+    _build.reset_launches()
+    ex.run()
+    torch.cuda.synchronize()
+    steps = ex.decode_steps
+    assert ex.graph_replays == ex.decode_calls > 0
+    # 3 lr linears a layer a step, at least, from the decode replays
+    assert _build.LAUNCHES["mixed_matmul"] >= 3 * cfg.num_layers * 5
+    assert _build.LAUNCHES["rmsnorm_quant_split"] == \
+        _build.LAUNCHES["mixed_matmul"]
+    assert _build.LAUNCHES.get("wo_matmul", 0) > 0
+    assert steps > 0 and all(len(ex.finished[r].generated) == 6
+                             for r in ids)

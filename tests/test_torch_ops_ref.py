@@ -141,11 +141,19 @@ def test_wo_matmul_and_mix_linear(data):
 
 
 def test_unported_algo_raises(data):
-    _, w, _, _ = data
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdispatch.quantize_linear_params(_t(w), QuantAlgo.INT8_LR)
-    with pytest.raises(NotImplementedError, match="fp8 slice"):
-        tdispatch.linear({}, _t(w), QuantAlgo.FP8)
+    """Every algo is ported now: int8_lr and fp8 quantize and apply as the
+    JAX package does (within 2e-2), and a name that is no algo raises."""
+    x, w, _, _ = data
+    for algo in (QuantAlgo.INT8_LR, QuantAlgo.FP8):
+        tp = tdispatch.quantize_linear_params(_t(w), algo)
+        jp = jdispatch.quantize_linear_params(jnp.asarray(w),
+                                              JAlgo(algo.value))
+        assert set(tp) == set(jp)
+        _close(tdispatch.linear(tp, _t(x), algo),
+               jdispatch.linear(jp, jnp.asarray(x), JAlgo(algo.value)),
+               2e-2, algo.value)
+    with pytest.raises(ValueError):
+        tdispatch.linear({}, _t(w), QuantAlgo("fp16"))
 
 
 @pytest.mark.parametrize("softcap", [0.0, 20.0])

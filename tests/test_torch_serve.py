@@ -297,19 +297,9 @@ def test_stepper_failure_answers_500(model):
      "models/t5.py"),
     (["quantize", "--model_dir", "m", "--output_dir", "o", "--lora_dir",
       "a"], "convert/lora.py"),
-    (["quantize", "--qformat", "fp8"], "quantize_weight_fp8"),
 ])
 def test_cli_unported_subcommands_name_their_module(argv, module, tmp_path):
     """Every subcommand is ported; what still raises names its module."""
-    from mixq_tensorrt_llm_tpu_torch.tools.random_hf import \
-        write_random_llama
-    if "--qformat" in argv:
-        write_random_llama(str(tmp_path), dict(
-            model_type="llama", hidden_size=64, intermediate_size=128,
-            num_hidden_layers=1, num_attention_heads=4, vocab_size=64,
-            max_position_embeddings=64, rms_norm_eps=1e-5), device="cpu")
-        argv = argv + ["--model_dir", str(tmp_path), "--output_dir",
-                       str(tmp_path / "o")]
     with pytest.raises((SystemExit, NotImplementedError)) as e:
         with mock.patch.object(hf, "quantize_hf_model", functools.partial(
                 hf.quantize_hf_model, device="cpu")):

@@ -494,10 +494,10 @@ def test_unported_and_device_defaults_raise(models, tmp_path):
     with pytest.raises(NotImplementedError, match="convert/lora.py"):
         paged_beam_search(tp, cfg, [[1, 2]], 4, num_beams=2, lora_ids=[1],
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="fp8"):
-        fp8 = dataclasses.replace(cfg, quant=dataclasses.replace(
-            cfg.quant, kv_cache=KVCacheQuantAlgo.FP8))
-        tcommon.init_kv_cache(fp8, 1, 16, device="cpu")
+    fp8 = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, kv_cache=KVCacheQuantAlgo.FP8))
+    assert tcommon.init_kv_cache(fp8, 1, 16, device="cpu").k.dtype == \
+        torch.float8_e4m3fn
     cache = tcommon.init_kv_cache(cfg, 1, 16, device="cpu")
     tok = torch.ones((1, 2), dtype=torch.long)
     pos = torch.arange(2)[None]
