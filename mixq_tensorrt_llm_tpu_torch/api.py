@@ -9,8 +9,9 @@ Counterpart of api.py.
 Face directory (Llama lineage), quantized on first use into a cache
 directory keyed by its path and QuantConfig (``_ensure_quantized``; the
 default base is ``~/.cache/mixq_tpu_torch``) and loaded from there after.
-Speculative decoding over the session, Medusa and ReDrafter are not ported
-yet.
+Beside generation through the session: speculative sampling with a draft
+LLM, Medusa and ReDrafter (runtime/speculative.py, medusa.py,
+redrafter.py), all on the LLM's device.
 """
 
 from __future__ import annotations
@@ -156,10 +157,41 @@ class LLM:
                              temperature: float = 1.0,
                              eos_token_id: Optional[int] = None,
                              seed: int = 0):
-        raise NotImplementedError(
-            "batched speculative decoding over the session "
-            "(runtime/speculative.py) is not ported yet (ROADMAP queue 1); "
-            "the Executor's run_speculative is (make_executor)")
+        """Batched speculative sampling with ``draft`` proposing gamma
+        tokens a round (temperature <= 0: greedy, equal to target-only
+        greedy decoding). Returns (token lists with the prompts,
+        SpecStats)."""
+        from .runtime.speculative import speculative_generate_batched
+        return speculative_generate_batched(
+            self.params, self.cfg, draft.params, draft.cfg,
+            [list(p) for p in prompts], max_new_tokens, gamma=gamma,
+            temperature=temperature, eos_token_id=eos_token_id,
+            max_seq_len=self.max_seq_len, seed=seed, device=self.device)
+
+    def generate_medusa(self, heads, prompt: Sequence[int],
+                        max_new_tokens: int = 64, choices=None):
+        """Greedy Medusa decoding: the heads' candidates verified in one
+        forward over a static token tree. The output equals plain greedy
+        decoding. Returns (tokens, MedusaStats)."""
+        from .runtime.medusa import medusa_generate
+        return medusa_generate(self.params, self.cfg, heads, list(prompt),
+                               max_new_tokens, choices=choices,
+                               max_seq_len=self.max_seq_len,
+                               device=self.device)
+
+    def generate_redrafter(self, drafter, prompt: Sequence[int],
+                           max_new_tokens: int = 64, num_beams: int = 4,
+                           draft_len: int = 4):
+        """Greedy ReDrafter decoding: the drafter's num_beams beams of
+        draft_len tokens verified in one forward over a static beam block.
+        The output equals plain greedy decoding. Returns (tokens,
+        ReDrafterStats)."""
+        from .runtime.redrafter import redrafter_generate
+        return redrafter_generate(self.params, self.cfg, drafter,
+                                  list(prompt), max_new_tokens,
+                                  num_beams=num_beams, draft_len=draft_len,
+                                  max_seq_len=self.max_seq_len,
+                                  device=self.device)
 
     def evaluate_ppl(self, token_stream: Sequence[int], seq_len: int = 512,
                      batch_size: int = 8, max_blocks: Optional[int] = None):

@@ -39,7 +39,7 @@ def _add_quantize(sub):
     p.add_argument("--calib_seq_len", type=int, default=512)
     p.add_argument("--lora_dir", default=None,
                    help="PEFT adapter dir merged into base weights before "
-                        "quantization (not ported yet: convert/lora.py)")
+                        "quantization")
     return p
 
 

@@ -116,16 +116,16 @@ def quantize_hf_model(
     calib_batches on the float model > none, which falls back to ones
     (channels 0..k-1, with a warning), as in the JAX package. Writes
     act_scales.npz beside the checkpoint when there are scales, and copies
-    the tokenizer files."""
-    if lora_dir:
-        raise NotImplementedError(
-            "merging a LoRA adapter before quantization is not ported yet: "
-            "it comes with convert/lora.py")
+    the tokenizer files. ``lora_dir``: a PEFT adapter merged into the float
+    weights first (convert/lora.merge_lora_into_state_dict)."""
     dev = resolve_device(device)
     cfg = registry.config_from_hf(load_hf_config(hf_dir), quant)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     sd = load_hf_state_dict(hf_dir)
+    if lora_dir:
+        from .lora import merge_lora_into_state_dict
+        sd = merge_lora_into_state_dict(sd, lora_dir)
 
     if act_scales is None and act_scales_path:
         act_scales = calib.load_act_scales(act_scales_path)

@@ -275,7 +275,8 @@ def block_norm(cfg: ModelConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
 
 def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
                           layer_cache: dict, write_pos, kv_valid_len,
-                          full_prefill: bool = False) -> torch.Tensor:
+                          full_prefill: bool = False,
+                          attn_mask=None) -> torch.Tensor:
     """Write new_k/new_v (B, S, Hkv, D) into this layer's dense cache at
     write_pos (B, S) in place, and attend q (B, S, Hq, D) (JAX
     models/common.py:341-432).
@@ -288,7 +289,10 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
     does, not over the quantized cache. Otherwise the masked einsum over
     the whole cache (causal in absolute positions, below kv_valid_len, the
     window), straight over int8 or e4m3 with its scales in the quantized
-    modes: plain torch, as JAX leaves it to XLA."""
+    modes: plain torch, as JAX leaves it to XLA. ``attn_mask`` (B, 1, S,
+    Smax) bool replaces that mask whole (tree and beam verification,
+    where cache slots and token positions part), and turns the
+    full_prefill route off, as in JAX."""
     b = q.shape[0]
     window = cfg.sliding_window
     scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
@@ -307,15 +311,19 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
         ck[bidx, wp] = new_k.to(ck.dtype)
         cv[bidx, wp] = new_v.to(cv.dtype)
 
-    if full_prefill and not softcap:
+    if full_prefill and not softcap and attn_mask is None:
         return ops_attn.causal_self_attention(q, new_k, new_v, scale=scale,
                                               window=window)
-    kv_idx = torch.arange(ck.shape[1], device=q.device)
-    mask = ((kv_idx[None, None, None, :] <= wp[:, None, :, None])
-            & (kv_idx[None, None, None, :]
-               < kv_valid_len.long()[:, None, None, None]))
-    if window:
-        mask &= kv_idx[None, None, None, :] > wp[:, None, :, None] - window
+    if attn_mask is not None:
+        mask = attn_mask
+    else:
+        kv_idx = torch.arange(ck.shape[1], device=q.device)
+        mask = ((kv_idx[None, None, None, :] <= wp[:, None, :, None])
+                & (kv_idx[None, None, None, :]
+                   < kv_valid_len.long()[:, None, None, None]))
+        if window:
+            mask &= (kv_idx[None, None, None, :]
+                     > wp[:, None, :, None] - window)
     if quantized:
         return ops_ref.attention_int8kv(q, ck, layer_cache["k_scale"], cv,
                                         layer_cache["v_scale"], mask=mask,
@@ -409,7 +417,8 @@ def _absmax_in(x: torch.Tensor) -> torch.Tensor:
 
 def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
                   attend, stats: Optional[dict] = None,
-                  ostate: Optional[dict] = None) -> torch.Tensor:
+                  ostate: Optional[dict] = None,
+                  lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-norm Llama block. x (B, S, hidden); ``attend(q, k, v)``
     writes the new k/v (B, S, Hkv, D) into the layer's KV and returns
     attention of q (B, S, Hq, D) over it: ``_attention_with_cache`` (dense
@@ -428,7 +437,14 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     the adaptive mixed linear when that module's algo at this S is a mix
     algo (prefill chunks; decode steps, weight-only at S <= 4, pass the
     state through), and receives the updated state in place. The norm
-    then runs apart from the linear, as in the JAX package."""
+    then runs apart from the linear, as in the JAX package.
+
+    ``lora_ids`` (B,) int selects each lane's runtime LoRA adapter (0 = the
+    base model) on every module that carries ``lora_A`` (N+1, in, R) /
+    ``lora_B`` (N+1, R, out) (convert/lora.attach_lora): the delta (h A) B,
+    two f32 batched products, is cast to the linear's output dtype and
+    added to it. The norm then runs apart too, so a mix linear takes K1
+    without the norm (JAX models/common.py:837-876)."""
     b, s, _ = x.shape
 
     # decode regime (S <= 4): mix linears run weight-only on the full
@@ -457,15 +473,26 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
         ostate[mod] = st.chan_max
         return dispatch._maybe_bias(out, p)
 
+    def has_lora(mod):
+        return lora_ids is not None and "lora_A" in lp[mod]
+
+    def lora(mod, h, out):
+        if not has_lora(mod):
+            return out
+        ids = lora_ids.long()
+        t = torch.bmm(h.float(), lp[mod]["lora_A"][ids].float())
+        d = torch.bmm(t, lp[mod]["lora_B"][ids].float())
+        return out + d.to(out.dtype)
+
     def proj_in(mod, norm_key, x_res):
-        if stats is None and not adaptive(mod):
+        if stats is None and not adaptive(mod) and not has_lora(mod):
             return dispatch.norm_linear(lp[mod], x_res, algo(mod),
                                         lp[norm_key]["w"],
                                         eps=cfg.rms_norm_eps)
         h = block_norm(cfg, x_res, lp[norm_key])
         if stats is not None:
             stats[mod] = _absmax_in(h)
-        return linear(mod, h)
+        return lora(mod, h, linear(mod, h))
 
     qkv = proj_in("qkv_proj", "input_norm", x)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size],
@@ -476,7 +503,7 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     attn_in = attend(q, k, v).reshape(b, s, cfg.q_size)
     if stats is not None:
         stats["o_proj"] = _absmax_in(attn_in)
-    attn = linear("o_proj", attn_in)
+    attn = lora("o_proj", attn_in, linear("o_proj", attn_in))
     x = x + attn.to(x.dtype)
 
     up_out = proj_in("gate_up_proj", "post_norm", x)
@@ -484,7 +511,8 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     h = (_act(cfg.hidden_act, gate) * up.float()).to(x.dtype)
     if stats is not None:
         stats["down_proj"] = _absmax_in(h)
-    h = dispatch.linear(lp["down_proj"], h, algo("down_proj"))
+    h = lora("down_proj", h, dispatch.linear(lp["down_proj"], h,
+                                             algo("down_proj")))
     return x + h.to(x.dtype)
 
 
@@ -522,7 +550,7 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                   write_pos: torch.Tensor, paged_state, block_table,
                   kv_valid_len: torch.Tensor, block_pos=None,
                   window: int = 0, sink: int = 0, last_pos=None,
-                  outlier_state: Optional[dict] = None):
+                  outlier_state: Optional[dict] = None, lora_ids=None):
     """Decoder forward over the paged pool (continuous-batching path).
 
     tokens/write_pos (B, S); paged_state: runtime.kv_cache.PagedKVState,
@@ -533,7 +561,8 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     last_pos: optional (B,) chunk-relative index — the head then runs on
     that one position per lane and returns (B, 1, V) logits;
     outlier_state: quant.dynamic.init_model_state's dict, threaded through
-    the layers' adaptive mix linears (``decoder_layer``).
+    the layers' adaptive mix linears (``decoder_layer``); lora_ids: (B,)
+    runtime LoRA adapter per lane (``decoder_layer``).
     Returns (logits f32, paged_state[, new outlier_state])."""
     x = _embed(params, cfg, tokens)
     sin, cos = _positional_arrays(cfg, write_pos)
@@ -547,7 +576,8 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
                          block_pos=block_pos, window=window, sink=sink)
         ost = _layer_ostate(outlier_state, li)
-        x = decoder_layer(cfg, lp, x, sin, cos, attend, ostate=ost)
+        x = decoder_layer(cfg, lp, x, sin, cos, attend, ostate=ost,
+                          lora_ids=lora_ids)
         new_ostate.append(ost)
     logits = _head(params, cfg, _last(x, last_pos)).float()
     if outlier_state:
@@ -561,17 +591,6 @@ def _last(x: torch.Tensor, last_pos) -> torch.Tensor:
         return x
     idx = last_pos.long().clamp(0, x.shape[1] - 1)
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-
-
-# forward's options of the JAX package that the port does not honour yet,
-# with the module whose port brings each (ROADMAP queue 1)
-_UNPORTED_FORWARD = {
-    "lora_ids": "convert/lora.py",
-    "attn_mask": "runtime/medusa.py (tree verification)",
-    "return_hidden": "runtime/medusa.py (heads)",
-    "rope_pos": "runtime/medusa.py and runtime/redrafter.py (tree and "
-                "beam verification)",
-}
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -592,17 +611,18 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     return each linear's per-input-channel activation absmax,
     ``stats[module]`` (L, in) f32 (``decoder_layer``); outlier_state:
     quant.dynamic.init_model_state's dict, threaded through the layers'
-    adaptive mix linears.
-    Returns (logits f32, cache[, new outlier_state][, stats])."""
-    given = dict(lora_ids=lora_ids, attn_mask=attn_mask,
-                 return_hidden=return_hidden, rope_pos=rope_pos)
-    for name, val in given.items():
-        if val is not None and val is not False:
-            raise NotImplementedError(
-                f"forward({name}=...) is not ported yet: it comes with "
-                f"{_UNPORTED_FORWARD[name]} (ROADMAP queue 1)")
+    adaptive mix linears; lora_ids: (B,) runtime LoRA adapter per lane
+    (``decoder_layer``); attn_mask: (B, 1, S, Smax) bool, replaces the
+    causal construction and the full_prefill route (tree and beam
+    verification, runtime/medusa.py and runtime/redrafter.py); rope_pos:
+    (B, S) the tokens' true positions for RoPE where they differ from
+    their cache slots ``write_pos``; return_hidden: also return the
+    pre-final-norm hidden (B, S, H) as the last element, never cut by
+    last_pos.
+    Returns (logits f32, cache[, new outlier_state][, stats][, hidden])."""
     x = _embed(params, cfg, tokens)
-    sin, cos = _positional_arrays(cfg, write_pos)
+    sin, cos = _positional_arrays(
+        cfg, write_pos if rope_pos is None else rope_pos)
     layer_stats, new_ostate = [], []
     for li, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache.k[li], "v": cache.v[li]}
@@ -611,11 +631,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                                v_scale=cache.v_scale[li])
         attend = partial(_attention_with_cache, cfg, layer_cache=layer_cache,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
-                         full_prefill=full_prefill)
+                         full_prefill=full_prefill, attn_mask=attn_mask)
         st = {} if collect_stats else None
         ost = _layer_ostate(outlier_state, li)
         x = decoder_layer(cfg, lp, x, sin, cos, attend, stats=st,
-                          ostate=ost)
+                          ostate=ost, lora_ids=lora_ids)
         layer_stats.append(st)
         new_ostate.append(ost)
     out = (_head(params, cfg, _last(x, last_pos)).float(), cache)
@@ -624,4 +644,6 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     if collect_stats:
         out += ({m: torch.stack([st[m] for st in layer_stats])
                  for m in layer_stats[0]},)
+    if return_hidden:
+        out += (x,)
     return out

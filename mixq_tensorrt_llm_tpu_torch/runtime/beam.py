@@ -31,10 +31,13 @@ Top-k follows ``jax.lax.top_k``'s order: among equal scores the lower
 index comes first (a stable descending sort). Finished beams make many
 equal candidates, so the order decides which survive.
 
-Not ported: meshes (tp / pp beams), runtime LoRA (``lora_ids`` raises), the
-compact flush (its reason is XLA's whole-pool transposed copy, which an
-``index_put_`` does not make, so one exact flush serves) and the
-MIXQ_BEAM_TRACE timing prints.
+Runtime LoRA: ``lora_ids`` gives each request's adapter (0 = the base
+model); its K beams share it, in the prefill, every step and every burst
+(a burst's lane ids are one of its static inputs).
+
+Not ported: meshes (tp / pp beams), the compact flush (its reason is
+XLA's whole-pool transposed copy, which an ``index_put_`` does not make,
+so one exact flush serves) and the MIXQ_BEAM_TRACE timing prints.
 """
 
 from __future__ import annotations
@@ -73,11 +76,14 @@ _MEMO_CAP = 128
 _CTRL_FIELDS = ("min_lanes", "bw", "stops", "stop_len", "proc_masks")
 
 
-def _refuse_lora(lora_ids) -> None:
-    if lora_ids is not None and any(lora_ids):
-        raise NotImplementedError(
-            "beams over runtime LoRA adapters are not ported yet: they come "
-            "with convert/lora.py (ROADMAP queue 1)")
+def _pack_lora(lora_ids, k: int):
+    """Per-request adapter ids -> ((B,) prefill ids, (B*K,) lane ids) int32
+    numpy, each request's id repeated over its k beams; (None, None) when
+    every request runs the base model."""
+    if lora_ids is None or not any(lora_ids):
+        return None, None
+    req = np.asarray([i or 0 for i in lora_ids], np.int32)
+    return req, np.repeat(req, k)
 
 
 @dataclasses.dataclass
@@ -318,14 +324,16 @@ def beam_search(params, cfg: ModelConfig, prompts: Sequence[Sequence[int]],
     controls (ints / lists of token-id sequences), see BeamControls.
     logits_processors: static (name, fn) pairs, torch callables
     ``(logits (N, V), history (N, W)) -> logits``, with proc_masks (b, P)
-    per-request masks."""
-    _refuse_lora(lora_ids)
+    per-request masks. lora_ids: per-request runtime adapter ids (0 = the
+    base model)."""
     dev = resolve_device(device)
     b, k = len(prompts), num_beams
     ctrl = _pack_beam_controls(prompts, k, min_new_tokens, bad_words,
                                stop_sequences, logits_processors,
                                proc_masks)
     ctrl_d = None if ctrl is None else ctrl.to(dev)
+    lora_req, lora_lane = (None if a is None else torch.as_tensor(a).to(dev)
+                           for a in _pack_lora(lora_ids, k))
     eos_i = -1 if eos_token_id is None else int(eos_token_id)
     lens_list = [len(p) for p in prompts]
     max_prompt = max(lens_list)
@@ -342,7 +350,8 @@ def beam_search(params, cfg: ModelConfig, prompts: Sequence[Sequence[int]],
                        device=dev)[None].expand(b, max_prompt)
     logits, cache = mcommon.forward(params, cfg,
                                     torch.as_tensor(tokens, device=dev),
-                                    pos, cache, lens, last_pos=lens - 1)
+                                    pos, cache, lens, last_pos=lens - 1,
+                                    lora_ids=lora_req)
     # processors see raw logits (they are not shift-invariant as bans are)
     logp0 = logits[:, 0]
     if ctrl is None or not ctrl.procs:
@@ -375,7 +384,7 @@ def beam_search(params, cfg: ModelConfig, prompts: Sequence[Sequence[int]],
         gen0 = len(beam_tokens)
         logits, cache = mcommon.forward(params, cfg, cur[:, None],
                                         cur_lens[:, None], cache,
-                                        cur_lens + 1)
+                                        cur_lens + 1, lora_ids=lora_lane)
         scores, parent, token, fin, hist, rows = _beam_select(
             logits[:, 0].float(), b, k, scores,
             torch.as_tensor(finished, device=dev), hist, ctrl_d, gen0 + 1,
@@ -467,7 +476,8 @@ def _make_beam_prefill(cfg: ModelConfig, raw: bool = False):
     if hit is not None:
         return hit
 
-    def prefill_chunk(params, tokens_c, state, table, start, lens, logp):
+    def prefill_chunk(params, tokens_c, state, table, start, lens, logp,
+                      lora=None):
         c = tokens_c.shape[1]
         pos_c = start + torch.arange(c, dtype=torch.int32,
                                      device=start.device)[None, :]
@@ -475,7 +485,7 @@ def _make_beam_prefill(cfg: ModelConfig, raw: bool = False):
         idx = torch.clamp(lens - 1 - start[:, 0], 0, c - 1)
         logits, state = mcommon.forward_paged(params, cfg, tokens_c, pos_c,
                                               state, table, valid,
-                                              last_pos=idx)
+                                              last_pos=idx, lora_ids=lora)
         last = logits[:, 0]
         hit_ = (lens - 1 >= start[:, 0]) & (lens - 1 < start[:, 0] + c)
         out = last if raw else torch.log_softmax(last, dim=-1)
@@ -495,10 +505,10 @@ def _make_beam_step(cfg: ModelConfig, b: int, k: int, eos_i: int, ctrl):
         return hit
 
     def step(params, cur, state, table, cur_lens, beam_scores, finished,
-             hist, gen0, ctrl_d):
+             hist, gen0, ctrl_d, lora=None):
         logits, state = mcommon.forward_paged(
             params, cfg, cur[:, None], cur_lens[:, None], state, table,
-            cur_lens + 1)
+            cur_lens + 1, lora_ids=lora)
         scores, parent, token, fin, hist, _ = _beam_select(
             logits[:, 0].float(), b, k, beam_scores, finished, hist, ctrl_d,
             gen0 + 1, eos_i)
@@ -534,12 +544,14 @@ def _init_tail(cfg: ModelConfig, n_lanes: int, kmax: int, quantized: bool,
 
 
 def _forward_with_tail(params, cfg: ModelConfig, cur, pools: dict, table,
-                       bpos, prefix_len, tails: dict, tidx: int):
+                       bpos, prefix_len, tails: dict, tidx: int,
+                       lora_ids=None):
     """One decode forward of a burst: attention over [pool prefix | dense
     tail] (models.common._attention_paged_tail), the new token's K/V
     written into each layer's tail at slot ``tidx`` in place, the pool
     only read. cur (N,) at position prefix_len + tidx; table (N, MB)
-    per-layer page ids. Returns the logits (N, 1, V) f32."""
+    per-layer page ids; lora_ids (N,) the lanes' adapters. Returns the
+    logits (N, 1, V) f32."""
     pos = (prefix_len + tidx)[:, None]
     x = mcommon._embed(params, cfg, cur[:, None])
     sin, cos = mcommon._positional_arrays(cfg, pos)
@@ -549,7 +561,8 @@ def _forward_with_tail(params, cfg: ModelConfig, cur, pools: dict, table,
                          tail={n: a[li] for n, a in tails.items()},
                          tail_idx=tidx, block_table=table + li * nb,
                          prefix_len=prefix_len, block_pos=bpos)
-        x = mcommon.decoder_layer(cfg, lp, x, sin, cos, attend)
+        x = mcommon.decoder_layer(cfg, lp, x, sin, cos, attend,
+                                  lora_ids=lora_ids)
     return mcommon._head(params, cfg, x).float()
 
 
@@ -619,12 +632,14 @@ class BeamEngine:
         return self.state
 
     def _inputs(self, n: int, b: int, k: int, mb: int, k_eff: int,
-                ctrl: Optional[BeamControls]) -> StaticInputs:
+                ctrl: Optional[BeamControls], lora: bool) -> StaticInputs:
         shapes = {"table": (n, mb), "bpos": (n, mb), "cur": (n,),
                   "prefix_len": (n,), "scores": (b, k), "fin": (b, k),
                   "cow_src_own": (n,), "cow_dst": (n,),
                   "flush_blk": (n, k_eff), "flush_off": (n, k_eff),
                   "gen0": (1,)}
+        if lora:
+            shapes["lora"] = (n,)
         if ctrl is not None:
             shapes["hist"] = (n, ctrl.hist_w)
             shapes.update({f: a.shape for f, a in
@@ -663,7 +678,8 @@ class BeamEngine:
         steps = []
         for t in range(k_eff):
             logits = _forward_with_tail(params, cfg, cur, pools, table, bpos,
-                                        d["prefix_len"], tails, t)
+                                        d["prefix_len"], tails, t,
+                                        lora_ids=d.get("lora"))
             scores, parent, token, fin, hist, rows = _beam_select(
                 logits[:, 0], b, k, scores, fin, hist, c, d["gen0"] + t + 1,
                 eos)
@@ -693,21 +709,24 @@ class BeamEngine:
                   ctrl: Optional[BeamControls], mb: int,
                   fill: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """One burst call with the host inputs ``fill`` (and the packed
-        control arrays of ``ctrl``): made at the key's first use (a
+        control arrays of ``ctrl``; ``fill`` holds "lora", the lanes'
+        adapter ids, where adapters are served): made at the key's first
+        use (a
         program, utils/compile_watch; on the card a warm pass whose
         epilogue writes only the trash row, then a capture), then run,
         replayed on the card, and read back once. Returns numpy parents,
         tokens, scores, fin (k_eff, B, K) and hist (N, W) or None."""
         n = b * k
         key = (b, k, k_eff, eos, do_cow, mb,
-               None if ctrl is None else ctrl.key())
+               None if ctrl is None else ctrl.key(), "lora" in fill)
         g = self._bursts.get(key)
         h_fill = dict(fill)
         if ctrl is not None:
             h_fill.update({f: a for f, a in zip(_CTRL_FIELDS, ctrl.arrays())
                            if a is not None})
         if g is None:
-            g = _Burst(self._inputs(n, b, k, mb, k_eff, ctrl))
+            g = _Burst(self._inputs(n, b, k, mb, k_eff, ctrl,
+                                    "lora" in fill))
             body = partial(self._body, g, b, k, k_eff, eos, do_cow, ctrl)
             if self.graphs:
                 self._capture(g, body, h_fill,
@@ -769,7 +788,8 @@ def _step_decode_loop(engine: BeamEngine, bm, mb: int, b: int, k: int,
                       beam_scores: np.ndarray, finished: np.ndarray,
                       beam_tokens, beam_parents, peak_blocks: int,
                       ctrl: Optional[BeamControls] = None,
-                      hist: Optional[np.ndarray] = None):
+                      hist: Optional[np.ndarray] = None,
+                      lora: Optional[np.ndarray] = None):
     """Drive the beam decode one host-paced step at a time (burst 1): each
     lane's write block made exclusive (copy-on-write) and the pages
     copied, one step (``_make_beam_step``: K5 writes, K7 attends), one
@@ -789,6 +809,7 @@ def _step_decode_loop(engine: BeamEngine, bm, mb: int, b: int, k: int,
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     ctrl_d = None if ctrl is None else ctrl.to(dev)
+    lora_t = None if lora is None else t_(lora)
     scores = t_(beam_scores)
     cur_t = t_(cur)
     hist_t = None if hist is None else t_(hist)
@@ -812,7 +833,7 @@ def _step_decode_loop(engine: BeamEngine, bm, mb: int, b: int, k: int,
         table = t_(bm.block_table(all_lanes, mb))
         state, scores, parent, token, fin_d, hist_t = step(
             params, cur_t, state, table, t_(cur_lens.astype(np.int32)),
-            scores, t_(finished), hist_t, len(beam_tokens), ctrl_d)
+            scores, t_(finished), hist_t, len(beam_tokens), ctrl_d, lora_t)
         parent_np, token_np, fin_np, beam_scores = engine.read_back(
             parent, token, fin_d, scores)
 
@@ -843,7 +864,8 @@ def _burst_decode_loop(engine: BeamEngine, bm, mb: int, b: int, k: int,
                        beam_scores: np.ndarray, finished: np.ndarray,
                        beam_tokens, beam_parents, peak_blocks: int,
                        ctrl: Optional[BeamControls] = None,
-                       hist: Optional[np.ndarray] = None):
+                       hist: Optional[np.ndarray] = None,
+                       lora: Optional[np.ndarray] = None):
     """Drive the beam decode in k_eff-step bursts (``BeamEngine.run_burst``).
 
     Per burst: preallocate each lane's write pages on the host, one burst
@@ -924,6 +946,8 @@ def _burst_decode_loop(engine: BeamEngine, bm, mb: int, b: int, k: int,
                 "flush_off": flush_off, "gen0": [gen_count]}
         if ctrl is not None:
             fill["hist"] = hist
+        if lora is not None:
+            fill["lora"] = lora
         res = engine.run_burst(b, k, k_eff, eos, do_cow, ctrl, mb, fill)
         parents_np, tokens_np = res["parents"], res["tokens"]
         hist = res["hist"]
@@ -1009,8 +1033,8 @@ def paged_beam_search(params, cfg: ModelConfig,
     proc_masks: per-request controls, as in ``beam_search``. ``engine``
     keeps the pool and the burst graphs between calls (a fresh one per
     call when None, on ``device``); it must have been made for these
-    params."""
-    _refuse_lora(lora_ids)
+    params. lora_ids: per-request runtime adapter ids (0 = the base
+    model)."""
     if engine is None:
         engine = BeamEngine(params, cfg, device)
     elif engine.params is not params or engine.cfg != cfg:
@@ -1023,6 +1047,7 @@ def paged_beam_search(params, cfg: ModelConfig,
                                stop_sequences, logits_processors,
                                proc_masks)
     ctrl_d = None if ctrl is None else ctrl.to(dev)
+    lora_req, lora_lane = _pack_lora(lora_ids, k)
     eos_i = -1 if eos_token_id is None else int(eos_token_id)
     lens_list = [len(p) for p in prompts]
     max_prompt = max(lens_list)
@@ -1081,8 +1106,9 @@ def paged_beam_search(params, cfg: ModelConfig,
                             device=dev)
         for c0 in range(0, max_prompt, chunk):
             start = torch.full((b, 1), c0, dtype=torch.int32, device=dev)
-            logp0, state = prefill_chunk(params, t_(tokens[:, c0:c0 + chunk]),
-                                         state, table_p, start, lens, logp0)
+            logp0, state = prefill_chunk(
+                params, t_(tokens[:, c0:c0 + chunk]), state, table_p, start,
+                lens, logp0, None if lora_req is None else t_(lora_req))
         if ctrl is not None:
             logp0 = _ban_step0(logp0, ctrl_d, prompts, k, eos_i)
         scores, top_tok = _top_k(logp0, k)               # (B, K)
@@ -1115,7 +1141,7 @@ def paged_beam_search(params, cfg: ModelConfig,
     scores_np, finished, peak_blocks = loop(
         engine, bm, mb, b, k, burst, max_new_tokens, eos_token_id, cur,
         cur_lens, scores_np, finished, beam_tokens, beam_parents,
-        peak_blocks, ctrl=ctrl, hist=hist)
+        peak_blocks, ctrl=ctrl, hist=hist, lora=lora_lane)
     result = _backtrack(prompts, k, beam_tokens, beam_parents, scores_np,
                         length_penalty, eos_token_id, stop_sequences)
     result.peak_blocks = peak_blocks

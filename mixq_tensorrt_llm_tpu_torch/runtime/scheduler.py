@@ -32,9 +32,10 @@ rungs run eagerly. ``run(burst, mixed_burst)``, ``step_serving`` and
 warmup (utils/compile_watch). Prefill chunks and the speculative rounds
 run eagerly.
 
-``run_speculative`` is in-flight speculative decoding with a paged draft
-pool: a draft model proposes gamma tokens per lane, the target verifies
-them in one (gamma+1)-row forward (K9), and the rounds run device-paced
+``run_speculative`` is in-flight speculative decoding: a draft model,
+over a paged pool of its own (``paged_draft``) or a dense cache,
+proposes gamma tokens per lane, the target verifies them in one
+(gamma+1)-row forward (K9), and the rounds run device-paced
 (``rounds_per_call`` rounds, one host readback) where the context cap
 allows. ``MIXQ_KV_SPLITS`` > 1 sends every decode step's attention through
 the split kernel (K11).
@@ -64,9 +65,12 @@ result, as the JAX Executor does; decode rungs never touch it (decode is
 weight-only), nor do snapshots, stats or beams. ``warmup``'s own requests
 are prefills too, so they move the state, as in JAX.
 
-Not ported yet: the dense-cache draft (``paged_draft=False``; JAX
-runtime/scheduler.py:766-790 and runtime/speculative.py), meshes and dp
-lane groups (parallel/) and LoRA (convert/lora.py).
+Runtime LoRA (convert/lora.attach_lora): ``submit(lora_id=n)`` serves a
+request with adapter n; the lanes' ids go into every prefill call, into
+each decode rung's static inputs (filled before each replay, as the tokens
+are) and into the speculative verifies.
+
+Not ported yet: meshes and dp lane groups (parallel/).
 """
 
 from __future__ import annotations
@@ -165,10 +169,11 @@ class StaticInputs:
 
 class _DecodeInputs(StaticInputs):
     """The decode rungs' static inputs; with ``procs`` logits processors
-    registered, their (procs, B) lane masks too."""
+    registered, their (procs, B) lane masks too; with ``lora``, the lanes'
+    adapter ids."""
 
     def __init__(self, b: int, mb: int, device: torch.device,
-                 procs: int = 0):
+                 procs: int = 0, lora: bool = False):
         shapes = {"tokens": (b, 1), "lens": (b,), "sup_tok": (b,),
                   "min_left": (b,), "top_k": (b,), "greedy": (b,),
                   "temperature": (b,), "top_p": (b,), "penalty": (b,),
@@ -176,6 +181,8 @@ class _DecodeInputs(StaticInputs):
                   "history": (b, HISTORY_W)}
         if procs:
             shapes["proc_masks"] = (procs, b)
+        if lora:
+            shapes["lora"] = (b,)
         super().__init__(shapes, device, ("temperature", "top_p",
                                           "penalty"))
 
@@ -328,6 +335,8 @@ class Executor:
         self._proc_fns = tuple((logits_processors or {})[n]
                                for n in self._proc_names)
         self.sampling = sampling
+        from ..convert.lora import has_lora
+        self.has_lora = has_lora(params)
         # the dynamic outlier state: every prefill call reads and replaces
         # it; decode (weight-only) passes it by
         self.ostate = None
@@ -344,7 +353,8 @@ class Executor:
         self.prefill_chunk = prefill_chunk
         self.prefill_lanes = max(1, min(prefill_lanes, max_batch))
         self._dec = _DecodeInputs(max_batch, self.max_blocks_per_seq,
-                                  self.device, len(self._proc_names))
+                                  self.device, len(self._proc_names),
+                                  lora=self.has_lora)
         # rungs by (k, MIXQ_KV_SPLITS, bad-words bucket (N, L) or None);
         # each bucket's static (B, N, L) buffer
         self._rungs: Dict[tuple, _Rung] = {}
@@ -366,6 +376,15 @@ class Executor:
     # ------------------------------------------------------------------
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _lora_ids(self, reqs: Sequence[Optional[Request]]
+                  ) -> Optional[torch.Tensor]:
+        """The lanes' adapter ids (0 for an empty lane) as a device tensor,
+        or None when no adapters are attached."""
+        if not self.has_lora:
+            return None
+        return self._t(np.asarray([r.lora_id if r is not None else 0
+                                   for r in reqs], np.int32))
 
     def _apply_procs(self, logits: torch.Tensor, history: torch.Tensor,
                      masks: torch.Tensor) -> torch.Tensor:
@@ -407,7 +426,9 @@ class Executor:
         suffixes that end it (kept in the output); bad_words are token-id
         sequences it may never emit; logits_processor names a processor
         registered at construction, applied to its lane only;
-        on_token(request, token) is called for every generated token.
+        on_token(request, token) is called for every generated token;
+        lora_id selects a runtime adapter attached with
+        convert.lora.attach_lora (0 = the base model).
         Raises QueueFullError when max_queue_size requests are queued."""
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
@@ -419,10 +440,9 @@ class Executor:
         # the id is taken before the checks below, as in the JAX package
         rid = self._next_id
         self._next_id += 1
-        if lora_id:
-            raise NotImplementedError(
-                "lora_id: runtime LoRA adapters are not ported yet: they "
-                "come with convert/lora.py (ROADMAP queue 1)")
+        if lora_id and not self.has_lora:
+            raise ValueError("lora_id set but no adapters attached "
+                             "(convert.lora.attach_lora)")
         if logits_processor is not None and \
                 logits_processor not in self._proc_names:
             raise ValueError(f"unknown logits_processor {logits_processor!r};"
@@ -434,8 +454,8 @@ class Executor:
                                  f"{HISTORY_W}-token match window")
         self.queue.append(Request(
             rid, list(prompt), max_new_tokens, eos_token_id,
-            sampling=sampling, min_new_tokens=min_new_tokens,
-            priority=priority,
+            sampling=sampling, lora_id=lora_id,
+            min_new_tokens=min_new_tokens, priority=priority,
             bad_words=[list(w) for w in bad_words] if bad_words else None,
             logits_processor=logits_processor,
             stop_sequences=[list(w) for w in stop_sequences]
@@ -664,7 +684,7 @@ class Executor:
             self._t(table), length_t, block_pos=self._t(bpos),
             window=self._win_tokens, sink=self._sink_tokens,
             last_pos=torch.clamp(length_t - start_t - 1, 0, chunk - 1),
-            outlier_state=self.ostate)
+            outlier_state=self.ostate, lora_ids=self._lora_ids(lane_rows))
         logits, self.state = res[:2]
         if self.ostate is not None:
             self.ostate = res[2]
@@ -800,13 +820,14 @@ class Executor:
               if bw_key is not None else None)
         tok, lens, hist, min_left = (d["tokens"], d["lens"], d["history"],
                                      d["min_left"])
+        lora = d.get("lora")
         toks, lps = [], []
         for j in range(k):
             logits, _ = mcommon.forward_paged(
                 self.params, self.cfg, tok, lens[:, None], self.state,
                 d["table"], torch.clamp(lens + 1, min=1),
                 block_pos=d["bpos"], window=self._win_tokens,
-                sink=self._sink_tokens)
+                sink=self._sink_tokens, lora_ids=lora)
             last = logits[:, 0]
             if masks is not None:
                 last = self._apply_procs(last, hist, masks)
@@ -882,6 +903,9 @@ class Executor:
             h[name][:] = [getattr(c, attr) for c in configs]
         if self._proc_names:
             h["proc_masks"][:] = self._proc_masks(self.slots)
+        if self.has_lora:
+            h["lora"][:] = [r.lora_id if r is not None else 0
+                            for r in self.slots]
         self._dec.upload()
         bw = self._bad_words(self.slots)
         bw_key = None if bw is None else (bw.shape[1], bw.shape[2])
@@ -1007,53 +1031,65 @@ class Executor:
         self.readbacks += 1
         return read_back(*ts)
 
-    def _draft_prefill(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
-                       tokens, lens, table, bpos) -> PagedKVState:
+    def _draft_prefill(self, dp, dcfg: ModelConfig, dstate,
+                       tokens, lens, table, bpos):
         """Write the draft's KV of every lane's committed tokens but the
         newest (positions 0..len-1); the head runs on one position only,
-        its logits unused."""
+        its logits unused. A paged draft state goes through forward_paged
+        and the lanes' tables; a dense ``KVCache`` through ``full_prefill``
+        (K14 on the card for MHA), as the JAX package's dense draft."""
         b, s = tokens.shape
         pos = torch.arange(s, dtype=torch.int32,
                            device=self.device)[None].expand(b, s)
+        first = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        if isinstance(dstate, mcommon.KVCache):
+            _, dstate = mcommon.forward(dp, dcfg, tokens, pos, dstate, lens,
+                                        full_prefill=True, last_pos=first)
+            return dstate
         _, dstate = mcommon.forward_paged(
             dp, dcfg, tokens, pos, dstate, table, lens, block_pos=bpos,
-            last_pos=torch.zeros((b,), dtype=torch.int32,
-                                 device=self.device))
+            last_pos=first)
         return dstate
 
-    def _draft_propose(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
+    def _draft_propose(self, dp, dcfg: ModelConfig, dstate,
                        tok, pos, table, bpos, gamma: int):
         """gamma greedy draft steps from the newest token ``tok`` (B,) at
-        ``pos`` (B,); returns (proposals (B, gamma) int32, draft state)."""
+        ``pos`` (B,) over the paged draft pool or the dense draft cache;
+        returns (proposals (B, gamma) int32, draft state)."""
         props = []
         for _ in range(gamma):
-            logits, dstate = mcommon.forward_paged(
-                dp, dcfg, tok[:, None], pos[:, None], dstate, table, pos + 1,
-                block_pos=bpos, window=self._win_tokens,
-                sink=self._sink_tokens)
+            if isinstance(dstate, mcommon.KVCache):
+                logits, dstate = mcommon.forward(
+                    dp, dcfg, tok[:, None], pos[:, None], dstate, pos + 1)
+            else:
+                logits, dstate = mcommon.forward_paged(
+                    dp, dcfg, tok[:, None], pos[:, None], dstate, table,
+                    pos + 1, block_pos=bpos, window=self._win_tokens,
+                    sink=self._sink_tokens)
             tok = torch.argmax(logits[:, 0], dim=-1).int()
             props.append(tok)
             pos = pos + 1
         return torch.stack(props, dim=1), dstate
 
-    def _verify(self, rows, start, length, table, bpos):
+    def _verify(self, rows, start, length, table, bpos, lora):
         """The target forward over [newest token | gamma drafts] (B, g1) at
-        start..start+gamma: (greedy predictions (B, g1) int32, their
-        log-probabilities (B, g1) f32)."""
+        start..start+gamma with the lanes' adapters ``lora``: (greedy
+        predictions (B, g1) int32, their log-probabilities (B, g1) f32)."""
         g1 = rows.shape[1]
         pos = start[:, None] + torch.arange(g1, dtype=torch.int32,
                                             device=self.device)[None]
         logits, self.state = mcommon.forward_paged(
             self.params, self.cfg, rows, pos, self.state, table, length,
-            block_pos=bpos, window=self._win_tokens, sink=self._sink_tokens)
+            block_pos=bpos, window=self._win_tokens, sink=self._sink_tokens,
+            lora_ids=lora)
         preds = torch.argmax(logits, dim=-1)
         lp = torch.gather(torch.log_softmax(logits, dim=-1), 2,
                           preds[..., None])[..., 0]
         return preds.int(), lp
 
-    def _spec_device_rounds(self, dp, dcfg: ModelConfig,
-                            dstate: PagedKVState, gamma: int, rounds: int,
-                            table, bpos, tok, pos, remaining, done, eos):
+    def _spec_device_rounds(self, dp, dcfg: ModelConfig, dstate,
+                            gamma: int, rounds: int, table, bpos, tok, pos,
+                            remaining, done, eos, lora):
         """``rounds`` x [gamma-step draft + (gamma+1)-row verify + accept]
         with the accept / eos / budget bookkeeping in device tensors and no
         host sync (the JAX package's _make_spec_burst round_body). A done
@@ -1071,7 +1107,7 @@ class Executor:
             props, dstate = self._draft_propose(dp, dcfg, dstate, tok, pos,
                                                 table, bpos, gamma)
             rows = torch.cat([tok[:, None], props], dim=1)
-            preds, lp = self._verify(rows, pos, pos + g1, table, bpos)
+            preds, lp = self._verify(rows, pos, pos + g1, table, bpos, lora)
             eq = (props == preds[:, :gamma]).int()
             m = torch.cumprod(eq, dim=1).sum(dim=1).int()           # (B,)
             bonus = torch.gather(preds, 1, m[:, None].long())[:, 0]
@@ -1111,8 +1147,8 @@ class Executor:
             bpos[i] = self.bm.block_pos([r.req_id], mbs)[0]
         return table, bpos
 
-    def _spec_call(self, dp, dcfg: ModelConfig, dstate: PagedKVState,
-                   gamma: int, rounds: int) -> PagedKVState:
+    def _spec_call(self, dp, dcfg: ModelConfig, dstate, gamma: int,
+                   rounds: int):
         """One call of ``rounds`` speculative rounds (1: host-paced, the
         JAX Executor's per-round loop; more: its device-paced burst): pre-
         extend every lane's pages for the call's worst case, run the rounds,
@@ -1140,7 +1176,7 @@ class Executor:
         dstate, accs, cnts, lps, n_acc, n_prop = self._spec_device_rounds(
             dp, dcfg, dstate, gamma, rounds, self._t(table), self._t(bpos),
             self._t(tok0), self._t(pos0), self._t(remaining), self._t(done),
-            self._t(eos))
+            self._t(eos), self._lora_ids(self.slots))
         self.spec_readbacks += 1
         toks_np, cnts_np, lps_np, acc_np, prop_np = self._readback(
             accs, cnts, lps, n_acc, n_prop)
@@ -1166,13 +1202,19 @@ class Executor:
                         gamma: int = 4, paged_draft: bool = True,
                         rounds_per_call: int = 8) -> Dict[int, Request]:
         """Drive all submitted work with in-flight speculative decoding:
-        a draft model (its own paged KV pool, the same block tables: one
-        allocator, two pools) proposes gamma greedy tokens per lane, one
+        a draft model proposes gamma greedy tokens per lane, one
         (gamma+1)-row target forward verifies them, and each lane commits
         the agreeing prefix plus the target's next token. Greedy requests
         only: the outputs equal run()'s. Queued requests are admitted and
         prefilled through step() first; lanes that finish mid-flight run on
-        as masked lanes until the batch drains.
+        as masked lanes until the batch drains. The verify serves each
+        lane's LoRA adapter; the draft runs without adapters.
+
+        paged_draft=True gives the draft its own paged KV pool (the same
+        block tables: one allocator, two pools, the draft config's KV
+        quantization); False a dense KVCache of max(max_seq_len, prefill
+        bucket) slots a lane, prefilled with full_prefill (JAX
+        runtime/scheduler.py:570-595).
 
         rounds_per_call > 1 runs that many rounds per call with the
         bookkeeping on the device and one host readback at the end; a lane
@@ -1180,11 +1222,6 @@ class Executor:
         Counters: ``spec_rounds`` (as the JAX Executor's), ``spec_accepted``
         / ``spec_proposed`` (draft tokens), ``spec_calls`` /
         ``spec_readbacks`` (host syncs)."""
-        if not paged_draft:
-            raise NotImplementedError(
-                "paged_draft=False is not ported yet: it comes with the "
-                "dense-cache draft loop (JAX runtime/scheduler.py:766-790 "
-                "and runtime/speculative.py)")
         if self.ostate is not None:
             raise ValueError("speculative decoding with dynamic outliers "
                              "is unsupported (as in the JAX Executor)")
@@ -1218,8 +1255,15 @@ class Executor:
             toks[i, :len(r.sequence) - 1] = r.sequence[:-1]
             lens[i] = len(r.sequence) - 1
         table, bpos = self._lane_tables(active)
-        dstate = init_paged_kv(draft_cfg, self.bm.num_blocks,
-                               self.block_size, device=self.device)
+        if paged_draft:
+            dstate = init_paged_kv(draft_cfg, self.bm.num_blocks,
+                                   self.block_size, device=self.device)
+        else:
+            # the bucket may pass max_seq_len: its padding slots are
+            # written and never read (JAX drops writes past its cache)
+            dstate = mcommon.init_kv_cache(
+                draft_cfg, self.max_batch, max(self.max_seq_len, bucket),
+                device=self.device)
         dstate = self._draft_prefill(draft_params, draft_cfg, dstate,
                                      self._t(toks), self._t(lens),
                                      self._t(table), self._t(bpos))
@@ -1403,7 +1447,8 @@ class Executor:
                 bad_words=[r.bad_words for r in batch],
                 stop_sequences=[r.stop_sequences for r in batch],
                 logits_processors=procs if pm is not None else (),
-                proc_masks=pm, engine=self.beam_engine)
+                proc_masks=pm, lora_ids=[r.lora_id for r in batch],
+                engine=self.beam_engine)
             for r, seq in zip(batch, res.sequences):
                 r.generated = list(seq[len(r.prompt):])
                 r.done = True

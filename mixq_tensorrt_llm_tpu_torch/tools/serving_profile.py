@@ -308,10 +308,12 @@ def draft_model(params, cfg, layers: int):
 
 
 def serve(params, cfg, prompts, seed, dev, spec=None, burst: int = 1,
-          ex=None):
+          ex=None, lora_ids=None):
     """Serve the prompts once, 32 greedy tokens each, through ``ex`` (an
     idle Executor) or a fresh one: ``run(burst=burst)``, or with ``spec`` =
-    (draft params, draft config, gamma) ``run_speculative``.
+    (draft params, draft config, gamma[, paged_draft]) ``run_speculative``
+    (a dense-cache draft where paged_draft is False). ``lora_ids``: each
+    prompt's runtime LoRA adapter.
 
     Returns (finished requests by id, request ids, wall s, prefill s,
     executor). Each prefill call is bracketed by synchronizes and marked
@@ -337,13 +339,17 @@ def serve(params, cfg, prompts, seed, dev, spec=None, burst: int = 1,
 
     ex._step_prefill = prefill_ranged
     rungs, steps = set(ex._rungs), ex.decode_steps
-    ids = [ex.submit(p, max_new_tokens=32) for p in prompts]
+    ids = [ex.submit(p, max_new_tokens=32,
+                     lora_id=lora_ids[i] if lora_ids else 0)
+           for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         with _counting_forwards(mcommon, "forward_paged", in_prefill):
             done = ex.run(burst=burst) if spec is None else \
-                ex.run_speculative(spec[0], spec[1], gamma=spec[2])
+                ex.run_speculative(spec[0], spec[1], gamma=spec[2],
+                                   paged_draft=spec[3] if len(spec) > 3
+                                   else True)
         torch.cuda.synchronize()
     finally:
         del ex._step_prefill

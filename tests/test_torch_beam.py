@@ -276,7 +276,37 @@ def test_controls_match_jax(models, control):
 
 
 def test_lora_ids_raise(models):
+    """Beams over runtime LoRA adapters, ported: with a random adapter
+    attached, every route (dense, paged step by step, paged bursts) gives
+    the same sequences for ids [1, 0, 0]; the lanes of id 0 are the base
+    model's and the adapter's lane differs from it (the JAX comparison is
+    tests/test_torch_lora.py's)."""
+    from mixq_tensorrt_llm_tpu_torch.convert.lora import attach_lora
     _, _, cfg, tp, _ = models["none"]
-    for fn in (tbeam.paged_beam_search, tbeam.beam_search):
-        with pytest.raises(NotImplementedError, match="convert/lora.py"):
-            fn(tp, cfg, PROMPTS, 4, lora_ids=[1, 0, 0], device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    stack = {}
+    for mod, (nin, nout) in (("qkv_proj", (64, cfg.qkv_out)),
+                             ("down_proj", (96, 64))):
+        a = torch.randn((2, 2, nin, 4), generator=gen) * 0.3
+        b = torch.randn((2, 2, 4, nout), generator=gen) * 0.3
+        a[:, 0] = 0
+        b[:, 0] = 0
+        stack[mod] = {"A": a.bfloat16(), "B": b.bfloat16()}
+    lp = dict(tp, layers=[{m: dict(v) for m, v in lay.items()}
+                          for lay in tp["layers"]])
+    attach_lora(lp, stack)
+    ids = [1, 0, 0]
+    base = tbeam.beam_search(tp, cfg, PROMPTS, 6, num_beams=3,
+                             max_seq_len=64, device="cpu")
+    outs = [tbeam.beam_search(lp, cfg, PROMPTS, 6, num_beams=3,
+                              max_seq_len=64, lora_ids=ids, device="cpu")]
+    for burst in (1, 4):
+        outs.append(tbeam.paged_beam_search(lp, cfg, PROMPTS, 6, **KW,
+                                            burst=burst, lora_ids=ids,
+                                            device="cpu"))
+    for o in outs:
+        assert o.sequences == outs[0].sequences
+        np.testing.assert_allclose(o.scores, outs[0].scores, rtol=2e-5,
+                                   atol=2e-5)
+    assert outs[0].sequences[1:] == base.sequences[1:]
+    assert outs[0].scores[0] != base.scores[0]

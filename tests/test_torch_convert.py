@@ -207,10 +207,15 @@ def test_unported_model_types_and_options_raise(tmp_path):
         original_max_position_embeddings=64)).save_pretrained(str(tmp_path))
     with pytest.raises(NotImplementedError, match="yarn"):
         treg.config_from_hf(thf.load_hf_config(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="convert/lora.py"):
-        thf.quantize_hf_model(str(tmp_path), str(tmp_path / "o"),
-                              QuantConfig(), lora_dir="adapter",
-                              device="cpu")
+    # lora_dir is ported: an adapter directory without weights raises
+    # FileNotFoundError, as JAX's merge does
+    from mixq_tensorrt_llm_tpu_torch.convert.lora import \
+        merge_lora_into_state_dict
+    os.makedirs(tmp_path / "adapter")
+    with open(tmp_path / "adapter" / "adapter_config.json", "w") as f:
+        json.dump({"r": 4, "lora_alpha": 8}, f)
+    with pytest.raises(FileNotFoundError, match="no adapter weights"):
+        merge_lora_into_state_dict({}, str(tmp_path / "adapter"))
 
 
 def _ns(**kw):

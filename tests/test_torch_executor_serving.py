@@ -384,9 +384,11 @@ def test_submit_checks(model):
             ex.submit([4], max_new_tokens=2)
         assert ex._next_id == 4     # refused checks took an id, as in JAX
         ex.run()
-    port = _port(model, BASE)
-    with pytest.raises(NotImplementedError, match="convert/lora.py"):
-        port.submit([1, 2], 2, lora_id=1)
+    # runtime LoRA is ported; an id without attached adapters raises as in
+    # the JAX Executor
+    for ex in (_jax(model, BASE), _port(model, BASE)):
+        with pytest.raises(ValueError, match="no adapters attached"):
+            ex.submit([1, 2], 2, lora_id=1)
 
 
 # ---------------------------------------------------------------------------

@@ -183,8 +183,9 @@ def test_split_decode_token_identical(models, monkeypatch):
 
 
 def test_rejections(models):
-    """Stochastic sampling is refused as in JAX; the dense-cache draft is
-    not ported and says so."""
+    """Stochastic sampling is refused as in JAX; the dense-cache draft
+    (paged_draft=False), ported, gives the paged draft's tokens and
+    rounds."""
     _, _, tp, cfg = models["target"]
     td, tdcfg = models["draft"][2:]
     ex = Executor(tp, cfg, device="cpu", **dict(KW, max_batch=1),
@@ -192,7 +193,10 @@ def test_rejections(models):
     ex.submit([1, 2, 3], max_new_tokens=4)
     with pytest.raises(AssertionError, match="greedy"):
         ex.run_speculative(td, tdcfg, gamma=2)
-    ex = Executor(tp, cfg, device="cpu", **dict(KW, max_batch=1))
-    ex.submit([1, 2, 3], max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="dense"):
-        ex.run_speculative(td, tdcfg, gamma=2, paged_draft=False)
+    runs = []
+    for paged in (True, False):
+        ex = Executor(tp, cfg, device="cpu", **dict(KW, max_batch=1))
+        rid = ex.submit([1, 2, 3], max_new_tokens=4)
+        done = ex.run_speculative(td, tdcfg, gamma=2, paged_draft=paged)
+        runs.append((done[rid].generated, ex.spec_rounds))
+    assert runs[0] == runs[1] and len(runs[0][0]) == 4

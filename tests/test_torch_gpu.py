@@ -54,7 +54,11 @@ and state equal, output within K2's tolerance); the e4m3 casts card
 against CPU byte for byte; an fp8 Executor's decode as graph replays
 with no paged kernel and the gather route counted, none on int8 pools;
 GenerationSession over an e4m3 dense cache; int8_lr's K1 -> K2 route in
-prefill and in the decode replays, traced."""
+prefill and in the decode replays, traced.
+The decoding extras and runtime LoRA at the tiny width: a Medusa tree
+verify (mask, rope_pos, hidden) and a LoRA lane's forward card against
+CPU, K1 only without its norm under adapters, Medusa decoding and an
+adapted Executor's replays."""
 
 import os
 
@@ -2221,3 +2225,102 @@ def test_int8_lr_route_on_card(cuda):
     assert _build.LAUNCHES.get("wo_matmul", 0) > 0
     assert steps > 0 and all(len(ex.finished[r].generated) == 6
                              for r in ids)
+
+
+def _cpu_params(params):
+    """A params tree's copy on the CPU (the layers' dicts and every
+    tensor in them)."""
+    cpu = torch.device("cpu")
+    return {k: ([{m: {n: t.to(cpu) for n, t in p.items()}
+                  for m, p in lay.items()} for lay in v]
+                if k == "layers" else {n: t.to(cpu) for n, t in v.items()})
+            for k, v in params.items()}
+
+
+@pytest.mark.gpu
+def test_tree_mask_forward_on_card(cuda):
+    """A Medusa verify (the default tree's 11 rows at offset slots, the
+    ancestor mask, rope_pos, return_hidden) over a prefilled context on
+    the card: K1 -> K2 launched, logits and the pre-norm hidden within
+    the cross-device tolerance of the CPU route; then medusa_generate on
+    the card commits its 12 tokens."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    from mixq_tensorrt_llm_tpu_torch.runtime import medusa
+    params, cfg = _tiny_serving_model(cuda, num_kv_heads=4)
+    cpu = _cpu_params(params)
+    tree = medusa.build_tree(medusa.DEFAULT_CHOICES)
+    rng = np.random.default_rng(3)
+    ctx = rng.integers(1, 500, 24)
+    rows = rng.integers(1, 500, (1, tree.num_nodes + 1)).astype(np.int32)
+    anc, depths = medusa.verify_layout(tree)
+
+    def run(dev, p):
+        cache = mcommon.init_kv_cache(cfg, 1, 64, device=dev)
+        mcommon.forward(p, cfg, torch.tensor(ctx[None], device=dev),
+                        torch.arange(24, device=dev)[None], cache,
+                        torch.tensor([24], device=dev), full_prefill=True)
+        _build.reset_launches()
+        out = medusa.tree_verify(p, cfg, cache, rows, depths,
+                                 torch.as_tensor(anc, device=dev), 24)
+        return [x.float().cpu() for x in out], dict(_build.LAUNCHES)
+
+    (lg, hid), seen = run(cuda, params)
+    (lg0, hid0), _ = run(torch.device("cpu"), cpu)
+    assert seen.get("rmsnorm_quant_split", 0) == 3 * cfg.num_layers
+    assert seen.get("mixed_matmul", 0) == 3 * cfg.num_layers
+    assert float((lg - lg0).abs().max() / lg0.abs().max()) < 5e-2
+    assert float((hid - hid0).abs().max() / hid0.abs().max()) < 2e-2
+    heads = medusa.init_random_heads(cfg, torch.Generator().manual_seed(0),
+                                     4, device=cuda)
+    seq, stats = medusa.medusa_generate(params, cfg, heads,
+                                        list(range(1, 40)), 12,
+                                        device=cuda)
+    assert stats.tokens == 12 and len(seq) == 51
+
+
+@pytest.mark.gpu
+def test_lora_lane_on_card(cuda):
+    """A random two-adapter stack on the tiny model: forward(lora_ids=[2])
+    on the card within the cross-device tolerance of the CPU route (K1
+    without its norm, then K2), and an Executor on the card serving ids
+    0/1/2 after warmup(burst=4): every decode call a replay (the lanes'
+    ids a static input of the rungs), no program after warmup."""
+    from mixq_tensorrt_llm_tpu_torch.convert.lora import attach_lora
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    params, cfg = _tiny_serving_model(cuda)
+    gen = torch.Generator().manual_seed(5)
+    stack = {}
+    for mod, (nin, nout, r) in {"qkv_proj": (256, cfg.qkv_out, 8),
+                                "o_proj": (256, 256, 4),
+                                "gate_up_proj": (256, 1024, 4),
+                                "down_proj": (512, 256, 4)}.items():
+        a = torch.randn((2, 3, nin, r), generator=gen) * 0.05
+        b = torch.randn((2, 3, r, nout), generator=gen) * 0.05
+        a[:, 0], b[:, 0] = 0, 0
+        stack[mod] = {"A": a.bfloat16().to(cuda), "B": b.bfloat16().to(cuda)}
+    attach_lora(params, stack)
+    cpu = _cpu_params(params)
+    tok = torch.arange(1, 25)[None]
+
+    def fwd(dev, p):
+        cache = mcommon.init_kv_cache(cfg, 1, 32, device=dev)
+        return mcommon.forward(p, cfg, tok.to(dev),
+                               torch.arange(24, device=dev)[None], cache,
+                               torch.tensor([24], device=dev),
+                               lora_ids=torch.tensor([2], device=dev))[0]
+
+    names = _traced_kernels(lambda: fwd(cuda, params))
+    k1 = [n for n in names if "norm_quant" in n]
+    assert k1 and all("false" in n for n in k1), k1
+    got, want = fwd(cuda, params).float().cpu(), fwd("cpu", cpu)
+    assert float((got - want).abs().max() / want.abs().max()) < 5e-2
+    ex = Executor(params, cfg, max_batch=4, max_seq_len=256, block_size=16,
+                  prefill_chunk=32, device=cuda)
+    ex.warmup(burst=4)
+    ids = [ex.submit(list(range(1 + i, 20 + 7 * i)), max_new_tokens=9,
+                     lora_id=i % 3) for i in range(4)]
+    done = ex.run(burst=4)
+    assert ex.graph_replays == ex.decode_calls > 0
+    assert ex.compiles_since_warmup == 0
+    assert all(len(done[r].generated) == 9 for r in ids)

@@ -295,14 +295,51 @@ def test_stepper_failure_answers_500(model):
 @pytest.mark.parametrize("argv,module", [
     (["summarize", "--model", "m", "--data_file", "d", "--enc_dec"],
      "models/t5.py"),
-    (["quantize", "--model_dir", "m", "--output_dir", "o", "--lora_dir",
-      "a"], "convert/lora.py"),
+    (["quantize", "--model_dir", "{hf}", "--output_dir", "{out}",
+      "--lora_dir", "{adapter}", "--qformat", "w8a16"], "convert/lora.py"),
 ])
 def test_cli_unported_subcommands_name_their_module(argv, module, tmp_path):
-    """Every subcommand is ported; what still raises names its module."""
+    """Every subcommand is ported; what still raises names its module
+    (T5's summarize). `quantize --lora_dir` came with convert/lora.py: it
+    now merges the adapter, so layer 0's qkv weights differ from a plain
+    quantization's and layer 1's do not (the JAX comparison is
+    tests/test_torch_lora.py's)."""
+    patch = mock.patch.object(hf, "quantize_hf_model", functools.partial(
+        hf.quantize_hf_model, device="cpu"))
+    if module == "convert/lora.py":
+        from mixq_tensorrt_llm_tpu_torch.convert.checkpoint import (
+            read_safetensors, write_safetensors)
+        from mixq_tensorrt_llm_tpu_torch.tools.random_hf import (
+            LLAMA2_7B_HF, write_random_llama)
+        paths = {k: str(tmp_path / k) for k in ("hf", "out", "adapter",
+                                                "plain")}
+        write_random_llama(paths["hf"], dict(
+            LLAMA2_7B_HF, vocab_size=64, hidden_size=64,
+            intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=4,
+            torch_dtype="float32"), device="cpu")
+        (tmp_path / "adapter").mkdir()
+        (tmp_path / "adapter" / "adapter_config.json").write_text(
+            json.dumps({"r": 2, "lora_alpha": 4}))
+        gen = torch.Generator().manual_seed(0)
+        key = "base_model.model.model.layers.0.self_attn.q_proj.lora_"
+        write_safetensors(paths["adapter"] + "/adapter_model.safetensors",
+                          {key + "A.weight": torch.randn((2, 64),
+                                                         generator=gen),
+                           key + "B.weight": torch.randn((64, 2),
+                                                         generator=gen)})
+        with patch:
+            cli.main([a.format(**paths) for a in argv])
+            cli.main([a.format(**paths) for a in argv[:4] + argv[6:]]
+                     + ["--output_dir", paths["plain"]])
+        got, plain = (read_safetensors(paths[d] + "/model.safetensors")
+                      for d in ("out", "plain"))
+        qkv = [n for n in got if "qkv_proj" in n and "qweight" in n]
+        assert qkv and not torch.equal(got[qkv[0]][0], plain[qkv[0]][0])
+        assert torch.equal(got[qkv[0]][1], plain[qkv[0]][1])
+        return
     with pytest.raises((SystemExit, NotImplementedError)) as e:
-        with mock.patch.object(hf, "quantize_hf_model", functools.partial(
-                hf.quantize_hf_model, device="cpu")):
+        with patch:
             cli.main(argv)
     assert module in str(e.value)
 

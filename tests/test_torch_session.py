@@ -487,24 +487,40 @@ def test_stochastic_sample_by_seed_and_support(cfg):
 
 
 def test_unported_and_device_defaults_raise(models, tmp_path):
+    """The options and entry points that were refused before their
+    modules were ported now run: beams and forward with adapter ids on a
+    model without adapters are the base model (as in JAX), rope_pos equal
+    to the slots changes nothing, return_hidden appends the pre-norm
+    hidden; the LLM's speculative, Medusa and ReDrafter entry points give
+    their runtime functions' tokens. The device defaults still raise
+    without a card."""
     _, _, cfg, tp = models["int8"]
     ts = GenerationSession(tp, cfg, max_seq_len=64, device="cpu")
     assert ts.generate([[1, 2]], 4, num_beams=2).num_generated == [4]
     from mixq_tensorrt_llm_tpu_torch.runtime.beam import paged_beam_search
-    with pytest.raises(NotImplementedError, match="convert/lora.py"):
-        paged_beam_search(tp, cfg, [[1, 2]], 4, num_beams=2, lora_ids=[1],
-                          device="cpu")
+    base = paged_beam_search(tp, cfg, [[1, 2]], 4, num_beams=2,
+                             device="cpu")
+    assert paged_beam_search(tp, cfg, [[1, 2]], 4, num_beams=2,
+                             lora_ids=[1], device="cpu").sequences == \
+        base.sequences
     fp8 = dataclasses.replace(cfg, quant=dataclasses.replace(
         cfg.quant, kv_cache=KVCacheQuantAlgo.FP8))
     assert tcommon.init_kv_cache(fp8, 1, 16, device="cpu").k.dtype == \
         torch.float8_e4m3fn
-    cache = tcommon.init_kv_cache(cfg, 1, 16, device="cpu")
     tok = torch.ones((1, 2), dtype=torch.long)
     pos = torch.arange(2)[None]
-    for opt in ("return_hidden", "rope_pos", "lora_ids"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcommon.forward(tp, cfg, tok, pos, cache, torch.tensor([2]),
-                            **{opt: pos if opt != "return_hidden" else True})
+
+    def fwd(**kw):
+        cache = tcommon.init_kv_cache(cfg, 1, 16, device="cpu")
+        return tcommon.forward(tp, cfg, tok, pos, cache, torch.tensor([2]),
+                               **kw)
+
+    want = fwd()[0]
+    for opt in ("rope_pos", "lora_ids"):
+        assert torch.equal(fwd(**{opt: pos if opt == "rope_pos"
+                                  else torch.tensor([1])})[0], want)
+    logits, _, hidden = fwd(return_hidden=True)
+    assert torch.equal(logits, want) and hidden.shape == (1, 2, 128)
     # neither a checkpoint nor a Hugging Face directory
     with pytest.raises(FileNotFoundError, match="config.json"):
         LLM(str(tmp_path), device="cpu", cache_dir=str(tmp_path / "c"))
@@ -517,5 +533,21 @@ def test_unported_and_device_defaults_raise(models, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LLM(str(tmp_path))
     llm = LLM(str(tmp_path), max_seq_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        llm.generate_speculative(llm, [[1, 2]])
+    from mixq_tensorrt_llm_tpu_torch.runtime import (medusa, redrafter,
+                                                     speculative)
+    got = llm.generate_speculative(llm, [[1, 2]], 4, temperature=0.0)
+    want = speculative.speculative_generate_batched(
+        tp, cfg, tp, cfg, [[1, 2]], 4, temperature=0.0, max_seq_len=64,
+        device="cpu")
+    assert got[0] == want[0] and len(got[0][0]) == 6
+    gen = torch.Generator().manual_seed(0)
+    heads = medusa.init_random_heads(cfg, gen, 4, device="cpu")
+    assert llm.generate_medusa(heads, [1, 2], 4)[0] == \
+        medusa.medusa_generate(tp, cfg, heads, [1, 2], 4, max_seq_len=64,
+                               device="cpu")[0]
+    drafter = redrafter.init_random_drafter(cfg, gen, device="cpu")
+    got, stats = llm.generate_redrafter(drafter, [1, 2], 4, num_beams=2,
+                                        draft_len=2)
+    assert stats.tokens == 4 and got == redrafter.redrafter_generate(
+        tp, cfg, drafter, [1, 2], 4, num_beams=2, draft_len=2,
+        max_seq_len=64, device="cpu")[0]
