@@ -167,7 +167,7 @@ exits non-zero:
      path's) and each layer's update against a float model (static
      error above dynamic); fp8 weights and e4m3 pools, 32 layers: no
      paged kernel, the gather route counted, 2 layers card vs CPU, the
-     casts card vs CPU byte for byte; int8_lr, 32 layers (one SVD a
+     casts card vs CPU byte for byte; int8_lr, 16 layers (one SVD a
      shape timed, a reading): K1 at ko 0 and K2 at ko 32 in prefill
      and in the decode replays, K4 for down_proj, 2 layers card vs CPU,
      and its logits error below plain W8A8's at 2 layers. Phase 3 also
@@ -208,6 +208,31 @@ exits non-zero:
      value), an adapter lane's forward(lora_ids=[2]) and a 5-row
      speculative verify within the phases' 5e-2; RoPE by slot and a
      causal mask in place of the tree's are controls, enforced
+  4k. the dense decoder families (models/families.py): (a) a
+     Gemma-2-9B-geometry int8_mix / int8-KV model (google/gemma-2-9b's
+     published widths, 42 layers, random weights through
+     families.init_random_params on the card; window 4096 on every other
+     layer, softcaps 50 / 30, GeGLU, tied embeddings) serves phase 4's 8
+     requests and one of 4,400 prompt tokens (the windowed layers
+     truncate) through an Executor (block_size 128, max_seq_len 4864)
+     after warmup(burst=16), 32 greedy tokens each at burst 16: every
+     lane 32 finite tokens, every decode call a replay, no program after
+     warmup, K1, K2, K6 and K8 traced in the prefill calls, K4, K5 and K7
+     in the replays, K7 and K8 once a layer a step or call with the
+     windowed layers' calls at 4096 and the global layers' at 0; walls,
+     TPOT, idle shares, peak memory and launches printed; then LLM /
+     GenerationSession over the same model on 2 prompts (the softcaps
+     take the masked route: no K14). (b) 2 layers of full widths card
+     against CPU, a prefill call and 4 decode steps each through the
+     Executor (a logits processor records the raw logits on the device
+     and forces the next token), logits within 2e-2 of the largest:
+     Gemma-2-9B with its window cut to 256 under a 600-token prompt (every
+     layer global as an enforced control), Falcon-7B (71 query heads on 1
+     KV head of 64: K7's rows layout; K2 / K4 at N % 128 == 64), BLOOM-7B1
+     (ALiBi: the gather route counted, K5 / K6 launched, no K7 / K8; its
+     slopes at zero as an enforced control), and Phi-2 (head dim 80)
+     through GenerationSession, its Executor refused on the card with a
+     ValueError naming csrc/paged_attention.cu
   8. a `kernels` JSON line, the nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
@@ -219,7 +244,11 @@ K7's kernel a call and no other device work; splits 2 and 4 at 8 lanes
 with 3 masks, bit-equal across two launches, and at 1 lane x 4096
 tokens, against K7 and its plain version; its merge leaving out the last
 split that saw a key as an enforced control) on int8 and bf16 pages at
-Llama-2-7B heads, and K1 -> K2 at
+Llama-2-7B heads; K7's rows layout (K9's kernel at S = 1, where a KV
+head's query heads do not fit the split kernel's block) at Falcon-7B's 71
+query heads on 1 KV head of 64 and the MQA coders' 48 of 128, timed beside
+the split kernel at 8 heads; K2 and K4 at Falcon-7B's N % 128 == 64
+(4672, 4544) in their regimes; and K1 -> K2 at
 the 40 rows of a gamma = 4 verify,
 and K14 (causal flash attention) at the dense serve's shape (8 x 768, 32
 heads x 128, with SDPA timed as its library call), at D 64 and 256 with
@@ -3227,7 +3256,7 @@ def layer_errors(torch, float_params, cfg_f, models, tokens) -> list:
     from mixq_tensorrt_llm_tpu_torch.ops import attention as oa
     b, s = tokens.shape
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
-    sin, cos = mc._positional_arrays(cfg_f, pos.expand(b, s))
+    sin, cos, _ = mc._positional_arrays(cfg_f, pos.expand(b, s))
 
     def layer(cfg, lp, x, ostate=(), i=None):
         def attend(q, k, v):        # full_prefill's attention, no cache
@@ -3766,7 +3795,9 @@ def cross_device_13b(torch, seed: int, dev):
 DYN_PLANTED, DYN_GAIN = 32, 8.0    # planted channels a layer, their norms
 WITNESS_BATCH, WITNESS_LEN = 4, 512
 BF16_REL = 2.0 ** -7               # one bf16 step of a value
-LR_LAYERS = 32                     # the int8_lr model's depth
+# the int8_lr model's depth: half of Llama-2-7B's 32, since its rank-32
+# SVDs (3.5 s a layer on the card) are the smoke's largest single wall
+LR_LAYERS = 16
 # phase 4i: kernels each run must show in its traced decode, by mark
 FORMAT_TRACED = {
     "dyn": {"wo_small_mma_kernel": "K4", "write_token_kernel": "K5",
@@ -4982,6 +5013,575 @@ def cross_device_extras(torch, lp, cfg, seed: int, dev) -> dict:
           "forward", drop_kwarg("attn_mask"))])
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: the dense decoder families (Gemma-2-9B at full width and depth;
+# Falcon-7B, BLOOM-7B1 and Phi-2 widths at 2 layers card against CPU)
+# ---------------------------------------------------------------------------
+
+FAM_LONG, FAM_MAX_LEN = 4400, 4864   # 4k(a): the long request, max_seq_len
+FAM_SESSION_LEN = 768                # 4k(a): the session's max_seq_len
+FAM_TOL = 2e-2                       # 4k(b): card vs CPU, of max |logit|
+WITNESS_WINDOW, WITNESS_PROMPT = 256, 600   # 4k(b)'s Gemma-2 witness
+WITNESS_STEPS = 4                    # 4k(b): decode steps after the prefill
+# 4k(a): kernels of the prefill calls, by a mark of the traced name
+FAM_PREFILL_TRACED = {"norm_quant": "K1", "mixed_wgmma_kernel": "K2",
+                      "write_chunk_kernel": "K6",
+                      "prefill_wgmma_kernel": "K8"}
+KERNELS["paged_decode_attention_rows"] = (JOPS + "paged_attention.py:70",
+                                          "paged_attention.cu")
+PAGED.append("paged_decode_attention_rows")
+ON_PATH.update({
+    # Gemma-2-9B through the Executor: K1 (the RMSNorm fused) -> K2 at the
+    # prefill chunks, K4 in the decode replays and for down_proj, K5 / K6,
+    # K7 and K8 with each layer's window
+    "gemma2": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+               "wo_matmul.decode", "wo_matmul.prefill", "paged_write_token",
+               "paged_write_chunk", "paged_decode_attention",
+               "paged_prefill_attention"],
+    # its GenerationSession: the softcaps take the masked route (no K14)
+    "gemma2_session": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+                       "wo_matmul.decode"]})
+OFF_PATH.update({
+    "gemma2": ["paged_decode_attention_split", "paged_verify_attention",
+               "paged_decode_attention_rows"] + NO_GATHER,
+    "gemma2_session": PAGED + NO_GATHER + ["flash_causal_attention"]})
+
+
+def gemma2_9b_config(torch, layers: int = 42, window: int = 4096):
+    """google/gemma-2-9b's published config.json: vocab 256000, hidden
+    3584, intermediate 14336, 42 layers, 16 query heads and 8 KV heads of
+    256, query_pre_attn_scalar 256, sliding window 4096 on every other
+    layer, attention softcap 50, final softcap 30, GeGLU
+    (gelu_pytorch_tanh), tied embeddings, RMSNorm eps 1e-6, rope theta
+    10000; int8_mix (128 outliers) with int8 KV."""
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (
+        KVCacheQuantAlgo, QuantAlgo, QuantConfig)
+    return ModelConfig(
+        arch="gemma2", vocab_size=256000, hidden_size=3584,
+        intermediate_size=14336, num_layers=layers, num_heads=16,
+        num_kv_heads=8, head_dim=256, rope_theta=10000.0, rms_norm_eps=1e-6,
+        max_position_embeddings=8192, attn_scale=256 ** -0.5,
+        attn_logit_softcap=50.0, final_logit_softcap=30.0,
+        post_block_norms=True, sliding_window=window,
+        sliding_window_pattern=2, hidden_act="gelu_pytorch_tanh",
+        embed_scale=3584 ** 0.5, tie_word_embeddings=True,
+        dtype=torch.bfloat16,
+        quant=QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128,
+                          kv_cache=KVCacheQuantAlgo.INT8))
+
+
+def witness_configs(torch) -> dict:
+    """The 2-layer witnesses of phase 4k(b), each an HF config written out
+    from its published config.json and read by the port's families
+    reader: tiiuae/falcon-7b (hidden 4544, 71 query heads on 1 KV head of
+    64, parallel attention with one shared LayerNorm, intermediate 18176,
+    vocab 65024), bigscience/bloom-7b1 (hidden 4096, 32 heads, ALiBi, the
+    embedding LayerNorm, vocab 250880), microsoft/phi-2 (hidden 2560, 32
+    heads of 80, partial rotary 0.4 = 32 dims, intermediate 10240, vocab
+    51200, lm_head bias); int8_mix (128 outliers) with int8 KV."""
+    import types
+    from mixq_tensorrt_llm_tpu_torch.models import families
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (
+        KVCacheQuantAlgo, QuantAlgo, QuantConfig)
+    quant = QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128,
+                        kv_cache=KVCacheQuantAlgo.INT8)
+    hf = {
+        "falcon-7b": dict(model_type="falcon", vocab_size=65024,
+                          hidden_size=4544, num_hidden_layers=2,
+                          num_attention_heads=71, multi_query=True,
+                          new_decoder_architecture=False, parallel_attn=True,
+                          bias=False, alibi=False, layer_norm_epsilon=1e-5,
+                          max_position_embeddings=2048, rope_theta=10000.0),
+        "bloom-7b1": dict(model_type="bloom", vocab_size=250880,
+                          hidden_size=4096, n_layer=2, n_head=32,
+                          layer_norm_epsilon=1e-5),
+        "phi-2": dict(model_type="phi", vocab_size=51200, hidden_size=2560,
+                      intermediate_size=10240, num_hidden_layers=2,
+                      num_attention_heads=32, num_key_value_heads=32,
+                      max_position_embeddings=2048, rope_theta=10000.0,
+                      layer_norm_eps=1e-5, hidden_act="gelu_new",
+                      partial_rotary_factor=0.4)}
+    return {name: families.config_from_hf(types.SimpleNamespace(**c), quant)
+            for name, c in hf.items()}
+
+
+def check_family_kernels(torch, gen, dev, results):
+    """Phase 3 for the families' geometry: K7's rows layout at Falcon-7B's
+    decode (8 lanes, 71 query heads on 1 KV head of 64, int8 pages of 128
+    tokens, lengths 1-700, three masks) and at the MQA coders' 48 heads of
+    128, against the plain version, two launches bit-equal, timed beside
+    its bound and beside K7's split kernel at 8 query heads on the same
+    pages; K2 and K4 at Falcon-7B's N % 128 == 64 shapes (qkv 4544 ->
+    4672, o_proj 4544 -> 4544, fc2 18176 -> 4544) in their regimes,
+    against plain, timed with their bounds (K4: and
+    torch._weight_int8pack_mm)."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
+    from mixq_tensorrt_llm_tpu_torch.ops import norm_quant as nq
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    bs, np_, b, mb = 128, 64, 8, 6
+    lens = [700, 1, 256, 640, 129, 513, 384, 300]
+    worst, timing = 0.0, None
+    for hq, d in ((71, 64), (48, 128)):
+        scale, hkv, tok_b = d ** -0.5, 1, 2 * d + 8
+        pools = make_pools(torch, gen, dev, np_, hkv, bs, d)
+        args = (pools["k"], pools["v"], pools["k_scale"], pools["v_scale"])
+        table, bpos = _attn_tables(torch, gen, dev, b, mb, bs, np_, lens, 3)
+        table[1] = 0
+        bpos[1] = 1 << 30
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((b, hq, d), generator=gen, device=dev).bfloat16()
+        check(pa.decode_route(hq, d, bs, 1, True, True) == "rows",
+              f"K7 at {hq} query heads a KV head does not take the rows "
+              "layout")
+        for window, sink, softcap in ((0, 0, 0.0), (256, 128, 0.0),
+                                      (0, 0, 30.0)):
+            kw = dict(block_pos=bpos, window=window, sink=sink,
+                      softcap=softcap)
+            before = _build.LAUNCHES.get("paged_decode_attention_rows", 0)
+            out = pa.paged_decode_attention(q, *args, table, lens_t, scale,
+                                            **kw)
+            again = pa.paged_decode_attention(q, *args, table, lens_t, scale,
+                                              **kw)
+            ref = pa.paged_attention_plain(q[:, None], *args, table,
+                                           (lens_t - 1)[:, None], lens_t,
+                                           scale, **kw)[:, 0]
+            torch.cuda.synchronize()
+            check(_build.LAUNCHES.get("paged_decode_attention_rows", 0)
+                  - before == 2, "K7's rows layout: not one launch a call")
+            check(bool(torch.isfinite(out).all()), "K7 rows: not finite")
+            check(bool((out[1] == 0).all()), "K7 rows: inactive lane not 0")
+            check(torch.equal(out, again), f"K7 rows Hq={hq}: two launches "
+                  "on the same inputs differ")
+            err = float((out.float() - ref.float()).abs().max())
+            check(err <= ATTN_TOL, f"K7 rows Hq={hq} window={window} "
+                  f"softcap={softcap}: max abs err {err} > {ATTN_TOL}")
+            worst = max(worst, err)
+            print(f"K7 rows layout (paged_decode_attention_rows) int8 "
+                  f"Hq={hq} Hkv=1 D={d} window={window} sink={sink} "
+                  f"softcap={softcap}: max abs err {err:.3e}, repeat "
+                  f"bit-equal", flush=True)
+        kw = dict(block_pos=bpos)
+        ms, pms, wms = measure(
+            torch, lambda: pa.paged_decode_attention(
+                q, *args, table, lens_t, scale, **kw),
+            lambda: pa.paged_attention_plain(
+                q[:, None], *args, table, (lens_t - 1)[:, None], lens_t,
+                scale, **kw), "verify_rows_kernel",
+            "paged_decode_attention_rows", 200, 20)
+        visited = int((bpos < lens_t[:, None]).sum())
+        nbytes = (visited * hkv * bs * tok_b + 2 * b * hq * d * 2
+                  + b * mb * 8 + b * 4)
+        bnd = bound(nbytes, 4.0 * hq * d * sum(lens))
+        q8 = q[:, :8].contiguous()
+        k7 = device_ms(torch, lambda: pa.paged_decode_attention(
+            q8, *args, table, lens_t, scale, **kw), 200,
+            "decode_split_kernel", "paged_decode_attention")
+        print(f"K7 rows layout timing int8 B={b} Hq={hq} Hkv=1 D={d} "
+              f"pages={visited}: device {ms:.5f} ms per launch (plain "
+              f"{pms:.5f} ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, "
+              f"by {bnd[1]}; {nbytes / ms / 1e9:.3f} TB/s); K7's split "
+              f"kernel at 8 query heads on the same pages {k7:.5f} ms",
+              flush=True)
+        if hq == 71:
+            timing = dict(ms=ms, plain_ms=pms, bound=bnd,
+                          split_g8_ms=k7)
+    results["paged_decode_attention_rows"] = dict(max_abs_err=worst,
+                                                  **timing)
+
+    # K2 / K4 at Falcon-7B's N: 4672 = 36.5 x 128 (qkv), 4544 = 35.5 x 128
+    h, ko, bf = 4544, 128, torch.bfloat16
+    sms = wm.sm_count(dev.index or 0)
+    x = torch.randn((1024, h), generator=gen, device=dev).to(bf)
+    ind = torch.randperm(h, generator=gen, device=dev)[:ko].int()
+    tails = {"mixed_matmul": [], "wo_matmul": []}
+    for label, k, n in (("qkv", h, 4672), ("o_proj", h, h),
+                        ("fc2", 18176, h)):
+        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
+        if label != "fc2":             # the mix linears: K2 at prefill
+            fpw = (torch.randn((ko, n), generator=gen, device=dev)
+                   * 0.02).to(bf)
+            for rows in (1024, 40):
+                q_x, srow, xo = nq.quant_split(x[:rows].contiguous(), ind)
+                k2 = (lambda: mm.mixed_matmul(q_x, srow, xo, qw, scol, fpw),
+                      lambda: mm.mixed_matmul_plain(q_x, srow, xo, qw, scol,
+                                                    fpw))
+                before = _build.LAUNCHES.get("mixed_matmul.n_tail", 0)
+                out, again, want = k2[0](), k2[0](), k2[1]()
+                torch.cuda.synchronize()
+                check(_build.LAUNCHES.get("mixed_matmul.n_tail", 0) - before
+                      == 2, "K2's N tail launches not counted")
+                err = gemm_err(out, want)
+                check(err <= gemm_tol(bf), f"K2 Falcon {label} M={rows}: "
+                      f"rel err {err}")
+                check(torch.equal(out, again), f"K2 Falcon {label}: two "
+                      "launches differ")
+                ms, pms, _ = measure(torch, *k2, "mixed_wgmma_kernel",
+                                     "mixed_matmul", 20, 5)
+                nbytes = (rows * k + rows * 4 + rows * ko * 2 + k * n + n * 4
+                          + ko * n * 2 + rows * n * 2)
+                bnd = bound(nbytes, 2.0 * rows * n * ko, 2.0 * rows * n * k)
+                print(f"K2 N tail (Falcon-7B {label}) M={rows} K={k} N={n}: "
+                      f"max rel err {err:.2e}, repeat bit-equal; device "
+                      f"{ms:.5f} ms (plain {pms:.5f} ms; bound {bnd[0]:.5f} "
+                      f"ms, by {bnd[1]})", flush=True)
+                tails["mixed_matmul"].append(dict(
+                    label=label, M=rows, K=k, N=n, ms=ms, plain_ms=pms,
+                    bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err))
+        for rows in (1, 8, 40, 1024):   # K4: decode, mid, prefill
+            xk = x[:rows] if k == h else torch.randn(
+                (rows, k), generator=gen, device=dev).to(bf)
+            regime = wm.k4_regime(wm.wo_plan(rows, k, n, sms))
+            k4 = (lambda: wm.wo_matmul(xk, qw, scol),
+                  lambda: wm.wo_matmul_plain(xk, qw, scol))
+            before = _build.LAUNCHES.get("wo_matmul.n_tail", 0)
+            out, again, want = k4[0](), k4[0](), k4[1]()
+            torch.cuda.synchronize()
+            check(_build.LAUNCHES.get("wo_matmul.n_tail", 0) - before == 2,
+                  "K4's N tail launches not counted")
+            err = gemm_err(out, want)
+            check(err <= gemm_tol(bf), f"K4 Falcon {label} M={rows}: rel "
+                  f"err {err}")
+            check(torch.equal(out, again), f"K4 Falcon {label} M={rows}: "
+                  "two launches differ")
+            big = rows >= 1024
+            ms, pms, _ = measure(torch, *k4, K4_MARKS[regime], "wo_matmul",
+                                 20 if big else 100, 3 if big else 10)
+            bnd = bound(rows * k * 2 + k * n + n * 4 + rows * n * 2,
+                        2.0 * rows * n * k)
+            lib = int8pack_library(torch, xk, qw, scol, want,
+                                   3 if big else 20)
+            print(f"K4 N tail ({regime}, Falcon-7B {label}) M={rows} K={k} "
+                  f"N={n}: max rel err {err:.2e}, repeat bit-equal; device "
+                  f"{ms:.5f} ms (plain {pms:.5f} ms; bound {bnd[0]:.5f} ms, "
+                  f"by {bnd[1]}; torch._weight_int8pack_mm "
+                  f"{'none' if lib is None else f'{lib[0]:.5f} ms'})",
+                  flush=True)
+            tails["wo_matmul"].append(dict(
+                label=label, M=rows, K=k, N=n, kernel=regime, ms=ms,
+                plain_ms=pms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=None if lib is None else lib[0],
+                max_abs_err=err))
+    for name, rows in tails.items():
+        results[name]["n_tail"] = rows
+
+
+def _windows_recorder(pa):
+    """Wrap K7's and K8's wrappers to record each call's window; returns
+    (records by wrapper name, undo)."""
+    rec, real = {}, {}
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        real[name] = fn = getattr(pa, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            rec.setdefault(_name, []).append(int(k.get("window", 0)))
+            return _fn(*a, **k)
+        setattr(pa, name, wrapped)
+
+    def undo():
+        for name, fn in real.items():
+            setattr(pa, name, fn)
+    return rec, undo
+
+
+def serve_gemma2(torch, seed: int, dev, gen) -> tuple:
+    """Phase 4k(a): Gemma-2-9B (``gemma2_9b_config``, 42 layers, random
+    weights from ``seed`` through models/families.init_random_params on
+    the card) serves phase 4's 8 requests and one of FAM_LONG prompt
+    tokens (the windowed layers truncate) through an Executor
+    (block_size 128, max_seq_len FAM_MAX_LEN) after warmup(burst=16), 32
+    greedy tokens each at burst 16 (``decode_run``: once timed, once
+    profiled). Then LLM over the same params serves 2 of the prompts
+    through GenerationSession. Returns {path: launches}."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models import families
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = gemma2_9b_config(torch)
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = families.init_random_params(
+        cfg, seed=seed, device=dev,
+        act_scales=sp.distinct_act_scales(cfg, gen, dev))
+    torch.cuda.synchronize()
+    print(f"model: Gemma-2-9B geometry, {cfg.num_layers} layers, int8_mix "
+          f"(128 outliers) / int8 KV, random weights in "
+          f"{time.perf_counter() - t:.1f} s; weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(seed + 18)
+    prompts = sp.ragged_prompts(seed, cfg.vocab_size) + [
+        rng.integers(1, cfg.vocab_size, FAM_LONG).tolist()]
+    ex = Executor(params, cfg, max_batch=len(prompts),
+                  max_seq_len=FAM_MAX_LEN, block_size=128,
+                  prefill_chunk=256, seed=seed, device=dev)
+    pool_b = 2 * (ex.state.k.numel() + ex.state.k_scale.numel() * 4)
+    print(f"phase 4k: pool {ex.state.k.shape[0]} pages x 2 of "
+          f"{tuple(ex.state.k.shape[1:])} int8 ({pool_b / 1e9:.2f} GB with "
+          f"scales)", flush=True)
+    rec, undo = _windows_recorder(pa)
+    try:
+        t = time.perf_counter()
+        ex.warmup(burst=BURST)
+        torch.cuda.synchronize()
+        print(f"phase 4k: warmup(burst={BURST}) {time.perf_counter() - t:.1f}"
+              f" s, rungs {sorted(k for k, *_ in ex._rungs)}", flush=True)
+        r = decode_run(torch, sp, params, cfg, prompts, seed, dev, ex, BURST)
+    finally:
+        undo()
+    launches = r["launches"]
+    toks = r["toks"]
+    check(all(len(t) == 32 for t in toks),
+          f"phase 4k: not every lane got 32 tokens "
+          f"({[len(t) for t in toks]})")
+    check(all(math.isfinite(x) for lps in r["logprobs"] for x in lps),
+          "phase 4k: a log-probability is not finite")
+    check(r["replays"] == r["calls"] > 0, f"phase 4k: {r['replays']} "
+          f"replays for {r['calls']} decode calls")
+    check(ex.compiles_since_warmup == 0,
+          f"phase 4k: {ex.compiles_since_warmup} programs after warmup")
+    for mark, label in FAM_PREFILL_TRACED.items():
+        check(any(mark in n for n in r["prefill_names"]),
+              f"phase 4k: {label} ({mark}) not traced in the prefill calls")
+    expect = {m: n * cfg.num_layers * r["steps"]
+              for m, (_, n) in DECODE_TRACED.items()}
+    for m, (label, _) in DECODE_TRACED.items():
+        check(0 < r["traced"][m] <= expect[m],
+              f"phase 4k: {label} ({m}) traced {r['traced'][m]} times in "
+              f"the decode replays (expected {expect[m]})")
+    layers = cfg.num_layers
+    pattern = [cfg.layer_window(i) for i in range(layers)]
+    for name, windows in rec.items():
+        check(len(windows) % layers == 0 and windows == pattern * (
+            len(windows) // layers), f"phase 4k: {name}'s windows by layer "
+            f"are not {pattern[:4]}...")
+    check(launches.get("paged_decode_attention", 0) == layers * r["steps"],
+          f"phase 4k: K7 launched {launches.get('paged_decode_attention')} "
+          f"times for {r['steps']} steps of {layers} layers")
+    k8 = launches.get("paged_prefill_attention", 0)
+    check(k8 > 0 and k8 % layers == 0, f"phase 4k: K8 launched {k8} times, "
+          f"not once a layer a prefill call")
+    _on_path(launches, "gemma2")
+    dec_ms = r["decode_s"] * 1e3
+    pre_ms = max(r["prefill_profiled_ms"], 1e-9)
+    print(f"phase 4k(a) Gemma-2-9B: 9 requests, prompts "
+          f"{[len(p) for p in prompts]} tokens, 32 generated each at burst "
+          f"{BURST}; wall {r['wall']:.3f} s = prefill {r['prefill_s']:.3f} s"
+          f" + decode {r['decode_s']:.3f} s ({r['steps']} steps in "
+          f"{r['calls']} calls, {r['replays']} graph replays); TPOT "
+          f"{dec_ms / r['steps']:.2f} ms a step for {len(prompts)} lanes; "
+          f"{r['gen'] / r['wall']:.1f} generated tok/s; decode idle share "
+          f"{1 - r['busy_ms'] / dec_ms:.3f}; prefill idle share "
+          f"{1 - r['prefill_busy_ms'] / pre_ms:.3f} (profiled run); peak "
+          f"memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K7 windows "
+          f"by layer {pattern[:4]}..., K8 {k8 // layers} prefill calls",
+          flush=True)
+    print(f"phase 4k(a) traced in decode: "
+          + ", ".join(f"{DECODE_TRACED[m][0]} {n} of {expect[m]}"
+                      for m, n in r["traced"].items()), flush=True)
+    del ex
+    torch.cuda.empty_cache()
+
+    out, wall, seen = _timed(torch, lambda: _llm_len(
+        params, cfg, dev, FAM_SESSION_LEN).generate_tokens(prompts[:2], 32))
+    check(out.num_generated == [32, 32] and all(
+        math.isfinite(x) for lps in out.logprobs for x in lps),
+          "phase 4k: the session did not give 32 finite tokens a prompt")
+    _on_path(seen, "gemma2_session")
+    print(f"phase 4k(a) LLM / GenerationSession: 2 prompts "
+          f"{[len(p) for p in prompts[:2]]} tokens, 32 generated each; wall "
+          f"{wall:.3f} s = prefill {out.prefill_time_s:.3f} s + decode "
+          f"{out.decode_time_s:.3f} s (the softcaps take the masked route: "
+          f"K14 {seen.get('flash_causal_attention', 0)} launches)",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"gemma2": launches, "gemma2_session": seen}
+
+
+def _llm_len(params, cfg, dev, max_seq_len: int):
+    """``_llm`` with its GenerationSession, as LLM's constructor makes it,
+    at ``max_seq_len``."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    llm = _llm(params, cfg, dev)
+    llm.max_seq_len = max_seq_len
+    llm.session = GenerationSession(params, cfg, max_seq_len=max_seq_len,
+                                    device=dev)
+    return llm
+
+
+def executor_witness(torch, cfg, prompt, forced):
+    """compare_devices' run(device, params) for a 2-layer witness through
+    the Executor (one lane, block_size 128, the prompt in one prefill
+    call): a logits processor copies each sampled position's raw logits
+    into a device buffer at a device counter and forces the next token
+    (``forced``, the same on both devices), all in device ops, so it runs
+    inside the decode rungs' graphs on the card. warmup(burst=1) captures
+    rung 1 first; the counter is reset after it. Returns the prefill's
+    logits and WITNESS_STEPS decode steps', the launches with the
+    first."""
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    n = WITNESS_STEPS + 1
+
+    def run(device, p):
+        buf = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
+                          device=device)
+        ctr = torch.zeros((), dtype=torch.long, device=device)
+        force = torch.tensor(forced[:n], device=device)
+
+        def record(logits, history):
+            i = ctr.clamp(max=n - 1).view(1)
+            buf.index_copy_(0, i, logits[:1].float())
+            out = torch.full_like(logits, -1e30)
+            out.index_fill_(1, force.index_select(0, i), 0.0)
+            ctr.add_(1)
+            return out
+
+        ex = Executor(p, cfg, max_batch=1,
+                      max_seq_len=len(prompt) + 2 * n + 16, block_size=128,
+                      prefill_chunk=len(prompt), seed=0, device=device,
+                      logits_processors={"record": record})
+        ex.warmup(burst=1)
+        ctr.zero_()
+        _build.reset_launches()
+        rid = ex.submit(prompt, max_new_tokens=n, logits_processor="record")
+        done = ex.run()
+        launches = dict(_build.LAUNCHES)
+        check(done[rid].generated == list(forced[:n]),
+              "witness: the forced tokens were not generated")
+        out = buf.cpu()
+        return [(out[i], launches if i == 0 else {}) for i in range(n)]
+    return run
+
+
+def cross_device_families(torch, seed: int, dev) -> dict:
+    """Phase 4k(b): card against CPU at 2 layers of full widths, each
+    witness a prefill call and WITNESS_STEPS decode steps through the
+    Executor (``executor_witness``), logits within FAM_TOL: Gemma-2-9B
+    (the window cut to WITNESS_WINDOW and a WITNESS_PROMPT-token prompt,
+    so it truncates; every layer global as an enforced control),
+    Falcon-7B (K2 / K4 at N % 128 == 64, K7's rows layout), BLOOM-7B1
+    (ALiBi: the gather route counted, K5 / K6 launched, no K7 / K8; its
+    slopes at zero as an enforced control); Phi-2 (head dim 80) through
+    GenerationSession card against CPU, its Executor refused on the card.
+    Returns the card runs' launches."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import families
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    gen = torch.Generator(device=dev)
+    rng = np.random.default_rng(seed + 19)
+    total = {}
+    wit = witness_configs(torch)
+    runs = {
+        "Gemma-2-9B widths": (
+            gemma2_9b_config(torch, layers=2, window=WITNESS_WINDOW),
+            [("prefill", ("rmsnorm_quant_split", "mixed_matmul",
+                          "paged_write_chunk", "paged_prefill_attention",
+                          "paged_decode_attention", "paged_write_token",
+                          "wo_matmul"), ("paged_gather",))],
+            [("every layer global (windows off)", True, mc, "_layer_window",
+              lambda real: lambda cfg, li: 0)]),
+        "Falcon-7B widths": (
+            wit["falcon-7b"],
+            [("prefill", ("rmsnorm_quant_split", "mixed_matmul",
+                          "mixed_matmul.n_tail", "wo_matmul",
+                          "wo_matmul.n_tail", "paged_decode_attention_rows",
+                          "paged_prefill_attention"),
+              ("paged_decode_attention", "paged_gather"))], ()),
+        "BLOOM-7B1 widths": (
+            wit["bloom-7b1"],
+            [("prefill", ("rmsnorm_quant_split", "mixed_matmul",
+                          "paged_write_chunk", "paged_write_token",
+                          "paged_gather"),
+              ("paged_decode_attention", "paged_prefill_attention",
+               "paged_verify_attention", "paged_decode_attention_rows"))],
+            [("ALiBi slopes at zero", True, mc, "alibi_slopes",
+              lambda real: lambda n, device=None: torch.zeros(
+                  n, device=device))])}
+    for label, (cfg, first, faults) in runs.items():
+        gen.manual_seed(seed)
+        params = families.init_random_params(
+            cfg, device=dev, generator=gen,
+            act_scales=sp.distinct_act_scales(cfg, gen, dev))
+        prompt = rng.integers(1, cfg.vocab_size, WITNESS_PROMPT).tolist()
+        forced = rng.integers(1, cfg.vocab_size, WITNESS_STEPS + 1).tolist()
+        phases = [(*first[0], FAM_TOL)] + [
+            (f"decode step {i + 1}", (), (), FAM_TOL)
+            for i in range(WITNESS_STEPS)]
+        t = time.perf_counter()
+        seen = compare_devices(torch, label, dev,
+                               executor_witness(torch, cfg, prompt, forced),
+                               params, cpu_copy(torch, params), phases,
+                               faults)
+        for n, c in seen.items():
+            total[n] = total.get(n, 0) + c
+        print(f"phase 4k(b) {label}: {time.perf_counter() - t:.1f} s; the "
+              f"gather route {seen.get('paged_gather', 0)} calls, K7 rows "
+              f"{seen.get('paged_decode_attention_rows', 0)}, K2 N tail "
+              f"{seen.get('mixed_matmul.n_tail', 0)}, K4 N tail "
+              f"{seen.get('wo_matmul.n_tail', 0)}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+    cfg = wit["phi-2"]
+    gen.manual_seed(seed)
+    params = families.init_random_params(
+        cfg, device=dev, generator=gen,
+        act_scales=sp.distinct_act_scales(cfg, gen, dev))
+    try:
+        Executor(params, cfg, max_batch=1, max_seq_len=256, block_size=128,
+                 device=dev)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("head_dim 80" in refused and "csrc/paged_attention.cu" in refused,
+          f"phase 4k: the Executor took Phi-2's head dim 80 ({refused!r})")
+    print(f"phase 4k(b) Phi-2: the Executor refuses on the card: {refused}",
+          flush=True)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (200,
+                                                                      256)]
+    nxt = rng.integers(1, cfg.vocab_size, 2)
+
+    def run(device, p):
+        sess = GenerationSession(p, cfg, max_seq_len=512, device=device)
+        force = torch.from_numpy(nxt).to(device)[:, None]
+        read = []
+
+        def processor(logits, history):
+            read.append((logits.float().cpu(), dict(_build.LAUNCHES)))
+            _build.reset_launches()
+            cols = torch.arange(logits.shape[-1], device=logits.device)
+            return torch.where(cols[None] == force, 0.0, -torch.inf)
+
+        _build.reset_launches()
+        sess.generate(prompts, 2, logits_processors=(processor,))
+        return read
+
+    seen = compare_devices(
+        torch, "Phi-2 widths (session)", dev, run, params,
+        cpu_copy(torch, params),
+        [("prefill (head dim 80: the masked route)",
+          ("rmsnorm_quant_split", "mixed_matmul", "wo_matmul"),
+          tuple(PAGED) + ("flash_causal_attention",), FAM_TOL),
+         ("decode step", ("wo_matmul",), tuple(PAGED), FAM_TOL)])
+    for n, c in seen.items():
+        total[n] = total.get(n, 0) + c
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5036,6 +5636,7 @@ def main() -> int:
     check_attention(torch, gen, dev, results, fp=True)
     check_packed(torch, gen, dev, results)
     check_flash(torch, gen, dev, results)
+    check_family_kernels(torch, gen, dev, results)
     print(f"phase 3: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4. main path: Llama-2-7B int8_mix / int8 KV
@@ -5138,6 +5739,14 @@ def main() -> int:
             xdev[n] = xdev.get(n, 0) + c
     print(f"phase 4i: {time.perf_counter() - t:.1f} s", flush=True)
 
+    # 4k. the dense decoder families: Gemma-2-9B served at full width and
+    # depth, then 2-layer witnesses card against CPU
+    t = time.perf_counter()
+    launches.update(serve_gemma2(torch, args.seed, dev, gen))
+    for n, c in cross_device_families(torch, args.seed, dev).items():
+        xdev[n] = xdev.get(n, 0) + c
+    print(f"phase 4k: {time.perf_counter() - t:.1f} s", flush=True)
+
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
     t = time.perf_counter()
@@ -5179,6 +5788,12 @@ def main() -> int:
                 rg: sum(n.get(f"{name}.{rg}", 0) for n in launches.values())
                 for rg in ("decode", "mid", "prefill")},
                 "regimes": r["regimes"]}
+        if "n_tail" in r:           # N % 128 == 64 (phase 4k's Falcon)
+            extra.update(n_tail=r["n_tail"], launches_n_tail=sum(
+                n.get(f"{name}.n_tail", 0) for n in launches.values()),
+                launches_n_tail_cross_device=xdev.get(f"{name}.n_tail", 0))
+        if "split_g8_ms" in r:
+            extra["split_kernel_at_8_heads_ms"] = r["split_g8_ms"]
         rows.append({"name": name, "route": "cuda", "source": SRC + src,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -6,9 +6,10 @@ Counterpart of api.py.
 
 ``model`` is a checkpoint directory in the format both packages write
 (``convert/checkpoint.py``: config.json + model.safetensors), or a Hugging
-Face directory (Llama lineage), quantized on first use into a cache
-directory keyed by its path and QuantConfig (``_ensure_quantized``; the
-default base is ``~/.cache/mixq_tpu_torch``) and loaded from there after.
+Face directory (any dense decoder family, models/registry.py), quantized
+on first use into a cache directory keyed by its path and QuantConfig
+(``_ensure_quantized``; the default base is ``~/.cache/mixq_tpu_torch``)
+and loaded from there after.
 Beside generation through the session: speculative sampling with a draft
 LLM, Medusa and ReDrafter (runtime/speculative.py, medusa.py,
 redrafter.py), all on the LLM's device.

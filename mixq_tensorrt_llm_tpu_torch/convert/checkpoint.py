@@ -8,7 +8,7 @@ marked ``@e4m3``, as the JAX package writes it), layers stacked on axis 0
 read and written here without the safetensors package: an 8-byte
 little-endian header length, a JSON header of ``{name: {"dtype", "shape",
 "data_offsets"}}``, then the raw bytes. Loading validates the required
-names as the JAX package does (Llama path) and goes through
+names as the JAX package does (with each family's norms) and goes through
 ``convert.from_jax.params_from_numpy``, which checks every leaf's dtype and
 shape.
 """
@@ -27,7 +27,7 @@ from ..device import DeviceLike
 from ..models.common import ModelConfig
 from ..quant import core as qcore
 from ..quant.config import QuantAlgo
-from .from_jax import params_from_numpy
+from .from_jax import layer_norms, params_from_numpy
 
 CONFIG_NAME = "config.json"
 WEIGHTS_NAME = "model.safetensors"
@@ -123,14 +123,21 @@ def _required(mod: str, algo: QuantAlgo) -> set:
 
 
 def _validate(params: Dict, cfg: ModelConfig) -> None:
-    """Required-name validation, the JAX package's rules for the Llama
-    path (its convert/checkpoint.py ``_validate``)."""
+    """Required-name validation, the JAX package's rules (its
+    convert/checkpoint.py ``_validate``) with the norms the config's axes
+    imply (``from_jax.layer_norms``: a shared block norm has no post_norm,
+    OLMo-2 neither pre-norm), and the top-level positional and embedding
+    norm tensors."""
     missing = [k for k in ("embed", "final_norm") if k not in params]
     if not cfg.tie_word_embeddings and "lm_head" not in params:
         missing.append("lm_head")
+    if cfg.pos_embedding == "learned" and "pos_embed" not in params:
+        missing.append("pos_embed")
+    if cfg.embed_norm and "embed_norm" not in params:
+        missing.append("embed_norm")
     layers = params.get("layers", {})
     for mod in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj",
-                "input_norm", "post_norm"):
+                *layer_norms(cfg)):
         if mod not in layers:
             missing.append(f"layers.{mod}")
             continue

@@ -1,8 +1,8 @@
 """Load the JAX package's params pytree into the port.
 
-``params_from_numpy`` takes the pytree of mixq_tensorrt_llm_tpu (Llama
-lineage) as numpy arrays — ``jax.tree.map(np.asarray, params)``, layers
-stacked on axis 0 — checks every leaf's dtype and shape against the
+``params_from_numpy`` takes the pytree of mixq_tensorrt_llm_tpu (any
+dense decoder family) as numpy arrays — ``jax.tree.map(np.asarray,
+params)``, layers stacked on axis 0 — checks every leaf's dtype and shape against the
 params schema the config implies, and returns the port's params: the same
 dicts, with ``layers`` a list of per-layer dicts of torch tensors on
 ``device``. bfloat16 leaves arrive as ml_dtypes arrays and are converted
@@ -64,30 +64,75 @@ def _linear_schema(algo: QuantAlgo, n_in: int, n_out: int, k: int,
     return s
 
 
-def layer_schema(cfg: ModelConfig, packed=()) -> Dict[str, Dict[str, tuple]]:
+def layer_norms(cfg: ModelConfig) -> Dict[str, int]:
+    """{norm: width} of one decoder layer under the config's norm axes."""
+    h = cfg.hidden_size
+    out = {}
+    if cfg.pre_block_norms:
+        out["input_norm"] = h
+        if not cfg.shared_block_norm:
+            out["post_norm"] = h
+    if cfg.post_block_norms:
+        out["post_attn_norm"] = out["post_mlp_norm"] = h
+    if cfg.qk_norm:
+        flat = cfg.qk_norm_flat
+        out["q_norm"] = cfg.q_size if flat else cfg.head_dim
+        out["k_norm"] = cfg.kv_size if flat else cfg.head_dim
+    return out
+
+
+def layer_schema(cfg: ModelConfig, packed=(),
+                 biases=()) -> Dict[str, Dict[str, tuple]]:
     """{module: {leaf: (dtype, shape)}} for one decoder layer; the modules
-    named in ``packed`` hold their int4 weight as ``qweight_packed``."""
+    named in ``packed`` hold their int4 weight as ``qweight_packed``.
+    Linear biases follow the config's bias axes; a norm or linear named in
+    ``biases`` carries a bias ``b`` as well (a LayerNorm's bias is the HF
+    checkpoint's: MPT's and Cohere's norms have none)."""
     h, k = cfg.hidden_size, cfg.quant.num_outliers
+    up = (2 if cfg.mlp_type == "gated" else 1) * cfg.intermediate_size
     dims = {"qkv_proj": (h, cfg.qkv_out), "o_proj": (cfg.q_size, h),
-            "gate_up_proj": (h, 2 * cfg.intermediate_size),
+            "gate_up_proj": (h, up),
             "down_proj": (cfg.intermediate_size, h)}
+    has_bias = {"qkv_proj": cfg.qkv_bias, "o_proj": cfg.attn_out_bias,
+                "gate_up_proj": cfg.mlp_bias, "down_proj": cfg.mlp_bias}
     out = {mod: _linear_schema(cfg.module_algo(mod), *dims[mod], k,
-                               bias=cfg.qkv_bias and mod == "qkv_proj",
+                               bias=has_bias[mod] or mod in biases,
                                group_size=cfg.quant.group_size,
                                packed=mod in packed)
            for mod in LINEAR_MODULES}
-    out["input_norm"] = {"w": (torch.float32, (h,))}
-    out["post_norm"] = {"w": (torch.float32, (h,))}
+    for name, n in layer_norms(cfg).items():
+        out[name] = {"w": (torch.float32, (n,))}
+        if name in biases:
+            out[name]["b"] = (torch.float32, (n,))
     return out
 
 
-def top_schema(cfg: ModelConfig) -> Dict[str, Dict[str, tuple]]:
+def top_schema(cfg: ModelConfig, biases=()) -> Dict[str, Dict[str, tuple]]:
+    """The params outside the layers; ``biases`` names the norms that carry
+    a bias (and ``lm_head``, whose bias the config's lm_head_bias also
+    implies)."""
     h, v = cfg.hidden_size, cfg.vocab_size
     out = {"embed": {"w": (cfg.dtype, (v, h))},
            "final_norm": {"w": (torch.float32, (h,))}}
+    if cfg.pos_embedding == "learned":
+        out["pos_embed"] = {"w": (cfg.dtype, (
+            cfg.max_position_embeddings + cfg.learned_pos_offset, h))}
+    if cfg.embed_norm:
+        out["embed_norm"] = {"w": (torch.float32, (h,))}
+    for name in ("final_norm", "embed_norm"):
+        if name in out and name in biases:
+            out[name]["b"] = (torch.float32, (h,))
     if not cfg.tie_word_embeddings:
         out["lm_head"] = {"w": (cfg.dtype, (h, v))}
+        if cfg.lm_head_bias or "lm_head" in biases:
+            out["lm_head"]["b"] = (torch.bfloat16, (v,))
     return out
+
+
+def _with_bias(tree: Dict) -> set:
+    """The entries of a params (sub)tree that carry a bias leaf ``b``."""
+    return {name for name, sub in tree.items()
+            if isinstance(sub, dict) and "b" in sub}
 
 
 def _leaf(arr):
@@ -124,7 +169,7 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
                       device: DeviceLike = "cuda") -> Dict:
     """JAX params pytree (numpy leaves, layers stacked) -> port params."""
     dev = resolve_device(device)
-    top = top_schema(cfg)
+    top = top_schema(cfg, biases=_with_bias(tree))
     _check_keys(set(tree) - {"layers"}, top, "params")
     params: Dict = {
         name: {leaf: _convert(tree[name][leaf], dt, shape,
@@ -136,7 +181,8 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
     stacked = tree["layers"]
     schema = layer_schema(cfg, packed=[m for m in LINEAR_MODULES
                                        if "qweight_packed" in
-                                       stacked.get(m, {})])
+                                       stacked.get(m, {})],
+                          biases=_with_bias(stacked))
     _check_keys(stacked, schema, "layers")
     layers = []
     for i in range(cfg.num_layers):

@@ -5,9 +5,11 @@ Read the HF config and weights, optionally calibrate act_scales on the
 float model, quantize under the QuantConfig routing, save the checkpoint
 format both packages read. Neither ``transformers`` nor ``safetensors`` is
 needed: ``config.json`` is read with ``json`` (``load_hf_config`` gives what
-``AutoConfig`` gives for every field the converter reads) and the weights
+``AutoConfig`` gives for every field the converters read, for every dense
+family) and the weights
 with the port's own safetensors reader, memory-mapped in their file dtype;
-``models/llama.params_from_hf`` brings one layer at a time to the device.
+``models/registry.params_from_hf`` brings one layer at a time to the
+device.
 """
 
 from __future__ import annotations
@@ -30,13 +32,17 @@ from ..utils.logger import logger
 from . import calibrate as calib
 from .checkpoint import read_safetensors, save_checkpoint
 
-# The class defaults of transformers' LlamaConfig, MistralConfig and
-# Qwen2Config for every field models/llama.config_from_hf reads: what
-# AutoConfig gives where config.json leaves a key out.
+# The class defaults of transformers' config classes (transformers 4.57)
+# for every field models/llama.config_from_hf and models/families
+# .config_from_hf read: what AutoConfig gives where a (diff-only)
+# config.json leaves a key out.
 _COMMON = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
                num_attention_heads=32, num_key_value_heads=None,
                rope_theta=10000.0, rms_norm_eps=1e-6, rope_scaling=None,
                tie_word_embeddings=False)
+_GPT2 = dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+             n_positions=1024, n_inner=None, layer_norm_epsilon=1e-5,
+             tie_word_embeddings=True)
 _CONFIG_DEFAULTS = {
     "llama": dict(_COMMON, intermediate_size=11008, head_dim=None,
                   max_position_embeddings=2048),
@@ -46,7 +52,104 @@ _CONFIG_DEFAULTS = {
     "qwen2": dict(_COMMON, vocab_size=151936, intermediate_size=22016,
                   max_position_embeddings=32768, use_sliding_window=False,
                   sliding_window=4096),
+    # Aquila's remote-code config is Llama's
+    "aquila": dict(_COMMON, intermediate_size=11008, head_dim=None,
+                   max_position_embeddings=2048),
+    "opt": dict(vocab_size=50272, hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, max_position_embeddings=2048,
+                tie_word_embeddings=True, ffn_dim=3072,
+                do_layer_norm_before=True, word_embed_proj_dim=None,
+                activation_function="relu"),
+    "gpt2": dict(_GPT2, activation_function="gelu_new"),
+    "gptj": dict(_GPT2, vocab_size=50400, n_embd=4096, n_layer=28,
+                 n_head=16, n_positions=2048, rotary_dim=64,
+                 activation_function="gelu_new", tie_word_embeddings=False),
+    "gpt_bigcode": dict(_GPT2, activation_function="gelu_pytorch_tanh",
+                        multi_query=True),
+    "gpt_neox": dict(vocab_size=50432, hidden_size=6144,
+                     intermediate_size=24576, num_hidden_layers=44,
+                     num_attention_heads=64, max_position_embeddings=2048,
+                     rotary_emb_base=10000, rotary_pct=0.25,
+                     layer_norm_eps=1e-5, use_parallel_residual=True,
+                     hidden_act="gelu", tie_word_embeddings=False),
+    "falcon": dict(vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+                   num_attention_heads=71, max_position_embeddings=2048,
+                   rope_theta=10000.0, layer_norm_epsilon=1e-5,
+                   new_decoder_architecture=False, num_kv_heads=None,
+                   multi_query=True, parallel_attn=True,
+                   ffn_hidden_size=None, alibi=False, activation="gelu",
+                   bias=False, tie_word_embeddings=True),
+    "bloom": dict(vocab_size=250880, hidden_size=64, n_layer=2, n_head=8,
+                  layer_norm_epsilon=1e-5, tie_word_embeddings=True),
+    "mpt": dict(vocab_size=50368, d_model=2048, n_layers=24, n_heads=16,
+                expansion_ratio=4, max_seq_len=2048, no_bias=True,
+                layer_norm_epsilon=1e-5, attn_config=None,
+                tie_word_embeddings=True),
+    "phi": dict(_COMMON, vocab_size=51200, hidden_size=2048,
+                intermediate_size=8192, num_hidden_layers=24,
+                max_position_embeddings=2048, layer_norm_eps=1e-5,
+                hidden_act="gelu_new", partial_rotary_factor=0.5),
+    "phi3": dict(_COMMON, vocab_size=32064, hidden_size=3072,
+                 intermediate_size=8192, max_position_embeddings=4096,
+                 original_max_position_embeddings=4096, rms_norm_eps=1e-5,
+                 sliding_window=None, partial_rotary_factor=1.0),
+    "gemma": dict(_COMMON, vocab_size=256000, hidden_size=3072,
+                  intermediate_size=24576, num_hidden_layers=28,
+                  num_attention_heads=16, num_key_value_heads=16,
+                  head_dim=256, max_position_embeddings=8192,
+                  hidden_act="gelu_pytorch_tanh", hidden_activation=None,
+                  tie_word_embeddings=True),
+    "gemma2": dict(_COMMON, vocab_size=256000, hidden_size=2304,
+                   intermediate_size=9216, num_hidden_layers=26,
+                   num_attention_heads=8, num_key_value_heads=4,
+                   head_dim=256, max_position_embeddings=8192,
+                   hidden_activation="gelu_pytorch_tanh",
+                   query_pre_attn_scalar=256, attn_logit_softcapping=50.0,
+                   final_logit_softcapping=30.0, sliding_window=4096,
+                   tie_word_embeddings=True),
+    "qwen3": dict(_COMMON, vocab_size=151936, intermediate_size=22016,
+                  head_dim=128, max_position_embeddings=32768,
+                  sliding_window=4096, use_sliding_window=False),
+    "glm": dict(_COMMON, vocab_size=151552, intermediate_size=13696,
+                num_hidden_layers=40, num_key_value_heads=2, head_dim=128,
+                max_position_embeddings=131072, rms_norm_eps=1.5625e-07,
+                partial_rotary_factor=0.5, attention_bias=True),
+    "olmo2": dict(_COMMON, vocab_size=50304, intermediate_size=11008,
+                  max_position_embeddings=2048, rms_norm_eps=1e-5),
+    "cohere": dict(_COMMON, vocab_size=256000, hidden_size=8192,
+                   intermediate_size=22528, num_hidden_layers=40,
+                   num_attention_heads=64, max_position_embeddings=8192,
+                   layer_norm_eps=1e-5, attention_bias=False,
+                   logit_scale=0.0625, tie_word_embeddings=True),
+    "granite": dict(_COMMON, intermediate_size=11008,
+                    max_position_embeddings=2048, attention_bias=False,
+                    mlp_bias=False, embedding_multiplier=1.0,
+                    residual_multiplier=1.0, attention_multiplier=1.0,
+                    logits_scaling=1.0),
+    "starcoder2": dict(_COMMON, vocab_size=49152, hidden_size=3072,
+                       intermediate_size=12288, num_hidden_layers=30,
+                       num_attention_heads=24, num_key_value_heads=2,
+                       max_position_embeddings=4096, norm_epsilon=1e-5,
+                       hidden_act="gelu_pytorch_tanh", use_bias=True,
+                       tie_word_embeddings=True),
+    "stablelm": dict(_COMMON, vocab_size=50304, hidden_size=2560,
+                     intermediate_size=6912, max_position_embeddings=4096,
+                     layer_norm_eps=1e-5, hidden_act="silu",
+                     partial_rotary_factor=0.25, use_qkv_bias=False),
 }
+_CONFIG_DEFAULTS["glm4"] = _CONFIG_DEFAULTS["glm"]
+for _alias in ("refinedweb", "refinedwebmodel"):
+    _CONFIG_DEFAULTS[_alias] = _CONFIG_DEFAULTS["falcon"]
+# the class attribute maps (standard name -> the family's own)
+_ATTRIBUTE_MAPS = {
+    "gpt2": dict(hidden_size="n_embd", max_position_embeddings="n_positions",
+                 num_attention_heads="n_head", num_hidden_layers="n_layer"),
+    "bloom": dict(num_hidden_layers="n_layer", num_attention_heads="n_head"),
+    "mpt": dict(hidden_size="d_model", num_attention_heads="n_heads",
+                num_hidden_layers="n_layers"),
+}
+_ATTRIBUTE_MAPS["gptj"] = _ATTRIBUTE_MAPS["gpt_bigcode"] = \
+    _ATTRIBUTE_MAPS["gpt2"]
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
                     "tokenizer.model", "special_tokens_map.json",
                     "vocab.json", "merges.txt", "added_tokens.json",
@@ -55,23 +158,45 @@ _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
 
 def load_hf_config(hf_dir: str) -> types.SimpleNamespace:
     """config.json as an attribute object, with the defaults and
-    normalisation ``AutoConfig`` applies for the Llama lineage: absent keys
-    take their class default, ``num_key_value_heads`` falls back to the
-    head count, Llama's ``head_dim`` to hidden / heads, Qwen2's
-    ``sliding_window`` is None unless ``use_sliding_window``, and a
-    rope_scaling ``type`` is also given as ``rope_type``. Other model types
-    get the file's keys alone (the registry refuses them)."""
+    normalisation ``AutoConfig`` applies for the dense families: absent
+    keys take their class default (``_CONFIG_DEFAULTS``), the class's
+    attribute map gives its standard names, ``num_key_value_heads`` falls
+    back to the head count (GPT-BigCode: 1 under multi_query), Llama's
+    ``head_dim`` to hidden / heads, Falcon's ``num_kv_heads`` to the head
+    count and ``ffn_hidden_size`` to 4 x hidden, OPT's
+    ``word_embed_proj_dim`` to hidden, Qwen2's and Qwen3's
+    ``sliding_window`` is None unless ``use_sliding_window``, GPT-NeoX's
+    ``rotary_emb_base`` is its ``rope_theta``, MPT's ``attn_config``
+    keeps alibi on unless it says otherwise, and a rope_scaling ``type``
+    is also given as ``rope_type``. Other model types get the file's keys
+    alone (the registry refuses them)."""
     with open(os.path.join(hf_dir, "config.json")) as f:
         d = json.load(f)
     mt = d.get("model_type", "")
     d = {**_CONFIG_DEFAULTS.get(mt, {}), **d}
     if mt in _CONFIG_DEFAULTS:
-        if d["num_key_value_heads"] is None:
-            d["num_key_value_heads"] = d["num_attention_heads"]
-        if mt == "llama" and d["head_dim"] is None:
-            d["head_dim"] = d["hidden_size"] // d["num_attention_heads"]
-        if mt == "qwen2" and not d["use_sliding_window"]:
+        heads = d.get("num_attention_heads")
+        if "num_key_value_heads" in d and d["num_key_value_heads"] is None:
+            d["num_key_value_heads"] = heads
+        if mt in ("llama", "aquila") and d["head_dim"] is None:
+            d["head_dim"] = d["hidden_size"] // heads
+        if mt in ("qwen2", "qwen3") and not d["use_sliding_window"]:
             d["sliding_window"] = None
+        if mt in ("falcon", "refinedweb", "refinedwebmodel"):
+            if d["num_kv_heads"] is None:
+                d["num_kv_heads"] = heads
+            if d["ffn_hidden_size"] is None:
+                d["ffn_hidden_size"] = 4 * d["hidden_size"]
+        if mt == "opt" and d["word_embed_proj_dim"] is None:
+            d["word_embed_proj_dim"] = d["hidden_size"]
+        if mt == "gpt_bigcode":
+            d["num_key_value_heads"] = 1 if d["multi_query"] else d["n_head"]
+        if mt == "gpt_neox":
+            d.setdefault("rope_theta", d["rotary_emb_base"])
+        if mt == "mpt":
+            d["attn_config"] = {"alibi": True, **(d["attn_config"] or {})}
+        for std, own in _ATTRIBUTE_MAPS.get(mt, {}).items():
+            d[std] = d[own]
         rs = d.get("rope_scaling")
         if mt != "mistral" and rs and "type" in rs:
             d["rope_scaling"] = {**rs, "rope_type": rs["type"]}

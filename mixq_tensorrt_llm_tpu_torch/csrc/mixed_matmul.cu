@@ -56,16 +56,18 @@
 //   - Epilogue in the JAX order with __fmul_rn/__fadd_rn (no FMA
 //     contraction): acc·srow·scol, + side (above), SiLU, one cast, four
 //     neighbouring columns of a row a store.
-// TMA's zero fill serves ragged M, N (a half 256-column tile) and K, and
-// ko not a multiple of 64.
+// TMA's zero fill serves ragged M, N (the last 256-column tile a quarter,
+// half or three quarters full: a box wholly past N arrives as zeros and
+// still counts its bytes) and K, and ko not a multiple of 64; the stores
+// stop at N, four columns at a time.
 //
 // K3, mixed_epilogue_kernel (off every main path, kept as it was): 128 x
 // 128 output tiles, 8 warps of 32 x 64; the side GEMM on bf16 wmma
 // (16x16x16, 32 outlier channels a step, staged in shared memory), the
 // int32 accumulator read from device memory, the same epilogue order.
 //
-// Shapes: K % 64 == 0, N % 128 == 0 and ko % 8 == 0 (checked by the
-// wrapper); any M.
+// Shapes: K % 64 == 0, N % 64 == 0 (K3: N % 128 == 0) and ko % 8 == 0
+// (checked by the wrapper); any M.
 
 #include <mma.h>
 #include <string.h>
@@ -580,7 +582,7 @@ extern "C" const char* mixq_error_string(int err) {
 // splits > 1, part holds splits x ceil(M/nx) x ceil(N/256) x nx x 256
 // int32 partials and tickets ceil(M/nx) x ceil(N/256) zeroed counters,
 // which the kernel leaves zeroed. The wrapper guarantees M >= 1, K % 64 ==
-// 0, N % 128 == 0, ko % 8 == 0 and 16-byte aligned operands.
+// 0, N % 64 == 0, ko % 8 == 0 and 16-byte aligned operands.
 extern "C" int mixq_mixed_matmul(const void* qx, const void* srow,
                                  const void* xo, const void* qw,
                                  const void* scol, const void* fpw, void* out,

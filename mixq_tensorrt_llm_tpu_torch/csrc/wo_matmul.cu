@@ -23,7 +23,9 @@
 //   - operands swapped, as TensorRT-LLM's and Marlin's weight-only decode
 //     GEMMs lay them out: an mma.sync m16n8k16's 16 rows are output
 //     columns, its n = 8 rows of x (MT / 8 n-tiles, MT up to 64 for K4);
-//   - a block owns 128 columns; the weight's rows and x's matching slice
+//   - a block owns 128 columns (K4: the last may own 64, N % 128 == 64:
+//     its copies of the other 64 arrive as zeros and their stores are
+//     skipped); the weight's rows and x's matching slice
 //     stream through a 4-stage ring of 16-byte cp.async.cg copies (64
 //     weight rows a stage: 64 rows of K for K4, 64 packed rows, 128 of K,
 //     for K12/K13);
@@ -198,9 +200,11 @@ __device__ __forceinline__ void wo_mma_body(
     const int r0 = c * kQmChunk;
     for (int i = tid; i < kQmChunk * (kQmCols / 16); i += kQmThreads) {
       const int r = i / (kQmCols / 16), v = i % (kQmCols / 16);
-      const bool in = r0 + r < rows;
+      // rows past the weight's and the columns of a half last tile (N %
+      // 128 == 64) arrive as zeros
+      const bool in = r0 + r < rows && n0 + v * 16 < N;
       const int8_t* src =
-          w + static_cast<size_t>(in ? r0 + r : 0) * N + n0 + v * 16;
+          in ? w + static_cast<size_t>(r0 + r) * N + n0 + v * 16 : w;
       cp_async16(smem_u32(dst + r * kQmLdw + v * 16), src, in);
     }
     auto* xs = reinterpret_cast<__nv_bfloat16*>(dst + Stage::kW);
@@ -248,7 +252,7 @@ __device__ __forceinline__ void wo_mma_body(
     if (c + kQmStages - 1 < c_end) load_stage(c + kQmStages - 1);
     cp_async_commit();
     if constexpr (kGroups) {
-      if (c % gs_chunks == 0) {       // a group starts: its two scales
+      if (c % gs_chunks == 0 && col4 < N) {  // a group starts: its scales
         const int grp = c / gs_chunks, n_lo_groups = n_chunks / gs_chunks;
         s_lo = __ldg(reinterpret_cast<const float4*>(
             scale + static_cast<size_t>(grp) * N + col4));
@@ -370,6 +374,7 @@ __device__ __forceinline__ void wo_mma_body(
   float* mine = part + (static_cast<size_t>(split) * gridDim.z + slab) * MT * N;
   for (int i = tid; i < MT * kQuads; i += kQmThreads) {
     const int m = i / kQuads, c4 = (i % kQuads) * 4;
+    if (n0 + c4 >= N) continue;       // past a half last tile
     float4 v = *reinterpret_cast<const float4*>(red + m * kQmCols + c4);
 #pragma unroll
     for (int q = 1; q < kQmKGroups; ++q)
@@ -396,7 +401,7 @@ __device__ __forceinline__ void wo_mma_body(
   const float* first = part + static_cast<size_t>(slab) * MT * N;
   for (int i = tid; i < MT * kQuads; i += kQmThreads) {
     const int m = i / kQuads, c4 = (i % kQuads) * 4;
-    if (m0 + m >= M) continue;
+    if (m0 + m >= M || n0 + c4 >= N) continue;
     const float4* p = reinterpret_cast<const float4*>(
         first + static_cast<size_t>(m) * N + n0 + c4);
     float4 v = __ldcg(p);
@@ -446,7 +451,7 @@ int launch_mma_mt(const void* x, const void* w, const void* scale, void* out,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(N / kQmCols, splits, (M + MT - 1) / MT);
+  const dim3 grid((N + kQmCols - 1) / kQmCols, splits, (M + MT - 1) / MT);
   kernel<<<grid, kQmThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<OutT*>(out),
@@ -463,7 +468,8 @@ int launch_mma(int mt, const void* x, const void* w, const void* scale,
                int splits, int cps, int gs_chunks, cudaStream_t st) {
   const int rows = Mode == kInt8 ? K : K / 2;
   const int n_chunks = (rows + kQmChunk - 1) / kQmChunk;
-  if (splits < 1 || cps < 1 || N % kQmCols ||
+  // K4 takes a half last column tile; K12 and K13 whole tiles
+  if (splits < 1 || cps < 1 || N % (Mode == kInt8 ? 64 : kQmCols) ||
       static_cast<long long>(splits) * cps < n_chunks ||
       (splits - 1) * cps >= n_chunks || (splits > 1 && !part) ||
       (Mode == kGrouped &&
@@ -675,8 +681,8 @@ extern "C" const char* mixq_error_string(int err) {
 // rows of x a block and K cut into `splits` ranges of chunks_per_split
 // chunks of 64 rows (ops/wo_matmul.py wo_plan); with splits > 1, part
 // holds splits x ceil(M/mt) x mt x N f32 partials and tickets ceil(M/mt) x
-// N/128 zeroed counters, which the kernel leaves zeroed. The wrapper
-// guarantees M >= 1, K % 32 == 0, N % 128 == 0 and 16-byte aligned x and w.
+// ceil(N/128) zeroed counters, which the kernel leaves zeroed. The wrapper
+// guarantees M >= 1, K % 32 == 0, N % 64 == 0 and 16-byte aligned x and w.
 extern "C" int mixq_wo_matmul(const void* x, const void* w, const void* scol,
                               void* out, void* part, void* tickets, int M,
                               int K, int N, int mt, int splits,

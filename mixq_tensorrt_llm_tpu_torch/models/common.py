@@ -1,5 +1,6 @@
-"""Model config, RoPE, the dense-cache decoder forward and the paged one
-(single device, Llama lineage). Counterpart of
+"""Model config, RoPE and ALiBi, the dense-cache decoder forward and the
+paged one (single device), config-driven across the dense decoder
+families (models/llama.py, models/families.py). Counterpart of
 mixq_tensorrt_llm_tpu/models/common.py.
 
 Params are plain dicts of tensors; ``params["layers"]`` is a list of
@@ -34,31 +35,39 @@ from ..ops import ref as ops_ref
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
-# ModelConfig axes of the JAX package that the port does not honour yet,
-# with the value that means "off": a config that sets one raises.
+# ModelConfig axes of the JAX package that the port does not honour yet
+# (the expert and state-space architectures), with the value that means
+# "off": a config that sets one raises, naming the module that brings it.
 _UNPORTED_AXES = {
-    "num_experts": 0, "pos_embedding": "rope", "rotary_dim": 0,
-    "rope_interleaved": False, "learned_pos_offset": 0,
-    "norm_type": "rmsnorm", "parallel_blocks": False,
-    "shared_block_norm": False, "mlp_type": "gated", "attn_out_bias": False,
-    "mlp_bias": False, "lm_head_bias": False, "embed_scale": 1.0,
-    "embed_norm": False, "final_logit_softcap": 0.0,
-    "post_block_norms": False, "qk_norm": False, "sliding_window_pattern": 1,
-    "pre_block_norms": True, "qk_norm_flat": False, "logit_scale": 1.0,
-    "residual_multiplier": 1.0, "clip_qkv": 0.0, "ssm_state_size": 0,
-    "moe_intermediate": 0, "moe_shared_intermediate": 0,
-    "rope_freq_factors": (),
+    "num_experts": ("models/moe.py", 0),
+    "moe_intermediate": ("models/moe.py", 0),
+    "moe_shared_intermediate": ("models/moe.py", 0),
+    "ssm_state_size": ("models/mamba.py", 0),
 }
-_PORTED_ARCHS = ("llama", "mistral", "qwen2")
-# where the other architectures and their config axes come from
-_LATER_MODULES = ("models/families.py, models/moe.py, models/mamba.py or "
-                  "models/recurrentgemma.py")
+# axes only the refused ones read: carried at their defaults
+_IDLE_AXES = {"top_k_experts": 2, "moe_norm_topk": True, "conv_kernel": 4,
+              "dt_rank": 0, "use_conv_bias": True}
+# the dense decoder families (models/llama.py, models/families.py)
+_PORTED_ARCHS = ("llama", "mistral", "qwen2", "opt", "gpt2", "gptj",
+                 "gpt_neox", "falcon", "bloom", "mpt", "phi", "phi3",
+                 "gemma", "gemma2", "qwen3", "glm", "glm4", "olmo2",
+                 "cohere", "granite", "baichuan", "gpt_bigcode",
+                 "starcoder2", "stablelm")
+# the architectures still to come -> the module whose port brings them
+_LATER_ARCHS = {"mixtral": "models/moe.py", "dbrx": "models/moe.py",
+                "qwen2_moe": "models/moe.py", "qwen3_moe": "models/moe.py",
+                "mamba": "models/mamba.py",
+                "recurrentgemma": "models/recurrentgemma.py"}
+_ROPE_TYPES = ("none", "linear", "llama3", "yarn", "longrope")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The Llama-path subset of the JAX package's ModelConfig: the same
-    field names and defaults (Llama-2-7B), ``dtype`` a torch dtype."""
+    """The dense-decoder subset of the JAX package's ModelConfig: the same
+    field names and defaults (Llama-2-7B), ``dtype`` a torch dtype. One
+    config-driven decoder serves every dense family; the axes beyond the
+    Llama lineage reproduce the zoo's structural spread (JAX
+    models/common.py:38-118)."""
 
     arch: str = "llama"
     vocab_size: int = 32000
@@ -74,28 +83,60 @@ class ModelConfig:
     qkv_bias: bool = False               # Qwen2
     sliding_window: int = 0              # 0 = full attention (Mistral: 4096)
     tie_word_embeddings: bool = False
+    pos_embedding: str = "rope"          # rope | learned | alibi | none
+    rotary_dim: int = 0                  # 0 = full head_dim (partial rotary)
+    rope_interleaved: bool = False       # GPT-J pairwise ordering
+    learned_pos_offset: int = 0          # OPT embeds positions at pos + 2
+    norm_type: str = "rmsnorm"           # rmsnorm | layernorm
+    parallel_blocks: bool = False        # attn and mlp from one residual
+    shared_block_norm: bool = False      # parallel with ONE norm
+    mlp_type: str = "gated"              # gated | dense (fc1-act-fc2)
     hidden_act: str = "silu"
+    attn_out_bias: bool = False
+    mlp_bias: bool = False
+    lm_head_bias: bool = False           # GPT-J / Phi
+    embed_scale: float = 1.0             # Gemma: sqrt(hidden)
+    embed_norm: bool = False             # BLOOM word_embeddings_layernorm
     attn_scale: float = 0.0              # 0 = 1/sqrt(head_dim)
     attn_logit_softcap: float = 0.0
-    rope_scaling_type: str = "none"      # none | linear | llama3
+    final_logit_softcap: float = 0.0     # Gemma-2
+    post_block_norms: bool = False       # Gemma-2 / GLM-4 / OLMo-2
+    qk_norm: bool = False                # Qwen3 per-head q/k RMSNorm
+    sliding_window_pattern: int = 1      # every p-th layer global (Gemma-2)
+    pre_block_norms: bool = True         # OLMo-2 False: raw residual in
+    qk_norm_flat: bool = False           # OLMo-2: q/k norm over H*D
+    logit_scale: float = 1.0             # Cohere; Granite 1/logits_scaling
+    residual_multiplier: float = 1.0     # Granite
+    clip_qkv: float = 0.0                # clamp qkv to +-clip; 0 = off
+    rope_scaling_type: str = "none"      # none|linear|llama3|yarn|longrope
     rope_scaling_factor: float = 1.0
-    rope_low_freq_factor: float = 1.0
-    rope_high_freq_factor: float = 4.0
-    rope_original_max_pos: int = 8192
+    rope_low_freq_factor: float = 1.0    # llama3
+    rope_high_freq_factor: float = 4.0   # llama3
+    rope_original_max_pos: int = 8192    # llama3 / yarn original context
+    rope_beta_fast: float = 32.0         # yarn extrapolation boundary
+    rope_beta_slow: float = 1.0          # yarn interpolation boundary
+    rope_attention_factor: float = 1.0   # yarn / longrope cos/sin scale
+    rope_freq_factors: tuple = ()        # longrope per-dim divisors
     dtype: torch.dtype = torch.bfloat16
     quant: QuantConfig = QuantConfig()
 
     def __post_init__(self):
+        if self.arch in _LATER_ARCHS:
+            raise NotImplementedError(
+                f"arch {self.arch!r} is not ported yet: it comes with "
+                f"{_LATER_ARCHS[self.arch]}")
         if self.arch not in _PORTED_ARCHS:
-            raise NotImplementedError(
-                f"arch {self.arch!r} is not ported yet (the port serves the "
-                f"Llama lineage: {', '.join(_PORTED_ARCHS)}): it comes with "
-                f"{_LATER_MODULES}")
-        if self.rope_scaling_type not in ("none", "linear", "llama3"):
-            raise NotImplementedError(
-                f"rope_scaling_type {self.rope_scaling_type!r} is not ported "
-                "yet: it comes with the rest of models/common.py "
-                "rope_sin_cos (yarn, longrope)")
+            raise ValueError(f"unknown arch {self.arch!r}")
+        if self.rope_scaling_type not in _ROPE_TYPES:
+            raise ValueError(
+                f"rope_scaling_type {self.rope_scaling_type!r} unknown "
+                f"({', '.join(_ROPE_TYPES)})")
+        if self.pos_embedding not in ("rope", "learned", "alibi", "none"):
+            raise ValueError(f"pos_embedding {self.pos_embedding!r} unknown")
+        if self.norm_type not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"norm_type {self.norm_type!r} unknown")
+        if self.mlp_type not in ("gated", "dense"):
+            raise ValueError(f"mlp_type {self.mlp_type!r} unknown")
         if self.quant.dynamic_outliers and \
                 self.quant.algo == QuantAlgo.INT4_MIX:
             # the adaptive path gathers rows of the int8 qweight, which an
@@ -123,14 +164,24 @@ class ModelConfig:
     def attention_scale(self) -> float:
         return self.attn_scale or self.head_dim ** -0.5
 
+    def layer_window(self, layer: int) -> Optional[int]:
+        """The static sliding window (tokens) of one layer under an
+        alternating pattern (Gemma-2: every p-th layer global, 0); None =
+        ``sliding_window`` on every layer."""
+        p = self.sliding_window_pattern
+        if p <= 1 or not self.sliding_window:
+            return None
+        return self.sliding_window if (layer + 1) % p else 0
+
     def module_algo(self, name: str) -> QuantAlgo:
         return self.quant.module_algo(name)
 
     def to_dict(self) -> dict:
         """The JAX package's ``ModelConfig.to_dict()`` layout (what a
-        checkpoint's config.json holds): the ported fields, and the
-        unported axes at their "off" values."""
-        d = dict(_UNPORTED_AXES)
+        checkpoint's config.json holds): every field, the unported axes at
+        their "off" values."""
+        d = {k: off for k, (_, off) in _UNPORTED_AXES.items()}
+        d.update(_IDLE_AXES)
         d.update(dataclasses.asdict(self))
         d["dtype"] = {v: k for k, v in _DTYPES.items()}[self.dtype]
         d["quant"] = self.quant.to_dict()
@@ -138,31 +189,27 @@ class ModelConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "ModelConfig":
-        """From ``ModelConfig.to_dict()`` of either package. Raises on any
-        axis set to a value the port does not honour yet."""
+        """From ``ModelConfig.to_dict()`` of either package. Raises on an
+        expert or state-space axis set on, naming its module."""
         d = dict(d)
-        for k, off in _UNPORTED_AXES.items():
+        for k, (module, off) in _UNPORTED_AXES.items():
             v = d.pop(k, off)
-            if (tuple(v) if isinstance(v, list) else v) != off:
+            if v != off:
                 raise NotImplementedError(
                     f"ModelConfig axis {k}={v!r} is not ported yet: it "
-                    f"comes with {_LATER_MODULES}")
-        if d.get("top_k_experts") is not None:
-            d.pop("top_k_experts")
-        for k in ("rope_beta_fast", "rope_beta_slow", "rope_attention_factor",
-                  "conv_kernel", "dt_rank", "use_conv_bias",
-                  "moe_norm_topk"):
-            d.pop(k, None)       # only read by axes rejected above
+                    f"comes with {module}")
+        for k in _IDLE_AXES:
+            d.pop(k, None)
         if isinstance(d.get("dtype"), str):
             d["dtype"] = _DTYPES[d["dtype"]]
         if "quant" in d and not isinstance(d["quant"], QuantConfig):
             d["quant"] = QuantConfig.from_dict(d["quant"])
+        if "rope_freq_factors" in d:     # JSON round-trips tuples as lists
+            d["rope_freq_factors"] = tuple(d["rope_freq_factors"])
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - known
         if unknown:
-            raise NotImplementedError(
-                f"ModelConfig fields not ported yet: {sorted(unknown)}: "
-                f"they come with {_LATER_MODULES}")
+            raise ValueError(f"unknown ModelConfig fields {sorted(unknown)}")
         return cls(**d)
 
 
@@ -218,12 +265,39 @@ def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
                  cfg: Optional[ModelConfig] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) int -> sin/cos (..., S, D/2) float32; ``cfg``
-    applies HF rope_scaling ("linear", "llama3")."""
+    applies HF rope_scaling (JAX models/common.py:215-300): "linear"
+    divides the positions, "llama3" rescales inv_freq by wavelength band,
+    "yarn" blends interpolated and original frequencies over a ramp and
+    scales cos/sin by the attention factor, "longrope" divides inv_freq per
+    dim (the short/long set chosen at config time) and scales cos/sin."""
     dev = positions.device
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
                                              dtype=torch.float32,
                                              device=dev) / head_dim))
-    if cfg is not None and cfg.rope_scaling_type == "llama3":
+    kind = cfg.rope_scaling_type if cfg is not None else "none"
+    if kind == "longrope":
+        ext = torch.tensor(cfg.rope_freq_factors, dtype=torch.float32,
+                           device=dev)
+        angles = positions.float()[..., None] * (inv_freq / ext)
+        af = cfg.rope_attention_factor
+        return torch.sin(angles) * af, torch.cos(angles) * af
+    if kind == "yarn":
+        def corr_dim(rot):
+            return head_dim * math.log(cfg.rope_original_max_pos
+                                       / (rot * 2 * math.pi)) / (
+                2 * math.log(theta))
+        low = max(math.floor(corr_dim(cfg.rope_beta_fast)), 0)
+        high = min(math.ceil(corr_dim(cfg.rope_beta_slow)), head_dim - 1)
+        ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                         device=dev) - low)
+                           / max(high - low, 1e-3), 0, 1)
+        extrap = 1.0 - ramp
+        inv_freq = (inv_freq / cfg.rope_scaling_factor) * (1 - extrap) \
+            + inv_freq * extrap
+        angles = positions.float()[..., None] * inv_freq
+        af = cfg.rope_attention_factor
+        return torch.sin(angles) * af, torch.cos(angles) * af
+    if kind == "llama3":
         factor = cfg.rope_scaling_factor
         low = cfg.rope_original_max_pos / cfg.rope_low_freq_factor
         high = cfg.rope_original_max_pos / cfg.rope_high_freq_factor
@@ -237,19 +311,56 @@ def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
                                torch.where(wavelen < high, inv_freq,
                                            smoothed))
     pos = positions.float()
-    if cfg is not None and cfg.rope_scaling_type == "linear":
+    if kind == "linear":
         pos = pos / cfg.rope_scaling_factor
     angles = pos[..., None] * inv_freq
     return torch.sin(angles), torch.cos(angles)
 
 
-def apply_rope(x: torch.Tensor, sin: torch.Tensor,
-               cos: torch.Tensor) -> torch.Tensor:
-    """x (B, S, H, D); sin/cos (B, S, D/2); rotate_half ordering."""
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+               interleaved: bool = False) -> torch.Tensor:
+    """x (B, S, H, D); sin/cos (B, S, D/2). rotate_half ordering, or
+    (interleaved, GPT-J) pairs (even, odd)."""
     s, c = sin[:, :, None, :], cos[:, :, None, :]
+    if interleaved:
+        x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+        ro = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+        return ro.reshape(x.shape).to(x.dtype)
     d2 = x.shape[-1] // 2
     x1, x2 = x[..., :d2].float(), x[..., d2:].float()
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def _apply_positional(cfg: ModelConfig, x: torch.Tensor, sin,
+                      cos) -> torch.Tensor:
+    """RoPE on the (possibly partial) rotary span of the head dims; the
+    rest passes through."""
+    rd = cfg.rotary_dim or cfg.head_dim
+    if rd == cfg.head_dim:
+        return apply_rope(x, sin, cos, interleaved=cfg.rope_interleaved)
+    rot = apply_rope(x[..., :rd], sin, cos, interleaved=cfg.rope_interleaved)
+    return torch.cat([rot, x[..., rd:]], dim=-1)
+
+
+_ALIBI: Dict[tuple, torch.Tensor] = {}
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes (Press et al.; HF build_alibi_tensor), the
+    closest-power-of-2 scheme for other head counts; f32 (H,). Made once a
+    (head count, device): a captured decode graph's forward then copies
+    nothing from the host."""
+    key = (num_heads, str(device))
+    if key not in _ALIBI:
+        n = 2 ** math.floor(math.log2(num_heads))
+        base = 2.0 ** (-8.0 / n)
+        slopes = [base ** (i + 1) for i in range(n)]
+        if n < num_heads:
+            extra = 2.0 ** (-4.0 / n)
+            slopes += [extra ** (2 * i + 1) for i in range(num_heads - n)]
+        _ALIBI[key] = torch.tensor(slopes, dtype=torch.float32,
+                                   device=device)
+    return _ALIBI[key]
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +377,30 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_norm(cfg: ModelConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
+    """The block norm: RMSNorm (Llama lineage) or LayerNorm (+ bias)."""
+    if cfg.norm_type == "layernorm":
+        return ops_ref.layernorm(x, p["w"], p.get("b"), cfg.rms_norm_eps)
     return ops_ref.rmsnorm(x, p["w"], cfg.rms_norm_eps)
+
+
+def _pattern_period(cfg: ModelConfig) -> int:
+    """The alternating-window period (Gemma-2: 2), checked against the
+    depth as the JAX package's grouped layer scan checks it."""
+    p = cfg.sliding_window_pattern
+    if p <= 1 or not cfg.sliding_window:
+        return 1
+    if cfg.num_layers % p:
+        raise ValueError(
+            f"num_layers ({cfg.num_layers}) must be a multiple of "
+            f"sliding_window_pattern ({p})")
+    return p
+
+
+def _layer_window(cfg: ModelConfig, li: int) -> int:
+    """Layer li's window before a runtime window: its pattern entry, else
+    ``sliding_window`` (0 = global)."""
+    lw = cfg.layer_window(li)
+    return cfg.sliding_window if lw is None else lw
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +410,8 @@ def block_norm(cfg: ModelConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
 def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
                           layer_cache: dict, write_pos, kv_valid_len,
                           full_prefill: bool = False,
-                          attn_mask=None) -> torch.Tensor:
+                          attn_mask=None, alibi=None,
+                          window: int = 0) -> torch.Tensor:
     """Write new_k/new_v (B, S, Hkv, D) into this layer's dense cache at
     write_pos (B, S) in place, and attend q (B, S, Hq, D) (JAX
     models/common.py:341-432).
@@ -292,9 +427,11 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
     modes: plain torch, as JAX leaves it to XLA. ``attn_mask`` (B, 1, S,
     Smax) bool replaces that mask whole (tree and beam verification,
     where cache slots and token positions part), and turns the
-    full_prefill route off, as in JAX."""
+    full_prefill route off, as in JAX. ``window`` is the layer's sliding
+    window (0 = global); ``alibi`` (Hq,) f32 slopes add slope_h * kv_pos
+    to the logits (softmax-equivalent to slope_h * (kv - q)) and, as a
+    softcap does, keep the full_prefill route off."""
     b = q.shape[0]
-    window = cfg.sliding_window
     scale, softcap = cfg.attention_scale, cfg.attn_logit_softcap
     bidx = torch.arange(b, device=q.device)[:, None]
     wp = write_pos.long()
@@ -311,7 +448,7 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
         ck[bidx, wp] = new_k.to(ck.dtype)
         cv[bidx, wp] = new_v.to(cv.dtype)
 
-    if full_prefill and not softcap and attn_mask is None:
+    if full_prefill and not softcap and attn_mask is None and alibi is None:
         return ops_attn.causal_self_attention(q, new_k, new_v, scale=scale,
                                               window=window)
     if attn_mask is not None:
@@ -324,12 +461,17 @@ def _attention_with_cache(cfg: ModelConfig, q, new_k, new_v,
         if window:
             mask &= (kv_idx[None, None, None, :]
                      > wp[:, None, :, None] - window)
+    bias = None
+    if alibi is not None:
+        kv_idx = torch.arange(ck.shape[1], device=q.device)
+        bias = alibi[None, :, None, None] * kv_idx[None, None, None, :]
     if quantized:
         return ops_ref.attention_int8kv(q, ck, layer_cache["k_scale"], cv,
                                         layer_cache["v_scale"], mask=mask,
-                                        scale=scale, softcap=softcap)
+                                        scale=scale, softcap=softcap,
+                                        bias=bias)
     return ops_ref.attention(q, ck, cv, mask=mask, scale=scale,
-                             softcap=softcap)
+                             softcap=softcap, bias=bias)
 
 
 def _kv_splits() -> int:
@@ -342,7 +484,8 @@ def _kv_splits() -> int:
 
 def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
                      block_table, write_pos, kv_valid_len, block_pos=None,
-                     window: int = 0, sink: int = 0) -> torch.Tensor:
+                     window: int = 0, sink: int = 0,
+                     layer_window: int = 0, alibi=None) -> torch.Tensor:
     """Write new K/V (B, S, Hkv, D) into the pool in place and attend q
     (B, S, Hq, D) over the lane's pages. The write is kv_cache.paged_write
     given kv_valid_len (positions at or past it go to the trash): on the
@@ -352,7 +495,13 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
     K11 when MIXQ_KV_SPLITS > 1) at S == 1, K9 up to 8 rows, K8 above; an
     e4m3 pool is written and read on the JAX package's route (the e4m3
     cast and a scatter; the gather route and masked torch attention), no
-    K5-K11 launch."""
+    K5-K11 launch. ALiBi models (``alibi`` (Hq,) slopes) take that
+    gather route on every pool, as in the JAX package (its paged kernels
+    take no additive bias), the write still K5 / K6.
+
+    The window is the runtime StreamingLLM ``window`` when set, else the
+    layer's own ``layer_window`` (Gemma-2's alternation; 0 = global), as
+    the JAX package orders them."""
     from ..runtime import kv_cache as pkv
 
     pkv.paged_write(pools, block_table, write_pos, new_k, new_v,
@@ -360,8 +509,8 @@ def _attention_paged(cfg: ModelConfig, q, new_k, new_v, pools: dict,
     return pkv.paged_attention(
         q, pools, block_table, write_pos, kv_valid_len,
         scale=cfg.attention_scale, block_pos=block_pos,
-        window=window or cfg.sliding_window, sink=sink,
-        softcap=cfg.attn_logit_softcap, kv_splits=_kv_splits())
+        window=window or layer_window, sink=sink,
+        softcap=cfg.attn_logit_softcap, kv_splits=_kv_splits(), alibi=alibi)
 
 
 def _attention_paged_tail(cfg: ModelConfig, q, new_k, new_v, pools: dict,
@@ -419,32 +568,39 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
                   attend, stats: Optional[dict] = None,
                   ostate: Optional[dict] = None,
                   lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One pre-norm Llama block. x (B, S, hidden); ``attend(q, k, v)``
+    """One decoder block, config-driven across the dense zoo (JAX
+    models/common.py:763-980). x (B, S, hidden); ``attend(q, k, v)``
     writes the new k/v (B, S, Hkv, D) into the layer's KV and returns
     attention of q (B, S, Hq, D) over it: ``_attention_with_cache`` (dense
     cache), ``_attention_paged`` (paged pool) or ``_attention_paged_tail``
     (a beam burst's read-only pool and dense tail) with the layer's state
-    bound.
+    bound. ``sin``/``cos`` are None where the model has no RoPE.
+
+    Structure axes: sequential pre-norm blocks or parallel attn + mlp
+    (one shared norm, or two); RMSNorm or LayerNorm; gated or dense MLP;
+    qkv clipping, q/k norms (per head, or over the flat projection),
+    post-block norms, Granite's residual multiplier, OLMo-2's projections
+    of the raw residual. A mix linear takes K1 with the RMSNorm fused
+    where nothing else reads the normed activations; LayerNorm families,
+    shared norms, raw-residual projections, stats, adaptive outliers and
+    LoRA compute the norm apart and take K1 without it.
 
     ``stats``, a dict, receives each linear's per-input-channel activation
     absmax (the act_scales calibration signal) from the activations the JAX
-    package reads: the normed inputs of qkv and gate_up (the norm then runs
-    apart from the linear, as in JAX), the attention output for o_proj, the
-    gated activation for down_proj.
+    package reads: the inputs of qkv and gate_up, the attention output for
+    o_proj, the MLP's activation for down_proj.
 
     ``ostate``, a dict {module: chan_max (in,)} of this layer's dynamic
     outlier state (quant/dynamic.py), sends each module it holds through
     the adaptive mixed linear when that module's algo at this S is a mix
     algo (prefill chunks; decode steps, weight-only at S <= 4, pass the
-    state through), and receives the updated state in place. The norm
-    then runs apart from the linear, as in the JAX package.
+    state through), and receives the updated state in place.
 
     ``lora_ids`` (B,) int selects each lane's runtime LoRA adapter (0 = the
     base model) on every module that carries ``lora_A`` (N+1, in, R) /
     ``lora_B`` (N+1, R, out) (convert/lora.attach_lora): the delta (h A) B,
     two f32 batched products, is cast to the linear's output dtype and
-    added to it. The norm then runs apart too, so a mix linear takes K1
-    without the norm (JAX models/common.py:837-876)."""
+    added to it."""
     b, s, _ = x.shape
 
     # decode regime (S <= 4): mix linears run weight-only on the full
@@ -484,54 +640,125 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
         d = torch.bmm(t, lp[mod]["lora_B"][ids].float())
         return out + d.to(out.dtype)
 
-    def proj_in(mod, norm_key, x_res):
-        if stats is None and not adaptive(mod) and not has_lora(mod):
+    def proj_in(mod, norm_key, x_res, shared_h=None):
+        h = shared_h
+        if h is None and not cfg.pre_block_norms:
+            h = x_res           # OLMo-2: the projection reads the residual
+        if h is None and (stats is not None or adaptive(mod)
+                          or has_lora(mod) or cfg.norm_type != "rmsnorm"):
+            h = block_norm(cfg, x_res, lp[norm_key])
+        if stats is not None:
+            stats[mod] = _absmax_in(h)
+        if h is None:
             return dispatch.norm_linear(lp[mod], x_res, algo(mod),
                                         lp[norm_key]["w"],
                                         eps=cfg.rms_norm_eps)
-        h = block_norm(cfg, x_res, lp[norm_key])
-        if stats is not None:
-            stats[mod] = _absmax_in(h)
         return lora(mod, h, linear(mod, h))
 
-    qkv = proj_in("qkv_proj", "input_norm", x)
+    def res(base, delta):
+        if cfg.residual_multiplier != 1.0:
+            delta = delta.float() * cfg.residual_multiplier
+        return base + delta.to(base.dtype)
+
+    shared_h = None
+    if cfg.parallel_blocks and cfg.shared_block_norm:
+        shared_h = block_norm(cfg, x, lp["input_norm"])
+
+    qkv = proj_in("qkv_proj", "input_norm", x, shared_h)
+    if cfg.clip_qkv:
+        qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size],
                           dim=-1)
-    q = apply_rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), sin, cos)
-    k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), sin, cos)
+    if cfg.qk_norm and cfg.qk_norm_flat:
+        q = ops_ref.rmsnorm(q, lp["q_norm"]["w"], cfg.rms_norm_eps)
+        k = ops_ref.rmsnorm(k, lp["k_norm"]["w"], cfg.rms_norm_eps)
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm and not cfg.qk_norm_flat:
+        q = ops_ref.rmsnorm(q, lp["q_norm"]["w"], cfg.rms_norm_eps)
+        k = ops_ref.rmsnorm(k, lp["k_norm"]["w"], cfg.rms_norm_eps)
+    if sin is not None:
+        q = _apply_positional(cfg, q, sin, cos)
+        k = _apply_positional(cfg, k, sin, cos)
     attn_in = attend(q, k, v).reshape(b, s, cfg.q_size)
     if stats is not None:
         stats["o_proj"] = _absmax_in(attn_in)
     attn = lora("o_proj", attn_in, linear("o_proj", attn_in))
-    x = x + attn.to(x.dtype)
+    if cfg.post_block_norms:
+        attn = block_norm(cfg, attn, lp["post_attn_norm"])
 
-    up_out = proj_in("gate_up_proj", "post_norm", x)
-    gate, up = torch.chunk(up_out, 2, dim=-1)
-    h = (_act(cfg.hidden_act, gate) * up.float()).to(x.dtype)
+    if cfg.parallel_blocks:
+        mlp_res, mlp_shared = x, shared_h      # the mlp reads the input
+    else:
+        x = res(x, attn)
+        mlp_res, mlp_shared = x, None
+    mlp_norm = "input_norm" if cfg.shared_block_norm else "post_norm"
+    up_out = proj_in("gate_up_proj", mlp_norm, mlp_res, mlp_shared)
+    if cfg.mlp_type == "gated":
+        gate, up = torch.chunk(up_out, 2, dim=-1)
+        h = (_act(cfg.hidden_act, gate) * up.float()).to(x.dtype)
+    else:
+        h = _act(cfg.hidden_act, up_out).to(x.dtype)
     if stats is not None:
         stats["down_proj"] = _absmax_in(h)
     h = lora("down_proj", h, dispatch.linear(lp["down_proj"], h,
                                              algo("down_proj")))
-    return x + h.to(x.dtype)
+    if cfg.post_block_norms:
+        h = block_norm(cfg, h, lp["post_mlp_norm"])
+    if cfg.parallel_blocks:
+        return res(res(x, attn), h)
+    return res(x, h)
 
 
 def _positional_arrays(cfg: ModelConfig, write_pos: torch.Tensor):
-    return rope_sin_cos(write_pos, cfg.head_dim, cfg.rope_theta, cfg=cfg)
+    """(sin, cos, alibi slopes) for the decoder layers; unused slots
+    None."""
+    if cfg.pos_embedding == "rope":
+        sin, cos = rope_sin_cos(write_pos, cfg.rotary_dim or cfg.head_dim,
+                                cfg.rope_theta, cfg=cfg)
+        return sin, cos, None
+    if cfg.pos_embedding == "alibi":
+        return None, None, alibi_slopes(cfg.num_heads, write_pos.device)
+    return None, None, None
 
 
-def _embed(params: Dict, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["w"][tokens.long()].to(cfg.dtype)
+def _embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+           write_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embedding, then the non-rotary positional schemes: Gemma's
+    scale (cast to the model dtype first, as HF rounds it), BLOOM's
+    embedding LayerNorm, learned positions at ``write_pos`` (+ offset)."""
+    x = params["embed"]["w"][tokens.long()].to(cfg.dtype)
+    if cfg.embed_scale != 1.0:
+        # the scale rounded to the model dtype, then one product rounded
+        # once, as the JAX package's x * asarray(scale, dtype)
+        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype).item()
+    if cfg.embed_norm:
+        x = ops_ref.layernorm(x, params["embed_norm"]["w"],
+                              params["embed_norm"].get("b"),
+                              cfg.rms_norm_eps)
+    if cfg.pos_embedding == "learned":
+        pos = write_pos.long() + cfg.learned_pos_offset
+        x = x + params["pos_embed"]["w"][pos].to(cfg.dtype)
+    return x
 
 
 def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head (tied or separate); f32 logits."""
+    """Final norm + LM head (tied or separate, optional bias); f32 logits,
+    Cohere/Granite's logit scale and Gemma-2's final softcap applied."""
     x = block_norm(cfg, x, params["final_norm"])
     lm_head = params.get("lm_head")
     if lm_head is None:
-        return ops_ref.bf16_matmul_f32(x, params["embed"]["w"].T)
-    return dispatch.linear(lm_head, x, cfg.module_algo("lm_head")).float()
+        logits = ops_ref.bf16_matmul_f32(x, params["embed"]["w"].T)
+    else:
+        logits = dispatch.linear(lm_head, x, cfg.module_algo("lm_head"))
+    logits = logits.float()
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def _layer_ostate(outlier_state, li: int) -> Optional[dict]:
@@ -557,15 +784,17 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     flat over layers and updated IN PLACE; block_table/block_pos (B, MB)
     per-layer page ids (the layer offset is added here) and absolute base
     positions; kv_valid_len (B,) KV length after this call's writes;
-    window/sink: StreamingLLM window in tokens (0 = model default);
+    window/sink: StreamingLLM window in tokens (0 = each layer's own:
+    ``layer_window``, else ``sliding_window``);
     last_pos: optional (B,) chunk-relative index — the head then runs on
     that one position per lane and returns (B, 1, V) logits;
     outlier_state: quant.dynamic.init_model_state's dict, threaded through
     the layers' adaptive mix linears (``decoder_layer``); lora_ids: (B,)
     runtime LoRA adapter per lane (``decoder_layer``).
     Returns (logits f32, paged_state[, new outlier_state])."""
-    x = _embed(params, cfg, tokens)
-    sin, cos = _positional_arrays(cfg, write_pos)
+    _pattern_period(cfg)
+    x = _embed(params, cfg, tokens, write_pos)
+    sin, cos, alibi = _positional_arrays(cfg, write_pos)
     num_layers = len(params["layers"])
     nb = paged_state.k.shape[0] // num_layers
     pools = paged_state.pools()
@@ -574,7 +803,8 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         attend = partial(_attention_paged, cfg, pools=pools,
                          block_table=block_table + li * nb,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
-                         block_pos=block_pos, window=window, sink=sink)
+                         block_pos=block_pos, window=window, sink=sink,
+                         layer_window=_layer_window(cfg, li), alibi=alibi)
         ost = _layer_ostate(outlier_state, li)
         x = decoder_layer(cfg, lp, x, sin, cos, attend, ostate=ost,
                           lora_ids=lora_ids)
@@ -615,14 +845,15 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     (``decoder_layer``); attn_mask: (B, 1, S, Smax) bool, replaces the
     causal construction and the full_prefill route (tree and beam
     verification, runtime/medusa.py and runtime/redrafter.py); rope_pos:
-    (B, S) the tokens' true positions for RoPE where they differ from
-    their cache slots ``write_pos``; return_hidden: also return the
-    pre-final-norm hidden (B, S, H) as the last element, never cut by
-    last_pos.
+    (B, S) the tokens' true positions for RoPE and learned positions where
+    they differ from their cache slots ``write_pos``; return_hidden: also
+    return the pre-final-norm hidden (B, S, H) as the last element, never
+    cut by last_pos.
     Returns (logits f32, cache[, new outlier_state][, stats][, hidden])."""
-    x = _embed(params, cfg, tokens)
-    sin, cos = _positional_arrays(
-        cfg, write_pos if rope_pos is None else rope_pos)
+    _pattern_period(cfg)
+    pos = write_pos if rope_pos is None else rope_pos
+    x = _embed(params, cfg, tokens, pos)
+    sin, cos, alibi = _positional_arrays(cfg, pos)
     layer_stats, new_ostate = [], []
     for li, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache.k[li], "v": cache.v[li]}
@@ -631,7 +862,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                                v_scale=cache.v_scale[li])
         attend = partial(_attention_with_cache, cfg, layer_cache=layer_cache,
                          write_pos=write_pos, kv_valid_len=kv_valid_len,
-                         full_prefill=full_prefill, attn_mask=attn_mask)
+                         full_prefill=full_prefill, attn_mask=attn_mask,
+                         alibi=alibi, window=_layer_window(cfg, li))
         st = {} if collect_stats else None
         ost = _layer_ostate(outlier_state, li)
         x = decoder_layer(cfg, lp, x, sin, cos, attend, stats=st,

@@ -12,6 +12,7 @@ f32 as the JAX package computes them and no whole-model f32 copy exists.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -173,7 +174,7 @@ def params_from_hf(cfg: ModelConfig, hf: Mapping[str, torch.Tensor],
 
 def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()
                    ) -> ModelConfig:
-    """An HF Llama / Mistral / Qwen2 config (``AutoConfig`` or
+    """An HF Llama / Mistral / Qwen2 / Aquila config (``AutoConfig`` or
     ``convert.hf.load_hf_config``) -> ModelConfig, read as the JAX package
     reads it."""
     mt = hf_config.model_type.lower()
@@ -207,8 +208,9 @@ def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()
 
 def _rope_scaling_axes(hf_config) -> dict:
     """HF rope_scaling -> ModelConfig axes: Llama-3.1's "llama3"
-    wavelength-banded scaling and plain "linear" interpolation. "yarn" is
-    handed on as its type, which ModelConfig refuses (not ported)."""
+    wavelength-banded scaling, plain "linear" interpolation and "yarn"
+    (Qwen2's long-context configs: the ramp's bounds and the attention
+    factor, HF _compute_yarn_parameters)."""
     rs = getattr(hf_config, "rope_scaling", None)
     if not rs:
         return {}
@@ -226,4 +228,21 @@ def _rope_scaling_axes(hf_config) -> dict:
             rope_high_freq_factor=float(rs.get("high_freq_factor", 4.0)),
             rope_original_max_pos=int(
                 rs.get("original_max_position_embeddings", 8192)))
+    if kind == "yarn":
+        factor = out["rope_scaling_factor"]
+        af = rs.get("attention_factor")
+        mscale, mall = rs.get("mscale"), rs.get("mscale_all_dim")
+
+        def get_mscale(scale, m=1):
+            return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+        if af is None:
+            af = (get_mscale(factor, mscale) / get_mscale(factor, mall)
+                  if mscale and mall else get_mscale(factor))
+        out.update(
+            rope_beta_fast=float(rs.get("beta_fast") or 32),
+            rope_beta_slow=float(rs.get("beta_slow") or 1),
+            rope_attention_factor=float(af),
+            rope_original_max_pos=int(
+                rs.get("original_max_position_embeddings")
+                or hf_config.max_position_embeddings))
     return out

@@ -1,16 +1,18 @@
 """Architecture registry: HF config -> (ModelConfig, converter).
 Counterpart of mixq_tensorrt_llm_tpu/models/registry.py.
 
-The port serves the Llama lineage (``llama``, ``mistral``, ``qwen2``)
-through models/llama.py. Every other model type the JAX package lists
-raises naming the module whose port brings it.
+The Llama lineage (``llama``, ``mistral``, ``qwen2``, ``aquila``) goes
+through models/llama.py, every other dense family through
+models/families.py, which maps each onto the one config-driven decoder of
+models/common.py. The expert and state-space model types raise naming the
+module whose port brings them.
 """
 
 from __future__ import annotations
 
 from ..device import DeviceLike
 from ..quant.config import QuantConfig
-from . import llama
+from . import families, llama
 
 # model_type -> converter module key, as in the JAX package
 SUPPORTED_ARCHS = {
@@ -48,17 +50,15 @@ SUPPORTED_ARCHS = {
     "mamba": "mamba",
     "recurrent_gemma": "recurrentgemma",
 }
-PORTED_ARCHS = ("llama", "mistral", "qwen2")
 # model types listed above that the port does not serve yet -> the module
 # whose port brings them
 _LATER = {
     "mixtral": "models/moe.py",
-    # a remote-code config class: convert/hf.py's reader knows no defaults
-    # for it
-    "aquila": "models/registry.py (the aquila config's defaults)",
-    "families": "models/families.py",
+    "dbrx": "models/moe.py",
+    "qwen2_moe": "models/moe.py",
+    "qwen3_moe": "models/moe.py",
     "mamba": "models/mamba.py",
-    "recurrentgemma": "models/recurrentgemma.py",
+    "recurrent_gemma": "models/recurrentgemma.py",
 }
 
 
@@ -68,19 +68,18 @@ def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()):
     if kind is None:
         raise ValueError(f"unsupported model_type {mt!r}; supported: "
                          f"{sorted(SUPPORTED_ARCHS)}")
-    if mt not in PORTED_ARCHS:
+    if mt in _LATER:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported yet: it comes with "
-            f"{_LATER.get(mt, _LATER.get(kind))}")
-    return llama.config_from_hf(hf_config, quant)
+            f"{_LATER[mt]}")
+    if kind == "llama":
+        return llama.config_from_hf(hf_config, quant)
+    return families.config_from_hf(hf_config, quant)
 
 
 def params_from_hf(cfg, hf_state, act_scales=None,
                    device: DeviceLike = "cuda"):
-    """HF state dict -> quantized params on ``device`` (Llama lineage)."""
-    if cfg.arch not in PORTED_ARCHS:
-        kind = SUPPORTED_ARCHS.get(cfg.arch, "families")
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet: it comes with "
-            f"{_LATER.get(cfg.arch, _LATER.get(kind))}")
-    return llama.params_from_hf(cfg, hf_state, act_scales, device=device)
+    """HF state dict -> quantized params on ``device``, by ``cfg.arch``."""
+    if cfg.arch in ("llama", "mistral", "qwen2"):
+        return llama.params_from_hf(cfg, hf_state, act_scales, device=device)
+    return families.params_from_hf(cfg, hf_state, act_scales, device=device)

@@ -11,7 +11,10 @@ int8 GEMM (int8 wgmma over a TMA ring), the outlier side GEMM and the
 epilogue in one launch, cut into blocks by ``mixed_plan`` from the shapes
 alone; K3 runs the same side GEMM and epilogue over an int32 accumulator
 from ``torch._int_mm`` (the JAX function leaves that product to an XLA
-dot). The kernels take K % 64 == 0, N % 128 == 0 and ko % 8 == 0; any M.
+dot). K2 takes K % 64 == 0, N % 64 == 0 (its last 256-column tile may be
+a quarter, half or three quarters full: TMA fills the columns past N with
+zeros and the stores stop at N; counted as ``mixed_matmul.n_tail`` too)
+and ko % 8 == 0, any M; K3 N % 128 == 0.
 """
 
 from __future__ import annotations
@@ -78,13 +81,14 @@ mixed_matmul_hybrid_plain = mixed_matmul_plain
 
 
 def _operands(q_x, scale_row, x_outliers, qweight, scale_col, fp_weight,
-              out_dtype, what: str):
-    """Check what the CUDA kernels take; the operands ready to launch."""
+              out_dtype, what: str, n_unit: int):
+    """Check what the CUDA kernel takes (N a multiple of ``n_unit``); the
+    operands ready to launch."""
     m, k = q_x.shape
     n, ko = qweight.shape[1], x_outliers.shape[1]
-    if k % 64 or n % 128 or ko % 8:
+    if k % 64 or n % n_unit or ko % 8:
         raise ValueError(f"{what}: K = {k}, N = {n}, ko = {ko} — the CUDA "
-                         "kernels take K % 64 == 0, N % 128 == 0 and "
+                         f"kernel takes K % 64 == 0, N % {n_unit} == 0 and "
                          "ko % 8 == 0")
     if (qweight.shape[0] != k or scale_row.shape != (m,)
             or x_outliers.shape[0] != m or scale_col.shape != (n,)
@@ -122,7 +126,7 @@ def mixed_matmul(q_x: torch.Tensor, scale_row: torch.Tensor,
                                   scale_col, fp_weight, silu, out_dtype)
     m, k, n, ko, qx, srow, xo, scol = _operands(
         q_x, scale_row, x_outliers, qweight, scale_col, fp_weight, out_dtype,
-        "mixed_matmul")
+        "mixed_matmul", 64)
     out = torch.empty((m, n), dtype=out_dtype, device=q_x.device)
     if m == 0:
         return out
@@ -138,6 +142,8 @@ def mixed_matmul(q_x: torch.Tensor, scale_row: torch.Tensor,
              plan.splits, plan.steps_per_split, _OUT_DTYPES[out_dtype],
              _build.stream_ptr(dev))
     _build.count_launch("mixed_matmul")
+    if n % MIX_COLS:                # the last column tile is partial
+        _build.count_launch("mixed_matmul.n_tail")
     _build.check("mixed_matmul", err, "mixed_matmul")
     return out
 
@@ -155,7 +161,7 @@ def mixed_matmul_hybrid(q_x: torch.Tensor, scale_row: torch.Tensor,
                                          out_dtype)
     m, k, n, ko, qx, srow, xo, scol = _operands(
         q_x, scale_row, x_outliers, qweight, scale_col, fp_weight, out_dtype,
-        "mixed_matmul_hybrid")
+        "mixed_matmul_hybrid", 128)
     out = torch.empty((m, n), dtype=out_dtype, device=q_x.device)
     if m == 0:
         return out

@@ -24,8 +24,10 @@ up to 256, and at most 227 KB of shared memory a block. K7 splits each
 lane's table across the blocks of its one launch (``decode_plan``, from
 the shapes alone) and merges the splits in the same launch; K9 and K10
 share K7's skeleton with the S * Hq/Hkv rows of a KV head in groups of up
-to 16 a warp (``rows_plan``). Routes by dtype: bf16 q on int8 or bf16
-pages runs K9/K10 on mma.sync and K8 on wgmma tensor cores; f32 q or f32
+to 16 a warp (``rows_plan``); a decode whose query heads do not fit K7's
+block takes that rows layout at S = 1 (``decode_route``). Routes by
+dtype: bf16 q on int8 or bf16 pages runs K9/K10 on mma.sync and K8 on
+wgmma tensor cores; f32 q or f32
 pages (the f32 test models) run f32 arithmetic on CUDA cores (K9/K10's
 body in f32, K8's prefill_kernel). K11 is one launch of K7's kernel over
 the lanes' own tables, its splits inside the kv_splits ranges
@@ -219,8 +221,12 @@ def check_kernel_geometry(block_size: int, head_dim: int) -> None:
         raise ValueError(f"block_size {block_size}: the CUDA paged-attention "
                          "kernels take 16..256 in steps of 16")
     if not (head_dim % 32 == 0 and head_dim <= 256):
+        # K7's token groups are kSplitThreads / (D / 4) threads
+        # (csrc/paged_attention.cu): not whole at D = 80 (Phi-2, OPT-2.7B,
+        # Pythia-2.8B, StableLM-3B), whose port is still to come
         raise ValueError(f"head_dim {head_dim}: the CUDA paged-attention "
-                         "kernels take multiples of 32 up to 256")
+                         "kernels of csrc/paged_attention.cu take multiples "
+                         "of 32 up to 256")
 
 
 def identity_block_pos(block_table: torch.Tensor, bs: int) -> torch.Tensor:
@@ -344,7 +350,7 @@ def _check_q(q, hq: int, hkv: int, d: int, s: int, bs: int, k_pages,
 def _check_split(q_d: int, hq: int, hkv: int, d: int, bs: int,
                  page_bytes: int, quant: bool, what: str) -> None:
     """Raise unless q's heads fit the pages and K7's block fits its shared
-    memory."""
+    memory (K11 has no other layout)."""
     _check_heads(q_d, hq, hkv, d, what)
     need = decode_split_smem(hq // hkv, d, bs, page_bytes, quant)
     if need > _MAX_SMEM:
@@ -353,13 +359,37 @@ def _check_split(q_d: int, hq: int, hkv: int, d: int, bs: int,
                          f"{_MAX_SMEM})")
 
 
+@functools.lru_cache(maxsize=4096)
+def decode_route(g: int, d: int, bs: int, page_bytes: int, quant: bool,
+                 mma: bool) -> str:
+    """K7's layout for g query heads per KV head, from the shapes alone:
+    "split" (decode_split_kernel) where its block fits the shared memory,
+    else "rows" (K9's decode_rows_body at S = 1: the JAX package's decode
+    kernel is one function for any number of rows) where that block fits;
+    raises where neither does. Falcon-7B's 71 heads on one KV head and the
+    MQA coders' 48 take the rows layout."""
+    split = decode_split_smem(g, d, bs, page_bytes, quant)
+    if split <= _MAX_SMEM:
+        return "split"
+    rows = rows_smem(g, d, bs, page_bytes, quant, mma)
+    if rows <= _MAX_SMEM:
+        return "rows"
+    raise ValueError(f"paged_decode_attention: {g} query heads per KV head "
+                     f"need {split} bytes of shared memory in K7's split "
+                     f"layout and {rows} in its rows layout (at most "
+                     f"{_MAX_SMEM})")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                            v_scale, block_table: torch.Tensor,
                            lens: torch.Tensor, scale: float,
                            block_pos=None, window: int = 0, sink: int = 0,
                            softcap: float = 0.0, stats: bool = False):
     """K7: q (B, Hq, D), the query at position lens-1 -> (B, Hq, D) in q's
-    dtype.
+    dtype. Its layout comes from the shapes (``decode_route``): the split
+    kernel, or, where a KV head's query heads do not fit its block
+    (Falcon-7B's 71, the MQA coders' 48), K9's rows kernel at S = 1,
+    counted as ``paged_decode_attention_rows``.
 
     stats=True is K10: -> (out (B, Hq, D), m (B, Hq), l (B, Hq)), all f32:
     the normalized output and the softmax's running max and denominator,
@@ -402,14 +432,23 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
                  plan.splits, plan.pages_per_split, plan.warps, *tail, *codes)
         result = (out, m, l)
     else:
-        _check_split(q.shape[2], hq, hkv, d, bs, k_pages.element_size(),
-                     k_scale is not None, what)
-        plan = decode_plan(b, hkv, hq // hkv, d, mb,
-                           _build.device_sms(q.device))
-        err, result = _decode_split(q, ptrs, table, bpos, lens, plan.splits,
-                                    plan.splits * plan.pages_per_split,
-                                    plan.splits, plan.pages_per_split,
-                                    plan.scratch, hkv, d, bs, tail, codes)
+        _check_heads(q.shape[2], hq, hkv, d, what)
+        route = decode_route(hq // hkv, d, bs, k_pages.element_size(),
+                             k_scale is not None,
+                             q.dtype == torch.bfloat16
+                             and k_pages.dtype != torch.float32)
+        if route == "rows":
+            err, out = _decode_rows(q[:, None], ptrs, table, bpos, lens,
+                                    lens - 1, hkv, d, bs, tail, codes)
+            result = out[:, 0]
+            what += "_rows"
+        else:
+            plan = decode_plan(b, hkv, hq // hkv, d, mb,
+                               _build.device_sms(q.device))
+            err, result = _decode_split(
+                q, ptrs, table, bpos, lens, plan.splits,
+                plan.splits * plan.pages_per_split, plan.splits,
+                plan.pages_per_split, plan.scratch, hkv, d, bs, tail, codes)
     name = what + sfx
     _build.count_launch(name)
     _build.check("paged_attention", err, name)
@@ -435,6 +474,29 @@ def _decode_split(q, ptrs, table, bpos, lens, splits: int, range_pages: int,
              lens.data_ptr(), out.data_ptr(), part, tickets, b, hq, hkv, d,
              bs, table.shape[1], splits, range_pages, splits_per_range,
              pages_per_split, *tail, int(K7_MERGE_DROP), *codes)
+    return err, out
+
+
+def _decode_rows(q, ptrs, table, bpos, lens, qstart, hkv: int, d: int,
+                 bs: int, tail, codes):
+    """One launch of verify_rows_kernel (K9, and K7's rows layout at S =
+    1) on checked arguments: q (B, S, Hq, D), row r of lane b at position
+    qstart[b] + r. Returns (error code, out (B, S, Hq, D) in q's dtype)."""
+    b, s, hq, _ = q.shape
+    q = q.contiguous()
+    qstart = qstart.to(q.device, torch.int32).contiguous()
+    lens = lens.to(q.device, torch.int32).contiguous()
+    mb = table.shape[1]
+    plan = rows_plan(b, hkv, s * (hq // hkv), d, mb,
+                     _build.device_sms(q.device))
+    part, tickets = _build.scratch(q.device, plan.scratch or 0, plan.tickets)
+    out = torch.empty_like(q)
+    fn = _build.bind("paged_attention", "mixq_paged_verify_attention",
+                     [_build.P] * 12 + [_build.I] * 11 + _TAIL)
+    err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
+             lens.data_ptr(), qstart.data_ptr(), out.data_ptr(), part,
+             tickets, b, s, hq, hkv, d, bs, mb, plan.groups, plan.splits,
+             plan.pages_per_split, plan.warps, *tail, *codes)
     return err, out
 
 
@@ -495,22 +557,10 @@ def paged_verify_attention(q: torch.Tensor, k_pages, v_pages, k_scale,
     ptrs, page_dtype, sfx, hkv, bs, d, table, bpos = _cuda_args(
         q, k_pages, v_pages, k_scale, v_scale, block_table, block_pos, what)
     _check_q(q, hq, hkv, d, s, bs, k_pages, k_scale is not None, what)
-    q = q.contiguous()
-    qstart = qstart.to(q.device, torch.int32).contiguous()
-    lens = lens.to(q.device, torch.int32).contiguous()
-    mb = table.shape[1]
-    plan = rows_plan(b, hkv, s * (hq // hkv), d, mb,
-                     _build.device_sms(q.device))
-    part, tickets = _build.scratch(q.device, plan.scratch or 0, plan.tickets)
-    out = torch.empty_like(q)
-    fn = _build.bind("paged_attention", "mixq_paged_verify_attention",
-                     [_build.P] * 12 + [_build.I] * 11 + _TAIL)
-    err = fn(q.data_ptr(), *ptrs, table.data_ptr(), bpos.data_ptr(),
-             lens.data_ptr(), qstart.data_ptr(), out.data_ptr(), part,
-             tickets, b, s, hq, hkv, d, bs, mb, plan.groups, plan.splits,
-             plan.pages_per_split, plan.warps, float(scale), int(window),
-             int(sink), float(softcap), _DTYPES[q.dtype], page_dtype,
-             _build.stream_ptr(q.device))
+    err, out = _decode_rows(
+        q, ptrs, table, bpos, lens, qstart, hkv, d, bs,
+        (float(scale), int(window), int(sink), float(softcap)),
+        (_DTYPES[q.dtype], page_dtype, _build.stream_ptr(q.device)))
     name = what + sfx
     _build.count_launch(name)
     _build.check("paged_attention", err, name)

@@ -30,6 +30,20 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm (mean-centred) in float32, optional bias, output in x's
+    dtype: the norm of the OPT/GPT/NeoX/Falcon/BLOOM/Phi families."""
+    xf = x.float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    out = xc * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 def rmsnorm_quant_split(x: torch.Tensor, weight: torch.Tensor,
                         fp_ind: torch.Tensor, eps: float = 1e-6
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -141,20 +155,24 @@ def wo_matmul_grouped(x: torch.Tensor, qweight: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None,
-              softcap: float = 0.0) -> torch.Tensor:
+              softcap: float = 0.0,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head attention with GQA (hq % hkv == 0), f32 softmax.
 
-    q (b, sq, hq, d); k/v (b, skv, hkv, d); mask broadcastable to
-    (b, hq, sq, skv), True = keep. GQA groups q heads against the
-    un-repeated kv. Returns q's dtype."""
+    q (b, sq, hq, d); k/v (b, skv, hkv, d); mask and ``bias`` (an additive
+    f32 logits bias: ALiBi) broadcastable to (b, hq, sq, skv), True =
+    keep; the bias is added before the softcap, as in the JAX package.
+    GQA groups q heads against the un-repeated kv. Returns q's dtype."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qg = (q.float() * scale).reshape(b, sq, hkv, g, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
-    if mask is not None or softcap:
+    if mask is not None or softcap or bias is not None:
         logits = logits.reshape(b, hq, sq, -1)
+        if bias is not None:
+            logits = logits + bias.float()
         if softcap:
             logits = torch.tanh(logits / softcap) * softcap
         if mask is not None:
@@ -198,10 +216,12 @@ def attention_int8kv(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
                      v_q: torch.Tensor, v_s: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention straight over int8 K/V with per-(token, head) scales: the
     K scale multiplies the logits, the V scale the probabilities.
-    k_q/v_q (b, skv, hkv, d) int8; k_s/v_s (b, skv, hkv) f32."""
+    k_q/v_q (b, skv, hkv, d) int8; k_s/v_s (b, skv, hkv) f32; ``bias`` as
+    in ``attention``."""
     b, sq, hq, d = q.shape
     hkv = k_q.shape[2]
     g = hq // hkv
@@ -209,6 +229,10 @@ def attention_int8kv(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     q5 = (q.float() * scale).reshape(b, sq, hkv, g, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q5, k_q.float())
     logits = logits * k_s.permute(0, 2, 1)[:, :, None, None, :]
+    if bias is not None:
+        bias = bias.expand(bias.shape[0], hq, *bias.shape[2:])
+        logits = logits + bias.reshape(bias.shape[0], hkv, g,
+                                       *bias.shape[2:]).float()
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     if mask is not None:

@@ -10,7 +10,11 @@ runs in two regimes, chosen by ``wo_plan`` from M alone: up to
 K4_MMA_MAX_ROWS rows (decode, the speculative verify) the mma kernel, its
 weight rows split across blocks and summed in a fixed order in the one
 launch; above that (prefill) the wgmma + TMA GEMM. It takes K % 32 == 0
-and N % 128 == 0 (the JAX kernel asks for multiples of 128 of both).
+and N % 64 == 0 (the JAX kernel asks for multiples of 128 of both): the
+last 128-column tile of the mma kernel may be half full (its copies and
+stores predicated on N), the wgmma GEMM's last 256-column tile a quarter
+to three quarters (TMA's zero fill, stores stopped at N); such launches
+count as ``wo_matmul.n_tail`` too.
 
 K12/K13 take the weight packed two int4 values a byte in quant.core's
 K-half layout, int8 (K/2, N), and read it in place (0.5 byte a weight),
@@ -80,7 +84,7 @@ def _mma_plan(mt: int, m: int, rows: int, n: int, sms: int, halves: int,
     stage holds a chunk of the weight (rows padded by 16 bytes) and
     `halves` slices of x at its rows (padded by 8 values)."""
     slabs = -(-m // mt)
-    tiles = n // MMA_COLS
+    tiles = -(-n // MMA_COLS)
     chunks = -(-rows // MMA_CHUNK)
     units = -(-chunks // unit)
     slots, base = blocks_per_sm(mt) * sms, tiles * slabs
@@ -153,9 +157,9 @@ def wo_matmul(x: torch.Tensor, qweight: torch.Tensor,
         return wo_matmul_plain(x, qweight, scale_col, out_dtype)
     m, k = x.shape
     n = qweight.shape[1]
-    if k % 32 or n % 128:
+    if k % 32 or n % 64:
         raise ValueError(f"wo_matmul: weight ({k}, {n}) — the CUDA kernel "
-                         "takes K % 32 == 0 and N % 128 == 0")
+                         "takes K % 32 == 0 and N % 64 == 0")
     if qweight.shape[0] != k or scale_col.shape != (n,):
         raise ValueError(f"wo_matmul: x {tuple(x.shape)}, qweight "
                          f"{tuple(qweight.shape)}, scale_col "
@@ -183,6 +187,8 @@ def wo_matmul(x: torch.Tensor, qweight: torch.Tensor,
              _build.stream_ptr(dev))
     _build.count_launch("wo_matmul")
     _build.count_launch("wo_matmul." + k4_regime(plan))   # by regime
+    if n % MMA_COLS:                # a half column tile last
+        _build.count_launch("wo_matmul.n_tail")
     _build.check("wo_matmul", err, "wo_matmul")
     return out
 

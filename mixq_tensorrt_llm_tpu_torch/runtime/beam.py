@@ -551,10 +551,13 @@ def _forward_with_tail(params, cfg: ModelConfig, cur, pools: dict, table,
     written into each layer's tail at slot ``tidx`` in place, the pool
     only read. cur (N,) at position prefix_len + tidx; table (N, MB)
     per-layer page ids; lora_ids (N,) the lanes' adapters. Returns the
-    logits (N, 1, V) f32."""
+    logits (N, 1, V) f32. ALiBi and windows are refused, as in the JAX
+    package (its beam.py:872, models/common.py:577-580)."""
     pos = (prefix_len + tidx)[:, None]
-    x = mcommon._embed(params, cfg, cur[:, None])
-    sin, cos = mcommon._positional_arrays(cfg, pos)
+    sin, cos, alibi = mcommon._positional_arrays(cfg, pos)
+    if alibi is not None:
+        raise NotImplementedError("beam bursts do not support ALiBi")
+    x = mcommon._embed(params, cfg, cur[:, None], pos)
     nb = pools["k"].shape[0] // len(params["layers"])
     for li, lp in enumerate(params["layers"]):
         attend = partial(mcommon._attention_paged_tail, cfg, pools=pools,

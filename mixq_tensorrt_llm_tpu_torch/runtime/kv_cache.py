@@ -427,10 +427,10 @@ def paged_gather(pools: dict, block_table: torch.Tensor, dtype
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialize (B, MB*BS, H, D) K/V views of each lane's pages,
     dequantized to ``dtype`` for quantized pools. The route of e4m3 pools
-    only: each call on the card counts one ``paged_gather`` in
-    ops._build.LAUNCHES (a route count, not a kernel; a captured graph's
-    replay adds it too), so a run can show that int8 and bf16 pools never
-    take it."""
+    and ALiBi models only: each call on the card counts one
+    ``paged_gather`` in ops._build.LAUNCHES (a route count, not a kernel;
+    a captured graph's replay adds it too), so a run can show that the
+    int8 and bf16 pools of RoPE models never take it."""
     if pools["k"].is_cuda:
         _build.count_launch("paged_gather")
     return (pattn.gather_pages(pools["k"], pools.get("k_scale"),
@@ -443,7 +443,7 @@ def paged_attention(q: torch.Tensor, pools: dict, block_table: torch.Tensor,
                     q_pos: torch.Tensor, lens: torch.Tensor, scale: float,
                     block_pos: Optional[torch.Tensor] = None, window: int = 0,
                     sink: int = 0, softcap: float = 0.0, kv_splits: int = 0,
-                    stats: bool = False):
+                    stats: bool = False, alibi=None):
     """Attention of q (B, S, Hq, D) at absolute positions q_pos (B, S) over
     each lane's pages below lens (B,), in q's dtype.
 
@@ -455,17 +455,29 @@ def paged_attention(q: torch.Tensor, pools: dict, block_table: torch.Tensor,
     held elsewhere. A CUDA tensor launches the kernel; on the CPU each
     route takes its plain version.
 
-    e4m3 pools take the JAX package's route on every device, since it
-    never hands fp8 pages to its paged kernels (models/common.py:502,
-    :627): ``paged_gather``, then masked ops.ref.attention (or
-    attention_stats). No K7-K11 launch."""
-    if pools["k"].dtype == qcore.FP8:
+    e4m3 pools and ALiBi models (``alibi`` (Hq,) slopes) take the JAX
+    package's route on every device, since it hands neither fp8 pages nor
+    an additive bias to its paged kernels (models/common.py:502, :627):
+    ``paged_gather``, then masked ops.ref.attention (or attention_stats),
+    with ALiBi's slope_h * kv_pos on the logits. No K7-K11 launch."""
+    if pools["k"].dtype == qcore.FP8 or alibi is not None:
         k_all, v_all = paged_gather(pools, block_table, q.dtype)
-        keep = pattn.keep_mask(block_table, block_pos, pools["k"].shape[2],
-                               q_pos, lens, window, sink)
-        attend = ops_ref.attention_stats if stats else ops_ref.attention
-        return attend(q, k_all, v_all, mask=keep, scale=scale,
-                      softcap=softcap)
+        bs = pools["k"].shape[2]
+        keep = pattn.keep_mask(block_table, block_pos, bs, q_pos, lens,
+                               window, sink)
+        if alibi is None:
+            attend = ops_ref.attention_stats if stats else ops_ref.attention
+            return attend(q, k_all, v_all, mask=keep, scale=scale,
+                          softcap=softcap)
+        if stats:
+            raise NotImplementedError("beam bursts do not support ALiBi")
+        bpos = (block_pos if block_pos is not None
+                else pattn.identity_block_pos(block_table, bs))
+        kv_pos = (bpos.float()[:, :, None] + torch.arange(
+            bs, device=q.device)).reshape(q.shape[0], 1, 1, -1)
+        return ops_ref.attention(q, k_all, v_all, mask=keep, scale=scale,
+                                 softcap=softcap,
+                                 bias=alibi[None, :, None, None] * kv_pos)
     args = (pools["k"], pools["v"], pools.get("k_scale"),
             pools.get("v_scale"), block_table)
     kw = dict(scale=scale, block_pos=block_pos, window=window, sink=sink,

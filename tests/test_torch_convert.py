@@ -194,19 +194,40 @@ def test_config_from_hf_matches_autoconfig(name, tmp_path):
 
 def test_unported_model_types_and_options_raise(tmp_path):
     for mt, module in (("mixtral", "models/moe.py"),
-                       ("gemma", "models/families.py"),
+                       ("qwen2_moe", "models/moe.py"),
                        ("mamba", "models/mamba.py"),
-                       ("recurrent_gemma", "models/recurrentgemma.py"),
-                       ("aquila", "models/registry.py")):
+                       ("recurrent_gemma", "models/recurrentgemma.py")):
         with pytest.raises(NotImplementedError, match=module):
             treg.config_from_hf(_ns(model_type=mt))
     with pytest.raises(ValueError, match="unsupported"):
         treg.config_from_hf(_ns(model_type="nonesuch"))
+    # ported with the dense families: gemma (models/families.py) from a
+    # bare config.json at its class defaults, aquila (Llama's converter
+    # over Llama's defaults) and yarn RoPE, each as JAX reads it
+    os.makedirs(tmp_path / "gemma")
+    with open(tmp_path / "gemma" / "config.json", "w") as f:
+        json.dump({"model_type": "gemma"}, f)
+    from mixq_tensorrt_llm_tpu.models import registry as jreg
+    jd = jreg.config_from_hf(transformers.AutoConfig.from_pretrained(
+        str(tmp_path / "gemma"))).to_dict()
+    tcfg = treg.config_from_hf(thf.load_hf_config(str(tmp_path / "gemma")))
+    assert tcfg.arch == "gemma" and tcfg.to_dict() == jd
+    os.makedirs(tmp_path / "aquila")
+    with open(tmp_path / "aquila" / "config.json", "w") as f:
+        json.dump(dict(TINY, model_type="aquila"), f)
+    jaq = transformers.LlamaConfig(**TINY)
+    jaq.model_type = "aquila"
+    tcfg = treg.config_from_hf(thf.load_hf_config(str(tmp_path / "aquila")))
+    assert tcfg.arch == "llama"
+    assert tcfg.to_dict() == jreg.config_from_hf(jaq).to_dict()
     transformers.LlamaConfig(**TINY, rope_scaling=dict(
         rope_type="yarn", factor=4.0,
         original_max_position_embeddings=64)).save_pretrained(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="yarn"):
-        treg.config_from_hf(thf.load_hf_config(str(tmp_path)))
+    tcfg = treg.config_from_hf(thf.load_hf_config(str(tmp_path)))
+    jcfg = jllama.config_from_hf(transformers.AutoConfig.from_pretrained(
+        str(tmp_path)))
+    assert tcfg.rope_scaling_type == "yarn"
+    assert tcfg.to_dict() == jcfg.to_dict()
     # lora_dir is ported: an adapter directory without weights raises
     # FileNotFoundError, as JAX's merge does
     from mixq_tensorrt_llm_tpu_torch.convert.lora import \

@@ -39,13 +39,35 @@ def model():
                                    act_scales=acts)
     cfg = ModelConfig.from_dict(jcfg.to_dict())
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
-    return jcfg, jp, cfg, tp
+    return jcfg, jp, cfg, tp, {}
+
+
+def _jex(model, kw):
+    """The JAX Executor of ``kw``, reset to a fresh one's host state with
+    its compiled programs kept, as tests/test_torch_executor_serving.py
+    resets its own."""
+    jcfg, jp, _, _, made = model
+    key = tuple(sorted(kw.items()))
+    if key not in made:
+        made[key] = JExecutor(jp, jcfg, seed=0, **kw)
+        return made[key]
+    ex = made[key]
+    assert not kw.get("window_blocks"), "reset the manager's window too"
+    ex.queue.clear()
+    ex.prefilling.clear()
+    ex.slots = [None] * ex.max_batch
+    ex.bm = type(ex.bm)(ex.bm.num_blocks, ex.block_size)
+    ex.finished, ex._next_id, ex.preemptions = {}, 0, 0
+    ex.iteration_stats.clear()
+    ex._iter_id = 0
+    ex.key = jax.random.PRNGKey(0)
+    return ex
 
 
 def _serve_both(model, prompts, max_new, priorities=None, request_kw=None,
                 **kw):
-    jcfg, jp, cfg, tp = model
-    jex = JExecutor(jp, jcfg, seed=0, **kw)
+    jcfg, jp, cfg, tp, _ = model
+    jex = _jex(model, kw)
     tex = Executor(tp, cfg, seed=0, device="cpu", **kw)
     pr = priorities or [0.5] * len(prompts)
     rkw = request_kw or {}

@@ -7,8 +7,8 @@ lane near the context cap, an int8_mix / int8-KV self-draft, and
 host-paced (rounds_per_call=1) against device-paced rounds. The draft
 carries a paged pool of its own through the target's block tables. Plus
 MIXQ_KV_SPLITS=2 on the port's plain run (the split-and-merge decode):
-the same tokens as without it and as the JAX Executor's. Each JAX result
-is built once per module."""
+the same tokens as without it and as the JAX Executor's. Each JAX
+Executor is made once per configuration and reset between cases."""
 
 import jax
 import jax.numpy as jnp
@@ -47,12 +47,33 @@ def _both(jcfg, seed):
 @pytest.fixture(scope="module")
 def models():
     """The target (2 layers), a separately initialised 1-layer draft (as
-    the JAX tests' tiny_cfg(layers=1) with PRNGKey(5)), and an int8_mix /
-    int8-KV target."""
+    the JAX tests' tiny_cfg(layers=1) with PRNGKey(5)), an int8_mix /
+    int8-KV target, and the JAX Executors made so far ("jex")."""
     return dict(
         target=_both(_jcfg(), 0), draft=_both(_jcfg(layers=1), 5),
         int8=_both(_jcfg(quant=JQuant(algo=JAlgo.INT8_MIX, num_outliers=8,
-                                      kv_cache=JKV.INT8)), 0))
+                                      kv_cache=JKV.INT8)), 0), jex={})
+
+
+def _jex(models, target, kw):
+    """The JAX Executor of (target, kw), reset to a fresh one's host state
+    with its compiled programs kept (a new one compiles them all again),
+    as tests/test_torch_executor_serving.py resets its own."""
+    jp, jcfg = models[target][:2]
+    key = (target,) + tuple(sorted(kw.items()))
+    if key not in models["jex"]:
+        models["jex"][key] = JExecutor(jp, jcfg, seed=0, **kw)
+        return models["jex"][key]
+    ex = models["jex"][key]
+    ex.queue.clear()
+    ex.prefilling.clear()
+    ex.slots = [None] * ex.max_batch
+    ex.bm = type(ex.bm)(ex.bm.num_blocks, ex.block_size)
+    ex.finished, ex._next_id, ex.preemptions = {}, 0, 0
+    ex.iteration_stats.clear()
+    ex._iter_id = 0
+    ex.key = jax.random.PRNGKey(0)
+    return ex
 
 
 def _serve(ex, requests, spec=None):
@@ -78,7 +99,7 @@ def _jax_and_port(models, target, draft, requests, gamma, rounds=8,
     jp, jcfg, tp, cfg = models[target]
     jd, jdcfg, td, tdcfg = models[draft] if draft != "self" else \
         (jp, jcfg, tp, cfg)
-    jex = JExecutor(jp, jcfg, seed=0, **kw)
+    jex = _jex(models, target, kw)
     want, _ = _serve(jex, requests, (jd, jdcfg, gamma, rounds))
     tex = Executor(tp, cfg, seed=0, device="cpu", **kw)
     got, reqs = _serve(tex, requests, (td, tdcfg, gamma, rounds))
@@ -175,7 +196,7 @@ def test_split_decode_token_identical(models, monkeypatch):
     reqs = [([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3], 12,
              None), ([2, 7], 12, None)]
     kw = dict(KW, max_batch=2)
-    want, _ = _serve(JExecutor(jp, jcfg, seed=0, **kw), reqs)
+    want, _ = _serve(_jex(models, "int8", kw), reqs)
     single, _ = _serve(Executor(tp, cfg, seed=0, device="cpu", **kw), reqs)
     monkeypatch.setenv("MIXQ_KV_SPLITS", "2")
     split, _ = _serve(Executor(tp, cfg, seed=0, device="cpu", **kw), reqs)

@@ -58,7 +58,14 @@ prefill and in the decode replays, traced.
 The decoding extras and runtime LoRA at the tiny width: a Medusa tree
 verify (mask, rope_pos, hidden) and a LoRA lane's forward card against
 CPU, K1 only without its norm under adapters, Medusa decoding and an
-adapted Executor's replays."""
+adapted Executor's replays.
+The dense families: K7's rows layout at 71 and 48 query heads a KV head
+(Falcon-7B, the MQA coders) within 2e-2 of plain, one launch counted as
+paged_decode_attention_rows, two launches bit-equal; K2 and K4 in its
+three regimes at N = 4672 (Falcon-7B's qkv) and 1600 (GPT-2 XL), a
+partial last column tile, against their plain versions and counted as
+.n_tail; a Gemma-2 model's windowed and global layers through K7 and K8
+on the card against the CPU."""
 
 import os
 
@@ -536,7 +543,7 @@ def test_wo_matmul_split_repeats_bit_equal(cuda, m, k, n):
 @pytest.mark.gpu
 def test_unsupported_shapes_raise(cuda):
     x = torch.zeros((4, 256), device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="N % 128"):
+    with pytest.raises(ValueError, match="N % 64"):
         wm.wo_matmul(x, torch.zeros((256, 100), device=cuda,
                                     dtype=torch.int8),
                      torch.ones((100,), device=cuda))
@@ -2324,3 +2331,138 @@ def test_lora_lane_on_card(cuda):
     assert ex.graph_replays == ex.decode_calls > 0
     assert ex.compiles_since_warmup == 0
     assert all(len(done[r].generated) == 9 for r in ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,d,pages", [(71, 64, "int8"), (48, 128, "int8"),
+                                       (71, 64, "bfloat16")])
+def test_decode_rows_route_large_groups(cuda, g, d, pages):
+    """K7 where a KV head's query heads do not fit the split kernel's
+    block: the rows layout at S = 1, chosen from the shapes, against the
+    plain version (a recycled table, a window on lane 1)."""
+    gen = torch.Generator(device=cuda).manual_seed(g + d)
+    bs, hkv, np_ = 128, 1, 12
+    if pages == "int8":
+        kp = torch.randint(-127, 128, (np_, hkv, bs, d), generator=gen,
+                           device=cuda, dtype=torch.int8)
+        vp = torch.randint(-127, 128, (np_, hkv, bs, d), generator=gen,
+                           device=cuda, dtype=torch.int8)
+        ks = torch.rand((np_, hkv, bs), generator=gen, device=cuda) * 0.02
+        vs = torch.rand((np_, hkv, bs), generator=gen, device=cuda) * 0.02
+    else:
+        kp = torch.randn((np_, hkv, bs, d), generator=gen,
+                         device=cuda).bfloat16()
+        vp = torch.randn((np_, hkv, bs, d), generator=gen,
+                         device=cuda).bfloat16()
+        ks = vs = None
+    assert pa.decode_route(g, d, bs, kp.element_size(), ks is not None,
+                           True) == "rows"
+    table = torch.tensor([[3, 5, 4, 0], [7, 8, 9, 10]], dtype=torch.int32,
+                         device=cuda)
+    bpos = torch.tensor([[0, 2 * bs, bs, PAD_POS], [0, bs, 2 * bs, 3 * bs]],
+                        dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3 * bs - 7, 4 * bs - 1], dtype=torch.int32,
+                        device=cuda)
+    q = torch.randn((2, g * hkv, d), generator=gen, device=cuda).bfloat16()
+    for window in (0, 200):
+        before = dict(_build.LAUNCHES)
+        out = pa.paged_decode_attention(q, kp, vp, ks, vs, table, lens,
+                                        d ** -0.5, block_pos=bpos,
+                                        window=window)
+        again = pa.paged_decode_attention(q, kp, vp, ks, vs, table, lens,
+                                          d ** -0.5, block_pos=bpos,
+                                          window=window)
+        want = pa.paged_attention_plain(q[:, None], kp, vp, ks, vs, table,
+                                        (lens - 1)[:, None], lens,
+                                        d ** -0.5, block_pos=bpos,
+                                        window=window)[:, 0]
+        torch.cuda.synchronize()
+        sfx = "" if pages == "int8" else "_fp"
+        assert _launched("paged_decode_attention_rows" + sfx, before) == 2
+        assert _launched("paged_decode_attention" + sfx, before) == 0
+        assert float((out.float() - want.float()).abs().max()) <= 2e-2
+        assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(4544, 4672), (1600, 1600)])
+@pytest.mark.parametrize("m", [1, 8, 40, 129, 1024])
+def test_n_tail_gemms_match_plain(cuda, k, n, m):
+    """K2 and K4 at N % 128 == 64 (a partial last column tile): Falcon-7B's
+    qkv (4544 -> 4672) and GPT-2 XL's hidden (1600), at decode (1, 8),
+    the verify's 40 rows (K4's mid regime) and prefill (129, 1024; K4's
+    wgmma GEMM), against their plain versions, two launches bit-equal,
+    each counted as .n_tail."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    ops = _mix_operands(gen, cuda, m, k, n, 128)
+    before = dict(_build.LAUNCHES)
+    out = mm.mixed_matmul(**ops, out_dtype=torch.bfloat16)
+    again = mm.mixed_matmul(**ops, out_dtype=torch.bfloat16)
+    want = mm.mixed_matmul_plain(**ops, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _close(out, want, torch.bfloat16) and torch.equal(out, again)
+    assert _launched("mixed_matmul.n_tail", before) == 2
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    scol = ops["scale_col"]
+    plan = wm.wo_plan(m, k, n, wm.sm_count(cuda.index or 0))
+    for dtype in (torch.float32, torch.bfloat16):
+        before = dict(_build.LAUNCHES)
+        out = wm.wo_matmul(x, ops["qweight"], scol, out_dtype=dtype)
+        again = wm.wo_matmul(x, ops["qweight"], scol, out_dtype=dtype)
+        want = wm.wo_matmul_plain(x, ops["qweight"], scol, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert _close(out, want, dtype) and torch.equal(out, again)
+        assert _launched("wo_matmul.n_tail", before) == 2
+        assert _launched("wo_matmul." + wm.k4_regime(plan), before) == 2
+
+
+@pytest.mark.gpu
+def test_gemma2_layers_windows_on_card(cuda):
+    """A 4-layer Gemma-2 (int8_mix, int8 KV, head dim 256, window 32 on
+    layers 0 and 2): an Executor prefill of a 100-token prompt and 4
+    decode steps on the card (K8 and K7 with each layer's window) against
+    the CPU within the cross-device tolerance; K7 and K8 launched once a
+    layer a call."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    from mixq_tensorrt_llm_tpu_torch.models import families
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (
+        KVCacheQuantAlgo, QuantAlgo, QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.runtime import kv_cache as pkv
+    cfg = mcommon.ModelConfig(
+        arch="gemma2", vocab_size=512, hidden_size=512,
+        intermediate_size=1024, num_layers=4, num_heads=4, num_kv_heads=2,
+        head_dim=256, attn_scale=256 ** -0.5, attn_logit_softcap=50.0,
+        final_logit_softcap=30.0, post_block_norms=True, sliding_window=32,
+        sliding_window_pattern=2, hidden_act="gelu_pytorch_tanh",
+        embed_scale=512 ** 0.5, tie_word_embeddings=True,
+        quant=QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=16,
+                          kv_cache=KVCacheQuantAlgo.INT8))
+    params = families.init_random_params(cfg, seed=3, device=cuda)
+    cpu = _cpu_params(params)
+
+    def run(dev, p):
+        state = pkv.init_paged_kv(cfg, 8, 128, device=dev)
+        table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+        toks = torch.arange(3, 103, device=dev)[None]
+        pos = torch.arange(100, dtype=torch.int32, device=dev)[None]
+        lg, _ = mcommon.forward_paged(p, cfg, toks, pos, state, table,
+                                      torch.tensor([100], device=dev),
+                                      last_pos=torch.tensor([99],
+                                                            device=dev))
+        out = [lg[:, -1].float().cpu()]
+        for step in range(4):
+            t = torch.tensor([[7 + step]], device=dev)
+            ps = torch.tensor([[100 + step]], dtype=torch.int32, device=dev)
+            lg, _ = mcommon.forward_paged(p, cfg, t, ps, state, table,
+                                          torch.tensor([101 + step],
+                                                       device=dev))
+            out.append(lg[:, -1].float().cpu())
+        return torch.stack(out)
+
+    before = dict(_build.LAUNCHES)
+    got = run(cuda, params)
+    torch.cuda.synchronize()
+    assert _launched("paged_prefill_attention", before) == cfg.num_layers
+    assert _launched("paged_decode_attention", before) == 4 * cfg.num_layers
+    want = run(torch.device("cpu"), cpu)
+    assert float((got - want).abs().max() / want.abs().max()) < 5e-2

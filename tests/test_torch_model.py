@@ -69,11 +69,18 @@ def test_config_roundtrip_and_unported_axes():
     assert cfg.dtype == torch.float32 and cfg.qkv_bias
     assert cfg.sliding_window == 32
     assert cfg.quant.to_dict() == jcfg.quant.to_dict()
-    for axis in (dict(num_experts=4), dict(norm_type="layernorm"),
-                 dict(pos_embedding="alibi"), dict(parallel_blocks=True)):
-        with pytest.raises(NotImplementedError):
-            ModelConfig.from_dict(tiny_jax_cfg(**axis).to_dict())
-    with pytest.raises(NotImplementedError):
+    # the dense family axes round-trip (models/families.py); the expert
+    # axis and the state-space arch still raise, naming their modules
+    for axis in (dict(norm_type="layernorm"), dict(pos_embedding="alibi"),
+                 dict(parallel_blocks=True, shared_block_norm=True),
+                 dict(rope_scaling_type="yarn", rope_attention_factor=1.2),
+                 dict(rope_scaling_type="longrope",
+                      rope_freq_factors=(1.0,) * 8)):
+        jd = tiny_jax_cfg(**axis).to_dict()
+        assert ModelConfig.from_dict(jd).to_dict() == jd
+    with pytest.raises(NotImplementedError, match="models/moe.py"):
+        ModelConfig.from_dict(tiny_jax_cfg(num_experts=4).to_dict())
+    with pytest.raises(NotImplementedError, match="models/mamba.py"):
         ModelConfig(arch="mamba")
 
 
