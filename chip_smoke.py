@@ -130,7 +130,8 @@ exits non-zero:
      /health with no program after warmup, and a max_queue_size=2 server
      answering 503
   4h. the quantization pipeline at Llama-2-7B: an HF-format F16 directory
-     (the public Llama-2-7b-hf config, 32 layers, random N(0, 0.02)
+     (the public Llama-2-7b-hf config cut to HF_LAYERS = 16 layers,
+     random N(0, 0.02)
      weights from --seed in shards with an index, written by the port's
      own writer into a temporary directory the phase deletes; 128 planted
      outlier channels a layer, drawn from 128..4095, where both RMSNorm
@@ -157,7 +158,7 @@ exits non-zero:
      each through a new Executor warmed at burst 16 serving the 8
      requests at burst 16 (walls, tokens/s, decode idle share, peak
      memory; every decode call a replay, no program after warmup):
-     int8_mix with dynamic outliers (cap 256), 32 layers, 32 channels a
+     int8_mix with dynamic outliers (cap 256), 16 layers, 32 channels a
      layer planted outside the static sets (both RMSNorm weights 8):
      after serving every layer's qkv and gate_up selections hold them,
      K1 / K2 ran at ko 256, 2 layers card vs CPU (logits; chan_max per
@@ -210,7 +211,7 @@ exits non-zero:
      causal mask in place of the tree's are controls, enforced
   4k. the dense decoder families (models/families.py): (a) a
      Gemma-2-9B-geometry int8_mix / int8-KV model (google/gemma-2-9b's
-     published widths, 42 layers, random weights through
+     published widths, 22 of its 42 layers, random weights through
      families.init_random_params on the card; window 4096 on every other
      layer, softcaps 50 / 30, GeGLU, tied embeddings) serves phase 4's 8
      requests and one of 4,400 prompt tokens (the windowed layers
@@ -233,7 +234,37 @@ exits non-zero:
      slopes at zero as an enforced control), and Phi-2 (head dim 80)
      through GenerationSession, its Executor refused on the card with a
      ValueError naming csrc/paged_attention.cu
-  8. a `kernels` JSON line, the nvidia-smi line, then the result line.
+  4l. the expert models (models/moe.py): (c) K4 alone at Mixtral's
+     expert products (gate_up 4096 -> 28672, down 14336 -> 4096) at 9
+     and 150 rows with f32 out, against its plain version, two launches
+     bit-equal, timed beside its bound and torch._weight_int8pack_mm; (a)
+     a Mixtral-8x7B-geometry int8_mix / int8-KV model
+     (mistralai/Mixtral-8x7B-v0.1's published widths, 32 layers, 8
+     experts top 2, random weights through llama.init_random_params on
+     the card, a layer's f32 experts at a time; qkv / o mixed, the experts
+     W8A16) serves phase 4's 8 requests through an Executor (block_size
+     128) after warmup(burst=16), 32 greedy tokens each: every lane 32
+     finite tokens, every decode call a replay, no program after warmup;
+     each rung's graph holds 2 + 2 x 8 K4 launches a layer a step and the
+     all-rows route only; the prefill calls' MoE layers sorted, one
+     readback a layer a call, their K4 launches 2 a non-empty expert
+     group; walls, TPOT beside the experts' byte bound, idle shares, pool
+     and weight bytes, peak memory and route counts printed; then one
+     run_beams burst (2 requests x 4 beams x 16 tokens) after
+     warmup_beams, every burst a replay, K10 once a layer a step, all
+     rows. (b) 2 layers of full widths card against CPU, a 256-token
+     prefill call (sorted route) and 4 decode steps (all rows) each
+     through forward_paged, the CPU run taking the card's expert choices
+     (the tokens its own router sends elsewhere printed), logits within
+     5e-2 (Mixtral: phase 5's limit for the same dense path) or 2e-2 (the
+     Qwen models: phase 4k's) of the largest:
+     Mixtral-8x7B, Qwen1.5-MoE-A2.7B (60 experts, top 4, the shared
+     expert) and Qwen3-30B-A3B (128 experts, top 8, q/k norms); two
+     controls each, which must move the logits by 3x the tolerance: the
+     top-k renormalization flipped, the k-th expert replaced by the
+     (k+1)-th
+  8. a `kernels` JSON line (K4 also at the expert shapes of 4l(c)), the
+     nvidia-smi line, then the result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
 and S = 8 at 8 query heads a KV head, 64 rows a block; at S = 1 bit-equal
@@ -421,6 +452,8 @@ OFF_PATH = {"7b": NO_GATHER,
             "lr": ["paged_decode_attention_split",
                    "paged_verify_attention"] + NO_GATHER}
 DRAFT_LAYERS, GAMMA = 4, 4          # phase 6
+HF_LAYERS = 16                      # phase 4h: the directory's depth (of
+#                                     Llama-2-7B's 32: the smoke's time)
 BURST = 16                          # phase 4d
 # phase 4d: the kernels of a decode step, by a mark of the traced name,
 # and their launches a layer
@@ -2064,11 +2097,17 @@ def serve_dense(torch, params, cfg, seed: int, dev):
 
 
 def cpu_copy(torch, params):
+    """The params tree (an expert layer's ``moe`` entry nested one level
+    deeper) on the CPU."""
     cpu = torch.device("cpu")
-    return {k: ([{m: {n: t.to(cpu) for n, t in p.items()}
-                  for m, p in layer.items()} for layer in v]
-                if k == "layers" else {n: t.to(cpu) for n, t in v.items()})
-            for k, v in params.items()}
+
+    def copy(v):
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [copy(x) for x in v]
+        return v.to(cpu)
+    return copy(params)
 
 
 def two_layers(torch, params, cfg):
@@ -2091,7 +2130,9 @@ def compare_devices(torch, label, dev, run, sub, sub_cpu, phases,
     must catch it, module, function, fault). Returns the card run's
     launches, summed over its phases."""
     plain = run(torch.device("cpu"), sub_cpu)
-    check(not any(seen for _, seen in plain), "the CPU run launched a kernel")
+    # the MoE routes count on both devices (models/moe.py): not kernels
+    check(not any(not n.startswith("moe.") for _, seen in plain
+                  for n in seen), "the CPU run launched a kernel")
     plain = [x for x, _ in plain]
     total = {}
     tols = [p[3] if len(p) > 3 else XDEV_TOL for p in phases]
@@ -3798,6 +3839,7 @@ BF16_REL = 2.0 ** -7               # one bf16 step of a value
 # the int8_lr model's depth: half of Llama-2-7B's 32, since its rank-32
 # SVDs (3.5 s a layer on the card) are the smoke's largest single wall
 LR_LAYERS = 16
+DYN_LAYERS = 16      # phase 4i dyn's depth (the smoke's time)
 # phase 4i: kernels each run must show in its traced decode, by mark
 FORMAT_TRACED = {
     "dyn": {"wo_small_mma_kernel": "K4", "write_token_kernel": "K5",
@@ -4173,7 +4215,7 @@ def serve_dynamic(torch, seed: int, dev, gen) -> dict:
     control and the accuracy witness. Returns the run's launches."""
     from mixq_tensorrt_llm_tpu_torch.models import llama
     from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
-    cfg = format_config("int8_mix", "int8", dynamic=True)
+    cfg = format_config("int8_mix", "int8", layers=DYN_LAYERS, dynamic=True)
     t = time.perf_counter()
     params = llama.init_random_params(
         cfg, seed=seed, device=dev,
@@ -5019,6 +5061,8 @@ def cross_device_extras(torch, lp, cfg, seed: int, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 FAM_LONG, FAM_MAX_LEN = 4400, 4864   # 4k(a): the long request, max_seq_len
+FAM_LAYERS = 22                      # 4k(a): Gemma-2-9B's depth served (of
+#                                      42: the smoke's time)
 FAM_SESSION_LEN = 768                # 4k(a): the session's max_seq_len
 FAM_TOL = 2e-2                       # 4k(b): card vs CPU, of max |logit|
 WITNESS_WINDOW, WITNESS_PROMPT = 256, 600   # 4k(b)'s Gemma-2 witness
@@ -5303,7 +5347,7 @@ def serve_gemma2(torch, seed: int, dev, gen) -> tuple:
     from mixq_tensorrt_llm_tpu_torch.ops import paged_attention as pa
     from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
     from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
-    cfg = gemma2_9b_config(torch)
+    cfg = gemma2_9b_config(torch, layers=FAM_LAYERS)
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = families.init_random_params(
@@ -5582,6 +5626,454 @@ def cross_device_families(torch, seed: int, dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the expert models (Mixtral-8x7B at full width and depth;
+# Mixtral-8x7B, Qwen1.5-MoE-A2.7B and Qwen3-30B-A3B widths at 2 layers card
+# against CPU; K4 alone at Mixtral's expert shapes)
+# ---------------------------------------------------------------------------
+
+MOE_NEW, MOE_BEAM_NEW, MOE_BEAM_REQS = 32, 16, 2     # 4l(a)
+# 4l(b): card vs CPU, of max |logit|, each witness at the limit of the
+# phase that holds its dense path: Mixtral's attention, linears, vocab and
+# head are Llama-2-7B's (phase 5, whose prefill reads 2-3e-2), the Qwen
+# models' those of the families (phase 4k)
+MOE_TOL = {"Mixtral-8x7B": XDEV_TOL, "Qwen1.5-MoE-A2.7B": FAM_TOL,
+           "Qwen3-30B-A3B": FAM_TOL}
+MOE_CONTROL_X = 3.0                  # 4l(b): a control's least multiple
+MOE_PROMPT = 256                     # 4l(b): the witnesses' prompt
+# 4l(c): K4 at Mixtral's expert products, (label, K, N, M): 9 rows (the
+# all-rows route at 9 lanes) and ~150 (a sorted prefill group)
+MOE_K4_CASES = [(lb, k, n, m) for m in (9, 150) for lb, k, n in (
+    ("gate_up", 4096, 2 * 14336), ("down", 14336, 4096))]
+# the MoE routes' counts (a moe.sorted call is one host readback)
+MOE_ROUTES = ("moe.sorted", "moe.all_rows", "moe.groups")
+ON_PATH.update({
+    # Mixtral-8x7B through the Executor: K1 -> K2 for qkv / o at the
+    # prefill chunks, every expert product K4 (its prefill regime on a
+    # sorted group, decode in the replays), K4 for qkv / o in the
+    # replays, K5-K8; the prefill's MoE layers sorted, the rungs' all rows
+    "mixtral": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+                "wo_matmul.decode", "wo_matmul.prefill", "paged_write_token",
+                "paged_write_chunk", "paged_decode_attention",
+                "paged_prefill_attention", "moe.sorted", "moe.all_rows"],
+    # its beam bursts: K10 on the pool prefix, every expert K4
+    "mixtral_beam": ["paged_decode_attention_stats", "wo_matmul",
+                     "moe.all_rows", "rmsnorm_quant_split", "mixed_matmul",
+                     "paged_write_chunk", "paged_prefill_attention"]})
+OFF_PATH.update({
+    "mixtral": ["paged_decode_attention_split", "paged_verify_attention",
+                "paged_decode_attention_rows", "wo_matmul_packed",
+                "moe.dense"] + NO_GATHER,
+    "mixtral_beam": ["paged_decode_attention", "paged_write_token",
+                     "moe.dense"] + NO_GATHER})
+
+
+def mixtral_8x7b_config(torch, layers: int = 32):
+    """mistralai/Mixtral-8x7B-v0.1's published config.json: vocab 32000,
+    hidden 4096, intermediate 14336, 32 layers, 32 query heads and 8 KV
+    heads of 128, 8 experts, top 2 (renormalized), rope theta 1e6, no
+    sliding window, untied head, RMSNorm eps 1e-5; int8_mix (128
+    outliers: qkv / o mixed, the experts W8A16) with int8 KV."""
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (
+        KVCacheQuantAlgo, QuantAlgo, QuantConfig)
+    return ModelConfig(
+        arch="mixtral", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_layers=layers, num_heads=32,
+        num_kv_heads=8, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-5,
+        max_position_embeddings=32768, num_experts=8, top_k_experts=2,
+        tie_word_embeddings=False, dtype=torch.bfloat16,
+        quant=QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128,
+                          kv_cache=KVCacheQuantAlgo.INT8))
+
+
+def moe_witness_configs(torch) -> dict:
+    """4l(b)'s 2-layer witnesses, HF configs written from the published
+    config.json and read by the port's readers: Mixtral-8x7B
+    (``mixtral_8x7b_config``), Qwen/Qwen1.5-MoE-A2.7B (hidden 2048, 16
+    heads of 128, 60 experts of 1408, top 4 not renormalized, a shared
+    expert of 5632 behind a sigmoid gate, qkv biases, vocab 151936) and
+    Qwen/Qwen3-30B-A3B (hidden 2048, 32 query heads and 4 KV heads of 128,
+    q/k norms, 128 experts of 768, top 8 renormalized, vocab 151936);
+    int8_mix (128 outliers) with int8 KV."""
+    import types
+    from mixq_tensorrt_llm_tpu_torch.models import families
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (
+        KVCacheQuantAlgo, QuantAlgo, QuantConfig)
+    quant = QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128,
+                        kv_cache=KVCacheQuantAlgo.INT8)
+    common = dict(vocab_size=151936, hidden_size=2048, num_hidden_layers=2,
+                  max_position_embeddings=32768, rope_theta=1e6,
+                  rms_norm_eps=1e-6, use_sliding_window=False,
+                  tie_word_embeddings=False, decoder_sparse_step=1,
+                  mlp_only_layers=[])
+    hf = {"Qwen1.5-MoE-A2.7B": dict(
+              common, model_type="qwen2_moe", intermediate_size=5632,
+              num_attention_heads=16, num_key_value_heads=16,
+              num_experts=60, num_experts_per_tok=4, norm_topk_prob=False,
+              moe_intermediate_size=1408,
+              shared_expert_intermediate_size=5632),
+          "Qwen3-30B-A3B": dict(
+              common, model_type="qwen3_moe", intermediate_size=6144,
+              num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+              num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+              moe_intermediate_size=768)}
+    out = {"Mixtral-8x7B": mixtral_8x7b_config(torch, layers=2)}
+    out.update({name: families.config_from_hf(types.SimpleNamespace(**c),
+                                              quant)
+                for name, c in hf.items()})
+    return out
+
+
+def check_expert_k4(torch, gen, dev) -> list:
+    """4l(c): K4 alone at Mixtral's expert products (MOE_K4_CASES) against
+    its plain version, two launches bit-equal, timed beside its bound and
+    torch._weight_int8pack_mm, f32 out as the MoE layer asks. Returns the
+    kernels-line rows."""
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    bf, sms = torch.bfloat16, wm.sm_count(dev.index or 0)
+    f32 = torch.float32
+    rows = []
+    for label, k, n, m in MOE_K4_CASES:
+        xk = torch.randn((m, k), generator=gen, device=dev).to(bf)
+        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
+        regime = wm.k4_regime(wm.wo_plan(m, k, n, sms))
+        k4 = (lambda: wm.wo_matmul(xk, qw, scol, out_dtype=f32),
+              lambda: wm.wo_matmul_plain(xk, qw, scol, out_dtype=f32))
+        out, again, want = k4[0](), k4[0](), k4[1]()
+        torch.cuda.synchronize()
+        err = gemm_err(out, want)
+        check(err <= gemm_tol(f32), f"4l(c) K4 {label} M={m}: rel err {err}")
+        check(torch.equal(out, again), f"4l(c) K4 {label} M={m}: two "
+              "launches on the same inputs differ")
+        ms, pms, wms = measure(torch, *k4, K4_MARKS[regime], "wo_matmul",
+                               30, 5)
+        flops = 2.0 * m * n * k
+        bnd = bound(m * k * 2 + k * n + n * 4 + m * n * 4, flops)
+        lib = int8pack_library(torch, xk, qw, scol, want, 20)
+        lib_s = ("none" if lib is None
+                 else f"{lib[0]:.5f} ms, rel err {lib[1]:.2e}")
+        print(f"4l(c) K4 wo_matmul ({regime}) Mixtral expert {label} M={m} "
+              f"K={k} N={n} f32 out: max rel err {err:.2e}, repeat "
+              f"bit-equal; device {ms:.5f} ms per launch (plain {pms:.5f} "
+              f"ms; wrapper {wms:.5f} ms; bound {bnd[0]:.5f} ms, by "
+              f"{bnd[1]}, {bnd[0] / ms:.2f} of it; "
+              f"torch._weight_int8pack_mm {lib_s})", flush=True)
+        rows.append(dict(name=f"wo_matmul[Mixtral expert {label} M={m}]",
+                         M=m, K=k, N=n, kernel=regime, max_abs_err=err,
+                         ms=ms, plain_ms=pms, bound_ms=bnd[0],
+                         bound_by=bnd[1],
+                         library_ms=None if lib is None else lib[0]))
+        del xk, qw, scol, out, again, want
+    return rows
+
+
+def _param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _routes(launches: dict) -> str:
+    return ", ".join(f"{n} {launches.get(n, 0)}" for n in MOE_ROUTES)
+
+
+def serve_mixtral(torch, seed: int, dev, gen) -> dict:
+    """4l(a): Mixtral-8x7B (``mixtral_8x7b_config``, 32 layers, random
+    weights from ``seed`` through models/llama.init_random_params on the
+    card, a layer's f32 experts at a time) serves phase 4's 8 requests, 32
+    greedy tokens each, through an Executor (block_size 128) after
+    warmup(burst=16): every lane its tokens, finite; every decode call a
+    replay, no program after warmup; each rung's graph holds 2 + 2 x 8 K4
+    launches a layer a step and the all-rows route only; the prefill
+    calls' K4 launches are 2 a non-empty expert group, one MoE readback a
+    layer a prefill call. Then one run_beams burst (2 requests x 4 beams x
+    16 tokens) after warmup_beams, every burst a replay with K10 on the
+    pool prefix. Returns {path: launches}."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    cfg = mixtral_8x7b_config(torch)
+    layers = cfg.num_layers
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen.manual_seed(seed)
+    params = llama.init_random_params(
+        cfg, device=dev, generator=gen,
+        act_scales=sp.distinct_act_scales(cfg, gen, dev))
+    torch.cuda.synchronize()
+    wbytes = _param_bytes(params)
+    experts = sum(_param_bytes({k: lp["moe"][k] for k in ("gate_up", "down")})
+                  for lp in params["layers"])
+    print(f"model: Mixtral-8x7B geometry, {layers} layers, int8_mix (128 "
+          f"outliers; the experts W8A16) / int8 KV, random weights in "
+          f"{time.perf_counter() - t:.1f} s; weights {wbytes / 1e9:.2f} GB "
+          f"({experts / 1e9:.2f} GB of int8 experts); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while "
+          f"drawing", flush=True)
+    prompts = sp.ragged_prompts(seed, cfg.vocab_size)
+    ex = Executor(params, cfg, max_batch=len(prompts), max_seq_len=768,
+                  block_size=128, prefill_chunk=256, seed=seed, device=dev)
+    pool_b = 2 * (ex.state.k.numel() + ex.state.k_scale.numel() * 4)
+    t = time.perf_counter()
+    ex.warmup(burst=BURST)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    for key, rung in ex._rungs.items():
+        k = rung.k
+        check(rung.launches.get("wo_matmul", 0)
+              == k * layers * (2 + 2 * cfg.num_experts)
+              and rung.launches.get("moe.all_rows", 0) == k * layers
+              and not any(rung.launches.get(n) for n in
+                          ("moe.sorted", "moe.groups")),
+              f"phase 4l: rung {key}'s graph holds {_routes(rung.launches)}"
+              f", K4 {rung.launches.get('wo_matmul', 0)} (expected "
+              f"{k * layers * (2 + 2 * cfg.num_experts)})")
+    reads = ex.readbacks
+    r = decode_run(torch, sp, params, cfg, prompts, seed, dev, ex, BURST)
+    launches = r["launches"]
+    toks = r["toks"]
+    check(all(len(t) == MOE_NEW for t in toks),
+          f"phase 4l: not every lane got {MOE_NEW} tokens "
+          f"({[len(t) for t in toks]})")
+    check(all(math.isfinite(x) for lps in r["logprobs"] for x in lps),
+          "phase 4l: a log-probability is not finite")
+    check(r["replays"] == r["calls"] > 0, f"phase 4l: {r['replays']} "
+          f"replays for {r['calls']} decode calls")
+    check(ex.compiles_since_warmup == 0,
+          f"phase 4l: {ex.compiles_since_warmup} programs after warmup")
+    k8 = launches.get("paged_prefill_attention", 0)
+    check(k8 > 0 and k8 % layers == 0, f"phase 4l: K8 launched {k8} times, "
+          "not once a layer a prefill call")
+    check(launches.get("moe.sorted", 0) == k8, f"phase 4l: "
+          f"{_routes(launches)} for {k8 // layers} prefill calls of "
+          f"{layers} layers (one sorted route and readback a layer a call)")
+    decode_k4 = r["steps"] * layers * (2 + 2 * cfg.num_experts)
+    prefill_k4 = 2 * launches.get("moe.groups", 0)
+    check(launches.get("wo_matmul", 0) == decode_k4 + prefill_k4,
+          f"phase 4l: K4 launched {launches.get('wo_matmul', 0)} times, not "
+          f"{decode_k4} in the replays ({r['steps']} steps x {layers} layers"
+          f" x 18) + {prefill_k4} in the prefill calls (2 a non-empty "
+          f"expert group)")
+    check(launches.get("moe.all_rows", 0) == r["steps"] * layers,
+          f"phase 4l: the all-rows route ran {launches.get('moe.all_rows')}"
+          f" times for {r['steps']} steps x {layers} layers")
+    for name in ("paged_write_token", "paged_write_chunk",
+                 "paged_decode_attention", "paged_prefill_attention"):
+        check(launches.get(name, 0) > 0, f"phase 4l: {name} not launched")
+    _on_path(launches, "mixtral")
+    dec_ms = r["decode_s"] * 1e3
+    pre_ms = max(r["prefill_profiled_ms"], 1e-9)
+    print(f"phase 4l(a) Mixtral-8x7B: 8 requests, prompts "
+          f"{[len(p) for p in prompts]} tokens, {MOE_NEW} generated each at "
+          f"burst {BURST}; warmup {warm_s:.1f} s; wall {r['wall']:.3f} s = "
+          f"prefill {r['prefill_s']:.3f} s + decode {r['decode_s']:.3f} s "
+          f"({r['steps']} steps in {r['calls']} calls, {r['replays']} graph "
+          f"replays); TPOT {dec_ms / r['steps']:.2f} ms a step for "
+          f"{len(prompts)} lanes (bound: {experts / 1e9:.2f} GB of experts "
+          f"read once a step, {experts / HBM_BYTES_PER_MS:.2f} ms); "
+          f"{r['gen'] / r['wall']:.1f} generated tok/s; decode idle share "
+          f"{1 - r['busy_ms'] / dec_ms:.3f}; prefill idle share "
+          f"{1 - r['prefill_busy_ms'] / pre_ms:.3f} (profiled run); token "
+          f"readbacks {ex.readbacks - reads} (both runs), MoE readbacks "
+          f"{launches.get('moe.sorted', 0)} = {layers} a prefill call "
+          f"(timed run); routes: {_routes(launches)}; K4 {decode_k4} in the "
+          f"replays + {prefill_k4} in the prefill calls; pools "
+          f"{pool_b / 1e9:.2f} GB; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del ex
+    torch.cuda.empty_cache()
+
+    import numpy as np
+    rng = np.random.default_rng(seed + 20)
+    bprompts = [rng.integers(1, cfg.vocab_size, int(m)).tolist()
+                for m in rng.integers(200, 257, MOE_BEAM_REQS)]
+    ex = Executor(params, cfg, max_batch=MOE_BEAM_REQS, block_size=128,
+                  max_seq_len=512, device=dev)
+    t = time.perf_counter()
+    ex.warmup_beams(num_beams=BEAMS, burst=BEAM_BURST, prompt_bucket=256,
+                    max_new_tokens=MOE_BEAM_NEW)
+    torch.cuda.synchronize()
+    bwarm = time.perf_counter() - t
+    b = beam_run(torch, ex, bprompts, MOE_BEAM_NEW, False)
+    blaunch = b["launches"]
+    check(ex.compiles_since_warmup == 0, f"phase 4l: "
+          f"{ex.compiles_since_warmup} beam programs after warmup_beams")
+    check(b["graph_replays"] == b["bursts"] > 0, f"phase 4l: "
+          f"{b['graph_replays']} replays for {b['bursts']} beam bursts")
+    check(all(len(g) == MOE_BEAM_NEW for g in b["toks"]),
+          "phase 4l: a beam request did not get its tokens")
+    k10 = blaunch.get("paged_decode_attention_stats", 0)
+    check(k10 == layers * b["burst_steps"], f"phase 4l: K10 launched {k10} "
+          f"times for {b['burst_steps']} burst steps x {layers} layers")
+    check(blaunch.get("moe.all_rows", 0) == layers * b["burst_steps"],
+          f"phase 4l: beam bursts' routes {_routes(blaunch)}")
+    _on_path(blaunch, "mixtral_beam")
+    print(f"phase 4l(a) run_beams(burst={BEAM_BURST}): {MOE_BEAM_REQS} "
+          f"requests x {BEAMS} beams x {MOE_BEAM_NEW} tokens after "
+          f"warmup_beams ({bwarm:.1f} s); wall {b['wall'] * 1e3:.1f} ms = "
+          f"prefill {b['prefill_s'] * 1e3:.1f} ms + bursts "
+          f"{(b['wall'] - b['prefill_s']) * 1e3:.1f} ms ({b['burst_steps']} "
+          f"steps, {b['bursts']} bursts, {b['graph_replays']} replays); "
+          f"routes: {_routes(blaunch)}; K10 {k10}", flush=True)
+    del ex, params
+    torch.cuda.empty_cache()
+    return {"mixtral": launches, "mixtral_beam": blaunch}
+
+
+def swap_kth(real):
+    """A control: each token's k-th expert replaced by its (k+1)-th, the
+    weights renormalized as the config says."""
+    import torch
+
+    def top_k(probs, k, norm):
+        vals, ids = real(probs, k + 1, False)
+        # slices only: an index list would be copied to the card, which a
+        # graph's capture refuses
+        vals = torch.cat([vals[:, :k - 1], vals[:, k:]], dim=1)
+        ids = torch.cat([ids[:, :k - 1], ids[:, k:]], dim=1)
+        if norm:
+            vals = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+        return vals, ids
+    return top_k
+
+
+def flip_renorm(real):
+    """A control: the top-k renormalization flipped."""
+    return lambda probs, k, norm: real(probs, k, not norm)
+
+
+def moe_witness(torch, cfg, prompt, forced):
+    """compare_devices' run(device, params) for a 2-layer expert witness,
+    eager through forward_paged on int8 pages of 128: the prompt in one
+    prefill call (the sorted route), then WITNESS_STEPS decode steps of
+    the ``forced`` tokens (all rows). Returns the run, the card's expert
+    choices of every MoE call (``routes``, filled by a card run) and, for
+    the CPU run, how many tokens its own router sent to another expert
+    set (``flips``). A CPU run after a card run takes the card's choices,
+    weighted by its own probabilities at them: where the two devices'
+    activations round a near-tie apart, a token would otherwise go to
+    other experts, which is the router's arithmetic, not a kernel's."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import moe
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    from mixq_tensorrt_llm_tpu_torch.runtime.kv_cache import init_paged_kv
+    n = len(prompt)
+    routes, flips = [], []
+
+    def run(device, p):
+        real, calls = moe.top_k, [0]
+
+        def top_k(probs, k, norm):
+            vals, ids = real(probs, k, norm)
+            if device.type != "cpu":
+                if calls[0] >= len(routes):
+                    routes.append(ids.cpu())
+            elif routes:
+                card = routes[calls[0]]
+                flips.append(int((ids.sort(-1).values != card.sort(-1)
+                                  .values).any(-1).sum()))
+                ids = card
+                vals = torch.gather(probs, 1, ids)
+                if norm:
+                    vals = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+            calls[0] += 1
+            return vals, ids
+        moe.top_k = top_k
+        try:
+            state = init_paged_kv(cfg, 4, 128, device=device)
+            table = torch.tensor([[1, 2, 3]], dtype=torch.int32,
+                                 device=device)
+            length = torch.tensor([n], dtype=torch.int32, device=device)
+            _build.reset_launches()
+            lg, _ = mc.forward_paged(
+                p, cfg, torch.tensor([prompt], device=device),
+                torch.arange(n, dtype=torch.int32, device=device)[None],
+                state, table, length, last_pos=length - 1)
+            out = [(lg[0, 0].float().cpu(), dict(_build.LAUNCHES))]
+            for i, tok in enumerate(forced):
+                _build.reset_launches()
+                lg, _ = mc.forward_paged(
+                    p, cfg, torch.tensor([[tok]], device=device),
+                    length[:, None] + i, state, table, length + i + 1)
+                out.append((lg[0, 0].float().cpu(), dict(_build.LAUNCHES)))
+        finally:
+            moe.top_k = real
+        return out
+    return run, routes, flips
+
+
+def cross_device_moe(torch, seed: int, dev) -> dict:
+    """4l(b): card against CPU at 2 layers of full widths
+    (``moe_witness_configs``), each a MOE_PROMPT-token prefill call (the
+    sorted route on both devices) and WITNESS_STEPS decode steps (all
+    rows) through forward_paged (``moe_witness``: the CPU takes the card's
+    expert choices; how many of its own differ is printed), logits within
+    the witness's MOE_TOL of the largest; then two controls on the card,
+    each of which must move the logits by at least MOE_CONTROL_X times
+    that limit: the top-k renormalization flipped, and each token's k-th
+    expert replaced by its (k+1)-th. Returns the card runs' launches."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models import families, moe
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    gen = torch.Generator(device=dev)
+    rng = np.random.default_rng(seed + 21)
+    total = {}
+    for label, cfg in moe_witness_configs(torch).items():
+        gen.manual_seed(seed)
+        params = families.init_random_params(
+            cfg, device=dev, generator=gen,
+            act_scales=sp.distinct_act_scales(cfg, gen, dev))
+        prompt = rng.integers(1, cfg.vocab_size, MOE_PROMPT).tolist()
+        forced = rng.integers(1, cfg.vocab_size, WITNESS_STEPS).tolist()
+        run, routes, flips = moe_witness(torch, cfg, prompt, forced)
+        tol = MOE_TOL[label]
+        t = time.perf_counter()
+        card = [x for x, _ in run(dev, params)]       # records its routes
+        phases = [("prefill", ("rmsnorm_quant_split", "mixed_matmul",
+                               "wo_matmul", "moe.sorted",
+                               "paged_write_chunk",
+                               "paged_prefill_attention"),
+                   ("moe.all_rows", "moe.dense", "paged_gather"), tol)
+                  ] + [(f"decode step {i + 1}", (
+                      "wo_matmul", "moe.all_rows", "paged_write_token",
+                      "paged_decode_attention"), ("moe.sorted",), tol)
+                      for i in range(WITNESS_STEPS)]
+        seen = compare_devices(torch, f"4l(b) {label} widths", dev, run,
+                               params, cpu_copy(torch, params), phases)
+        calls = len(routes)
+        print(f"4l(b) {label}: tokens the CPU's own router sent to another "
+              f"expert set than the card's, by MoE call (prefill's layers, "
+              f"then each step's): {flips[:calls]}", flush=True)
+        for n, c in seen.items():
+            total[n] = total.get(n, 0) + c
+        for name, fault in (("top-k renormalization flipped", flip_renorm),
+                            ("k-th expert replaced by the (k+1)-th",
+                             swap_kth)):
+            real = moe.top_k
+            moe.top_k = fault(real)
+            try:
+                r = max(_rel(x, w) for (x, _), w in
+                        zip(run(dev, params), card))
+            finally:
+                moe.top_k = real
+            print(f"4l(b) {label} control, {name}: {r:.3e} = "
+                  f"{r / tol:.1f}x the tolerance {tol}", flush=True)
+            check(r >= MOE_CONTROL_X * tol, f"phase 4l: the control "
+                  f"({name}) at {label} moved the logits by {r:.3e}, under "
+                  f"{MOE_CONTROL_X}x the tolerance")
+        print(f"phase 4l(b) {label}: {time.perf_counter() - t:.1f} s; "
+              f"card routes {_routes(seen)}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5637,6 +6129,7 @@ def main() -> int:
     check_packed(torch, gen, dev, results)
     check_flash(torch, gen, dev, results)
     check_family_kernels(torch, gen, dev, results)
+    expert_rows = check_expert_k4(torch, gen, dev)      # phase 4l(c)
     print(f"phase 3: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4. main path: Llama-2-7B int8_mix / int8 KV
@@ -5727,7 +6220,9 @@ def main() -> int:
     # 4h. the quantization pipeline: HF directory -> calibrated act_scales
     # -> checkpoint -> LLM -> perplexity
     t = time.perf_counter()
-    launches["hf"] = quantize_pipeline(torch, args.seed, dev)
+    from mixq_tensorrt_llm_tpu_torch.tools import random_hf
+    launches["hf"] = quantize_pipeline(torch, args.seed, dev, config=dict(
+        random_hf.LLAMA2_7B_HF, num_hidden_layers=HF_LAYERS))
     print(f"phase 4h: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4i. dynamic outliers, fp8 and int8_lr at Llama-2-7B width
@@ -5746,6 +6241,15 @@ def main() -> int:
     for n, c in cross_device_families(torch, args.seed, dev).items():
         xdev[n] = xdev.get(n, 0) + c
     print(f"phase 4k: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 4l. the expert models (K4 at Mixtral's expert shapes ran in phase
+    # 3): Mixtral-8x7B served at full width and depth, then 2-layer
+    # witnesses card against CPU
+    t = time.perf_counter()
+    launches.update(serve_mixtral(torch, args.seed, dev, gen))
+    for n, c in cross_device_moe(torch, args.seed, dev).items():
+        xdev[n] = xdev.get(n, 0) + c
+    print(f"phase 4l: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
@@ -5805,6 +6309,14 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r.get("library_ms"),
                      "library": r.get("library")})
+    # K4 at Mixtral's expert products (phase 4l(c)); its launches are the
+    # Mixtral paths' (every expert product a K4 launch)
+    moe_k4 = sum(launches[p].get("wo_matmul", 0)
+                 for p in ("mixtral", "mixtral_beam"))
+    for r in expert_rows:
+        rows.append({"route": "cuda", "source": SRC + "wo_matmul.cu",
+                     "replaces": KERNELS["wo_matmul"][0],
+                     "launches": moe_k4, **r})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -4,7 +4,8 @@ format (counterpart of convert/checkpoint.py).
 Tensors keep their real dtypes (int8, int32, bf16, f32) under the JAX
 package's flattened names (an e4m3 tensor as its U8 bytes, its name
 marked ``@e4m3``, as the JAX package writes it), layers stacked on axis 0
-(``layers.qkv_proj.qweight`` is (L, in, out)). The safetensors format is
+(``layers.qkv_proj.qweight`` is (L, in, out), an expert stack
+``layers.moe.gate_up.qweight`` (L, E, in, out)). The safetensors format is
 read and written here without the safetensors package: an 8-byte
 little-endian header length, a JSON header of ``{name: {"dtype", "shape",
 "data_offsets"}}``, then the raw bytes. Loading validates the required
@@ -136,8 +137,16 @@ def _validate(params: Dict, cfg: ModelConfig) -> None:
     if cfg.embed_norm and "embed_norm" not in params:
         missing.append("embed_norm")
     layers = params.get("layers", {})
-    for mod in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj",
-                *layer_norms(cfg)):
+    mods = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+    if cfg.num_experts:
+        mods = ("qkv_proj", "o_proj")
+        if "moe" not in layers:
+            missing.append("layers.moe")
+        else:
+            missing += [f"layers.moe.{sub}" for sub in
+                        ("router", "gate_up", "down")
+                        if sub not in layers["moe"]]
+    for mod in (*mods, *layer_norms(cfg)):
         if mod not in layers:
             missing.append(f"layers.{mod}")
             continue
@@ -147,7 +156,9 @@ def _validate(params: Dict, cfg: ModelConfig) -> None:
                 missing.append(f"layers.{mod}.{t}")
     if missing:
         raise ValueError(f"checkpoint is missing required tensors: {missing}")
-    first = next(iter(next(iter(layers.values())).values()))
+    first = layers["qkv_proj"]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
     if first.shape[0] != cfg.num_layers:
         raise ValueError(f"checkpoint has {first.shape[0]} stacked layers, "
                          f"config says {cfg.num_layers}")
@@ -181,12 +192,24 @@ def save_checkpoint(path: str, params: Dict, cfg: ModelConfig) -> None:
     flat = {}
     for name, sub in params.items():
         if name == "layers":
-            for mod, leaves in sub[0].items():
-                for leaf, t in leaves.items():
-                    flat[name_of(f"layers.{mod}.{leaf}", t)] = torch.stack(
-                        [qcore.raw(layer[mod][leaf].detach().cpu())
-                         for layer in sub])
+            per_layer = [_flatten(layer, "layers.") for layer in sub]
+            for key, t in per_layer[0].items():
+                flat[name_of(key, t)] = torch.stack(
+                    [qcore.raw(layer[key].detach().cpu())
+                     for layer in per_layer])
         else:
-            for leaf, t in sub.items():
-                flat[name_of(f"{name}.{leaf}", t)] = qcore.raw(t)
+            for key, t in _flatten(sub, name + ".").items():
+                flat[name_of(key, t)] = qcore.raw(t)
     write_safetensors(os.path.join(path, WEIGHTS_NAME), flat)
+
+
+def _flatten(tree: Dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """A nested dict's leaves under their dotted names (an expert layer's
+    ``moe.gate_up.qweight`` one level deeper than a linear's)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out

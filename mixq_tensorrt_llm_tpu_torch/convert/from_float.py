@@ -19,10 +19,23 @@ from ..quant.config import QuantConfig
 
 def _float_layer(layer: Dict) -> Dict:
     """A float layer's params -> the raw-weight dict ``_quantize_layer``
-    takes (module name -> (in, out) weight)."""
+    takes (module name -> (in, out) weight; an expert layer's router and
+    float stacks, and Qwen2-MoE's shared expert, which the JAX package's
+    requantize leaves out)."""
     fl: Dict = {"input_norm": layer["input_norm"]["w"],
                 "post_norm": layer["post_norm"]["w"]}
-    for mod in mllama.LINEAR_MODULES:
+    mods = mllama.LINEAR_MODULES
+    if "moe" in layer:            # an expert layer: float stacks
+        moe = layer["moe"]
+        fl.update(router_w=moe["router"]["w"],
+                  experts_gate_up=moe["gate_up"]["w"],
+                  experts_down=moe["down"]["w"])
+        if "shared_gate_up" in moe:
+            fl.update(shared_gate_up_w=(moe["shared_gate_up"]["w"], None),
+                      shared_down_w=(moe["shared_down"]["w"], None),
+                      shared_gate_w=moe["shared_gate"]["w"])
+        mods = ("qkv_proj", "o_proj")
+    for mod in mods:
         p = layer[mod]
         if "w" not in p:
             raise ValueError(f"requantize needs a float tree; {mod} has "

@@ -1,11 +1,11 @@
 """Load the JAX package's params pytree into the port.
 
 ``params_from_numpy`` takes the pytree of mixq_tensorrt_llm_tpu (any
-dense decoder family) as numpy arrays — ``jax.tree.map(np.asarray,
-params)``, layers stacked on axis 0 — checks every leaf's dtype and shape against the
-params schema the config implies, and returns the port's params: the same
-dicts, with ``layers`` a list of per-layer dicts of torch tensors on
-``device``. bfloat16 leaves arrive as ml_dtypes arrays and are converted
+dense decoder family or expert model) as numpy arrays —
+``jax.tree.map(np.asarray, params)``, layers stacked on axis 0 — checks
+every leaf's dtype and shape against the params schema the config
+implies, and returns the port's params: the same dicts, with ``layers``
+a list of per-layer dicts of torch tensors on ``device``. bfloat16 leaves arrive as ml_dtypes arrays and are converted
 exactly through float32, float8_e4m3fn leaves (ml_dtypes) through their
 bytes. Leaves may also be torch tensors of the schema's
 dtypes, as ``convert.checkpoint.load_checkpoint`` reads them.
@@ -81,9 +81,47 @@ def layer_norms(cfg: ModelConfig) -> Dict[str, int]:
     return out
 
 
+def _stack_schema(algo: QuantAlgo, e: int, n_in: int, n_out: int,
+                  group_size: int) -> Dict[str, tuple]:
+    """An expert stack (models/moe.quantize_expert_linear): float ``w``,
+    else an int8-held ``qweight`` (E, in, out) with ``scale_g`` under
+    W4A16_G or ``scale_col`` (E, out)."""
+    if algo == QuantAlgo.NONE:
+        return {"w": (torch.bfloat16, (e, n_in, n_out))}
+    s = {"qweight": (torch.int8, (e, n_in, n_out))}
+    if algo == QuantAlgo.W4A16_G:
+        s["scale_g"] = (torch.float32, (e, n_in // group_size, n_out))
+    else:
+        s["scale_col"] = (torch.float32, (e, n_out))
+    return s
+
+
+def moe_schema(cfg: ModelConfig, packed=(), biases=()) -> Dict[str, Dict]:
+    """One layer's ``moe`` entry: the router (bf16 (H, E)), the gate_up and
+    down expert stacks and, with a shared expert, its two linears under
+    the experts' algo (``packed`` / ``biases`` name those of them stored
+    packed / with a bias) and its gate (f32 (H, 1))."""
+    from ..models.moe import expert_algo
+    algo, gs = expert_algo(cfg), cfg.quant.group_size
+    h, e = cfg.hidden_size, cfg.num_experts
+    mi = cfg.moe_intermediate or cfg.intermediate_size
+    out = {"router": {"w": (torch.bfloat16, (h, e))},
+           "gate_up": _stack_schema(algo, e, h, 2 * mi, gs),
+           "down": _stack_schema(algo, e, mi, h, gs)}
+    si = cfg.moe_shared_intermediate
+    if si:
+        for name, dims in (("shared_gate_up", (h, 2 * si)),
+                           ("shared_down", (si, h))):
+            out[name] = _linear_schema(algo, *dims, 0, name in biases,
+                                       gs, packed=name in packed)
+        out["shared_gate"] = {"w": (torch.float32, (h, 1))}
+    return out
+
+
 def layer_schema(cfg: ModelConfig, packed=(),
                  biases=()) -> Dict[str, Dict[str, tuple]]:
-    """{module: {leaf: (dtype, shape)}} for one decoder layer; the modules
+    """{module: {leaf: (dtype, shape)}} for one decoder layer (an expert
+    layer's ``moe`` entry one level deeper: ``moe_schema``); the modules
     named in ``packed`` hold their int4 weight as ``qweight_packed``.
     Linear biases follow the config's bias axes; a norm or linear named in
     ``biases`` carries a bias ``b`` as well (a LayerNorm's bias is the HF
@@ -95,11 +133,14 @@ def layer_schema(cfg: ModelConfig, packed=(),
             "down_proj": (cfg.intermediate_size, h)}
     has_bias = {"qkv_proj": cfg.qkv_bias, "o_proj": cfg.attn_out_bias,
                 "gate_up_proj": cfg.mlp_bias, "down_proj": cfg.mlp_bias}
+    mods = ("qkv_proj", "o_proj") if cfg.num_experts else LINEAR_MODULES
     out = {mod: _linear_schema(cfg.module_algo(mod), *dims[mod], k,
                                bias=has_bias[mod] or mod in biases,
                                group_size=cfg.quant.group_size,
                                packed=mod in packed)
-           for mod in LINEAR_MODULES}
+           for mod in mods}
+    if cfg.num_experts:
+        out["moe"] = moe_schema(cfg, packed, biases)
     for name, n in layer_norms(cfg).items():
         out[name] = {"w": (torch.float32, (n,))}
         if name in biases:
@@ -179,25 +220,38 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
     for name, sub in top.items():
         _check_keys(tree[name], sub, name)
     stacked = tree["layers"]
-    schema = layer_schema(cfg, packed=[m for m in LINEAR_MODULES
-                                       if "qweight_packed" in
-                                       stacked.get(m, {})],
-                          biases=_with_bias(stacked))
-    _check_keys(stacked, schema, "layers")
-    layers = []
-    for i in range(cfg.num_layers):
-        layer = {}
-        for mod, sub in schema.items():
-            _check_keys(stacked[mod], sub, f"layers.{mod}")
-            layer[mod] = {}
-            for leaf, (dt, shape) in sub.items():
-                arr = _leaf(stacked[mod][leaf])
-                if arr.shape[0] != cfg.num_layers:
-                    raise ValueError(f"layers.{mod}.{leaf}: {arr.shape[0]} "
-                                     f"layers stacked, config has "
-                                     f"{cfg.num_layers}")
-                layer[mod][leaf] = _convert(arr[i], dt, shape,
-                                            f"layers.{i}.{mod}.{leaf}", dev)
-        layers.append(layer)
-    params["layers"] = layers
+    moe = stacked.get("moe", {})
+    entries = {**stacked, **moe}
+    schema = layer_schema(cfg, packed=[m for m, sub in entries.items()
+                                       if isinstance(sub, dict)
+                                       and "qweight_packed" in sub],
+                          biases=_with_bias(stacked) | _with_bias(moe))
+    _check_tree(stacked, schema, "layers")
+    params["layers"] = [_layer(stacked, schema, i, cfg.num_layers, dev,
+                               f"layers.{i}")
+                        for i in range(cfg.num_layers)]
     return params
+
+
+def _check_tree(tree: Dict, schema: Dict, where: str) -> None:
+    _check_keys(tree, schema, where)
+    for name, sub in schema.items():
+        if isinstance(sub, dict):
+            _check_tree(tree[name], sub, f"{where}.{name}")
+
+
+def _layer(stacked: Dict, schema: Dict, i: int, num_layers: int,
+           dev: torch.device, where: str) -> Dict:
+    """Layer i of a stacked (sub)tree, by the schema's nesting."""
+    out = {}
+    for name, sub in schema.items():
+        if isinstance(sub, dict):
+            out[name] = _layer(stacked[name], sub, i, num_layers, dev,
+                               f"{where}.{name}")
+            continue
+        arr = _leaf(stacked[name])
+        if arr.shape[0] != num_layers:
+            raise ValueError(f"{where}.{name}: {arr.shape[0]} layers "
+                             f"stacked, config has {num_layers}")
+        out[name] = _convert(arr[i], *sub, f"{where}.{name}", dev)
+    return out

@@ -34,8 +34,8 @@ from .checkpoint import read_safetensors, save_checkpoint
 
 # The class defaults of transformers' config classes (transformers 4.57)
 # for every field models/llama.config_from_hf and models/families
-# .config_from_hf read: what AutoConfig gives where a (diff-only)
-# config.json leaves a key out.
+# .config_from_hf read (the dense families and the expert models): what
+# AutoConfig gives where a (diff-only) config.json leaves a key out.
 _COMMON = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
                num_attention_heads=32, num_key_value_heads=None,
                rope_theta=10000.0, rms_norm_eps=1e-6, rope_scaling=None,
@@ -136,7 +136,37 @@ _CONFIG_DEFAULTS = {
                      intermediate_size=6912, max_position_embeddings=4096,
                      layer_norm_eps=1e-5, hidden_act="silu",
                      partial_rotary_factor=0.25, use_qkv_bias=False),
+    "mixtral": dict(_COMMON, intermediate_size=14336,
+                    num_key_value_heads=8, head_dim=None,
+                    max_position_embeddings=4096 * 32, rope_theta=1e6,
+                    rms_norm_eps=1e-5, sliding_window=None,
+                    num_local_experts=8, num_experts_per_tok=2),
+    "dbrx": dict(vocab_size=32000, d_model=2048, n_heads=16, n_layers=24,
+                 max_seq_len=2048, attn_config=None, ffn_config=None,
+                 tie_word_embeddings=False),
+    "qwen2_moe": dict(_COMMON, vocab_size=151936, hidden_size=2048,
+                      intermediate_size=5632, num_hidden_layers=24,
+                      num_attention_heads=16, num_key_value_heads=16,
+                      max_position_embeddings=32768,
+                      use_sliding_window=False, sliding_window=4096,
+                      num_experts=60, num_experts_per_tok=4,
+                      norm_topk_prob=False, moe_intermediate_size=1408,
+                      shared_expert_intermediate_size=5632,
+                      decoder_sparse_step=1, mlp_only_layers=[]),
+    "qwen3_moe": dict(_COMMON, vocab_size=151936, hidden_size=2048,
+                      intermediate_size=6144, num_hidden_layers=24,
+                      num_attention_heads=32, num_key_value_heads=4,
+                      max_position_embeddings=32768,
+                      use_sliding_window=False, sliding_window=4096,
+                      num_experts=128, num_experts_per_tok=8,
+                      norm_topk_prob=False, moe_intermediate_size=768,
+                      decoder_sparse_step=1, mlp_only_layers=[]),
 }
+# DBRX's nested configs (DbrxAttentionConfig, DbrxFFNConfig)
+_DBRX_ATTN = dict(clip_qkv=None, kv_n_heads=1, rope_theta=10000.0)
+_DBRX_FFN = dict(ffn_act_fn={"name": "silu"}, ffn_hidden_size=3584,
+                 moe_num_experts=4, moe_top_k=1,
+                 moe_normalize_expert_weights=1.0)
 _CONFIG_DEFAULTS["glm4"] = _CONFIG_DEFAULTS["glm"]
 for _alias in ("refinedweb", "refinedwebmodel"):
     _CONFIG_DEFAULTS[_alias] = _CONFIG_DEFAULTS["falcon"]
@@ -147,6 +177,9 @@ _ATTRIBUTE_MAPS = {
     "bloom": dict(num_hidden_layers="n_layer", num_attention_heads="n_head"),
     "mpt": dict(hidden_size="d_model", num_attention_heads="n_heads",
                 num_hidden_layers="n_layers"),
+    "dbrx": dict(hidden_size="d_model", num_attention_heads="n_heads",
+                 num_hidden_layers="n_layers",
+                 max_position_embeddings="max_seq_len"),
 }
 _ATTRIBUTE_MAPS["gptj"] = _ATTRIBUTE_MAPS["gpt_bigcode"] = \
     _ATTRIBUTE_MAPS["gpt2"]
@@ -158,14 +191,17 @@ _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
 
 def load_hf_config(hf_dir: str) -> types.SimpleNamespace:
     """config.json as an attribute object, with the defaults and
-    normalisation ``AutoConfig`` applies for the dense families: absent
-    keys take their class default (``_CONFIG_DEFAULTS``), the class's
+    normalisation ``AutoConfig`` applies for the dense families and the
+    expert models: absent keys take their class default
+    (``_CONFIG_DEFAULTS``), the class's
     attribute map gives its standard names, ``num_key_value_heads`` falls
     back to the head count (GPT-BigCode: 1 under multi_query), Llama's
     ``head_dim`` to hidden / heads, Falcon's ``num_kv_heads`` to the head
     count and ``ffn_hidden_size`` to 4 x hidden, OPT's
     ``word_embed_proj_dim`` to hidden, Qwen2's and Qwen3's
-    ``sliding_window`` is None unless ``use_sliding_window``, GPT-NeoX's
+    ``sliding_window`` is None unless ``use_sliding_window`` (and their
+    expert models' too), DBRX's nested ``attn_config`` / ``ffn_config``
+    take their classes' defaults key by key, GPT-NeoX's
     ``rotary_emb_base`` is its ``rope_theta``, MPT's ``attn_config``
     keeps alibi on unless it says otherwise, and a rope_scaling ``type``
     is also given as ``rope_type``. Other model types get the file's keys
@@ -180,8 +216,13 @@ def load_hf_config(hf_dir: str) -> types.SimpleNamespace:
             d["num_key_value_heads"] = heads
         if mt in ("llama", "aquila") and d["head_dim"] is None:
             d["head_dim"] = d["hidden_size"] // heads
-        if mt in ("qwen2", "qwen3") and not d["use_sliding_window"]:
+        if mt in ("qwen2", "qwen3", "qwen2_moe", "qwen3_moe") \
+                and not d["use_sliding_window"]:
             d["sliding_window"] = None
+        if mt == "dbrx":
+            d["attn_config"] = {**_DBRX_ATTN, **(d["attn_config"] or {})}
+            d["ffn_config"] = {**_DBRX_FFN, **(d["ffn_config"] or {})}
+            d["num_key_value_heads"] = d["attn_config"]["kv_n_heads"]
         if mt in ("falcon", "refinedweb", "refinedwebmodel"):
             if d["num_kv_heads"] is None:
                 d["num_kv_heads"] = heads

@@ -1,6 +1,7 @@
 """Model config, RoPE and ALiBi, the dense-cache decoder forward and the
 paged one (single device), config-driven across the dense decoder
-families (models/llama.py, models/families.py). Counterpart of
+families (models/llama.py, models/families.py) and the expert models
+(models/moe.py). Counterpart of
 mixq_tensorrt_llm_tpu/models/common.py.
 
 Params are plain dicts of tensors; ``params["layers"]`` is a list of
@@ -31,32 +32,29 @@ from ..quant.config import KVCacheQuantAlgo, QuantAlgo, QuantConfig
 from ..ops import attention as ops_attn
 from ..ops import dispatch
 from ..ops import ref as ops_ref
+from . import moe as moe_mod
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 # ModelConfig axes of the JAX package that the port does not honour yet
-# (the expert and state-space architectures), with the value that means
-# "off": a config that sets one raises, naming the module that brings it.
+# (the state-space architectures), with the value that means "off": a
+# config that sets one raises, naming the module that brings it.
 _UNPORTED_AXES = {
-    "num_experts": ("models/moe.py", 0),
-    "moe_intermediate": ("models/moe.py", 0),
-    "moe_shared_intermediate": ("models/moe.py", 0),
     "ssm_state_size": ("models/mamba.py", 0),
 }
 # axes only the refused ones read: carried at their defaults
-_IDLE_AXES = {"top_k_experts": 2, "moe_norm_topk": True, "conv_kernel": 4,
-              "dt_rank": 0, "use_conv_bias": True}
-# the dense decoder families (models/llama.py, models/families.py)
+_IDLE_AXES = {"conv_kernel": 4, "dt_rank": 0, "use_conv_bias": True}
+# the dense decoder families (models/llama.py, models/families.py) and the
+# expert models (models/moe.py)
 _PORTED_ARCHS = ("llama", "mistral", "qwen2", "opt", "gpt2", "gptj",
                  "gpt_neox", "falcon", "bloom", "mpt", "phi", "phi3",
                  "gemma", "gemma2", "qwen3", "glm", "glm4", "olmo2",
                  "cohere", "granite", "baichuan", "gpt_bigcode",
-                 "starcoder2", "stablelm")
+                 "starcoder2", "stablelm", "mixtral", "dbrx", "qwen2_moe",
+                 "qwen3_moe")
 # the architectures still to come -> the module whose port brings them
-_LATER_ARCHS = {"mixtral": "models/moe.py", "dbrx": "models/moe.py",
-                "qwen2_moe": "models/moe.py", "qwen3_moe": "models/moe.py",
-                "mamba": "models/mamba.py",
+_LATER_ARCHS = {"mamba": "models/mamba.py",
                 "recurrentgemma": "models/recurrentgemma.py"}
 _ROPE_TYPES = ("none", "linear", "llama3", "yarn", "longrope")
 
@@ -82,6 +80,8 @@ class ModelConfig:
     max_position_embeddings: int = 4096
     qkv_bias: bool = False               # Qwen2
     sliding_window: int = 0              # 0 = full attention (Mistral: 4096)
+    num_experts: int = 0                 # 0 = dense MLP (Mixtral: 8)
+    top_k_experts: int = 2
     tie_word_embeddings: bool = False
     pos_embedding: str = "rope"          # rope | learned | alibi | none
     rotary_dim: int = 0                  # 0 = full head_dim (partial rotary)
@@ -117,6 +117,13 @@ class ModelConfig:
     rope_beta_slow: float = 1.0          # yarn interpolation boundary
     rope_attention_factor: float = 1.0   # yarn / longrope cos/sin scale
     rope_freq_factors: tuple = ()        # longrope per-dim divisors
+    moe_norm_topk: bool = True           # renormalize the kept top-k mass
+    #                                      (HF norm_topk_prob; Mixtral yes,
+    #                                      Qwen2-MoE no)
+    moe_intermediate: int = 0            # expert FFN width (0 = the
+    #                                      intermediate_size)
+    moe_shared_intermediate: int = 0     # Qwen2-MoE's shared expert (0 =
+    #                                      none)
     dtype: torch.dtype = torch.bfloat16
     quant: QuantConfig = QuantConfig()
 
@@ -147,6 +154,10 @@ class ModelConfig:
                              "qweight")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
+        if self.num_experts and not 1 <= self.top_k_experts \
+                <= self.num_experts:
+            raise ValueError(f"top_k_experts {self.top_k_experts} outside "
+                             f"1..num_experts ({self.num_experts})")
 
     @property
     def q_size(self) -> int:
@@ -189,8 +200,8 @@ class ModelConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "ModelConfig":
-        """From ``ModelConfig.to_dict()`` of either package. Raises on an
-        expert or state-space axis set on, naming its module."""
+        """From ``ModelConfig.to_dict()`` of either package. Raises on a
+        state-space axis set on, naming its module."""
         d = dict(d)
         for k, (module, off) in _UNPORTED_AXES.items():
             v = d.pop(k, off)
@@ -580,10 +591,12 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
     (one shared norm, or two); RMSNorm or LayerNorm; gated or dense MLP;
     qkv clipping, q/k norms (per head, or over the flat projection),
     post-block norms, Granite's residual multiplier, OLMo-2's projections
-    of the raw residual. A mix linear takes K1 with the RMSNorm fused
-    where nothing else reads the normed activations; LayerNorm families,
-    shared norms, raw-residual projections, stats, adaptive outliers and
-    LoRA compute the norm apart and take K1 without it.
+    of the raw residual; an expert block (models/moe.py) in place of the
+    MLP when ``num_experts`` is set. A mix linear takes K1 with the
+    RMSNorm fused where nothing else reads the normed activations;
+    LayerNorm families, shared norms, raw-residual projections, stats,
+    adaptive outliers and LoRA compute the norm apart and take K1
+    without it.
 
     ``stats``, a dict, receives each linear's per-input-channel activation
     absmax (the act_scales calibration signal) from the activations the JAX
@@ -694,16 +707,25 @@ def decoder_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, sin, cos,
         x = res(x, attn)
         mlp_res, mlp_shared = x, None
     mlp_norm = "input_norm" if cfg.shared_block_norm else "post_norm"
-    up_out = proj_in("gate_up_proj", mlp_norm, mlp_res, mlp_shared)
-    if cfg.mlp_type == "gated":
-        gate, up = torch.chunk(up_out, 2, dim=-1)
-        h = (_act(cfg.hidden_act, gate) * up.float()).to(x.dtype)
+    if cfg.num_experts:
+        # the expert block (models/moe.py) on the normed input; its stats
+        # record that shared input for gate_up and down (JAX :947-955)
+        h_in = mlp_shared if mlp_shared is not None else block_norm(
+            cfg, mlp_res, lp[mlp_norm])
+        if stats is not None:
+            stats["gate_up_proj"] = stats["down_proj"] = _absmax_in(h_in)
+        h = moe_mod.moe_mlp(cfg, lp["moe"], h_in)
     else:
-        h = _act(cfg.hidden_act, up_out).to(x.dtype)
-    if stats is not None:
-        stats["down_proj"] = _absmax_in(h)
-    h = lora("down_proj", h, dispatch.linear(lp["down_proj"], h,
-                                             algo("down_proj")))
+        up_out = proj_in("gate_up_proj", mlp_norm, mlp_res, mlp_shared)
+        if cfg.mlp_type == "gated":
+            gate, up = torch.chunk(up_out, 2, dim=-1)
+            h = (_act(cfg.hidden_act, gate) * up.float()).to(x.dtype)
+        else:
+            h = _act(cfg.hidden_act, up_out).to(x.dtype)
+        if stats is not None:
+            stats["down_proj"] = _absmax_in(h)
+        h = lora("down_proj", h, dispatch.linear(lp["down_proj"], h,
+                                                 algo("down_proj")))
     if cfg.post_block_norms:
         h = block_norm(cfg, h, lp["post_mlp_norm"])
     if cfg.parallel_blocks:

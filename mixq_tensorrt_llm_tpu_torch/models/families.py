@@ -20,8 +20,10 @@ How HF fuses QKV, by family:
   contiguous [q, k, v]
 - GPT-2 c_attn: Conv1D, (in, 3*out) already the kernel layout
 
-The expert models (``dbrx``, ``qwen2_moe``, ``qwen3_moe``) come with
-models/moe.py.
+The expert models ``dbrx``, ``qwen2_moe`` and ``qwen3_moe`` are read here
+too (their expert stacks, router and Qwen2-MoE's shared expert), their MLP
+served by models/moe.py; stacks that mix dense and expert layers are
+refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,9 +37,12 @@ from ..device import DeviceLike, resolve_device
 from ..ops import dispatch
 from ..quant.config import QuantConfig
 from .common import ModelConfig
-from .llama import LINEAR_MODULES, act_scale_for
+from .llama import LINEAR_MODULES, act_scale_for, quantize_moe, \
+    random_experts
 
-_MOE_TYPES = ("dbrx", "qwen2_moe", "qwen3_moe")
+# a layer's float expert entries (models/llama.quantize_moe takes them)
+_MOE_RAW = ("router_w", "experts_gate_up", "experts_down",
+            "shared_gate_up_w", "shared_down_w", "shared_gate_w")
 
 Lin = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -153,20 +158,70 @@ def _longrope(c, g) -> dict:
                 rope_attention_factor=float(af))
 
 
+def _dbrx_config(c, g, quant: QuantConfig) -> ModelConfig:
+    """DBRX (HF DbrxConfig): the nested attn / ffn configs (objects from
+    AutoConfig, dicts from load_hf_config), the fused Wqkv clamped to
+    +-clip_qkv, bias-free LayerNorms, a GLU expert MLP whose router
+    renormalizes with p = 1 (Mixtral's sum)."""
+    def sub(name):
+        v = g(name) or {}
+        return v.get if isinstance(v, dict) else \
+            (lambda k, d=None: getattr(v, k, d))
+    ac, fc = sub("attn_config"), sub("ffn_config")
+    act = fc("ffn_act_fn") or {}
+    if act.get("name", "silu") != "silu":
+        raise NotImplementedError(f"DBRX ffn_act_fn {act} unsupported "
+                                  "(silu is)")
+    p = fc("moe_normalize_expert_weights", 1.0)
+    if p not in (None, 1, 1.0):
+        raise NotImplementedError(f"only p=1 (sum) router renormalization "
+                                  f"is supported, got {p}")
+    h = c.n_heads
+    return ModelConfig(
+        arch="dbrx", vocab_size=c.vocab_size, hidden_size=c.d_model,
+        intermediate_size=fc("ffn_hidden_size"), num_layers=c.n_layers,
+        num_heads=h, num_kv_heads=ac("kv_n_heads", h),
+        head_dim=c.d_model // h, max_position_embeddings=c.max_seq_len,
+        rope_theta=ac("rope_theta", 10000.0), rms_norm_eps=1e-5,
+        norm_type="layernorm", clip_qkv=ac("clip_qkv", 0.0) or 0.0,
+        num_experts=fc("moe_num_experts"), top_k_experts=fc("moe_top_k"),
+        moe_norm_topk=p is not None,
+        tie_word_embeddings=g("tie_word_embeddings", False), quant=quant)
+
+
 def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()
                    ) -> ModelConfig:
     """An HF config (``AutoConfig`` or ``convert.hf.load_hf_config``) of a
-    dense family -> ModelConfig, read as the JAX package reads it."""
+    dense family or of DBRX / Qwen2-MoE / Qwen3-MoE -> ModelConfig, read as
+    the JAX package reads it."""
     c = hf_config
     mt = c.model_type.lower()
 
     def g(name, d=None):
         return getattr(c, name, d)
 
-    if mt in _MOE_TYPES:
-        raise NotImplementedError(
-            f"model_type {mt!r} (experts) is not ported yet: it comes with "
-            "models/moe.py")
+    if mt == "dbrx":
+        return _dbrx_config(c, g, quant)
+    if mt in ("qwen2_moe", "qwen3_moe"):
+        # every layer sparse (HF Qwen2MoeSparseMoeBlock /
+        # Qwen3MoeSparseMoeBlock): qwen2_moe adds the sigmoid-gated shared
+        # expert and qkv biases, qwen3_moe per-head q/k norms
+        if g("mlp_only_layers") or (g("decoder_sparse_step", 1) or 1) != 1:
+            raise NotImplementedError(
+                "mixed dense/MoE layer stacks are not supported")
+        return ModelConfig(
+            arch=mt, **_heads(c, g), rms_norm_eps=c.rms_norm_eps,
+            num_experts=c.num_experts, top_k_experts=c.num_experts_per_tok,
+            moe_norm_topk=bool(g("norm_topk_prob", False)),
+            moe_intermediate=g("moe_intermediate_size", 0) or 0,
+            moe_shared_intermediate=(
+                g("shared_expert_intermediate_size", 0) or 0
+                if mt == "qwen2_moe" else 0),
+            qkv_bias=(mt == "qwen2_moe"), qk_norm=(mt == "qwen3_moe"),
+            sliding_window=(g("sliding_window", 0) or 0)
+            if g("use_sliding_window", False) else 0,
+            tie_word_embeddings=g("tie_word_embeddings", False),
+            quant=quant)
     if mt == "opt":
         if not g("do_layer_norm_before", True):
             raise NotImplementedError("OPT-350m's post-norm variant is "
@@ -508,6 +563,24 @@ def _float_layer(cfg: ModelConfig, hf: Mapping, i: int,
                 out["post_norm"] = _norm(hf, p + "post_attention_layernorm",
                                          dev)
         return out
+    if a == "dbrx":
+        p = f"transformer.blocks.{i}."
+        e, ffn, d = cfg.num_experts, cfg.intermediate_size, cfg.hidden_size
+        # DbrxExpertGLU keeps w1 / v1 / w2 flat (E * ffn, d): w1 and v1
+        # multiply as x @ w.T, w2 as (x1 * x2) @ w2, already (ffn, d)
+        x = p + "ffn.experts.mlp."
+        w1, v1, w2 = (_f32(hf[x + n], dev).reshape(e, ffn, d)
+                      for n in ("w1", "v1", "w2"))
+        return {
+            "qkv_proj": _lin(hf, p + "norm_attn_norm.attn.Wqkv", dev),
+            "o_proj": _lin(hf, p + "norm_attn_norm.attn.out_proj", dev),
+            "input_norm": _norm(hf, p + "norm_attn_norm.norm_1", dev),
+            "post_norm": _norm(hf, p + "norm_attn_norm.norm_2", dev),
+            "router_w": _t(hf[p + "ffn.router.layer.weight"], dev),
+            "experts_gate_up": torch.cat([w1.transpose(1, 2),
+                                          v1.transpose(1, 2)],
+                                         dim=2).contiguous(),
+            "experts_down": w2.contiguous()}
     if a == "mpt":
         p = f"transformer.blocks.{i}."
         return {"qkv_proj": _lin(hf, p + "attn.Wqkv", dev),
@@ -548,6 +621,34 @@ def _float_layer(cfg: ModelConfig, hf: Mapping, i: int,
         fl = _llama_like(hf, p, dev)
         fl["q_norm"] = _norm(hf, p + "self_attn.q_norm", dev)
         fl["k_norm"] = _norm(hf, p + "self_attn.k_norm", dev)
+        return fl
+    if a in ("qwen2_moe", "qwen3_moe"):
+        m = p + "mlp."
+        fl = {"qkv_proj": _cat_lins(hf, [p + f"self_attn.{n}_proj"
+                                         for n in "qkv"], dev),
+              "o_proj": _lin(hf, p + "self_attn.o_proj", dev),
+              "input_norm": _norm(hf, p + "input_layernorm", dev),
+              "post_norm": _norm(hf, p + "post_attention_layernorm", dev),
+              "router_w": _t(hf[m + "gate.weight"], dev),
+              "experts_gate_up": torch.stack([
+                  torch.cat([_t(hf[m + f"experts.{e}.gate_proj.weight"],
+                                dev),
+                             _t(hf[m + f"experts.{e}.up_proj.weight"], dev)],
+                            dim=1) for e in range(cfg.num_experts)]),
+              "experts_down": torch.stack([
+                  _t(hf[m + f"experts.{e}.down_proj.weight"], dev)
+                  for e in range(cfg.num_experts)])}
+        if a == "qwen3_moe":
+            fl["q_norm"] = _norm(hf, p + "self_attn.q_norm", dev)
+            fl["k_norm"] = _norm(hf, p + "self_attn.k_norm", dev)
+        if cfg.moe_shared_intermediate:
+            fl["shared_gate_up_w"] = _cat_lins(
+                hf, [m + "shared_expert.gate_proj",
+                     m + "shared_expert.up_proj"], dev)
+            fl["shared_down_w"] = _lin(hf, m + "shared_expert.down_proj",
+                                       dev)
+            fl["shared_gate_w"] = _t(hf[m + "shared_expert_gate.weight"],
+                                     dev)
         return fl
     if a in ("glm", "glm4"):
         fl = _llama_like(hf, p, dev, gate_up="fused")
@@ -612,22 +713,31 @@ _TOPLEVEL = {
               "transformer.word_embeddings_layernorm", "transformer.ln_f",
               None),
     "mpt": ("transformer.wte", None, None, "transformer.norm_f", None),
+    "dbrx": ("transformer.wte", None, None, "transformer.norm_f",
+             "lm_head"),
     "phi": ("model.embed_tokens", None, None, "model.final_layernorm",
             "lm_head"),
     "gpt_bigcode": ("transformer.wte", "transformer.wpe", None,
                     "transformer.ln_f", None),
     **{a: ("model.embed_tokens", None, None, "model.norm", "lm_head")
        for a in ("phi3", "gemma", "gemma2", "qwen3", "glm", "glm4", "olmo2",
-                 "cohere", "granite", "baichuan", "starcoder2", "stablelm")},
+                 "cohere", "granite", "baichuan", "starcoder2", "stablelm",
+                 "qwen2_moe", "qwen3_moe")},
 }
 
 
 def _quantize_layer(cfg: ModelConfig, fl: Dict, act_scales,
                     i: int) -> Dict:
-    """A uniform float layer dict -> quantized params (llama.py's routing);
-    every non-linear entry (the norms) is carried as it is."""
-    out: Dict = {k: v for k, v in fl.items() if k not in LINEAR_MODULES}
+    """A uniform float layer dict -> quantized params (llama.py's routing;
+    an expert layer's ``moe`` through llama.quantize_moe); every other
+    entry (the norms) is carried as it is."""
+    out: Dict = {k: v for k, v in fl.items()
+                 if k not in LINEAR_MODULES and k not in _MOE_RAW}
+    if "router_w" in fl:
+        out["moe"] = quantize_moe(cfg, fl)
     for mod in LINEAR_MODULES:
+        if mod not in fl:
+            continue
         w, b = fl[mod]
         algo = cfg.module_algo(mod)
         scale = (act_scale_for(act_scales, i, mod, w.shape[0], w.device)
@@ -675,7 +785,7 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
                        device: DeviceLike = "cuda",
                        act_scales=None,
                        generator: Optional[torch.Generator] = None) -> Dict:
-    """Random-weight params honouring every dense ModelConfig axis,
+    """Random-weight params honouring every ModelConfig axis,
     N(0, 0.02), quantized with the production routing; norms ones (their
     biases zero: Gemma's stored 1 + w at w = 0), linear biases zero. Drawn
     from ``generator`` (else one seeded with ``seed`` on the target device)
@@ -710,10 +820,13 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
             "qkv_proj": (rnd(h, cfg.qkv_out), bias(cfg.qkv_out,
                                                    cfg.qkv_bias)),
             "o_proj": (rnd(cfg.q_size, h), bias(h, cfg.attn_out_bias)),
-            "gate_up_proj": (rnd(h, up_out), bias(up_out, cfg.mlp_bias)),
-            "down_proj": (rnd(cfg.intermediate_size, h),
-                          bias(h, cfg.mlp_bias)),
         }
+        if cfg.num_experts:
+            fl.update(random_experts(cfg, rnd))
+        else:
+            fl["gate_up_proj"] = (rnd(h, up_out), bias(up_out, cfg.mlp_bias))
+            fl["down_proj"] = (rnd(cfg.intermediate_size, h),
+                               bias(h, cfg.mlp_bias))
         if cfg.pre_block_norms:
             fl["input_norm"] = norm_init()
             if not cfg.shared_block_norm:

@@ -1,11 +1,12 @@
 """Architecture registry: HF config -> (ModelConfig, converter).
 Counterpart of mixq_tensorrt_llm_tpu/models/registry.py.
 
-The Llama lineage (``llama``, ``mistral``, ``qwen2``, ``aquila``) goes
-through models/llama.py, every other dense family through
+The Llama lineage (``llama``, ``mistral``, ``mixtral``, ``qwen2``,
+``aquila``) goes through models/llama.py, every other family (the expert
+models DBRX, Qwen2-MoE and Qwen3-MoE among them) through
 models/families.py, which maps each onto the one config-driven decoder of
-models/common.py. The expert and state-space model types raise naming the
-module whose port brings them.
+models/common.py (its MLP models/moe.py where the config has experts). The
+state-space model types raise naming the module whose port brings them.
 """
 
 from __future__ import annotations
@@ -53,10 +54,6 @@ SUPPORTED_ARCHS = {
 # model types listed above that the port does not serve yet -> the module
 # whose port brings them
 _LATER = {
-    "mixtral": "models/moe.py",
-    "dbrx": "models/moe.py",
-    "qwen2_moe": "models/moe.py",
-    "qwen3_moe": "models/moe.py",
     "mamba": "models/mamba.py",
     "recurrent_gemma": "models/recurrentgemma.py",
 }
@@ -80,6 +77,6 @@ def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()):
 def params_from_hf(cfg, hf_state, act_scales=None,
                    device: DeviceLike = "cuda"):
     """HF state dict -> quantized params on ``device``, by ``cfg.arch``."""
-    if cfg.arch in ("llama", "mistral", "qwen2"):
+    if cfg.arch in ("llama", "mistral", "mixtral", "qwen2"):
         return llama.params_from_hf(cfg, hf_state, act_scales, device=device)
     return families.params_from_hf(cfg, hf_state, act_scales, device=device)

@@ -31,6 +31,10 @@ CPU.
                                    (ref.bf16_matmul_f32), as the JAX
                                    package leaves it to XLA
 
+An expert stack (models/moe.py: a leading E axis) goes one expert at a
+time through ``expert_linear``: K4 on int8 or unpacked int4 stacks with
+per-channel scales, bf16 products for float and group-scaled stacks.
+
 Param schemas (weights in (in, out) layout), unchanged from the JAX package:
   NONE:      {"w": bf16 (in, out)} [+ "b"]
   W8A16:     {"qweight": int8 (in, out), "scale_col": f32 (out,)} [+ "b"]
@@ -131,6 +135,34 @@ def linear(params: dict, x: torch.Tensor, algo: QuantAlgo) -> torch.Tensor:
     else:
         raise ValueError(f"unknown algo {algo}")
     return _maybe_bias(out, params).reshape(*lead, -1)
+
+
+def expert_linear(params: dict, e: int, x: torch.Tensor) -> torch.Tensor:
+    """Expert ``e`` of an expert-stacked linear (models/moe.py: the stack
+    carries a leading E axis), x (M, in) -> (M, out) f32, chosen by the
+    stack's format, never by an error:
+
+      int8 or unpacked int4, "scale_col" (E, out):  K4 (wo_matmul) on the
+                                    expert's (in, out) view, f32 out
+      int4 with group scales, "scale_g" (E, in/G, out): the JAX package's
+                                    route (no kernel of the port takes
+                                    group scales on an unpacked weight):
+                                    the expert dequantized to bf16, then
+                                    ref.bf16_matmul_f32
+      float, "w" (E, in, out):      ref.bf16_matmul_f32 on bf16 operands
+
+    The JAX package dequantizes the whole stack to bf16 before its
+    product (XLA's ragged_dot); K4 applies scale_col after the f32 sum, so
+    an int8 expert agrees with it at the GEMM tolerance, not bit for
+    bit."""
+    if "w" in params:
+        return ref.bf16_matmul_f32(x, params["w"][e])
+    if "scale_g" in params:
+        w = qcore.dequantize_weight_grouped(params["qweight"][e],
+                                            params["scale_g"][e])
+        return ref.bf16_matmul_f32(x, w)
+    return wm.wo_matmul(x, params["qweight"][e], params["scale_col"][e],
+                        out_dtype=torch.float32)
 
 
 def lr_linear(x: torch.Tensor, params: dict,

@@ -52,6 +52,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import common as mcommon
+from ..models import moe
 from ..models.common import KVCache, ModelConfig
 from ..ops import _build
 from ..ops.paged_attention import check_kernel_geometry
@@ -652,6 +653,13 @@ class BeamEngine:
 
     def _body(self, g: _Burst, b: int, k: int, k_eff: int, eos: int,
               do_cow: bool, ctrl: Optional[BeamControls]) -> torch.Tensor:
+        """``_steps`` with every MoE layer on its all-rows route (a graph
+        body: no host readback, static shapes)."""
+        with moe.static_shapes():
+            return self._steps(g, b, k, k_eff, eos, do_cow, ctrl)
+
+    def _steps(self, g: _Burst, b: int, k: int, k_eff: int, eos: int,
+               do_cow: bool, ctrl: Optional[BeamControls]) -> torch.Tensor:
         """k_eff beam steps from the static inputs, which it only reads,
         then the epilogue that commits the burst to the pool: each lane's
         boundary page copied from its burst-final ancestor's

@@ -85,6 +85,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import common as mcommon
+from ..models import moe
 from ..models.common import ModelConfig
 from ..ops import _build
 from ..quant import dynamic as qdyn
@@ -823,11 +824,12 @@ class Executor:
         lora = d.get("lora")
         toks, lps = [], []
         for j in range(k):
-            logits, _ = mcommon.forward_paged(
-                self.params, self.cfg, tok, lens[:, None], self.state,
-                d["table"], torch.clamp(lens + 1, min=1),
-                block_pos=d["bpos"], window=self._win_tokens,
-                sink=self._sink_tokens, lora_ids=lora)
+            with moe.static_shapes():       # a graph body on the card
+                logits, _ = mcommon.forward_paged(
+                    self.params, self.cfg, tok, lens[:, None], self.state,
+                    d["table"], torch.clamp(lens + 1, min=1),
+                    block_pos=d["bpos"], window=self._win_tokens,
+                    sink=self._sink_tokens, lora_ids=lora)
             last = logits[:, 0]
             if masks is not None:
                 last = self._apply_procs(last, hist, masks)

@@ -1,11 +1,14 @@
-"""A random-weight Hugging Face Llama directory, written with the port's own
-safetensors writer (no ``transformers``, no ``safetensors``).
+"""A random-weight Hugging Face Llama (or Mixtral) directory, written with
+the port's own safetensors writer (no ``transformers``, no
+``safetensors``).
 
     from mixq_tensorrt_llm_tpu_torch.tools.random_hf import (
         LLAMA2_7B_HF, write_random_llama)
     planted = write_random_llama(path, LLAMA2_7B_HF, seed=0, device="cuda")
 
-The directory is what ``save_pretrained`` leaves for a LlamaForCausalLM:
+The directory is what ``save_pretrained`` leaves for a LlamaForCausalLM
+(a MixtralForCausalLM where the config sets ``num_local_experts``: each
+layer's MLP is ``block_sparse_moe.gate`` and its experts' w1 / w2 / w3):
 ``config.json``, the weights in HF names and (out, in) layout, split into
 shards named in ``model.safetensors.index.json``. Weights are
 N(0, WEIGHT_STD) drawn from a ``torch.Generator`` seeded with ``seed`` on
@@ -70,6 +73,7 @@ def write_random_llama(path: str, config: Dict, seed: int = 0,
     kv = config.get("num_key_value_heads", heads)
     d = config.get("head_dim") or h // heads
     n_layers = config["num_hidden_layers"]
+    experts = config.get("num_local_experts", 0)
 
     def rnd(*shape):
         w = torch.randn(shape, generator=gen, device=dev) * WEIGHT_STD
@@ -87,13 +91,19 @@ def write_random_llama(path: str, config: Dict, seed: int = 0,
         for i in range(s * layers_per_shard,
                        min((s + 1) * layers_per_shard, n_layers)):
             p = f"model.layers.{i}."
+            mlp = (("mlp.gate_proj", (inter, h)),
+                   ("mlp.up_proj", (inter, h)),
+                   ("mlp.down_proj", (h, inter)))
+            if experts:              # Mixtral's block_sparse_moe
+                m = "block_sparse_moe."
+                mlp = ((m + "gate", (experts, h)),) + tuple(
+                    (m + f"experts.{e}.{w}", shape) for e in range(experts)
+                    for w, shape in (("w1", (inter, h)), ("w2", (h, inter)),
+                                     ("w3", (inter, h))))
             for name, shape in (("self_attn.q_proj", (heads * d, h)),
                                 ("self_attn.k_proj", (kv * d, h)),
                                 ("self_attn.v_proj", (kv * d, h)),
-                                ("self_attn.o_proj", (h, heads * d)),
-                                ("mlp.gate_proj", (inter, h)),
-                                ("mlp.up_proj", (inter, h)),
-                                ("mlp.down_proj", (h, inter))):
+                                ("self_attn.o_proj", (h, heads * d))) + mlp:
                 shard[p + name + ".weight"] = rnd(*shape)
             norm = torch.ones(h)
             if outliers:

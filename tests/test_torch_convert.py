@@ -193,12 +193,18 @@ def test_config_from_hf_matches_autoconfig(name, tmp_path):
 
 
 def test_unported_model_types_and_options_raise(tmp_path):
-    for mt, module in (("mixtral", "models/moe.py"),
-                       ("qwen2_moe", "models/moe.py"),
-                       ("mamba", "models/mamba.py"),
+    for mt, module in (("mamba", "models/mamba.py"),
                        ("recurrent_gemma", "models/recurrentgemma.py")):
         with pytest.raises(NotImplementedError, match=module):
             treg.config_from_hf(_ns(model_type=mt))
+    # the expert models are ported (models/moe.py): a bare Mixtral
+    # config.json reads at its class defaults
+    os.makedirs(tmp_path / "mixtral")
+    with open(tmp_path / "mixtral" / "config.json", "w") as f:
+        json.dump({"model_type": "mixtral"}, f)
+    mcfg = treg.config_from_hf(thf.load_hf_config(str(tmp_path / "mixtral")))
+    assert (mcfg.arch, mcfg.num_experts, mcfg.top_k_experts) == \
+        ("mixtral", 8, 2)
     with pytest.raises(ValueError, match="unsupported"):
         treg.config_from_hf(_ns(model_type="nonesuch"))
     # ported with the dense families: gemma (models/families.py) from a

@@ -65,7 +65,15 @@ paged_decode_attention_rows, two launches bit-equal; K2 and K4 in its
 three regimes at N = 4672 (Falcon-7B's qkv) and 1600 (GPT-2 XL), a
 partial last column tile, against their plain versions and counted as
 .n_tail; a Gemma-2 model's windowed and global layers through K7 and K8
-on the card against the CPU."""
+on the card against the CPU.
+The expert models (models/moe.py): the sorted route (one K4 launch an
+expert and projection on the non-empty experts, one readback) and the
+all-rows route (2 x E K4 launches, none read back) on int8, unpacked
+int4, grouped int4 (the plain route by format) and float stacks against
+the CPU's plain versions within 1e-3 of the largest output; the all-rows
+route captured in a CUDA graph, its replay bit-equal to the eager call;
+a tiny Mixtral Executor's rungs holding 2 + 2 x E K4 launches a layer a
+step and the all-rows route only, its first tokens the CPU Executor's."""
 
 import os
 
@@ -2235,13 +2243,17 @@ def test_int8_lr_route_on_card(cuda):
 
 
 def _cpu_params(params):
-    """A params tree's copy on the CPU (the layers' dicts and every
-    tensor in them)."""
+    """A params tree's copy on the CPU (the layers' dicts, an expert
+    layer's nested ``moe`` entry, and every tensor in them)."""
     cpu = torch.device("cpu")
-    return {k: ([{m: {n: t.to(cpu) for n, t in p.items()}
-                  for m, p in lay.items()} for lay in v]
-                if k == "layers" else {n: t.to(cpu) for n, t in v.items()})
-            for k, v in params.items()}
+
+    def copy(v):
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [copy(x) for x in v]
+        return v.to(cpu)
+    return copy(params)
 
 
 @pytest.mark.gpu
@@ -2466,3 +2478,126 @@ def test_gemma2_layers_windows_on_card(cuda):
     assert _launched("paged_decode_attention", before) == 4 * cfg.num_layers
     want = run(torch.device("cpu"), cpu)
     assert float((got - want).abs().max() / want.abs().max()) < 5e-2
+
+
+def _moe_block(fmt, dev, e=8, h=256, i=384, shared=False):
+    """(cfg, moe params on ``dev``, their CPU copy) of one expert block."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama as mllama
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (QuantAlgo,
+                                                          QuantConfig)
+    algo = {"none": QuantAlgo.NONE, "w8a16": QuantAlgo.W8A16,
+            "w4a16": QuantAlgo.W4A16, "w4a16_g": QuantAlgo.W4A16_G}[fmt]
+    cfg = ModelConfig(arch="mixtral", vocab_size=128, hidden_size=h,
+                      intermediate_size=i, num_layers=1, num_heads=2,
+                      num_kv_heads=2, head_dim=128, num_experts=e,
+                      top_k_experts=2, moe_shared_intermediate=256
+                      if shared else 0,
+                      quant=QuantConfig(algo=algo, group_size=128))
+    gen = torch.Generator().manual_seed(5)
+    fl = mllama.random_experts(cfg, lambda *s: torch.randn(
+        s, generator=gen) * 0.05)
+    fl["router_w"] = fl["router_w"] * 20
+    cpu = mllama.quantize_moe(cfg, fl)
+    return cfg, {k: {n: t.to(dev) for n, t in v.items()}
+                 for k, v in cpu.items()}, cpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["w8a16", "w4a16", "w4a16_g", "none"])
+def test_moe_routes_match_plain(cuda, fmt):
+    from mixq_tensorrt_llm_tpu_torch.models import moe
+    cfg, p, cpu = _moe_block(fmt, cuda, shared=fmt == "w8a16")
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 48, cfg.hidden_size), generator=gen)
+    want = moe.moe_mlp(cfg, cpu, x)
+    xc = x.to(cuda)
+    for rows, static in ((96, False), (96, True), (24, False)):
+        before = dict(_build.LAUNCHES)
+        if static:
+            with moe.static_shapes():
+                got = moe.moe_mlp(cfg, p, xc)
+        else:
+            got = moe.moe_mlp(cfg, p, xc[:, :rows // 2])
+        torch.cuda.synchronize()
+        ref_ = want[:, :got.shape[1]]
+        err = float((got.cpu() - ref_).abs().max() / ref_.abs().max())
+        assert err < 1e-3, (rows, static, err)
+        sorted_ = rows > moe.ALL_ROWS_MAX and not static
+        k4 = _launched("wo_matmul", before)
+        shared = 2 if fmt == "w8a16" else 0
+        if fmt in ("w8a16", "w4a16"):
+            experts = (_launched("moe.groups", before) if sorted_
+                       else cfg.num_experts)
+            assert k4 == 2 * experts + shared
+        else:                # the plain route by format: no K4
+            assert k4 == shared
+        assert _launched("moe.sorted", before) == int(sorted_)
+        assert _launched("moe.all_rows", before) == int(not sorted_)
+
+
+@pytest.mark.gpu
+def test_moe_all_rows_route_captured(cuda):
+    """The all-rows route inside a CUDA graph: no readback breaks the
+    capture, and the replay gives the eager call's bits."""
+    from mixq_tensorrt_llm_tpu_torch.models import moe
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import capture_graph
+    cfg, p, _ = _moe_block("w8a16", cuda)
+    x = torch.randn((8, 1, cfg.hidden_size), device=cuda)
+    with moe.static_shapes():
+        eager = moe.moe_mlp(cfg, p, x)
+
+        def body():
+            return moe.moe_mlp(cfg, p, x)
+        graph, out, launches = capture_graph(
+            body, cuda, torch.cuda.graph_pool_handle(), "moe all rows")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert launches["wo_matmul"] == 2 * cfg.num_experts
+    assert "moe.sorted" not in launches
+
+
+@pytest.mark.gpu
+def test_moe_executor_replays_all_rows(cuda):
+    """A tiny Mixtral (int8_mix, int8 KV) through the Executor on the
+    card after warmup: each rung's graph holds 2 + 2 x E K4 launches a
+    layer a step and the all-rows route only; the prefill call (64 + 96
+    rows) sorted; every lane's first token (the prefill's) equal to the
+    CPU Executor's."""
+    from mixq_tensorrt_llm_tpu_torch.models import llama as mllama
+    from mixq_tensorrt_llm_tpu_torch.models.common import ModelConfig
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (
+        KVCacheQuantAlgo, QuantAlgo, QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.runtime.scheduler import Executor
+    cfg = ModelConfig(arch="mixtral", vocab_size=512, hidden_size=256,
+                      intermediate_size=384, num_layers=2, num_heads=2,
+                      num_kv_heads=1, head_dim=128, num_experts=8,
+                      top_k_experts=2, dtype=torch.float32,
+                      quant=QuantConfig(algo=QuantAlgo.INT8_MIX,
+                                        num_outliers=16,
+                                        kv_cache=KVCacheQuantAlgo.INT8))
+    params = mllama.init_random_params(cfg, seed=4, device=cuda)
+    prompts = [list(range(3, 67)), list(range(100, 196))]
+    out = {}
+    for dev, p in ((cuda, params), (torch.device("cpu"),
+                                    _cpu_params(params))):
+        ex = Executor(p, cfg, max_batch=2, max_seq_len=256, block_size=128,
+                      seed=0, device=dev)
+        ex.warmup(burst=4)
+        ids = [ex.submit(q, max_new_tokens=8) for q in prompts]
+        before = dict(_build.LAUNCHES)
+        done = ex.run(burst=4)
+        out[dev.type] = [done[i].generated[0] for i in ids]
+        assert all(len(done[i].generated) == 8 for i in ids)
+        if dev.type == "cuda":
+            assert ex.compiles_since_warmup == 0
+            assert ex.graph_replays == ex.decode_calls > 0
+            for rung in ex._rungs.values():
+                assert rung.launches["wo_matmul"] == \
+                    rung.k * cfg.num_layers * (2 + 2 * cfg.num_experts)
+                assert rung.launches["moe.all_rows"] == \
+                    rung.k * cfg.num_layers
+                assert "moe.sorted" not in rung.launches
+            assert _launched("moe.sorted", before) == cfg.num_layers
+    assert out["cuda"] == out["cpu"]

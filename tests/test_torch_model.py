@@ -69,8 +69,8 @@ def test_config_roundtrip_and_unported_axes():
     assert cfg.dtype == torch.float32 and cfg.qkv_bias
     assert cfg.sliding_window == 32
     assert cfg.quant.to_dict() == jcfg.quant.to_dict()
-    # the dense family axes round-trip (models/families.py); the expert
-    # axis and the state-space arch still raise, naming their modules
+    # the dense family axes round-trip (models/families.py), and the
+    # expert axes; the state-space arch still raises, naming its module
     for axis in (dict(norm_type="layernorm"), dict(pos_embedding="alibi"),
                  dict(parallel_blocks=True, shared_block_norm=True),
                  dict(rope_scaling_type="yarn", rope_attention_factor=1.2),
@@ -78,8 +78,8 @@ def test_config_roundtrip_and_unported_axes():
                       rope_freq_factors=(1.0,) * 8)):
         jd = tiny_jax_cfg(**axis).to_dict()
         assert ModelConfig.from_dict(jd).to_dict() == jd
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        ModelConfig.from_dict(tiny_jax_cfg(num_experts=4).to_dict())
+    jd = tiny_jax_cfg(num_experts=4).to_dict()     # models/moe.py
+    assert ModelConfig.from_dict(jd).to_dict() == jd
     with pytest.raises(NotImplementedError, match="models/mamba.py"):
         ModelConfig(arch="mamba")
 
