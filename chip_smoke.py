@@ -263,8 +263,39 @@ exits non-zero:
      controls each, which must move the logits by 3x the tolerance: the
      top-k renormalization flipped, the k-th expert replaced by the
      (k+1)-th
-  8. a `kernels` JSON line (K4 also at the expert shapes of 4l(c)), the
-     nvidia-smi line, then the result line.
+  4m. the recurrent-state models (models/mamba.py,
+     models/recurrentgemma.py), int8_mix (128 outliers), random weights
+     drawn on the card through registry.init_random_params (the
+     recurrence's own parameters redrawn so the state carries signal:
+     Mamba's x_proj N(0, 1); RecurrentGemma's gates and recurrent_param
+     as HF's initializer draws them, conv taps U(+-1/sqrt(4))): (a) Mamba-2.8B
+     (state-spaces/mamba-2.8b-hf's widths, all 64 layers) serves phase
+     4's 8 prompts, 64 greedy tokens each, through GenerationSession:
+     every lane its tokens, finite; K1 -> K2 exactly 2 a layer a forward
+     (in_proj, out_proj), no other kernel; (b) RecurrentGemma-2B
+     (google/recurrentgemma-2b's widths, 24 of its 26 layers: both
+     packages refuse a depth off the 3-layer pattern) serves 7 of them
+     and one of 2,300 tokens (the 2048 window masks prefill and decode):
+     K1 -> K2 11 a 3-layer group a forward, K4 once a layer, K8 (the page
+     view) once an attention layer at the prefill; for each, walls, TPOT
+     beside the weights' byte bound, idle shares, traced K1 / K2 (/ K4)
+     launches against the expected, weight bytes and peak memory. (c) the
+     first layers at full widths card against CPU through
+     models.common.forward (Mamba 2, prompts of 4 recurring tokens;
+     RecurrentGemma 6, two pattern groups, its window cut to 8 under a
+     640-token lane beside a 1-token one, after another prompt's
+     prefill), a
+     prefill and 4 decode steps within 2e-2 of the largest logit, and two
+     controls each that must read 5x that: Mamba's SSM state zeroed
+     between prefill and decode and its conv taps reversed;
+     RecurrentGemma's window turned off and its LRU reset dropped. Phase
+     3 holds K8 at RecurrentGemma-2B's prefill (8 x 2432, 10 query heads
+     on 1 KV head of 256, window 2048; SDPA its library call), K1 -> K2
+     at Mamba-2.8B's in_proj / out_proj and K4 at RecurrentGemma-2B's
+     down_proj, at 8 and 1024 rows
+  8. a `kernels` JSON line (K4 also at the expert shapes of 4l(c); K8,
+     K2 and K4 at the shapes of phase 4m), the nvidia-smi line, then the
+     result line.
 
 Phase 3 also holds K9 (verify rows: 8 lanes at S = 4, 5 and (int8) 8,
 and S = 8 at 8 query heads a KV head, 64 rows a block; at S = 1 bit-equal
@@ -2113,9 +2144,15 @@ def cpu_copy(torch, params):
 def two_layers(torch, params, cfg):
     """(the model cut to its first 2 layers: config, params on the card,
     their CPU copy)."""
+    return first_layers(torch, params, cfg, 2)
+
+
+def first_layers(torch, params, cfg, n: int, **cfg_kw):
+    """(the model cut to its first ``n`` layers (``cfg_kw`` replacing
+    config fields too): config, params on the card, their CPU copy)."""
     import dataclasses
-    sub = dict(params, layers=params["layers"][:2])
-    return (dataclasses.replace(cfg, num_layers=2), sub,
+    sub = dict(params, layers=params["layers"][:n])
+    return (dataclasses.replace(cfg, num_layers=n, **cfg_kw), sub,
             cpu_copy(torch, sub))
 
 
@@ -6074,6 +6111,528 @@ def cross_device_moe(torch, seed: int, dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the recurrent-state models (Mamba-2.8B at its 64 layers and
+# RecurrentGemma-2B at 24 of its 26 layers through GenerationSession;
+# their first layers at full widths card against CPU)
+# ---------------------------------------------------------------------------
+
+REC_NEW = 64                         # 4m(a), (b): tokens generated a lane
+REC_PROFILE_NEW = 16                 # 4m(a), (b): tokens of a profiled run
+MAMBA_MAX_LEN = 832                  # 4m(a): prompts of 100-700 + 64
+# 4m(b): RecurrentGemma-2B's 26 layers cut to the 3-layer pattern's
+# multiple (both packages refuse 26); the long lane's prompt and
+# max_seq_len (a multiple of 128: the prefill bucket K8's page view takes)
+RG_LAYERS, RG_LONG, RG_MAX_LEN = 24, 2300, 2432
+REC_TOL = FAM_TOL                    # 4m(c): card vs CPU, of max |logit|
+REC_CONTROL_X = 5.0                  # 4m(c): a control's least multiple
+# 4m(c): the witnesses' prompts (RecurrentGemma's a 1-token lane, read at
+# the position whose state the reset clears, and a long one), its window
+# cut to RG_WITNESS_WINDOW under the long lane, and its depth: two
+# pattern groups, so that the window and the reset each move the logits
+# by 7x the limit (at 3 layers 4-5x, where the tied embedding's own
+# logit sets the scale: CPU rehearsal at full widths)
+MAMBA_WITNESS_LENS, RG_WITNESS_LENS = (24, 256), (1, 640)
+# 4m(c): Mamba's prompts are drawn from this many distinct tokens, as
+# text repeats its words: the state then accumulates what a decode step
+# reads (its zeroing moves the logits 0.22, 0.10 at 8 words, 0.07 over
+# distinct random tokens; CPU rehearsal at full widths)
+MAMBA_WITNESS_WORDS = 4
+RG_WITNESS_WINDOW, RG_WITNESS_LAYERS = 8, 6
+# 4m(a), (b): kernels of a forward by a mark of their traced names, and
+# their launches a forward (Mamba: in_proj and out_proj a layer;
+# RecurrentGemma a 3-layer group: x / y / out and the MLP's gate_up in
+# each recurrent layer, qkv / o and gate_up in the attention layer, K4
+# for every layer's down_proj)
+REC_TRACED = {"mamba": {"norm_quant": ("K1", 2), "mixed_wgmma": ("K2", 2)},
+              "recurrentgemma": {"norm_quant": ("K1", 11 / 3),
+                                 "mixed_wgmma": ("K2", 11 / 3),
+                                 "wo_": ("K4", 1)}}
+ON_PATH.update({
+    "mamba": ["rmsnorm_quant_split", "mixed_matmul"],
+    "recurrentgemma": ["rmsnorm_quant_split", "mixed_matmul", "wo_matmul",
+                       "paged_prefill_attention_fp"]})
+OFF_PATH.update({
+    "mamba": PAGED + ["wo_matmul", "flash_causal_attention"] + NO_GATHER,
+    "recurrentgemma": [n for n in PAGED if n != "paged_prefill_attention_fp"]
+    + ["flash_causal_attention"] + NO_GATHER})
+
+
+def mamba_2_8b_config(torch, layers: int = 64):
+    """state-spaces/mamba-2.8b-hf's published config.json read by the
+    port's reader: vocab 50280, hidden 2560, d_inner 5120, d_state 16,
+    dt_rank 160, conv 4, tied head; int8_mix (128 outliers: in_proj /
+    out_proj K1 -> K2), bf16."""
+    import types
+    from mixq_tensorrt_llm_tpu_torch.models import mamba
+    from mixq_tensorrt_llm_tpu_torch.quant.config import QuantAlgo, QuantConfig
+    from mixq_tensorrt_llm_tpu_torch.tools import random_hf
+    return mamba.config_from_hf(types.SimpleNamespace(**dict(
+        random_hf.MAMBA_2_8B_HF, num_hidden_layers=layers)),
+        QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128))
+
+
+def recurrentgemma_2b_config(torch, layers: int = RG_LAYERS):
+    """google/recurrentgemma-2b's published config.json read by the port's
+    reader, cut to ``layers``: vocab 256000, hidden 2560, intermediate
+    15360 (7680 a branch), 10 query heads on 1 KV head of 256 (half
+    rotary), lru_width 2560, window 2048, conv 4, logit softcap 30;
+    int8_mix (128 outliers: the mix linears K1 -> K2, down_proj W8A16 on
+    K4), bf16."""
+    import types
+    from mixq_tensorrt_llm_tpu_torch.models import recurrentgemma as rg
+    from mixq_tensorrt_llm_tpu_torch.quant.config import QuantAlgo, QuantConfig
+    from mixq_tensorrt_llm_tpu_torch.tools import random_hf
+    return rg.config_from_hf(types.SimpleNamespace(**dict(
+        random_hf.RECURRENTGEMMA_2B_HF, num_hidden_layers=layers)),
+        QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=128))
+
+
+def recurrent_act_scales(torch, cfg, gen, dev) -> dict:
+    """Distinct per-channel calibration absmaxes (a random permutation of
+    1..in) under the reference's keys, at each route's input width: the
+    o_proj route reads d_inner in Mamba (out_proj), the lru width in
+    RecurrentGemma (linear_out, o_proj)."""
+    o_in = cfg.intermediate_size if cfg.arch == "mamba" else cfg.q_size
+    out = {}
+    for i in range(cfg.num_layers):
+        for name, n_in in (("self_attn.q_proj", cfg.hidden_size),
+                           ("self_attn.o_proj", o_in),
+                           ("mlp.gate_proj", cfg.hidden_size),
+                           ("mlp.down_proj", cfg.intermediate_size)):
+            out[f"model.layers.{i}.{name}"] = (
+                torch.randperm(n_in, generator=gen, device=dev).float() + 1)
+    return out
+
+
+def live_recurrence(torch, params, cfg, gen) -> None:
+    """Redraw the recurrence's own (unquantized) parameters in place so
+    that at random weights the state carries signal to the logits: the
+    JAX package's N(0, 0.02) draws (dt bias -4, recurrent_param 1, conv
+    N(0, 0.02)) leave the SSM state moving Mamba's logits by 2.3e-3 and
+    RecurrentGemma's recurrent branch ~2% of its residual, which no check
+    of the recurrence could see. Mamba: x_proj N(0, 1), so B and C are of
+    order 1 (the state then moves the logits by 0.48, and a half-ulp
+    perturbation of the embedding by 1.0e-2; conv taps as large as
+    PyTorch's default init, U(+-1/sqrt(K)), raise that noise past the
+    2e-2 limit). RecurrentGemma: HF RecurrentGemmaPreTrainedModel's draws
+    of the gates (N(0, sqrt(0.01 / block width)), biases 0) and of
+    recurrent_param (a^c uniform in [0.9^2, 0.999^2]), its conv taps
+    U(+-1/sqrt(K)), bias 0. (Readings: CPU rehearsal at full widths.)"""
+    def uniform(t, lo, hi):
+        return t.copy_(torch.rand(t.shape, generator=gen, device=t.device)
+                       * (hi - lo) + lo)
+
+    def normal(t, std):
+        return t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
+                       * std)
+
+    k = cfg.conv_kernel
+    for lp in params["layers"]:
+        if cfg.arch == "mamba":
+            normal(lp["x_proj"]["w"], 1.0)
+        elif "recurrent_param" in lp:
+            uniform(lp["conv_w"], -k ** -0.5, k ** -0.5)
+            lp["conv_b"].zero_()
+            bw = lp["input_gate_w"].shape[-1]
+            for g in ("input_gate", "recurrent_gate"):
+                normal(lp[g + "_w"], (0.01 / bw) ** 0.5)
+                lp[g + "_b"].zero_()
+            p = lp["recurrent_param"]
+            u = uniform(torch.empty_like(p), 0.9 ** 2 + 1e-8,
+                        0.999 ** 2 + 1e-8)
+            p.copy_(torch.log(torch.exp(-0.5 * torch.log(u)) - 1.0))
+
+
+def recurrent_model(torch, which: str, dev, gen, seed: int):
+    """(cfg, params on the card) of 4m(a) / (b), random weights from
+    ``seed`` through the arch's init_random_params on the card, one layer
+    at a time, the recurrence redrawn (``live_recurrence``)."""
+    from mixq_tensorrt_llm_tpu_torch.models import registry
+    cfg = (mamba_2_8b_config(torch) if which == "mamba"
+           else recurrentgemma_2b_config(torch))
+    gen.manual_seed(seed)
+    params = registry.init_random_params(
+        cfg, device=dev, generator=gen,
+        act_scales=recurrent_act_scales(torch, cfg, gen, dev))
+    live_recurrence(torch, params, cfg, gen)
+    return cfg, params
+
+
+def _traced_counts(torch, fn, marks) -> tuple:
+    """(device busy ms, {mark: kernels traced whose names hold it}, fn's
+    result) of one more call of ``fn`` under torch.profiler, tracing the
+    device alone."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return busy_union_ms(ev), {m: sum(m in e.name for e in ev)
+                               for m in marks}, out
+
+
+def serve_recurrent(torch, which: str, cfg, params, seed: int, dev) -> dict:
+    """4m(a) / (b): the model serves 8 requests through GenerationSession
+    (one static batch, REC_NEW greedy tokens each; Mamba: phase 4's 8
+    prompts of 100-700 tokens; RecurrentGemma: 7 of them and one of
+    RG_LONG tokens, so its window masks prefill and decode), every launch
+    count at 0 just before and read just after: each lane its tokens,
+    finite; K1 -> K2 (and RecurrentGemma's K4 and K8) launched as a
+    forward's layers ask; walls, TPOT beside the weights' byte bound, the
+    idle share of each phase (profiled runs), traced K1 / K2 (/ K4)
+    launches against the expected, weight bytes and peak memory
+    printed. Returns the launches."""
+    from mixq_tensorrt_llm_tpu_torch.runtime.session import GenerationSession
+    from mixq_tensorrt_llm_tpu_torch.tools import serving_profile as sp
+    prompts = sp.ragged_prompts(seed, cfg.vocab_size)
+    max_len = MAMBA_MAX_LEN
+    label = "4m(a) Mamba-2.8B"
+    if which == "recurrentgemma":
+        import numpy as np
+        prompts[-1] = np.random.default_rng(seed + 22).integers(
+            1, cfg.vocab_size, RG_LONG).tolist()
+        max_len, label = RG_MAX_LEN, "4m(b) RecurrentGemma-2B"
+    layers = cfg.num_layers
+    wbytes = _param_bytes(params)
+    sess = GenerationSession(params, cfg, max_seq_len=max_len, device=dev)
+    sess.generate([prompts[0][:16]], 2)                 # first-use warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = _timed(torch, lambda: sess.generate(prompts,
+                                                              REC_NEW))
+    peak = torch.cuda.max_memory_allocated()
+    check(out.num_generated == [REC_NEW] * len(prompts),
+          f"phase 4m: {label}: not every lane got {REC_NEW} tokens "
+          f"({out.num_generated})")
+    check(all(math.isfinite(x) for lps in out.logprobs for x in lps),
+          f"phase 4m: {label}: a log-probability is not finite")
+    forwards = REC_NEW      # the prefill and REC_NEW - 1 decode steps
+    traced = REC_TRACED[which]
+    expect = {m: round(n * layers) * forwards
+              for m, (_, n) in traced.items()}
+    for name, m in (("rmsnorm_quant_split", "norm_quant"),
+                    ("mixed_matmul", "mixed_wgmma"), ("wo_matmul", "wo_")):
+        if m in expect:
+            check(launches.get(name, 0) == expect[m],
+                  f"phase 4m: {label}: {name} launched "
+                  f"{launches.get(name, 0)} times, not {expect[m]} "
+                  f"({expect[m] // forwards} a forward x {forwards})")
+    attn = layers // 3 if which == "recurrentgemma" else 0
+    check(launches.get("paged_prefill_attention_fp", 0) == attn,
+          f"phase 4m: {label}: K8 launched "
+          f"{launches.get('paged_prefill_attention_fp', 0)} times, not once "
+          f"an attention layer at the prefill ({attn})")
+    _on_path(launches, which)
+    # the idle shares from profiled runs of their own: the prefill alone,
+    # then REC_PROFILE_NEW tokens (walls from each run's output)
+    pre_busy, _, pre = _traced_counts(
+        torch, lambda: sess.generate(prompts, 1), ())
+    all_busy, seen, prof = _traced_counts(
+        torch, lambda: sess.generate(prompts, REC_PROFILE_NEW), traced)
+    prof_expect = {m: n // forwards * REC_PROFILE_NEW
+                   for m, n in expect.items()}
+    for m, (k, _) in traced.items():
+        check(0 < seen[m] <= prof_expect[m], f"phase 4m: {label}: {k} "
+              f"({m}) traced {seen[m]} times, expected {prof_expect[m]}")
+    steps = REC_NEW - 1
+    dec_ms = out.decode_time_s * 1e3
+    pre_idle = 1 - pre_busy / (pre.prefill_time_s * 1e3)
+    dec_idle = 1 - (all_busy - pre_busy) / (prof.decode_time_s * 1e3)
+    bucket = min(b for b in sess.prefill_buckets
+                 if b >= max(len(p) for p in prompts))
+    print(f"phase {label}: 8 requests, prompts {[len(p) for p in prompts]} "
+          f"tokens in one {bucket}-token bucket, {REC_NEW} generated each; wall {wall:.3f} s = prefill "
+          f"{out.prefill_time_s:.3f} s + decode {out.decode_time_s:.3f} s; "
+          f"TPOT {dec_ms / steps:.2f} ms a step for 8 lanes (bound: "
+          f"{wbytes / 1e9:.3f} GB of weights read once a step, "
+          f"{wbytes / HBM_BYTES_PER_MS:.3f} ms); "
+          f"{sum(out.num_generated) / wall:.1f} generated tok/s; prefill "
+          f"idle share {pre_idle:.3f} (device busy {pre_busy:.1f} ms), "
+          f"decode idle share {dec_idle:.3f} (busy "
+          f"{all_busy - pre_busy:.1f} ms over {REC_PROFILE_NEW - 1} steps; "
+          f"profiled runs); weights {wbytes / 1e9:.3f} GB; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches counted "
+          + ", ".join(f"{k} {expect[m]} ({expect[m] // forwards} a forward)"
+                      for m, (k, _) in traced.items())
+          + f"; traced over {REC_PROFILE_NEW} forwards "
+          + ", ".join(f"{k} {seen[m]} of {prof_expect[m]}"
+                      for m, (k, _) in traced.items()),
+          flush=True)
+    del sess
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recurrent_witness(torch, cfg, prompts, forced, dirty=None):
+    """compare_devices' run(device, params) over models.common.forward and
+    the model's state: (``dirty`` given) first a prefill of other tokens,
+    whose state the reset at position 0 must clear; the prompts' prefill
+    (right-padded, full_prefill as the session's) read at each lane's
+    last position; then one decode step a ``forced`` token."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.ops import _build
+    b, s = len(prompts), max(len(p) for p in prompts)
+
+    def run(device, p):
+        state = mc.init_kv_cache(cfg, b, s + len(forced), device=device)
+        pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(
+            b, s)
+        lens = torch.tensor([len(q) for q in prompts], dtype=torch.int32,
+                            device=device)
+        if dirty is not None:
+            mc.forward(p, cfg, torch.tensor(dirty, device=device), pos,
+                       state, torch.full_like(lens, s), full_prefill=True,
+                       last_pos=lens - 1)
+        toks = torch.zeros((b, s), dtype=torch.int64, device=device)
+        for i, q in enumerate(prompts):
+            toks[i, :len(q)] = torch.tensor(q, device=device)
+        _build.reset_launches()
+        lg, _ = mc.forward(p, cfg, toks, pos, state, lens,
+                           full_prefill=True, last_pos=lens - 1)
+        out = [(lg[:, 0].float().cpu(), dict(_build.LAUNCHES))]
+        for i, tok in enumerate(forced):
+            _build.reset_launches()
+            t = torch.tensor([[tok]] * b, device=device)
+            lg, _ = mc.forward(p, cfg, t, (lens + i)[:, None], state,
+                               lens + i + 1)
+            out.append((lg[:, 0].float().cpu(), dict(_build.LAUNCHES)))
+        return out
+    return run
+
+
+def zero_ssm_at_decode(real):
+    """A control: models/mamba.forward with the SSM state zeroed before
+    the first decode step of each state (the conv carry kept)."""
+    done = set()
+
+    def forward(params, cfg, tokens, write_pos, cache, *a, **kw):
+        if tokens.shape[1] == 1 and id(cache.v) not in done:
+            done.add(id(cache.v))
+            cache.v.zero_()
+        return real(params, cfg, tokens, write_pos, cache, *a, **kw)
+    return forward
+
+
+def cross_device_recurrent(torch, which: str, cfg, params, seed: int,
+                           dev) -> dict:
+    """4m(c): the served model's first layers at full widths card against
+    CPU (Mamba 2 layers, prompts of MAMBA_WITNESS_WORDS recurring tokens;
+    RecurrentGemma RG_WITNESS_LAYERS, the window cut
+    to RG_WITNESS_WINDOW under a RG_WITNESS_LENS[1]-token lane, the
+    prefill after another prompt's so the reset has a state to clear)
+    through ``recurrent_witness``: the prefill's and WITNESS_STEPS decode
+    steps' logits within REC_TOL of the largest; then two controls on the
+    card, each of which must move the logits by REC_CONTROL_X times that
+    limit: Mamba's SSM state zeroed between prefill and decode and its
+    conv taps reversed; RecurrentGemma's window turned off and its LRU
+    reset at position 0 dropped. Returns the card run's launches."""
+    import numpy as np
+    from mixq_tensorrt_llm_tpu_torch.models import common as mc
+    from mixq_tensorrt_llm_tpu_torch.models import mamba
+    from mixq_tensorrt_llm_tpu_torch.models import recurrentgemma as rg
+    rng = np.random.default_rng(seed + 23)
+    never = tuple(n for n in PAGED if n != "paged_prefill_attention_fp") + (
+        "flash_causal_attention", "paged_gather")
+    if which == "mamba":
+        lens, dirty, label = MAMBA_WITNESS_LENS, None, "Mamba-2.8B widths"
+        cfg2, sub, sub_cpu = first_layers(torch, params, cfg, 2)
+        must = pre_must = ("rmsnorm_quant_split", "mixed_matmul")
+        never += ("wo_matmul", "paged_prefill_attention_fp")
+        faults = [("the SSM state zeroed between prefill and decode", mamba,
+                   "forward", zero_ssm_at_decode),
+                  ("the conv taps reversed", mamba, "causal_conv",
+                   lambda real: lambda c, st, x, w, b, lv: real(
+                       c, st, x, w.flip(0), b, lv))]
+    else:
+        lens, label = RG_WITNESS_LENS, "RecurrentGemma-2B widths"
+        cfg2, sub, sub_cpu = first_layers(
+            torch, params, cfg, RG_WITNESS_LAYERS,
+            sliding_window=RG_WITNESS_WINDOW)
+        dirty = rng.integers(1, cfg.vocab_size, (2, max(lens))).tolist()
+        must = ("rmsnorm_quant_split", "mixed_matmul", "wo_matmul")
+        pre_must = must + ("paged_prefill_attention_fp",)
+        faults = [("the window turned off", mc, "_attention_with_cache",
+                   lambda real: lambda *a, **k: real(*a, **dict(k,
+                                                                window=0))),
+                  ("the LRU reset at position 0 dropped", rg, "_rg_lru",
+                   lambda real: lambda lp, x, st, pos, m: real(
+                       lp, x, st, pos + 1, m))]
+    words = rng.integers(1, cfg.vocab_size, MAMBA_WITNESS_WORDS)
+    prompts = [(rng.choice(words, n) if which == "mamba" else
+                rng.integers(1, cfg.vocab_size, n)).tolist() for n in lens]
+    forced = rng.integers(1, cfg.vocab_size, WITNESS_STEPS).tolist()
+    run = recurrent_witness(torch, cfg2, prompts, forced, dirty)
+    phases = [(f"prefill (prompts of {list(lens)} tokens)", pre_must,
+               never, REC_TOL)] + [
+        (f"decode step {i + 1}", must, never + (
+            "paged_prefill_attention_fp",), REC_TOL)
+        for i in range(WITNESS_STEPS)]
+    t = time.perf_counter()
+    card = [x for x, _ in run(dev, sub)]
+    seen = compare_devices(torch, f"4m(c) {label}, {cfg2.num_layers} "
+                           "layers", dev, run, sub, sub_cpu, phases)
+    for name, module, attr, fault in faults:
+        real = getattr(module, attr)
+        setattr(module, attr, fault(real))
+        try:
+            r = max(_rel(x, w) for (x, _), w in zip(run(dev, sub), card))
+        finally:
+            setattr(module, attr, real)
+        print(f"4m(c) {label} control, {name}: {r:.3e} = "
+              f"{r / REC_TOL:.1f}x the tolerance {REC_TOL}", flush=True)
+        check(r >= REC_CONTROL_X * REC_TOL, f"phase 4m: the control ({name})"
+              f" at {label} moved the logits by {r:.3e}, under "
+              f"{REC_CONTROL_X}x the tolerance")
+    print(f"phase 4m(c) {label}: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    del sub, sub_cpu
+    return seen
+
+
+def serve_recurrent_models(torch, seed: int, dev, gen) -> tuple:
+    """Phase 4m: for Mamba-2.8B (a) and RecurrentGemma-2B (b), the model
+    drawn on the card (``recurrent_model``), served through the session
+    (``serve_recurrent``), then its first layers card against CPU
+    (``cross_device_recurrent``). Returns ({path: launches}, the
+    cross-device card runs' launches)."""
+    launches, xdev = {}, {}
+    for which in ("mamba", "recurrentgemma"):
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = recurrent_model(torch, which, dev, gen, seed)
+        torch.cuda.synchronize()
+        print(f"model: {which} {cfg.num_layers} layers at published widths, "
+              f"int8_mix (128 outliers), random weights in "
+              f"{time.perf_counter() - t:.1f} s; weights "
+              f"{_param_bytes(params) / 1e9:.3f} GB; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while "
+              f"drawing", flush=True)
+        launches[which] = serve_recurrent(torch, which, cfg, params, seed,
+                                          dev)
+        for n, c in cross_device_recurrent(torch, which, cfg, params, seed,
+                                           dev).items():
+            xdev[n] = xdev.get(n, 0) + c
+        del params
+        torch.cuda.empty_cache()
+        print(f"phase 4m {which}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+    return launches, xdev
+
+
+def check_recurrent_kernels(torch, gen, dev) -> list:
+    """Phase 3 at the recurrent-state models' shapes: K8 through
+    causal_self_attention's page view at RecurrentGemma-2B's prefill (8
+    lanes x RG_MAX_LEN, 10 query heads on 1 KV head of 256, window 2048)
+    against the plain masked attention, two launches bit-equal, timed
+    beside its bound and SDPA (a boolean window mask, the KV head
+    expanded); K1 -> K2 at Mamba-2.8B's in_proj (2560 -> 10240) and
+    out_proj (5120 -> 2560) and K4 at RecurrentGemma-2B's down_proj (7680
+    -> 2560), at 8 decode rows and 1024 prefill rows, against their plain
+    versions, two launches bit-equal, timed beside their bounds. Returns
+    the kernels-line rows."""
+    from mixq_tensorrt_llm_tpu_torch.ops import attention as fa
+    from mixq_tensorrt_llm_tpu_torch.ops import mixed_matmul as mm
+    from mixq_tensorrt_llm_tpu_torch.ops import norm_quant as nq
+    from mixq_tensorrt_llm_tpu_torch.ops import ref
+    from mixq_tensorrt_llm_tpu_torch.ops import wo_matmul as wm
+    rows_out = []
+    b, s, hq, hkv, d, win = 8, RG_MAX_LEN, 10, 1, 256, 2048
+    scale = d ** -0.5
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    idx = torch.arange(s, device=dev)
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None]
+                                             - win)
+    k8 = (lambda: fa.causal_self_attention(q, k, v, scale, window=win),
+          lambda: ref.attention(q.float(), k.float(), v.float(),
+                                mask=mask[None, None], scale=scale))
+    out, again, want = k8[0](), k8[0](), k8[1]()
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    check(err <= ATTN_TOL, f"K8 page view at RecurrentGemma-2B's heads: max "
+          f"abs err {err} > {ATTN_TOL}")
+    check(torch.equal(out, again), "K8 page view at RecurrentGemma-2B's "
+          "heads: two launches differ")
+    ms, pms, wms = measure(torch, *k8, "prefill_wgmma_kernel",
+                           "paged_prefill_attention_fp", 10, 3)
+    pairs = sum(min(i + 1, win) for i in range(s))
+    bnd = bound(2 * b * s * hq * d * 2 + 2 * b * s * hkv * d * 2,
+                4.0 * b * hq * d * pairs)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).expand(b, hq, s, d) for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                        scale=scale), 5)
+    print(f"K8 (causal_self_attention's page view) RecurrentGemma-2B B={b} "
+          f"S={s} Hq={hq} Hkv={hkv} D={d} window={win}: max abs err "
+          f"{err:.3e}, repeat bit-equal; device {ms:.5f} ms per launch "
+          f"(plain {pms:.5f} ms; wrapper, the page-view copy included, "
+          f"{wms:.5f} ms; bound {bnd[0]:.5f} ms, by {bnd[1]}, "
+          f"{bnd[0] / ms:.2f} of it); SDPA with the window mask {lib:.5f} "
+          f"ms", flush=True)
+    rows_out.append(dict(
+        name="paged_prefill_attention_fp[RecurrentGemma-2B prefill, 10 q "
+        "heads on 1 KV head of 256, window 2048]",
+        B=b, S=s, Hq=hq, Hkv=hkv, D=d, max_abs_err=err, ms=ms, plain_ms=pms,
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib,
+        library="scaled_dot_product_attention, boolean window mask"))
+    del q, k, v, out, again, want, qt, kt, vt, mask
+
+    ko, bf = 128, torch.bfloat16
+    sms = wm.sm_count(dev.index or 0)
+    for label, kk, n, mix in (("Mamba-2.8B in_proj", 2560, 10240, True),
+                              ("Mamba-2.8B out_proj", 5120, 2560, True),
+                              ("RecurrentGemma-2B down_proj", 7680, 2560,
+                               False)):
+        qw = torch.randint(-127, 128, (kk, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scol = torch.rand((n,), generator=gen, device=dev) * 2e-4 + 1e-5
+        ind = torch.randperm(kk, generator=gen, device=dev)[:ko].int()
+        fpw = (torch.randn((ko, n), generator=gen, device=dev) * 0.02).to(bf)
+        for m in (8, 1024):
+            x = torch.randn((m, kk), generator=gen, device=dev).to(bf)
+            if mix:
+                q_x, srow, xo = nq.quant_split(x, ind)
+                fns = (lambda: mm.mixed_matmul(q_x, srow, xo, qw, scol, fpw),
+                       lambda: mm.mixed_matmul_plain(q_x, srow, xo, qw, scol,
+                                                     fpw))
+                name, mark = "mixed_matmul", "mixed_wgmma_kernel"
+                nbytes = (m * kk + m * 4 + m * ko * 2 + kk * n + n * 4
+                          + ko * n * 2 + m * n * 2)
+                bnd = bound(nbytes, 2.0 * m * n * ko, 2.0 * m * n * kk)
+            else:
+                fns = (lambda: wm.wo_matmul(x, qw, scol),
+                       lambda: wm.wo_matmul_plain(x, qw, scol))
+                name = "wo_matmul"
+                mark = K4_MARKS[wm.k4_regime(wm.wo_plan(m, kk, n, sms))]
+                bnd = bound(m * kk * 2 + kk * n + n * 4 + m * n * 2,
+                            2.0 * m * n * kk)
+            out, again, want = fns[0](), fns[0](), fns[1]()
+            torch.cuda.synchronize()
+            err = gemm_err(out, want)
+            check(err <= gemm_tol(bf), f"{name} {label} M={m}: rel err {err}")
+            check(torch.equal(out, again), f"{name} {label} M={m}: two "
+                  "launches differ")
+            ms, pms, _ = measure(torch, *fns, mark, name, 30, 5)
+            lib = (None if mix else
+                   int8pack_library(torch, x, qw, scol, want, 20))
+            print(f"{name} {label} M={m} K={kk} N={n}: max rel err "
+                  f"{err:.2e}, repeat bit-equal; device {ms:.5f} ms (plain "
+                  f"{pms:.5f} ms; bound {bnd[0]:.5f} ms, by {bnd[1]}, "
+                  f"{bnd[0] / ms:.2f} of it; torch._weight_int8pack_mm "
+                  f"{'none' if lib is None else f'{lib[0]:.5f} ms'})",
+                  flush=True)
+            rows_out.append(dict(name=f"{name}[{label} M={m}]", M=m, K=kk,
+                                 N=n, max_abs_err=err, ms=ms, plain_ms=pms,
+                                 bound_ms=bnd[0], bound_by=bnd[1],
+                                 library_ms=None if lib is None
+                                 else lib[0]))
+    return rows_out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6130,6 +6689,7 @@ def main() -> int:
     check_flash(torch, gen, dev, results)
     check_family_kernels(torch, gen, dev, results)
     expert_rows = check_expert_k4(torch, gen, dev)      # phase 4l(c)
+    recurrent_rows = check_recurrent_kernels(torch, gen, dev)   # 4m
     print(f"phase 3: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 4. main path: Llama-2-7B int8_mix / int8 KV
@@ -6251,6 +6811,16 @@ def main() -> int:
         xdev[n] = xdev.get(n, 0) + c
     print(f"phase 4l: {time.perf_counter() - t:.1f} s", flush=True)
 
+    # 4m. the recurrent-state models (their kernels at their shapes ran in
+    # phase 3): Mamba-2.8B and RecurrentGemma-2B served through the
+    # session, then their first layers card against CPU
+    t = time.perf_counter()
+    seen, rec_xdev = serve_recurrent_models(torch, args.seed, dev, gen)
+    launches.update(seen)
+    for n, c in rec_xdev.items():
+        xdev[n] = xdev.get(n, 0) + c
+    print(f"phase 4m: {time.perf_counter() - t:.1f} s", flush=True)
+
     # 4b. the int4 path: Llama-2-13B w4a16 / bf16 KV, 40 layers
     cfg = sp.llama2_13b_config()
     t = time.perf_counter()
@@ -6317,6 +6887,14 @@ def main() -> int:
         rows.append({"route": "cuda", "source": SRC + "wo_matmul.cu",
                      "replaces": KERNELS["wo_matmul"][0],
                      "launches": moe_k4, **r})
+    # K8, K2 and K4 at the recurrent-state models' shapes (phase 3); their
+    # launches are the phase-4m paths'
+    for r in recurrent_rows:
+        name = r["name"].split("[")[0]
+        rows.append({"route": "cuda", "source": SRC + KERNELS[name][1],
+                     "replaces": KERNELS[name][0],
+                     "launches": sum(launches[p].get(name, 0) for p in
+                                     ("mamba", "recurrentgemma")), **r})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -39,6 +39,11 @@ def calibrate_act_scales(params_float: Dict, cfg: ModelConfig,
     absmax (in,)} on the CPU."""
     if cfg.quant.enabled:
         raise ValueError("calibrate on the float (unquantized) model")
+    if cfg.arch in mcommon.RECURRENT_ARCHS:
+        # the JAX package's recurrent-state forward asserts on collect_stats
+        raise NotImplementedError(
+            f"{cfg.arch}: act_scales calibration is not supported for the "
+            "recurrent-state models (their forward collects no stats)")
     dev = params_float["embed"]["w"].device
     running: Optional[Dict[str, torch.Tensor]] = None
     for batch in token_batches:

@@ -5,7 +5,9 @@ Tensors keep their real dtypes (int8, int32, bf16, f32) under the JAX
 package's flattened names (an e4m3 tensor as its U8 bytes, its name
 marked ``@e4m3``, as the JAX package writes it), layers stacked on axis 0
 (``layers.qkv_proj.qweight`` is (L, in, out), an expert stack
-``layers.moe.gate_up.qweight`` (L, E, in, out)). The safetensors format is
+``layers.moe.gate_up.qweight`` (L, E, in, out); RecurrentGemma's layers in
+their pattern groups, ``per_pos.*`` (G, 3, ...), ``att.*`` (G, 1, ...) and
+``rec.*`` (G, 2, ...)). The safetensors format is
 read and written here without the safetensors package: an 8-byte
 little-endian header length, a JSON header of ``{name: {"dtype", "shape",
 "data_offsets"}}``, then the raw bytes. Loading validates the required
@@ -123,15 +125,35 @@ def _required(mod: str, algo: QuantAlgo) -> set:
     return {"w"}
 
 
+# the recurrent-state models' required names (the JAX package's
+# convert/checkpoint.py _validate)
+_RG_REQUIRED = (("per_pos", ("temporal_norm", "channel_norm", "gate_up_proj",
+                             "down_proj")),
+                ("att", ("qkv_proj", "o_proj")),
+                ("rec", ("linear_x", "linear_y", "linear_out", "conv_w",
+                         "recurrent_param")))
+_MAMBA_REQUIRED = ("in_proj", "out_proj", "x_proj", "dt_proj", "norm",
+                   "conv_w", "A_log", "D")
+
+
 def _validate(params: Dict, cfg: ModelConfig) -> None:
     """Required-name validation, the JAX package's rules (its
     convert/checkpoint.py ``_validate``) with the norms the config's axes
     imply (``from_jax.layer_norms``: a shared block norm has no post_norm,
     OLMo-2 neither pre-norm), and the top-level positional and embedding
-    norm tensors."""
+    norm tensors; the recurrent-state models by their own schemas."""
     missing = [k for k in ("embed", "final_norm") if k not in params]
     if not cfg.tie_word_embeddings and "lm_head" not in params:
         missing.append("lm_head")
+    if cfg.arch in ("mamba", "recurrentgemma"):
+        groups = (_RG_REQUIRED if cfg.arch == "recurrentgemma"
+                  else (("layers", _MAMBA_REQUIRED),))
+        missing += [f"{grp}.{mod}" for grp, mods in groups for mod in mods
+                    if mod not in params.get(grp, {})]
+        if missing:
+            raise ValueError(
+                f"checkpoint is missing required tensors: {missing}")
+        return
     if cfg.pos_embedding == "learned" and "pos_embed" not in params:
         missing.append("pos_embed")
     if cfg.embed_norm and "embed_norm" not in params:
@@ -180,6 +202,46 @@ def load_checkpoint(path: str, device: DeviceLike = "cuda"
     return params_from_numpy(params, cfg, device=device), cfg
 
 
+def _stacked(layers, prefix: str, keys=None,
+             groups: int = 0) -> Dict[str, torch.Tensor]:
+    """The layers' leaves (of their entries ``keys``, else all) under
+    ``prefix``, stacked on a leading axis, (groups, L / groups) when
+    ``groups`` is set."""
+    per_layer = [_flatten({k: v for k, v in lp.items()
+                           if keys is None or k in keys}, prefix)
+                 for lp in layers]
+    out = {}
+    for key in per_layer[0]:
+        src = [layer[key].detach().cpu() for layer in per_layer]
+        t = torch.stack([qcore.raw(x) for x in src])
+        if src[0].dtype == qcore.FP8:
+            t = t.view(qcore.FP8)
+        if groups:
+            t = t.reshape((groups, -1) + tuple(t.shape[1:]))
+        out[key] = t
+    return out
+
+
+def _layer_groups(params: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The stacked layer leaves of a checkpoint: ``layers.*`` (L, ...), or
+    RecurrentGemma's pattern groups (models/recurrentgemma.py: each
+    layer's ``per_pos`` entries under ``per_pos.*`` (G, 3, ...), its
+    attention's under ``att.*`` (G, 1, ...), its recurrent block's under
+    ``rec.*`` (G, 2, ...))."""
+    layers = params["layers"]
+    if cfg.arch != "recurrentgemma":
+        return _stacked(layers, "layers.")
+    from ..models import recurrentgemma as rg
+    g = cfg.num_layers // len(rg.RG_PATTERN)
+    kinds = [rg.sublayer(li)[0] for li in range(len(layers))]
+    out = _stacked(layers, "per_pos.", rg.PER_POS_MODS, g)
+    for grp, kind, mods in (("att", "attention", rg.ATT_MODS),
+                            ("rec", "recurrent", rg.REC_MODS)):
+        out.update(_stacked([lp for lp, k in zip(layers, kinds)
+                             if k == kind], grp + ".", mods, g))
+    return out
+
+
 def save_checkpoint(path: str, params: Dict, cfg: ModelConfig) -> None:
     """Port params (``layers`` a list of per-layer dicts) -> a checkpoint
     directory the JAX package's load_checkpoint reads, layers stacked."""
@@ -192,11 +254,8 @@ def save_checkpoint(path: str, params: Dict, cfg: ModelConfig) -> None:
     flat = {}
     for name, sub in params.items():
         if name == "layers":
-            per_layer = [_flatten(layer, "layers.") for layer in sub]
-            for key, t in per_layer[0].items():
-                flat[name_of(key, t)] = torch.stack(
-                    [qcore.raw(layer[key].detach().cpu())
-                     for layer in per_layer])
+            for key, t in _layer_groups(params, cfg).items():
+                flat[name_of(key, t)] = qcore.raw(t)
         else:
             for key, t in _flatten(sub, name + ".").items():
                 flat[name_of(key, t)] = qcore.raw(t)

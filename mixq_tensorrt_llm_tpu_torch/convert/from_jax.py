@@ -1,11 +1,14 @@
 """Load the JAX package's params pytree into the port.
 
 ``params_from_numpy`` takes the pytree of mixq_tensorrt_llm_tpu (any
-dense decoder family or expert model) as numpy arrays —
-``jax.tree.map(np.asarray, params)``, layers stacked on axis 0 — checks
-every leaf's dtype and shape against the params schema the config
-implies, and returns the port's params: the same dicts, with ``layers``
-a list of per-layer dicts of torch tensors on ``device``. bfloat16 leaves arrive as ml_dtypes arrays and are converted
+dense decoder family, expert model or recurrent-state model) as numpy
+arrays — ``jax.tree.map(np.asarray, params)``, layers stacked on axis 0
+(RecurrentGemma's in its three pattern groups ``per_pos`` (G, 3, ...),
+``att`` (G, 1, ...) and ``rec`` (G, 2, ...)) — checks every leaf's dtype
+and shape against the params schema the config implies, and returns the
+port's params: the same dicts, with ``layers`` a list of per-layer dicts
+of torch tensors on ``device`` (a RecurrentGemma layer holds its group
+entries side by side: models/recurrentgemma.py). bfloat16 leaves arrive as ml_dtypes arrays and are converted
 exactly through float32, float8_e4m3fn leaves (ml_dtypes) through their
 bytes. Leaves may also be torch tensors of the schema's
 dtypes, as ``convert.checkpoint.load_checkpoint`` reads them.
@@ -170,6 +173,74 @@ def top_schema(cfg: ModelConfig, biases=()) -> Dict[str, Dict[str, tuple]]:
     return out
 
 
+def mamba_layer_schema(cfg: ModelConfig, packed=(), biases=(),
+                       conv_bias: bool = True) -> Dict[str, Dict]:
+    """One Mamba layer (models/mamba.py): in_proj / out_proj under the
+    gate_up / o_proj algos, x_proj bf16, the rest f32; ``conv_bias``: the
+    layer has ``conv_b`` (HF's conv1d bias; random params always do)."""
+    h, i, n, k = (cfg.hidden_size, cfg.intermediate_size,
+                  cfg.ssm_state_size, cfg.quant.num_outliers)
+    gs = cfg.quant.group_size
+    f32 = torch.float32
+    out = {"norm": {"w": (f32, (h,))},
+           "conv_w": (f32, (cfg.conv_kernel, i)),
+           "x_proj": {"w": (torch.bfloat16, (i, cfg.dt_rank + 2 * n))},
+           "dt_proj": {"w": (f32, (cfg.dt_rank, i)), "b": (f32, (i,))},
+           "A_log": (f32, (i, n)), "D": (f32, (i,))}
+    for mod, route, dims in (("in_proj", "gate_up_proj", (h, 2 * i)),
+                             ("out_proj", "o_proj", (i, h))):
+        out[mod] = _linear_schema(cfg.module_algo(route), *dims, k,
+                                  bias=cfg.mlp_bias or mod in biases,
+                                  group_size=gs, packed=mod in packed)
+    if conv_bias:
+        out["conv_b"] = (f32, (i,))
+    return out
+
+
+def rg_group_schemas(cfg: ModelConfig, packed=(),
+                     biases=()) -> Dict[str, Dict]:
+    """RecurrentGemma's three groups (models/recurrentgemma.py), each
+    {module: schema} of one sub-layer: ``per_pos`` (the block norms and
+    the MLP, every layer), ``att`` (qkv, o), ``rec`` (the recurrent
+    block: x / y / out projections, conv, RG-LRU gates)."""
+    h, inter, lru = cfg.hidden_size, cfg.intermediate_size, cfg.hidden_size
+    k, gs, f32 = cfg.quant.num_outliers, cfg.quant.group_size, torch.float32
+    nh = cfg.num_heads
+    bw = lru // nh
+
+    def lin(mod, route, n_in, n_out, bias):
+        return _linear_schema(cfg.module_algo(route), n_in, n_out, k,
+                              bias=bias or mod in biases, group_size=gs,
+                              packed=mod in packed)
+    return {
+        "per_pos": {"temporal_norm": {"w": (f32, (h,))},
+                    "channel_norm": {"w": (f32, (h,))},
+                    "gate_up_proj": lin("gate_up_proj", "gate_up_proj", h,
+                                        2 * inter, True),
+                    "down_proj": lin("down_proj", "down_proj", inter, h,
+                                     True)},
+        "att": {"qkv_proj": lin("qkv_proj", "qkv_proj", h, cfg.qkv_out,
+                                cfg.qkv_bias),
+                "o_proj": lin("o_proj", "o_proj", cfg.q_size, h, True)},
+        "rec": {"linear_y": lin("linear_y", "gate_up_proj", h, lru, True),
+                "linear_x": lin("linear_x", "gate_up_proj", h, lru, True),
+                "linear_out": lin("linear_out", "o_proj", lru, h, True),
+                "conv_w": (f32, (cfg.conv_kernel, lru)),
+                "conv_b": (f32, (lru,)),
+                "recurrent_param": (f32, (lru,)),
+                "input_gate_w": (f32, (nh, bw, bw)),
+                "input_gate_b": (f32, (nh, bw)),
+                "recurrent_gate_w": (f32, (nh, bw, bw)),
+                "recurrent_gate_b": (f32, (nh, bw))},
+    }
+
+
+def _packed(tree: Dict) -> list:
+    """The entries of a params (sub)tree that hold a packed int4 weight."""
+    return [m for m, sub in tree.items()
+            if isinstance(sub, dict) and "qweight_packed" in sub]
+
+
 def _with_bias(tree: Dict) -> set:
     """The entries of a params (sub)tree that carry a bias leaf ``b``."""
     return {name for name, sub in tree.items()
@@ -210,8 +281,10 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
                       device: DeviceLike = "cuda") -> Dict:
     """JAX params pytree (numpy leaves, layers stacked) -> port params."""
     dev = resolve_device(device)
+    groups = (("per_pos", "att", "rec") if cfg.arch == "recurrentgemma"
+              else ("layers",))
     top = top_schema(cfg, biases=_with_bias(tree))
-    _check_keys(set(tree) - {"layers"}, top, "params")
+    _check_keys(set(tree) - set(groups), top, "params")
     params: Dict = {
         name: {leaf: _convert(tree[name][leaf], dt, shape,
                               f"{name}.{leaf}", dev)
@@ -219,12 +292,22 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig,
         for name, sub in top.items()}
     for name, sub in top.items():
         _check_keys(tree[name], sub, name)
+    if cfg.arch == "recurrentgemma":
+        params["layers"] = _rg_layers(tree, cfg, dev)
+        return params
     stacked = tree["layers"]
+    if cfg.arch == "mamba":
+        schema = mamba_layer_schema(cfg, packed=_packed(stacked),
+                                    biases=_with_bias(stacked),
+                                    conv_bias="conv_b" in stacked)
+        _check_tree(stacked, schema, "layers")
+        params["layers"] = [_layer(stacked, schema, i, cfg.num_layers, dev,
+                                   f"layers.{i}")
+                            for i in range(cfg.num_layers)]
+        return params
     moe = stacked.get("moe", {})
     entries = {**stacked, **moe}
-    schema = layer_schema(cfg, packed=[m for m, sub in entries.items()
-                                       if isinstance(sub, dict)
-                                       and "qweight_packed" in sub],
+    schema = layer_schema(cfg, packed=_packed(entries),
                           biases=_with_bias(stacked) | _with_bias(moe))
     _check_tree(stacked, schema, "layers")
     params["layers"] = [_layer(stacked, schema, i, cfg.num_layers, dev,
@@ -254,4 +337,45 @@ def _layer(stacked: Dict, schema: Dict, i: int, num_layers: int,
             raise ValueError(f"{where}.{name}: {arr.shape[0]} layers "
                              f"stacked, config has {num_layers}")
         out[name] = _convert(arr[i], *sub, f"{where}.{name}", dev)
+    return out
+
+
+def _rg_layers(tree: Dict, cfg: ModelConfig, dev: torch.device) -> list:
+    """RecurrentGemma's groups (each leaf (G, n, ...)) -> the port's list
+    of per-layer dicts, each layer its ``per_pos`` entries and those of
+    its attention or recurrent sub-layer."""
+    from ..models.recurrentgemma import sublayer
+    g = cfg.num_layers // 3
+    entries = {**tree["per_pos"], **tree["att"], **tree["rec"]}
+    schemas = rg_group_schemas(cfg, packed=_packed(entries),
+                               biases=_with_bias(entries))
+    flat = {}
+    for grp, n in (("per_pos", 3), ("att", 1), ("rec", 2)):
+        _check_tree(tree[grp], schemas[grp], grp)
+        flat[grp] = _ungroup(tree[grp], g, n, grp)
+    layers = []
+    for li in range(cfg.num_layers):
+        kind, gi, j = sublayer(li)
+        lp = _layer(flat["per_pos"], schemas["per_pos"], li,
+                    cfg.num_layers, dev, f"per_pos.{li}")
+        grp, n = ("att", 1) if kind == "attention" else ("rec", 2)
+        lp.update(_layer(flat[grp], schemas[grp], gi * n + j, g * n, dev,
+                         f"{grp}.{gi * n + j}"))
+        layers.append(lp)
+    return layers
+
+
+def _ungroup(tree: Dict, g: int, n: int, where: str) -> Dict:
+    """A group's leaves (G, n, ...) -> (G * n, ...), sub-layers in layer
+    order."""
+    out = {}
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            out[name] = _ungroup(sub, g, n, f"{where}.{name}")
+            continue
+        arr = _leaf(sub)
+        if tuple(arr.shape[:2]) != (g, n):
+            raise ValueError(f"{where}.{name}: groups {list(arr.shape[:2])},"
+                             f" config has {[g, n]}")
+        out[name] = arr.reshape((g * n,) + tuple(arr.shape[2:]))
     return out

@@ -33,9 +33,10 @@ from . import calibrate as calib
 from .checkpoint import read_safetensors, save_checkpoint
 
 # The class defaults of transformers' config classes (transformers 4.57)
-# for every field models/llama.config_from_hf and models/families
-# .config_from_hf read (the dense families and the expert models): what
-# AutoConfig gives where a (diff-only) config.json leaves a key out.
+# for every field the converters' config_from_hf read (models/llama.py,
+# models/families.py, models/mamba.py, models/recurrentgemma.py): what
+# AutoConfig gives where a (diff-only) config.json leaves a key out. A
+# None stands for a default the class computes from other fields.
 _COMMON = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
                num_attention_heads=32, num_key_value_heads=None,
                rope_theta=10000.0, rms_norm_eps=1e-6, rope_scaling=None,
@@ -161,6 +162,25 @@ _CONFIG_DEFAULTS = {
                       num_experts=128, num_experts_per_tok=8,
                       norm_topk_prob=False, moe_intermediate_size=768,
                       decoder_sparse_step=1, mlp_only_layers=[]),
+    # MambaConfig: intermediate_size = expand x hidden, time_step_rank
+    # "auto" = ceil(hidden / 16)
+    "mamba": dict(vocab_size=50280, hidden_size=768, state_size=16,
+                  num_hidden_layers=32, layer_norm_epsilon=1e-5,
+                  conv_kernel=4, expand=2, intermediate_size=None,
+                  use_bias=False, use_conv_bias=True,
+                  time_step_rank="auto", tie_word_embeddings=True),
+    # RecurrentGemmaConfig: head_dim = hidden / heads, lru_width = hidden;
+    # its num_key_value_heads falls back to the head count (10), where
+    # google/recurrentgemma-2b's config.json says 1
+    "recurrent_gemma": dict(
+        num_hidden_layers=26, vocab_size=256000, hidden_size=2560,
+        intermediate_size=7680, num_attention_heads=10, lru_width=None,
+        attention_window_size=2048, conv1d_width=4, logits_soft_cap=30.0,
+        rms_norm_eps=1e-6, rope_theta=10000.0, partial_rotary_factor=0.5,
+        block_types=["recurrent", "recurrent", "attention"],
+        hidden_activation="gelu_pytorch_tanh", head_dim=None,
+        num_key_value_heads=None, attention_bias=False,
+        tie_word_embeddings=True),
 }
 # DBRX's nested configs (DbrxAttentionConfig, DbrxFFNConfig)
 _DBRX_ATTN = dict(clip_qkv=None, kv_n_heads=1, rope_theta=10000.0)
@@ -203,9 +223,12 @@ def load_hf_config(hf_dir: str) -> types.SimpleNamespace:
     expert models' too), DBRX's nested ``attn_config`` / ``ffn_config``
     take their classes' defaults key by key, GPT-NeoX's
     ``rotary_emb_base`` is its ``rope_theta``, MPT's ``attn_config``
-    keeps alibi on unless it says otherwise, and a rope_scaling ``type``
-    is also given as ``rope_type``. Other model types get the file's keys
-    alone (the registry refuses them)."""
+    keeps alibi on unless it says otherwise, a rope_scaling ``type``
+    is also given as ``rope_type``, Mamba's ``intermediate_size`` is
+    expand x hidden and its ``time_step_rank`` "auto" ceil(hidden / 16),
+    RecurrentGemma's ``head_dim`` hidden / heads and ``lru_width`` hidden.
+    Other model types get the file's keys alone (the registry refuses
+    them)."""
     with open(os.path.join(hf_dir, "config.json")) as f:
         d = json.load(f)
     mt = d.get("model_type", "")
@@ -236,6 +259,16 @@ def load_hf_config(hf_dir: str) -> types.SimpleNamespace:
             d.setdefault("rope_theta", d["rotary_emb_base"])
         if mt == "mpt":
             d["attn_config"] = {"alibi": True, **(d["attn_config"] or {})}
+        if mt == "mamba":
+            if d["intermediate_size"] is None:
+                d["intermediate_size"] = int(d["expand"] * d["hidden_size"])
+            if d["time_step_rank"] == "auto":
+                d["time_step_rank"] = -(-d["hidden_size"] // 16)
+        if mt == "recurrent_gemma":
+            if d["head_dim"] is None:
+                d["head_dim"] = d["hidden_size"] // heads
+            if d["lru_width"] is None:
+                d["lru_width"] = d["hidden_size"]
         for std, own in _ATTRIBUTE_MAPS.get(mt, {}).items():
             d[std] = d[own]
         rs = d.get("rope_scaling")

@@ -1,8 +1,9 @@
 """Model config, RoPE and ALiBi, the dense-cache decoder forward and the
 paged one (single device), config-driven across the dense decoder
 families (models/llama.py, models/families.py) and the expert models
-(models/moe.py). Counterpart of
-mixq_tensorrt_llm_tpu/models/common.py.
+(models/moe.py); ``init_kv_cache`` and ``forward`` hand the recurrent-state
+models (models/mamba.py, models/recurrentgemma.py) to their own modules.
+Counterpart of mixq_tensorrt_llm_tpu/models/common.py.
 
 Params are plain dicts of tensors; ``params["layers"]`` is a list of
 per-layer dicts (the JAX package stacks them on axis 0 for its layer scan,
@@ -37,35 +38,27 @@ from . import moe as moe_mod
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
-# ModelConfig axes of the JAX package that the port does not honour yet
-# (the state-space architectures), with the value that means "off": a
-# config that sets one raises, naming the module that brings it.
-_UNPORTED_AXES = {
-    "ssm_state_size": ("models/mamba.py", 0),
-}
-# axes only the refused ones read: carried at their defaults
-_IDLE_AXES = {"conv_kernel": 4, "dt_rank": 0, "use_conv_bias": True}
-# the dense decoder families (models/llama.py, models/families.py) and the
-# expert models (models/moe.py)
+# the recurrent-state models: their state takes the dense cache's place
+# and only the GenerationSession serves them (no paged path)
+RECURRENT_ARCHS = ("mamba", "recurrentgemma")
+# the dense decoder families (models/llama.py, models/families.py), the
+# expert models (models/moe.py) and the recurrent-state models
 _PORTED_ARCHS = ("llama", "mistral", "qwen2", "opt", "gpt2", "gptj",
                  "gpt_neox", "falcon", "bloom", "mpt", "phi", "phi3",
                  "gemma", "gemma2", "qwen3", "glm", "glm4", "olmo2",
                  "cohere", "granite", "baichuan", "gpt_bigcode",
                  "starcoder2", "stablelm", "mixtral", "dbrx", "qwen2_moe",
-                 "qwen3_moe")
-# the architectures still to come -> the module whose port brings them
-_LATER_ARCHS = {"mamba": "models/mamba.py",
-                "recurrentgemma": "models/recurrentgemma.py"}
+                 "qwen3_moe") + RECURRENT_ARCHS
 _ROPE_TYPES = ("none", "linear", "llama3", "yarn", "longrope")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense-decoder subset of the JAX package's ModelConfig: the same
-    field names and defaults (Llama-2-7B), ``dtype`` a torch dtype. One
-    config-driven decoder serves every dense family; the axes beyond the
-    Llama lineage reproduce the zoo's structural spread (JAX
-    models/common.py:38-118)."""
+    """The JAX package's ModelConfig: the same field names and defaults
+    (Llama-2-7B), ``dtype`` a torch dtype. One config-driven decoder
+    serves every dense family; the axes beyond the Llama lineage
+    reproduce the zoo's structural spread, and the Mamba axes the
+    selective SSM's (JAX models/common.py:38-118)."""
 
     arch: str = "llama"
     vocab_size: int = 32000
@@ -117,6 +110,12 @@ class ModelConfig:
     rope_beta_slow: float = 1.0          # yarn interpolation boundary
     rope_attention_factor: float = 1.0   # yarn / longrope cos/sin scale
     rope_freq_factors: tuple = ()        # longrope per-dim divisors
+    # Mamba (selective SSM); intermediate_size doubles as d_inner, and
+    # conv_kernel is RecurrentGemma's conv width too
+    ssm_state_size: int = 0              # d_state (N); 0 = not an SSM arch
+    conv_kernel: int = 4                 # depthwise causal conv width (K)
+    dt_rank: int = 0                     # low-rank dt projection width
+    use_conv_bias: bool = True
     moe_norm_topk: bool = True           # renormalize the kept top-k mass
     #                                      (HF norm_topk_prob; Mixtral yes,
     #                                      Qwen2-MoE no)
@@ -128,12 +127,14 @@ class ModelConfig:
     quant: QuantConfig = QuantConfig()
 
     def __post_init__(self):
-        if self.arch in _LATER_ARCHS:
-            raise NotImplementedError(
-                f"arch {self.arch!r} is not ported yet: it comes with "
-                f"{_LATER_ARCHS[self.arch]}")
         if self.arch not in _PORTED_ARCHS:
             raise ValueError(f"unknown arch {self.arch!r}")
+        if self.arch == "recurrentgemma" and self.num_layers % 3:
+            # the (recurrent, recurrent, attention) pattern's period, as
+            # the JAX package's config_from_hf asserts
+            raise ValueError(f"recurrentgemma: num_layers "
+                             f"({self.num_layers}) must be a multiple of "
+                             "the block pattern period (3)")
         if self.rope_scaling_type not in _ROPE_TYPES:
             raise ValueError(
                 f"rope_scaling_type {self.rope_scaling_type!r} unknown "
@@ -189,28 +190,16 @@ class ModelConfig:
 
     def to_dict(self) -> dict:
         """The JAX package's ``ModelConfig.to_dict()`` layout (what a
-        checkpoint's config.json holds): every field, the unported axes at
-        their "off" values."""
-        d = {k: off for k, (_, off) in _UNPORTED_AXES.items()}
-        d.update(_IDLE_AXES)
-        d.update(dataclasses.asdict(self))
+        checkpoint's config.json holds): every field."""
+        d = dataclasses.asdict(self)
         d["dtype"] = {v: k for k, v in _DTYPES.items()}[self.dtype]
         d["quant"] = self.quant.to_dict()
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "ModelConfig":
-        """From ``ModelConfig.to_dict()`` of either package. Raises on a
-        state-space axis set on, naming its module."""
+        """From ``ModelConfig.to_dict()`` of either package."""
         d = dict(d)
-        for k, (module, off) in _UNPORTED_AXES.items():
-            v = d.pop(k, off)
-            if v != off:
-                raise NotImplementedError(
-                    f"ModelConfig axis {k}={v!r} is not ported yet: it "
-                    f"comes with {module}")
-        for k in _IDLE_AXES:
-            d.pop(k, None)
         if isinstance(d.get("dtype"), str):
             d["dtype"] = _DTYPES[d["dtype"]]
         if "quant" in d and not isinstance(d["quant"], QuantConfig):
@@ -254,8 +243,17 @@ def kv_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  device: DeviceLike = "cuda") -> KVCache:
+                  device: DeviceLike = "cuda"):
+    """The dense KVCache, or a recurrent-state model's state in its place
+    (models/mamba.init_state: a KVCache of conv carry and SSM state, O(1)
+    in max_len; models/recurrentgemma.init_state: an RGState)."""
     dev = resolve_device(device)
+    if cfg.arch == "mamba":
+        from . import mamba
+        return mamba.init_state(cfg, batch, dev)
+    if cfg.arch == "recurrentgemma":
+        from . import recurrentgemma
+        return recurrentgemma.init_state(cfg, batch, max_len, dev)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     qdt = kv_dtype(cfg)
     if qdt is not None:
@@ -813,7 +811,13 @@ def forward_paged(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     outlier_state: quant.dynamic.init_model_state's dict, threaded through
     the layers' adaptive mix linears (``decoder_layer``); lora_ids: (B,)
     runtime LoRA adapter per lane (``decoder_layer``).
-    Returns (logits f32, paged_state[, new outlier_state])."""
+    Returns (logits f32, paged_state[, new outlier_state]).
+    The recurrent-state models are refused: their state has nothing to
+    page."""
+    if cfg.arch in RECURRENT_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.arch} carries recurrent state: use GenerationSession "
+            "(the dense path); the paged path has nothing to page")
     _pattern_period(cfg)
     x = _embed(params, cfg, tokens, write_pos)
     sin, cos, alibi = _positional_arrays(cfg, write_pos)
@@ -871,7 +875,29 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     they differ from their cache slots ``write_pos``; return_hidden: also
     return the pre-final-norm hidden (B, S, H) as the last element, never
     cut by last_pos.
-    Returns (logits f32, cache[, new outlier_state][, stats][, hidden])."""
+    Returns (logits f32, cache[, new outlier_state][, stats][, hidden]).
+
+    A recurrent-state model (``RECURRENT_ARCHS``) runs its own module's
+    forward over its state, updated in place; of the options it takes
+    full_prefill and last_pos, and refuses the others, as the JAX package
+    asserts."""
+    if cfg.arch in RECURRENT_ARCHS:
+        asked = [name for name, on in (
+            ("collect_stats", collect_stats),
+            ("outlier_state", outlier_state is not None),
+            ("lora_ids", lora_ids is not None),
+            ("attn_mask", attn_mask is not None),
+            ("return_hidden", return_hidden),
+            ("rope_pos", rope_pos is not None)) if on]
+        if asked:
+            raise NotImplementedError(
+                f"{cfg.arch}: the recurrent-state forward does not support "
+                f"{', '.join(asked)}")
+        from . import mamba, recurrentgemma
+        mod = mamba if cfg.arch == "mamba" else recurrentgemma
+        return mod.forward(params, cfg, tokens, write_pos, cache,
+                           kv_valid_len, full_prefill=full_prefill,
+                           last_pos=last_pos)
     _pattern_period(cfg)
     pos = write_pos if rope_pos is None else rope_pos
     x = _embed(params, cfg, tokens, pos)

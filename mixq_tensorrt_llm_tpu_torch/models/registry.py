@@ -6,14 +6,21 @@ The Llama lineage (``llama``, ``mistral``, ``mixtral``, ``qwen2``,
 models DBRX, Qwen2-MoE and Qwen3-MoE among them) through
 models/families.py, which maps each onto the one config-driven decoder of
 models/common.py (its MLP models/moe.py where the config has experts). The
-state-space model types raise naming the module whose port brings them.
+recurrent-state models have modules of their own: ``mamba`` goes through
+models/mamba.py, ``recurrent_gemma`` through models/recurrentgemma.py.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from ..device import DeviceLike
 from ..quant.config import QuantConfig
-from . import families, llama
+from . import families, llama, mamba, recurrentgemma
+
+_LLAMA_ARCHS = ("llama", "mistral", "mixtral", "qwen2")
 
 # model_type -> converter module key, as in the JAX package
 SUPPORTED_ARCHS = {
@@ -51,12 +58,15 @@ SUPPORTED_ARCHS = {
     "mamba": "mamba",
     "recurrent_gemma": "recurrentgemma",
 }
-# model types listed above that the port does not serve yet -> the module
-# whose port brings them
-_LATER = {
-    "mamba": "models/mamba.py",
-    "recurrent_gemma": "models/recurrentgemma.py",
-}
+
+
+def _module(arch: str):
+    """The module that builds a model of ``arch`` (or of a
+    ``SUPPORTED_ARCHS`` converter key)."""
+    if arch in _LLAMA_ARCHS:
+        return llama
+    return {"mamba": mamba,
+            "recurrentgemma": recurrentgemma}.get(arch, families)
 
 
 def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()):
@@ -65,18 +75,21 @@ def config_from_hf(hf_config, quant: QuantConfig = QuantConfig()):
     if kind is None:
         raise ValueError(f"unsupported model_type {mt!r}; supported: "
                          f"{sorted(SUPPORTED_ARCHS)}")
-    if mt in _LATER:
-        raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet: it comes with "
-            f"{_LATER[mt]}")
-    if kind == "llama":
-        return llama.config_from_hf(hf_config, quant)
-    return families.config_from_hf(hf_config, quant)
+    return _module(kind).config_from_hf(hf_config, quant)
 
 
 def params_from_hf(cfg, hf_state, act_scales=None,
                    device: DeviceLike = "cuda"):
     """HF state dict -> quantized params on ``device``, by ``cfg.arch``."""
-    if cfg.arch in ("llama", "mistral", "mixtral", "qwen2"):
-        return llama.params_from_hf(cfg, hf_state, act_scales, device=device)
-    return families.params_from_hf(cfg, hf_state, act_scales, device=device)
+    return _module(cfg.arch).params_from_hf(cfg, hf_state, act_scales,
+                                            device=device)
+
+
+def init_random_params(cfg, seed: int = 0, device: DeviceLike = "cuda",
+                       act_scales=None,
+                       generator: Optional[torch.Generator] = None):
+    """Random-weight params honouring every config axis, by ``cfg.arch``
+    (each module's init_random_params)."""
+    return _module(cfg.arch).init_random_params(
+        cfg, seed=seed, device=device, act_scales=act_scales,
+        generator=generator)

@@ -301,6 +301,11 @@ class Executor:
                  enable_block_reuse: bool = False, max_queue_size: int = 0,
                  max_kv_tokens: int = 0, seed: int = 0,
                  device: DeviceLike = "cuda"):
+        if cfg.arch in mcommon.RECURRENT_ARCHS:
+            raise NotImplementedError(
+                f"{cfg.arch} carries recurrent state: use GenerationSession "
+                "(the dense path); the Executor's paged pool has nothing "
+                "to page")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_kernel_geometry(block_size, cfg.head_dim)

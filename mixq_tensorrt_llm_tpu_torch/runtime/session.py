@@ -11,6 +11,11 @@ The session runs on the card unless ``device="cpu"`` is asked for, where
 every kernel takes its plain version. ``num_beams > 1`` runs paged beam
 search (runtime/beam.py: host-paced steps, block sharing across beams)
 through a BeamEngine the session keeps for its params.
+
+The recurrent-state models (models/mamba.py, models/recurrentgemma.py)
+run through the same calls: ``init_kv_cache`` gives their state, which
+each forward updates in place (pads leave it untouched). Beam search
+refuses them.
 """
 
 from __future__ import annotations
@@ -128,6 +133,14 @@ class GenerationSession:
         controls and processors apply inside the beam step, ``sampling``,
         ``seed`` and ``return_context_logits`` do not."""
         if num_beams > 1:
+            if self.cfg.arch in mcommon.RECURRENT_ARCHS:
+                # beam search runs over the paged pool, which has nothing
+                # to page for a recurrent state (the JAX package's paged
+                # forward refuses it)
+                raise NotImplementedError(
+                    f"{self.cfg.arch} carries recurrent state: beam search "
+                    "(num_beams > 1) runs on the paged path, which it does "
+                    "not take")
             return self._generate_beams(
                 prompts, max_new_tokens, num_beams, length_penalty,
                 eos_token_id, min_new_tokens, stop_sequences, bad_words,

@@ -53,6 +53,17 @@ def _full(n: int, v: int, dev) -> torch.Tensor:
     return torch.full((n,), v, dtype=torch.int32, device=dev)
 
 
+def _check_rewindable(*cfgs: ModelConfig) -> None:
+    """A rejected draft's slots are rewound by lowering ``kv_valid_len``,
+    which a recurrent state cannot undo: refuse those models (the JAX
+    package runs them and keeps the rejected tokens in the state)."""
+    for cfg in cfgs:
+        if cfg.arch in mcommon.RECURRENT_ARCHS:
+            raise NotImplementedError(
+                f"{cfg.arch} carries recurrent state: speculative decoding "
+                "rewinds rejected drafts, which a recurrent state cannot")
+
+
 def speculative_generate(
     target_params: Dict, target_cfg: ModelConfig,
     draft_params: Dict, draft_cfg: ModelConfig,
@@ -65,6 +76,7 @@ def speculative_generate(
     Returns (tokens including the prompt, SpecStats). The output is that
     of greedy decoding with the target alone."""
     assert target_cfg.vocab_size == draft_cfg.vocab_size
+    _check_rewindable(target_cfg, draft_cfg)
     dev = resolve_device(device)
     prompt = list(prompt)
     n0 = len(prompt)
@@ -196,6 +208,7 @@ def speculative_generate_batched(
     the draft, so its KV slot is a hole; re-feeding is idempotent for a
     slot already written (causal KV depends only on earlier positions)."""
     assert target_cfg.vocab_size == draft_cfg.vocab_size
+    _check_rewindable(target_cfg, draft_cfg)
     dev = resolve_device(device)
     b, g = len(prompts), gamma
     greedy = temperature <= 0.0

@@ -193,10 +193,18 @@ def test_config_from_hf_matches_autoconfig(name, tmp_path):
 
 
 def test_unported_model_types_and_options_raise(tmp_path):
-    for mt, module in (("mamba", "models/mamba.py"),
-                       ("recurrent_gemma", "models/recurrentgemma.py")):
-        with pytest.raises(NotImplementedError, match=module):
-            treg.config_from_hf(_ns(model_type=mt))
+    # the recurrent-state models are ported (models/mamba.py,
+    # models/recurrentgemma.py): bare config.json files read at their
+    # class defaults (RecurrentGemma's 26 layers cut to 24: both packages
+    # refuse a depth off its 3-layer pattern)
+    for mt, extra, arch in (("mamba", {}, "mamba"),
+                            ("recurrent_gemma", {"num_hidden_layers": 24},
+                             "recurrentgemma")):
+        os.makedirs(tmp_path / mt)
+        with open(tmp_path / mt / "config.json", "w") as f:
+            json.dump({"model_type": mt, **extra}, f)
+        assert treg.config_from_hf(thf.load_hf_config(
+            str(tmp_path / mt))).arch == arch
     # the expert models are ported (models/moe.py): a bare Mixtral
     # config.json reads at its class defaults
     os.makedirs(tmp_path / "mixtral")

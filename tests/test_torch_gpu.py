@@ -73,7 +73,11 @@ int4, grouped int4 (the plain route by format) and float stacks against
 the CPU's plain versions within 1e-3 of the largest output; the all-rows
 route captured in a CUDA graph, its replay bit-equal to the eager call;
 a tiny Mixtral Executor's rungs holding 2 + 2 x E K4 launches a layer a
-step and the all-rows route only, its first tokens the CPU Executor's."""
+step and the all-rows route only, its first tokens the CPU Executor's.
+The recurrent-state models: a 2-layer Mamba and a 3-layer RecurrentGemma
+(int8_mix), a prefill and 4 decode steps over their state card against
+CPU within 2e-2, K1 -> K2 (and RecurrentGemma's K4 and K8) launched as
+their layers ask."""
 
 import os
 
@@ -2601,3 +2605,85 @@ def test_moe_executor_replays_all_rows(cuda):
                 assert "moe.sorted" not in rung.launches
             assert _launched("moe.sorted", before) == cfg.num_layers
     assert out["cuda"] == out["cpu"]
+
+
+def _recurrent_witness(cfg, params, cuda, prompt_lens):
+    """(card logits, CPU logits, the card run's launches) of a prefill of
+    two prompts (``prompt_lens`` tokens, right-padded to the longer, the
+    head at each lane's last) and 4 decode steps of fixed tokens through
+    models.common.forward over the model's recurrent state."""
+    from mixq_tensorrt_llm_tpu_torch.models import common as mcommon
+    cpu = _cpu_params(params)
+    s = max(prompt_lens)
+
+    def run(dev, p):
+        state = mcommon.init_kv_cache(cfg, 2, s + 8, device=dev)
+        toks = (torch.arange(2 * s, device=dev).reshape(2, s) * 37) % 500 + 3
+        lens = torch.tensor(prompt_lens, dtype=torch.int32, device=dev)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+            2, s)
+        lg, _ = mcommon.forward(p, cfg, toks, pos, state, lens,
+                                full_prefill=True, last_pos=lens - 1)
+        out = [lg[:, 0]]
+        for step in range(4):
+            t = torch.tensor([[7 + step], [9 + step]], device=dev)
+            lg, _ = mcommon.forward(p, cfg, t, (lens + step)[:, None], state,
+                                    lens + step + 1)
+            out.append(lg[:, 0])
+        return torch.stack(out).float().cpu()
+
+    before = dict(_build.LAUNCHES)
+    got = run(cuda, params)
+    torch.cuda.synchronize()
+    launches = {n: _launched(n, before) for n in _build.LAUNCHES}
+    return got, run(torch.device("cpu"), cpu), launches
+
+
+@pytest.mark.gpu
+def test_mamba_layers_on_card(cuda):
+    """A 2-layer Mamba (int8_mix, 16 outliers; hidden 256, d_inner 512,
+    d_state 16): a prefill of prompts of 160 and 200 tokens and 4 decode
+    steps on the card against the CPU within 2e-2 of the largest logit;
+    in_proj and out_proj through K1 -> K2 at every forward (2 a layer)."""
+    import types
+    from mixq_tensorrt_llm_tpu_torch.models import mamba
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (QuantAlgo,
+                                                          QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.tools import random_hf
+    cfg = mamba.config_from_hf(types.SimpleNamespace(**dict(
+        random_hf.MAMBA_2_8B_HF, vocab_size=512, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, time_step_rank=16)),
+        QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=16))
+    params = mamba.init_random_params(cfg, seed=3, device=cuda)
+    got, want, launches = _recurrent_witness(cfg, params, cuda, [160, 200])
+    assert launches.get("rmsnorm_quant_split") == 2 * 2 * 5
+    assert launches.get("mixed_matmul") == 2 * 2 * 5
+    assert not any(n.startswith("paged") for n in launches if launches[n])
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-2
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_layers_on_card(cuda):
+    """A 3-layer RecurrentGemma (int8_mix, 16 outliers; hidden 512, 4
+    query heads on 1 KV head of 128, window 64): a prefill of prompts of
+    200 and 256 tokens (the window biting; K8 over the page view at the
+    attention layer) and 4 decode steps on the card against the CPU within
+    2e-2 of the largest logit; the mix linears through K1 -> K2 (11 a
+    forward), down_proj through K4 (3 a forward)."""
+    import types
+    from mixq_tensorrt_llm_tpu_torch.models import recurrentgemma as rg
+    from mixq_tensorrt_llm_tpu_torch.quant.config import (QuantAlgo,
+                                                          QuantConfig)
+    from mixq_tensorrt_llm_tpu_torch.tools import random_hf
+    cfg = rg.config_from_hf(types.SimpleNamespace(**dict(
+        random_hf.RECURRENTGEMMA_2B_HF, vocab_size=512, hidden_size=512,
+        intermediate_size=1024, num_hidden_layers=3, num_attention_heads=4,
+        head_dim=128, lru_width=512, attention_window_size=64)),
+        QuantConfig(algo=QuantAlgo.INT8_MIX, num_outliers=16))
+    params = rg.init_random_params(cfg, seed=4, device=cuda)
+    got, want, launches = _recurrent_witness(cfg, params, cuda, [200, 256])
+    assert launches.get("paged_prefill_attention_fp") == 1
+    assert launches.get("rmsnorm_quant_split") == 11 * 5
+    assert launches.get("mixed_matmul") == 11 * 5
+    assert launches.get("wo_matmul") == 3 * 5
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-2

@@ -69,8 +69,9 @@ def test_config_roundtrip_and_unported_axes():
     assert cfg.dtype == torch.float32 and cfg.qkv_bias
     assert cfg.sliding_window == 32
     assert cfg.quant.to_dict() == jcfg.quant.to_dict()
-    # the dense family axes round-trip (models/families.py), and the
-    # expert axes; the state-space arch still raises, naming its module
+    # the dense family axes round-trip (models/families.py), the expert
+    # axes and the recurrent-state models' (models/mamba.py,
+    # models/recurrentgemma.py)
     for axis in (dict(norm_type="layernorm"), dict(pos_embedding="alibi"),
                  dict(parallel_blocks=True, shared_block_norm=True),
                  dict(rope_scaling_type="yarn", rope_attention_factor=1.2),
@@ -80,8 +81,11 @@ def test_config_roundtrip_and_unported_axes():
         assert ModelConfig.from_dict(jd).to_dict() == jd
     jd = tiny_jax_cfg(num_experts=4).to_dict()     # models/moe.py
     assert ModelConfig.from_dict(jd).to_dict() == jd
-    with pytest.raises(NotImplementedError, match="models/mamba.py"):
-        ModelConfig(arch="mamba")
+    for axis in (dict(arch="mamba", ssm_state_size=8, dt_rank=4,
+                      conv_kernel=3, use_conv_bias=False),
+                 dict(arch="recurrentgemma", num_layers=3, conv_kernel=4)):
+        jd = tiny_jax_cfg(**axis).to_dict()
+        assert ModelConfig.from_dict(jd).to_dict() == jd
 
 
 def test_params_from_numpy_checks_schema(model):
